@@ -1,0 +1,76 @@
+"""The port's random numbers (tracking_tpu_torch/ops/rng.py) against JAX:
+the threefry key chain (PRNGKey / split / randint / key_data) and the
+counter-hash field (field_bits / field_randint), all bit-exact.
+
+The threefry bits depend on ``jax_threefry_partitionable``; the tests pin it
+to True, the setting the reference runs with."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tracking_tpu.ops import rng as jrng
+from tracking_tpu_torch.ops import rng
+
+SEEDS = [0, 7, 42, 2**31 - 1]
+
+
+@pytest.fixture(autouse=True)
+def _partitionable():
+    with jax.threefry_partitionable(True):
+        yield
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prng_key_split_key_data(seed):
+    k = jax.random.PRNGKey(seed)
+    kt = rng.prng_key(seed)
+    assert kt.dtype == torch.uint32
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(jax.random.key_data(k)))
+    np.testing.assert_array_equal(rng.key_data(kt).numpy(), np.asarray(k))
+    for n in (2, 3, 12):
+        np.testing.assert_array_equal(rng.split(kt, n).numpy(), np.asarray(jax.random.split(k, n)))
+    # a chain of splits, as the SuBSENSE step carries its key
+    for _ in range(4):
+        k = jax.random.split(k, 12)[0]
+        kt = rng.split(kt, 12)[0]
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(k))
+
+
+@pytest.mark.parametrize(
+    "shape,lo,hi",
+    [
+        ((), 0, 50),  # the refresh start slot
+        ((50, 7, 9), 1, 513),  # the warm-start offset draw
+        ((5, 11), -3, 1000003),  # a span that is not a power of two
+        ((4, 6), 0, 64),  # a power-of-two span
+        ((3,), 0, 2**30),
+        ((8,), 0, 70000),  # span above 2**16: the squared weight wraps
+    ],
+)
+def test_randint(shape, lo, hi):
+    for seed in SEEDS[:3]:
+        k = jax.random.PRNGKey(seed)
+        want = np.asarray(jax.random.randint(k, shape, lo, hi))
+        got = rng.randint(rng.prng_key(seed), shape, lo, hi).numpy()
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 50), (0, 8), (0, 24), (0, 64), (0, 2**30), (3, 27)])
+def test_field_bits_and_randint(lo, hi):
+    shape = (4, 9, 13)
+    for seed in SEEDS:
+        k = jax.random.split(jax.random.PRNGKey(seed), 12)[2]
+        kt = rng.split(rng.prng_key(seed), 12)[2]
+        bits = rng.field_bits(kt, shape)
+        np.testing.assert_array_equal(bits.numpy().astype(np.uint32), np.asarray(jrng.field_bits(k, shape)))
+        np.testing.assert_array_equal(
+            rng.as_i32(bits).numpy(),
+            np.asarray(jax.lax.bitcast_convert_type(jrng.field_bits(k, shape), jnp.int32)),
+        )
+        np.testing.assert_array_equal(
+            rng.field_randint(kt, shape, lo, hi).numpy(), np.asarray(jrng.field_randint(k, shape, lo, hi))
+        )

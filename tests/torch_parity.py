@@ -1,0 +1,104 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_*.py): feed
+numpy inputs to the JAX reference and to ``tracking_tpu_torch`` and compare
+the results leaf by leaf."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from tracking_tpu.bgs.lbsp_family import SuBSENSE as JSuBSENSE
+from tracking_tpu.runner.scan import run_video as jrun
+from tracking_tpu_torch.bgs.lbsp_family import SuBSENSE as TSuBSENSE
+from tracking_tpu_torch.convert import state_from_numpy
+from tracking_tpu_torch.runner.scan import run_video as trun
+
+# The torch side of these tests works on small arrays: one intra-op thread
+# keeps xdist's parallel workers from oversubscribing the cores.
+torch.set_num_threads(1)
+
+# Kalman kx / kP and the filtered positions: the covariance products and
+# jnp.linalg.inv (kalman.py:75) accumulate in another order than torch's
+# matmul and linalg.inv_ex
+KALMAN_TOL = {k: (1e-5, 1e-5) for k in ("kx", "kP", "x", "y", "w", "h", "rx", "ry", "rw", "rh")}
+
+
+def to_torch(tree):
+    """numpy / JAX pytree of arrays (tuples, dicts) -> the same of CPU tensors."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(to_torch(v) for v in tree)
+    return torch.from_numpy(np.array(tree, copy=True))
+
+
+def to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return {k: to_numpy(getattr(tree, k)) for k in tree._fields}
+    if isinstance(tree, (tuple, list)):
+        return tuple(to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def assert_tree_equal(ref, got, path: str = "", tol: dict | None = None) -> None:
+    """Leaf by leaf: same structure, dtype and shape, and bit-exact values
+    unless ``tol`` maps a leaf name to (rtol, atol)."""
+    ref, got = to_numpy(ref), to_numpy(got)
+    if isinstance(ref, dict):
+        assert set(ref) == set(got), (path, sorted(set(ref) ^ set(got)))
+        for k in ref:
+            assert_tree_equal(ref[k], got[k], f"{path}/{k}", tol)
+        return
+    if isinstance(ref, tuple):
+        assert isinstance(got, tuple) and len(ref) == len(got), path
+        for i, (a, b) in enumerate(zip(ref, got)):
+            assert_tree_equal(a, b, f"{path}[{i}]", tol)
+        return
+    assert ref.dtype == got.dtype, (path, ref.dtype, got.dtype)
+    assert ref.shape == got.shape, (path, ref.shape, got.shape)
+    leaf = path.rsplit("/", 1)[-1]
+    if tol and leaf in tol:
+        rtol, atol = tol[leaf]
+        np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol, err_msg=path)
+    else:
+        np.testing.assert_array_equal(got, ref, err_msg=path)
+
+
+def run_both(frames, jstate=None):
+    """Warm-start both packages on frame 0 (or start both from ``jstate``)
+    and step frames 1.. one at a time, comparing after each frame. Returns
+    the per-frame foreground shares."""
+    ja, ta = JSuBSENSE(), TSuBSENSE()
+    h, w = frames.shape[1:3]
+    c = frames.shape[3] if frames.ndim == 4 else 1
+    if jstate is None:
+        js = jax.jit(ja.warm_start)(ja.init(h, w, c), jnp.asarray(frames[0]))
+        ts = ta.warm_start(ta.init(h, w, c), torch.from_numpy(frames[0]))
+        assert_tree_equal(jax.device_get(js), ts, "warm_start")
+    else:
+        js = jstate
+        ts = state_from_numpy(jax.device_get(js))
+    shares = []
+    for t in range(1, frames.shape[0]):
+        js, (jm, jb) = jrun(ja, jnp.asarray(frames[t : t + 1]), state=js, with_background=True)
+        ts, (tm, tb) = trun(ta, torch.from_numpy(frames[t : t + 1]), state=ts, with_background=True)
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm), err_msg=f"mask, frame {t}")
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb), err_msg=f"bg, frame {t}")
+        assert_tree_equal(jax.device_get(js), ts, f"frame {t}")
+        shares.append(float((tm.numpy() > 0).mean()))
+    return shares, ts
+
+
+def step_both(jstep, tt, js, ts, mask):
+    """One step of both trackers (``jstep`` = the jitted JAX step), compared."""
+    js, jtr = jstep(js, jnp.asarray(mask))
+    ts, ttr = tt.step(ts, torch.from_numpy(np.array(mask)))
+    assert_tree_equal(jax.device_get(js)._asdict(), ts, tol=KALMAN_TOL)
+    assert_tree_equal(jax.device_get(jtr)._asdict(), ttr._asdict(), tol=KALMAN_TOL)
+    return js, ts, jtr

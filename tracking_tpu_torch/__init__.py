@@ -1,0 +1,22 @@
+"""tracking_tpu_torch: the PyTorch / CUDA port of ``tracking_tpu``.
+
+The JAX package stays the reference; this package imports torch and numpy
+and never JAX or ``tracking_tpu``. Module names mirror the reference's:
+
+- ``bgs/base.py``, ``core/registry.py``, ``runner/scan.py``: the
+  ``init`` / ``warm_start`` / ``step`` contract, registry and frame loop;
+- ``bgs/lbsp_family.py``: SuBSENSE (type 36);
+- ``ops/rng.py``: JAX's threefry key chain and the counter-hash field;
+- ``ops/lbsp.py``, ``ops/morphology.py``, ``ops/filters.py``,
+  ``ops/feedback.py`` (``pallas_feedback.py``): plain torch;
+- ``ops/consensus.py``, ``ops/fill.py``, ``ops/cc.py``, ``ops/assoc.py``:
+  each holds a CUDA kernel (``csrc/``, replacing ``pallas_consensus``,
+  ``pallas_fill``, ``pallas_cc``, ``pallas_assoc``) beside its plain
+  version; CPU tensors take the plain version, CUDA tensors the kernel;
+- ``track/``: Kalman filters, mean-shift and the CC / CCMSPF blob tracker;
+- ``convert.py``: states to and from the JAX package's pytrees.
+"""
+
+from tracking_tpu_torch.core.registry import get_algorithm, list_algorithms  # noqa: F401
+
+__version__ = "0.1.0"

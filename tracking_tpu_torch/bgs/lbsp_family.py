@@ -1,0 +1,439 @@
+"""SuBSENSE (type 36), counterpart of ``tracking_tpu/bgs/lbsp_family.py``.
+
+Self-Balanced SENsitivity SEgmenter: 50-sample colour+LBSP consensus with
+per-pixel feedback (distance threshold R(x), update rate T(x), variation
+modulator v(x), rolling D_min averages), blink detection, unstable-region
+masking, LBSP-threshold LUT rescaling and, from 320×240 up, downsampled
+camera-motion analysis with automatic partial model resets.
+
+The step follows the reference's v1 path: frame t's stochastic bank writes
+are logged (``pend_ctrl`` / ``pend_vals``) and replayed by frame t+1's
+consensus. On CUDA tensors the consensus, the hole-fill reachability and
+(in the tracker) CC labelling and assignment are hand-written kernels;
+``step(..., use_kernels=False)`` runs their plain versions instead. The
+CUDA consensus updates the state's banks in place.
+
+Left out of this port: the spatially sharded mode (``ctx``), the v2/v3
+consensus variants and the fused whole-step kernel; LOBSTER.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from tracking_tpu_torch.bgs.base import BGSAlgorithm, State, StepResult
+from tracking_tpu_torch.core.config import BGSConfig
+from tracking_tpu_torch.core.registry import register
+from tracking_tpu_torch.ops import rng
+from tracking_tpu_torch.ops.consensus import (
+    apply_pending_ref,
+    consensus,
+    consensus_ref,
+    intra_descriptors,
+    nb3_to_nb5_idx,
+    pack_pending_ctrl,
+    pack_pending_vals,
+    recip,
+    thr_closed_form,
+)
+from tracking_tpu_torch.ops.feedback import FeedbackConsts, feedback
+from tracking_tpu_torch.ops.filters import binary_median_blur
+from tracking_tpu_torch.ops.lbsp import BORDER
+from tracking_tpu_torch.ops.morphology import dilate, erode, fill_holes, morph_close
+
+# constants from BackgroundSubtractorSuBSENSE.cpp:16-46
+GHOSTDET_D_MAX = 0.010
+GHOSTDET_S_MIN = 0.995
+FEEDBACK_R_VAR = 0.01
+FEEDBACK_V_INCR = 1.0
+FEEDBACK_V_DECR = 0.1
+FEEDBACK_T_DECR = 0.25
+FEEDBACK_T_INCR = 0.5
+FEEDBACK_T_LOWER = 2.0
+FEEDBACK_T_UPPER = 256.0
+UNSTABLE_REG_RATIO_MIN = 0.1
+UNSTABLE_REG_RDIST_MIN = 3.0
+LBSPDESC_RATIO_MIN = 0.1
+LBSPDESC_RATIO_MAX = 0.5
+DOWNSAMPLE_RATIO = 8
+DEFAULT_FRAME_AREA = 320 * 240
+DEFAULT_MEDIAN_KSIZE = 9
+
+# 7×7 gaussian init-sampling pattern (RandUtils.h:13-25), flattened x outer,
+# y inner, for inverse-CDF sampling
+_INIT_PATTERN = np.array(
+    [
+        [2, 4, 6, 7, 6, 4, 2],
+        [4, 8, 12, 14, 12, 8, 4],
+        [6, 12, 21, 25, 21, 12, 6],
+        [7, 14, 25, 28, 25, 14, 7],
+        [6, 12, 21, 25, 21, 12, 6],
+        [4, 8, 12, 14, 12, 8, 4],
+        [2, 4, 6, 7, 6, 4, 2],
+    ],
+    dtype=np.int32,
+)
+_INIT_TOT = 512
+_INIT_CDF = np.cumsum(_INIT_PATTERN.T.reshape(-1))
+_INIT_DX = np.repeat(np.arange(7) - 3, 7)
+_INIT_DY = np.tile(np.arange(7) - 3, 7)
+
+
+def _roi_mask(h: int, w: int, device=None) -> torch.Tensor:
+    """LBSP ROI: excludes the 2-px border."""
+    roi = torch.zeros((h, w), dtype=torch.bool, device=device)
+    roi[BORDER : h - BORDER, BORDER : w - BORDER] = True
+    return roi
+
+
+def _sample_offset_field(key: torch.Tensor, shape) -> torch.Tensor:
+    """Gaussian-weighted 7×7 offset index per element (0..48): an
+    inverse-CDF draw, ``#(cdf < r)``."""
+    r = rng.randint(key, shape, 1, _INIT_TOT + 1)
+    cdf = torch.as_tensor(_INIT_CDF, dtype=torch.int32, device=key.device)
+    return torch.bucketize(r, cdf).clamp(0, 48)
+
+
+def _refresh_samples(key, n_samples, n_refresh, start, last_color, last_desc, ok_mask, colors, descs):
+    """refreshModel (SuBSENSE :249-291): slots [start, start+n_refresh) mod N
+    take the value of a random gaussian-weighted nearby position (clamped to
+    the ROI interior) where that position's ``ok_mask`` and the pixel's own
+    hold. ``start`` may be an int or a 0-d tensor."""
+    h, w = ok_mask.shape
+    dev = ok_mask.device
+    N = n_samples
+    idx = _sample_offset_field(key, (n_refresh, h, w))
+    dy = torch.as_tensor(_INIT_DY, device=dev)[idx]
+    dx = torch.as_tensor(_INIT_DX, device=dev)[idx]
+    ys = torch.arange(h, device=dev)[:, None]
+    xs = torch.arange(w, device=dev)[None, :]
+    src = (ys + dy).clamp(BORDER, h - BORDER - 1) * w + (xs + dx).clamp(BORDER, w - BORDER - 1)
+    ok = ok_mask.reshape(-1)[src] & ok_mask[None]
+    slots = (torch.arange(n_refresh, device=dev) + start) % N
+
+    def apply(bank, plane):
+        out = bank.clone()
+        out[slots] = torch.where(ok, plane.reshape(-1)[src], bank[slots])
+        return out
+
+    new_colors = tuple(apply(colors[c], last_color[c]) for c in range(len(colors)))
+    # int16 views: torch has no indexed write for uint16; the bits are the same
+    new_descs = tuple(
+        apply(descs[c].view(torch.int16), last_desc[c].to(torch.uint16).view(torch.int16)).view(torch.uint16)
+        for c in range(len(descs))
+    )
+    return new_colors, new_descs
+
+
+def _to_planes(frame: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], bool]:
+    """[H, W] or [H, W, C] u8 -> C-tuple of contiguous [H, W], was_gray."""
+    if frame.ndim == 2:
+        return (frame.contiguous(),), True
+    return tuple(frame[..., c].contiguous() for c in range(frame.shape[-1])), False
+
+
+def _from_planes(planes, was_gray: bool) -> torch.Tensor:
+    return planes[0] if was_gray else torch.stack(planes, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SuBSENSEConfig(BGSConfig):
+    fRelLBSPThreshold: float = 0.333
+    nDescDistThresholdOffset: int = 3
+    nMinColorDistThreshold: int = 30
+    nBGSamples: int = 50
+    nRequiredBGSamples: int = 2
+    nSamplesForMovingAvgs: int = 100
+    showOutput: bool = True
+
+
+@register("SuBSENSEBGS", type_id=36, aliases=("subsense",))
+class SuBSENSE(BGSAlgorithm):
+    """Self-Balanced SENsitivity SEgmenter (St-Charles et al., CVPRW 2014)."""
+
+    Config = SuBSENSEConfig
+
+    def _kernel_kw(self, c: int):
+        cfg = self.config
+        return dict(
+            rel=cfg.fRelLBSPThreshold,
+            div=3.0 if c == 1 else 1.0,
+            hi_const=float(np.rint(255 * cfg.fRelLBSPThreshold)),
+            min_cd=int(cfg.nMinColorDistThreshold),
+            desc_off=int(cfg.nDescDistThresholdOffset),
+        )
+
+    @staticmethod
+    def _size_policy(h: int, w: int):
+        """initialize() size-dependent switches (:124-140)."""
+        npix = h * w
+        scaling = npix >= DEFAULT_FRAME_AREA
+        if scaling:
+            use3x3 = not (npix > DEFAULT_FRAME_AREA * 2)
+            raw_k = min(int(np.floor(npix / DEFAULT_FRAME_AREA + 0.5)) + DEFAULT_MEDIAN_KSIZE, 14)
+            ksize = raw_k if raw_k % 2 else raw_k - 1
+            t_lower, t_upper = FEEDBACK_T_LOWER, FEEDBACK_T_UPPER
+        else:
+            use3x3 = True
+            ksize = DEFAULT_MEDIAN_KSIZE
+            t_lower, t_upper = FEEDBACK_T_LOWER * 2, FEEDBACK_T_UPPER * 2
+        return scaling, use3x3, ksize, t_lower, t_upper
+
+    def init(self, h: int, w: int, c: int = 3, device=None) -> State:
+        cfg = self.config
+        c = max(c, 1)
+        N = cfg.nBGSamples
+        _, _, _, t_lower, t_upper = self._size_policy(h, w)
+        dsh, dsw = h // DOWNSAMPLE_RATIO, w // DOWNSAMPLE_RATIO
+        kw = dict(device=device)
+
+        def f32(fill):
+            return torch.full((h, w), fill, dtype=torch.float32, **kw)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, **kw)
+
+        return {
+            "t": zeros((), torch.int32),
+            "key": rng.prng_key(0, device=device),
+            "colors": tuple(zeros((N, h, w), torch.uint8) for _ in range(c)),
+            "descs": tuple(zeros((N, h, w), torch.uint16) for _ in range(c)),
+            "R": f32(1.0),
+            "T": f32(t_lower),
+            "v": f32(10.0),
+            "mean_last": f32(0.0),
+            "dmin_lt": f32(0.0),
+            "dmin_st": f32(0.0),
+            "raw_lt": f32(0.0),
+            "raw_st": f32(0.0),
+            "final_lt": f32(0.0),
+            "final_st": f32(0.0),
+            "unstable": zeros((h, w), torch.bool),
+            "blinks": zeros((h, w), torch.bool),
+            "last_color": tuple(zeros((h, w), torch.uint8) for _ in range(c)),
+            "last_desc": tuple(zeros((h, w), torch.uint16) for _ in range(c)),
+            "last_raw": zeros((h, w), torch.uint8),
+            "last_final": zeros((h, w), torch.uint8),
+            "last_blink_mask": zeros((h, w), torch.bool),
+            "last_dil_inv": zeros((h, w), torch.bool),
+            "lut_delta": zeros((), torch.int32),
+            "ds_lt": tuple(zeros((dsh, dsw), torch.float32) for _ in range(c)),
+            "ds_st": tuple(zeros((dsh, dsw), torch.float32) for _ in range(c)),
+            "last_nonzero_ratio": zeros((), torch.float32),
+            "frames_since_reset": zeros((), torch.int32),
+            "cooldown": zeros((), torch.int32),
+            "auto_reset": torch.ones((), dtype=torch.bool, **kw),
+            "lr_lower": torch.full((), t_lower, dtype=torch.float32, **kw),
+            "lr_upper": torch.full((), t_upper, dtype=torch.float32, **kw),
+            # deferred stochastic-update log (zero ctrl = no writes)
+            "pend_ctrl": zeros((h, w), torch.int32),
+            "pend_vals": tuple(zeros((h, w), torch.int32) for _ in range(c)),
+        }
+
+    def _thr(self, c: int, delta):
+        kw = self._kernel_kw(c)
+        return lambda v: thr_closed_form(v, delta, kw["rel"], kw["div"], kw["hi_const"])
+
+    def warm_start(self, state: State, frame: torch.Tensor) -> State:
+        """initialize() + refreshModel(1.0) (:206-247)."""
+        cfg = self.config
+        planes, _ = _to_planes(frame)
+        h, w = planes[0].shape
+        intra, _ = intra_descriptors(planes, self._thr(len(planes), state["lut_delta"]))
+        key, sub = rng.split(state["key"], 2)
+        colors, descs = _refresh_samples(
+            sub, cfg.nBGSamples, cfg.nBGSamples, 0, planes, intra,
+            torch.ones((h, w), dtype=torch.bool, device=frame.device), state["colors"], state["descs"],
+        )
+        return dict(state, key=key, colors=colors, descs=descs)
+
+    def step(self, state: State, frame: torch.Tensor, use_kernels: bool = True) -> StepResult:
+        """One frame. On CUDA tensors the kernels run (and the banks update in
+        place) unless ``use_kernels=False``."""
+        cfg = self.config
+        N = cfg.nBGSamples
+        required = cfg.nRequiredBGSamples
+        planes, was_gray = _to_planes(frame)
+        c = len(planes)
+        h, w = planes[0].shape
+        dev = frame.device
+        f32, i32 = torch.float32, torch.int32
+
+        def cf(x):
+            return torch.full((), x, dtype=f32, device=dev)
+
+        scaling, use3x3_global, median_ksize, t_lower_static, t_upper_static = self._size_policy(h, w)
+        roi = _roi_mask(h, w, dev)
+        n_roi_px = (h - 2 * BORDER) * (w - 2 * BORDER)
+        t = state["t"]
+        keys = rng.split(state["key"], 12)
+        new_key = keys[0]
+
+        # rolling factors (:303-304); m_nFrameIndex pre-incremented
+        fidx = (t + 1).to(f32)
+        a_lt = cf(1.0) / torch.minimum(fidx, cf(float(cfg.nSamplesForMovingAvgs)))
+        a_st = cf(1.0) / torch.minimum(fidx, cf(float(cfg.nSamplesForMovingAvgs // 4)))
+
+        # -- pending replay + sample consensus (:332-357) ---------------------
+        # border pixels get required 0 so their walk stops at once (:954-961)
+        required_eff = torch.where(roi, required, 0).to(i32)
+        cons = consensus if use_kernels else consensus_ref
+        count, min_desc, min_sum, intra, bg_sums, colors, descs = cons(
+            planes, state["colors"], state["descs"], state["pend_ctrl"], state["pend_vals"],
+            state["lut_delta"], state["R"], state["unstable"], required_eff, **self._kernel_kw(c),
+        )
+        first = t == 0
+        last_color = tuple(torch.where(first, planes[ci], state["last_color"][ci]) for ci in range(c))
+        last_desc = tuple(torch.where(first, intra[ci], state["last_desc"][ci].to(i32)) for ci in range(c))
+
+        # -- feedback stage (:358-431) ----------------------------------------
+        bits = rng.as_i32(rng.field_bits(keys[2], (4, h, w)))
+        consts = FeedbackConsts(
+            t_incr=FEEDBACK_T_INCR, t_decr=FEEDBACK_T_DECR, t_lower=FEEDBACK_T_LOWER,
+            v_incr=FEEDBACK_V_INCR, v_decr=FEEDBACK_V_DECR, r_var=FEEDBACK_R_VAR,
+            rdist_min=UNSTABLE_REG_RDIST_MIN, ratio_min=UNSTABLE_REG_RATIO_MIN,
+            ghost_s_min=GHOSTDET_S_MIN, ghost_d_max=GHOSTDET_D_MAX,
+        )
+        fb = feedback(
+            dict(
+                count=count, mind=min_desc, mins=min_sum,
+                required=torch.full((h, w), required, dtype=i32, device=dev),
+                roi=roi, planes=planes, intras=intra,
+                last_colors=last_color, last_descs=last_desc,
+                bits=tuple(bits[i] for i in range(4)),
+                mean_last=state["mean_last"], dmin_lt=state["dmin_lt"], dmin_st=state["dmin_st"],
+                raw_lt=state["raw_lt"], raw_st=state["raw_st"],
+                final_lt=state["final_lt"], final_st=state["final_st"],
+                R=state["R"], T=state["T"], v=state["v"],
+                last_final=state["last_final"], blinks_old=state["blinks"],
+                last_blink_mask=state["last_blink_mask"], last_raw=state["last_raw"],
+                last_dil_inv=state["last_dil_inv"],
+            ),
+            (a_lt, a_st, state["lr_lower"], state["lr_upper"], state["cooldown"]),
+            C=c, N=N, use3x3_global=bool(use3x3_global), k=consts,
+        )
+        is_fg = fb.is_fg
+        raw_fg = torch.where(is_fg, 255, 0).to(torch.uint8)
+
+        # BG self + neighbour-spread writes, logged for the next step
+        fires = fb.fire3.to(torch.uint8) | (fb.fire5.to(torch.uint8) << 1)
+        pend_ctrl = pack_pending_ctrl(fb.upd1, fb.slot1, nb3_to_nb5_idx(fb.o3), fb.o5, fb.slot3, fb.slot5)
+        pend_vals = pack_pending_vals(planes, intra, fires)
+        T, v, R = fb.T, fb.v, fb.R
+
+        # nonzero-descriptor ratio (:430-431)
+        nz_ratio = (fb.nz & roi).sum().to(f32) * recip(n_roi_px)
+
+        # -- post-processing (:624-642) ---------------------------------------
+        pre_flood = morph_close(raw_fg, 3)
+        filled = fill_holes(pre_flood, seed="corner", use_kernels=use_kernels)
+        holes = (filled > 0) & ~(pre_flood > 0)
+        pre_flood_eroded = erode(erode(erode(pre_flood, 3), 3), 3)
+        fg1 = torch.where(is_fg | holes | (pre_flood_eroded > 0), 255, 0).to(torch.uint8)
+        final = binary_median_blur(fg1, median_ksize)
+        dil_inv = ~(dilate(dilate(dilate(final, 3), 3), 3) > 0)
+        blinks = fb.blinks_pre & dil_inv
+        final_fg = final > 0
+        final_lt = state["final_lt"] * (1 - a_lt) + final_fg.to(f32) * a_lt
+        final_st = state["final_st"] * (1 - a_st) + final_fg.to(f32) * a_st
+
+        # -- LBSP LUT rescaling (:643-654), carried as a scalar walk ----------
+        last_ratio = state["last_nonzero_ratio"]
+        dec_cond = (nz_ratio < LBSPDESC_RATIO_MIN) & (last_ratio < LBSPDESC_RATIO_MIN)
+        inc_cond = (nz_ratio > LBSPDESC_RATIO_MAX) & (last_ratio > LBSPDESC_RATIO_MAX)
+        lut_delta = torch.clamp(state["lut_delta"] - dec_cond.to(i32) + inc_cond.to(i32), -256, 256)
+
+        # -- frame-level motion analysis + auto reset (:655-699) --------------
+        lr_lower, lr_upper = state["lr_lower"], state["lr_upper"]
+        cooldown = state["cooldown"]
+        frames_since = state["frames_since_reset"]
+        auto_reset = state["auto_reset"]
+        ds_lt, ds_st = state["ds_lt"], state["ds_st"]
+        if scaling:
+            dsh, dsw = h // DOWNSAMPLE_RATIO, w // DOWNSAMPLE_RATIO
+            r_ = DOWNSAMPLE_RATIO
+
+            def ds_of(p):
+                cells = p[: dsh * r_, : dsw * r_].to(i32).reshape(dsh, r_, dsw, r_).sum(dim=(1, 3), dtype=i32)
+                return cells.to(f32) * recip(r_ * r_)
+
+            ds = tuple(ds_of(planes[ci]) for ci in range(c))
+            ds_lt = tuple(ds_lt[ci] * (1 - a_lt) + ds[ci] * a_lt for ci in range(c))
+            ds_st = tuple(ds_st[ci] * (1 - a_st) + ds[ci] * a_st for ci in range(c))
+            perpx = [(ds_st[ci] - ds_lt[ci]).abs().to(i32) for ci in range(c)]
+            if c == 1:
+                diff = perpx[0] // 2
+            else:
+                diff = torch.maximum(torch.maximum(perpx[0], perpx[1]), perpx[2])
+            color_diff_ratio = diff.sum().to(f32) * recip(dsh * dsw)
+
+            reset_thr = cfg.nMinColorDistThreshold / 2.0
+            trigger = auto_reset & (frames_since <= 1000) & (color_diff_ratio >= reset_thr) & (cooldown == 0)
+            n_refresh = max(int(0.1 * N), 1)
+            start = rng.randint(keys[8], (), 0, N)
+            # The reference refreshes after frame t's writes: the rare trigger
+            # branch applies the pending log eagerly, refreshes, and clears
+            # the log. Branching needs the flag on the host (one sync).
+            if bool(trigger):
+                ac, ad, _ = apply_pending_ref(pend_ctrl, pend_vals, colors, descs)
+                colors, descs = _refresh_samples(
+                    keys[9], N, n_refresh, start, planes, intra, ~final_fg, ac, ad
+                )
+                pend_ctrl = torch.zeros_like(pend_ctrl)
+            T = torch.where(trigger, torch.ones_like(T), T)
+            cooldown = torch.where(trigger, cfg.nSamplesForMovingAvgs // 4, cooldown).to(i32)
+            auto_reset = torch.where(
+                auto_reset & (frames_since > 1000),
+                False,
+                torch.where(~auto_reset & (color_diff_ratio >= reset_thr * 2), True, auto_reset),
+            )
+            frames_since = torch.where(trigger, 0, torch.where(auto_reset, frames_since + 1, frames_since)).to(i32)
+            shift = torch.clamp((color_diff_ratio * 0.5).to(i32), 0, 30)
+            cap_cond = color_diff_ratio >= reset_thr / 2
+            two = torch.full((), int(FEEDBACK_T_LOWER), dtype=i32, device=dev)
+            top = torch.full((), int(FEEDBACK_T_UPPER), dtype=i32, device=dev)
+            lr_lower = torch.where(cap_cond, torch.clamp(two >> shift, min=1).to(f32), cf(t_lower_static))
+            lr_upper = torch.where(cap_cond, torch.clamp(top >> shift, min=1).to(f32), cf(t_upper_static))
+            cooldown = torch.clamp(cooldown - 1, min=0)
+
+        bg_planes = tuple(torch.round(bg_sums[ci].to(f32) * recip(N)).to(torch.uint8) for ci in range(c))
+        new_state = {
+            "t": t + 1,
+            "key": new_key,
+            "colors": colors,
+            "descs": descs,
+            "R": R,
+            "T": T,
+            "v": v,
+            "mean_last": fb.mean_last,
+            "dmin_lt": fb.dmin_lt,
+            "dmin_st": fb.dmin_st,
+            "raw_lt": fb.raw_lt,
+            "raw_st": fb.raw_st,
+            "final_lt": final_lt,
+            "final_st": final_st,
+            "unstable": fb.unstable,
+            "blinks": blinks,
+            "last_color": planes,
+            "last_desc": tuple(d.to(torch.uint16) for d in intra),
+            "last_raw": raw_fg,
+            "last_final": final,
+            "last_blink_mask": fb.curr_blink,
+            "last_dil_inv": dil_inv,
+            "lut_delta": lut_delta,
+            "ds_lt": ds_lt,
+            "ds_st": ds_st,
+            "last_nonzero_ratio": nz_ratio,
+            "frames_since_reset": frames_since,
+            "cooldown": cooldown,
+            "auto_reset": auto_reset,
+            "lr_lower": lr_lower,
+            "lr_upper": lr_upper,
+            "pend_ctrl": pend_ctrl,
+            "pend_vals": pend_vals,
+        }
+        return new_state, final, _from_planes(bg_planes, was_gray)

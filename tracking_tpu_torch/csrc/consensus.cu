@@ -1,0 +1,237 @@
+// consensus: SuBSENSE's sample consensus with deferred bank writes, one
+// thread per pixel, channels (C = 1 or 3) in a loop.
+//
+// Replaces tracking_tpu/ops/pallas_consensus.py:consensus_pallas (its
+// kernel _make_kernel with _apply_pending_stage and _consensus_values). Per
+// pixel, in order:
+//   1. replay frame t-1's pending log: decode the control word, resolve the
+//      3x3/5x5 spread pick from the neighbours' packed values through an
+//      interior-replicated clamp (sources clamped into the 2-px ROI
+//      interior), and write the <= 2 touched slots IN PLACE - the spread
+//      after the self write, so it wins on a shared slot. Race-free: a
+//      thread writes only its own pixel's slots and reads only the packed
+//      values, never another pixel's bank;
+//   2. bg_sum = the sum of the N colour slots after the writes;
+//   3. the intra LBSP descriptor from 16 edge-clamped neighbours;
+//   4. the walk over the N samples, stopping once `required` good samples
+//      are counted. The TPU kernel stops per 16x256 tile; per pixel is exact
+//      for the same reason (skipped samples could only touch dead lanes).
+//
+// Bound on the H100: device-memory bytes. At 720p colour the banks are
+// 414.7 MB (50 x 921,600 px x (1 + 2) bytes x 3 channels); bg_sum reads every
+// colour slot (138 MB) and the walk reads the first few samples of both
+// banks for background pixels and up to all 50 for foreground ones. The
+// design keeps the banks in place (no copy), reads them coalesced (adjacent
+// threads, adjacent pixels of one [H, W] slot plane) and touches each
+// pixel's bytes once. The TPU's tile-wide early exit becomes a per-thread
+// one; warps with foreground pixels run longer (divergence, later work).
+//
+// Thresholds are f32 expressions the reference evaluates without fused
+// multiply-adds and with XLA's reciprocal product for a constant divisor:
+// build with -fmad=false, and pass 1/div as the f32 `inv_div`.
+#include "common.cuh"
+
+struct Banks {
+  uint8_t* col[3];
+  uint16_t* desc[3];
+  const int32_t* vals[3];
+};
+
+// LBSP neighbour offsets (x, y) in bit order (tracking_tpu/ops/lbsp.py OFFSETS)
+__constant__ int8_t kLbspDx[16] = {-2, 2, 0, 0, -2, 2, 2, -2, 0, -1, 0, 1, -1, 1, 1, -1};
+__constant__ int8_t kLbspDy[16] = {0, 0, -2, 2, 2, -2, 2, -2, 1, 0, -1, 0, -1, 1, -1, 1};
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
+
+__device__ __forceinline__ int popc16(int v) { return __popc(v & 0xFFFF); }
+
+__device__ __forceinline__ int floordiv2(int v) { return v >= 0 ? v / 2 : -((1 - v) / 2); }
+
+// NB5 index k (0..23) -> (dx, dy): the 5x5 window without its centre, rows
+// y = 2..-2, columns x = -2..2.
+__device__ __forceinline__ void nb5_offset(int k, int& dx, int& dy) {
+  int idx = k < 12 ? k : k + 1;
+  dy = 2 - idx / 5;
+  dx = idx % 5 - 2;
+}
+
+// LBSP threshold of a u8 value (pallas_consensus._thr_closed_form)
+__device__ __forceinline__ int lbsp_thr(int v, float delta, float rel, float inv_div, float hi) {
+  float vf = (float)v * rel;
+  float base = fminf(fmaxf(rintf(vf * inv_div), 0.0f), 255.0f);
+  float lo = ceilf(vf * 0.25f);
+  float lower = fminf(base, lo);
+  float upper = fmaxf(base, hi);
+  return (int)fminf(fmaxf(base + delta, lower), upper);
+}
+
+template <int C>
+__global__ void consensus_kernel(const uint8_t* __restrict__ planes, Banks banks, const int32_t* __restrict__ ctrl_map,
+                                 const float* __restrict__ R_map, const bool* __restrict__ unstable_map,
+                                 const int32_t* __restrict__ required_map, const int32_t* __restrict__ lut_delta,
+                                 int32_t* count_out, int32_t* mind_out, int32_t* mins_out, int32_t* intra_out,
+                                 int32_t* bg_out, int N, int H, int W, float rel, float inv_div, float hi,
+                                 int min_cd, int desc_off) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const int HW = H * W;
+  const int p = y * W + x;
+
+  // -- 1. replay the pending log ---------------------------------------------
+  const int ctrl = ctrl_map[p];
+  const bool upd1 = (ctrl & 1) != 0;
+  const int slot1 = (ctrl >> 1) & 63;
+  const int u3 = (ctrl >> 7) & 31;
+  const int u5 = (ctrl >> 12) & 31;
+  const int slot3 = (ctrl >> 17) & 63;
+  const int slot5 = (ctrl >> 23) & 63;
+  int dx, dy;
+  bool ok3 = false, ok5 = false;
+  if (u3 < 24) {
+    nb5_offset(u3, dx, dy);
+    if (dx >= -1 && dx <= 1 && dy >= -1 && dy <= 1) {
+      int q = clampi(y - dy, 2, H - 3) * W + clampi(x - dx, 2, W - 3);
+      ok3 = ((banks.vals[0][q] >> 24) & 1) != 0;
+    }
+  }
+  if (u5 < 24) {
+    nb5_offset(u5, dx, dy);
+    int q = clampi(y - dy, 2, H - 3) * W + clampi(x - dx, 2, W - 3);
+    ok5 = ((banks.vals[0][q] >> 24) & 2) != 0;
+  }
+  const bool okn = ok3 || ok5;
+  const int u = ok3 ? u3 : u5;
+  const int slotn = ok3 ? slot3 : slot5;
+  int q_nb = -1;
+  if (u < 24) {
+    nb5_offset(u, dx, dy);
+    q_nb = clampi(y - dy, 2, H - 3) * W + clampi(x - dx, 2, W - 3);
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int own = banks.vals[c][p];
+    const int nb = q_nb >= 0 ? banks.vals[c][q_nb] : 0;
+    if (upd1 && slot1 < N) {
+      banks.col[c][(size_t)slot1 * HW + p] = (uint8_t)(own & 0xFF);
+      banks.desc[c][(size_t)slot1 * HW + p] = (uint16_t)((own >> 8) & 0xFFFF);
+    }
+    if (okn && slotn < N) {
+      banks.col[c][(size_t)slotn * HW + p] = (uint8_t)(nb & 0xFF);
+      banks.desc[c][(size_t)slotn * HW + p] = (uint16_t)((nb >> 8) & 0xFFFF);
+    }
+    // -- 2. background sum over the updated colour slots --------------------
+    int s = 0;
+    for (int j = 0; j < N; ++j) s += banks.col[c][(size_t)j * HW + p];
+    bg_out[(size_t)c * HW + p] = s;
+  }
+
+  // -- 3. intra descriptors from edge-clamped neighbours ---------------------
+  const float delta = (float)lut_delta[0];
+  int px[C], intra[C], nbv[C][16];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const uint8_t* pl = planes + (size_t)c * HW;
+    px[c] = pl[p];
+    const int thr = lbsp_thr(px[c], delta, rel, inv_div, hi);
+    int d = 0;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      int v = pl[clampi(y + kLbspDy[k], 0, H - 1) * W + clampi(x + kLbspDx[k], 0, W - 1)];
+      nbv[c][k] = v;
+      d |= (abs(v - px[c]) > thr ? 1 : 0) << k;
+    }
+    intra[c] = d;
+    intra_out[(size_t)c * HW + p] = d;
+  }
+
+  // -- 4. thresholds from R and the previous unstable mask, then the walk ----
+  const bool unst = unstable_map[p];
+  const float ctf = R_map[p] * (float)min_cd - (unst ? 0.0f : (float)(min_cd / 5));
+  int ct = (int)ctf;
+  if (C == 1) ct = floordiv2(ct);
+  const int n_exp = (int)floorf(R_map[p] + 0.5f);
+  const int pow2 = (n_exp >= 0 && n_exp < 32) ? (int)(1u << n_exp) : 0;
+  const int dt = pow2 + desc_off + (unst ? desc_off : 0);
+  const int sc = C == 3 ? floordiv2(ct * 3) : ct;
+
+  const int req = required_map[p];
+  int count = 0, mind = 16 * C, mins = 255 * C;
+  for (int j = 0; j < N && count < req; ++j) {
+    int tot_desc = 0, tot_sum = 0;
+    bool good = true;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int s_col = banks.col[c][(size_t)j * HW + p];
+      const int s_desc = banks.desc[c][(size_t)j * HW + p];
+      const int cd = abs(px[c] - s_col);
+      const int sthr = lbsp_thr(s_col, delta, rel, inv_div, hi);
+      int inter = 0;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) inter |= (abs(nbv[c][k] - s_col) > sthr ? 1 : 0) << k;
+      const int dd = (popc16(intra[c] ^ s_desc) + popc16(inter ^ s_desc)) >> 1;
+      if (C == 1) {
+        const int sum_d = min((dd / 4) * 15 + cd, 255);
+        good = (cd <= ct) && (dd <= dt) && (sum_d <= ct);
+        tot_desc = dd;
+        tot_sum = sum_d;
+      } else {
+        const int sum_c = min((dd / 2) * 15 + cd, 255);
+        good = good && (cd <= sc) && (sum_c <= sc);
+        tot_desc += dd;
+        tot_sum += sum_c;
+      }
+    }
+    if (C == 3) good = good && (tot_desc <= dt * 3) && (tot_sum <= ct * 3);
+    if (good) {
+      ++count;
+      mind = min(mind, tot_desc);
+      mins = min(mins, tot_sum);
+    }
+  }
+  count_out[p] = count;
+  mind_out[p] = mind;
+  mins_out[p] = mins;
+}
+
+TT_EXPORT int tt_consensus(const void* planes, void* col0, void* col1, void* col2, void* desc0, void* desc1,
+                           void* desc2, const void* ctrl, const void* val0, const void* val1, const void* val2,
+                           const void* R, const void* unstable, const void* required, const void* lut_delta,
+                           void* count, void* mind, void* mins, void* intra, void* bg_sum, int C, int N, int H,
+                           int W, float rel, float div, float hi_const, int min_cd, int desc_off, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  Banks b;
+  b.col[0] = static_cast<uint8_t*>(col0);
+  b.col[1] = static_cast<uint8_t*>(col1);
+  b.col[2] = static_cast<uint8_t*>(col2);
+  b.desc[0] = static_cast<uint16_t*>(desc0);
+  b.desc[1] = static_cast<uint16_t*>(desc1);
+  b.desc[2] = static_cast<uint16_t*>(desc2);
+  b.vals[0] = static_cast<const int32_t*>(val0);
+  b.vals[1] = static_cast<const int32_t*>(val1);
+  b.vals[2] = static_cast<const int32_t*>(val2);
+  const float inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
+  dim3 block(32, 8);
+  dim3 grid((W + 31) / 32, (H + 7) / 8);
+  const uint8_t* px = static_cast<const uint8_t*>(planes);
+  const int32_t* cm = static_cast<const int32_t*>(ctrl);
+  const float* Rm = static_cast<const float*>(R);
+  const bool* um = static_cast<const bool*>(unstable);
+  const int32_t* rq = static_cast<const int32_t*>(required);
+  const int32_t* ld = static_cast<const int32_t*>(lut_delta);
+  int32_t* o0 = static_cast<int32_t*>(count);
+  int32_t* o1 = static_cast<int32_t*>(mind);
+  int32_t* o2 = static_cast<int32_t*>(mins);
+  int32_t* o3 = static_cast<int32_t*>(intra);
+  int32_t* o4 = static_cast<int32_t*>(bg_sum);
+  if (C == 1) {
+    consensus_kernel<1><<<grid, block, 0, stream>>>(px, b, cm, Rm, um, rq, ld, o0, o1, o2, o3, o4, N, H, W, rel,
+                                                    inv_div, hi_const, min_cd, desc_off);
+  } else if (C == 3) {
+    consensus_kernel<3><<<grid, block, 0, stream>>>(px, b, cm, Rm, um, rq, ld, o0, o1, o2, o3, o4, N, H, W, rel,
+                                                    inv_div, hi_const, min_cd, desc_off);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,131 @@
+"""Build, load and count the port's CUDA kernels.
+
+The kernels are CUDA C++ for Hopper (``sm_90a``) in ``tracking_tpu_torch/csrc``
+with a plain C interface. On first use they are compiled by ``nvcc`` into one
+shared library under ``build/tracking_tpu_torch/`` beside the package (the
+file name carries a hash of the sources, so an edited source rebuilds) and
+loaded with ``ctypes``. Nothing here runs at import time: the CPU tests
+import every module on a machine with no ``nvcc`` and no card.
+
+Flags: ``-fmad=false`` and no fast math. The thresholds the kernels compute
+are f32 expressions that the JAX reference evaluates without fused
+multiply-adds; a contracted ``a*b+c`` moves a threshold by one unit.
+
+Every wrapper adds one to its entry of :data:`LAUNCHES` where it launches its
+kernel and nowhere else, so a run can show which kernels its path went
+through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tracking_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+LAUNCHES = {"consensus": 0, "flood_reach": 0, "label_components": 0, "greedy_assign": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the kernels' entry points (csrc/*.cu); each returns the
+# cudaError_t of its launches
+_SIGNATURES = {
+    "tt_consensus": [_P] * 20 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
+    "tt_flood_reach": [_P] * 5 + [_I] * 2 + [_P],
+    "tt_label_components": [_P] * 2 + [_I] * 3 + [_P],
+    "tt_greedy_assign": [_P] * 3 + [_I] * 2 + [_P],
+    "tt_error_string": [_I],
+}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into the shared library (once per source hash)."""
+    digest = hashlib.sha256()
+    for p in sources():
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"libtracking_tpu_torch_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    if verbose:
+        print(res.stderr, end="")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_char_p if name == "tt_error_string" else ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def stream_ptr() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = library().tt_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
+
+
+def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``/``shape``."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,294 @@
+"""SuBSENSE sample consensus with deferred bank writes: the CUDA kernel
+``consensus`` (``csrc/consensus.cu``, replacing
+``tracking_tpu/ops/pallas_consensus.py:consensus_pallas``) and its plain
+version ``consensus_ref`` (the reference's XLA branch:
+``bgs/lbsp_family.py:_apply_pending_xla`` followed by the sample scan).
+
+Per pixel, in order:
+1. replay frame t−1's pending log into the N sample banks: a self write
+   and a 3×3/5×5 neighbour spread, decoded from one packed control word
+   (:func:`pack_pending_ctrl`) and the packed colour|desc|fire values
+   (:func:`pack_pending_vals`); the spread wins over the self write on the
+   same slot;
+2. sum the N colour samples into ``bg_sum`` (the background image × N);
+3. build the 16-neighbour intra LBSP descriptors of the frame;
+4. walk the samples, counting good ones up to ``required`` and keeping the
+   minimum descriptor and sum distances of the counted ones.
+
+Also here: the pending-log helpers of ``pallas_consensus.py:258-320``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tracking_tpu_torch.ops import _native
+from tracking_tpu_torch.ops.lbsp import edge_pad, neighbor_stack, popcount16
+
+# 5×5 neighbour offsets (x, y) in the reference's traversal order
+NB5 = tuple(
+    (x, y) for y in (2, 1, 0, -1, -2) for x in (-2, -1, 0, 1, 2) if not (x == 0 and y == 0)
+)
+_NB3 = ((-1, 1), (0, 1), (1, 1), (-1, 0), (1, 0), (-1, -1), (0, -1), (1, -1))
+NB3_IN_NB5 = tuple(NB5.index(o) for o in _NB3)
+
+
+def nb3_to_nb5_idx(o3: torch.Tensor) -> torch.Tensor:
+    """Map a 3×3 offset draw (0..7) to its index in :data:`NB5`."""
+    table = torch.tensor(NB3_IN_NB5, dtype=torch.int32, device=o3.device)
+    return table[o3.long()]
+
+
+def pack_pending_ctrl(upd1, slot1, u3, u5, slot3, slot5) -> torch.Tensor:
+    """bit 0 upd1, bits 1-6 slot1, 7-11 u3 (NB5 index), 12-16 u5,
+    17-22 slot3, 23-28 slot5."""
+    i32 = lambda x: x.to(torch.int32)  # noqa: E731
+    return i32(upd1) | (i32(slot1) << 1) | (i32(u3) << 7) | (i32(u5) << 12) | (i32(slot3) << 17) | (i32(slot5) << 23)
+
+
+def pack_pending_vals(planes, intras, fires):
+    """Per channel ``plane | intra << 8``; the spread fire bits ride
+    channel 0's bits 24-25 (24 = 3×3 fired, 25 = 5×5)."""
+    vals = [planes[c].to(torch.int32) | (intras[c].to(torch.int32) << 8) for c in range(len(planes))]
+    vals[0] = vals[0] | (fires.to(torch.int32) << 24)
+    return tuple(vals)
+
+
+def unpack_pending_ctrl(w: torch.Tensor):
+    return (
+        (w & 1) != 0,  # upd1
+        (w >> 1) & 63,  # slot1
+        (w >> 7) & 31,  # u3 (NB5 index)
+        (w >> 12) & 31,  # u5
+        (w >> 17) & 63,  # slot3
+        (w >> 23) & 63,  # slot5
+    )
+
+
+def interior_rep(a: torch.Tensor, border: int = 2) -> torch.Tensor:
+    """Replicate the ROI interior's edge outward (the clamp of spread
+    sources into the 2-px ROI interior)."""
+    H, W = a.shape[-2], a.shape[-1]
+    return edge_pad(a[..., border : H - border, border : W - border], border, border, border, border)
+
+
+def shift_clamped(img: torch.Tensor, dy: int, dx: int, border: int = 2) -> torch.Tensor:
+    """S(y, x) = img[clip(y−dy, border, H−border−1), clip(x−dx, …)] for
+    any static dy, dx (``lbsp_family._shift_clamped``)."""
+    H, W = img.shape[-2], img.shape[-1]
+    rows = (torch.arange(H, device=img.device) - dy).clamp(border, H - border - 1)
+    cols = (torch.arange(W, device=img.device) - dx).clamp(border, W - border - 1)
+    return img.index_select(-2, rows).index_select(-1, cols)
+
+
+def recip(c: float) -> float:
+    """The f32 reciprocal of a constant divisor. XLA rewrites ``x / c`` for
+    a constant ``c`` into ``x * (1/c)`` with the reciprocal rounded to f32,
+    which is not always the IEEE quotient; the port multiplies by the same
+    reciprocal wherever the reference divides by a constant."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def thr_closed_form(v: torch.Tensor, delta: torch.Tensor, rel: float, div: float, hi_const: float) -> torch.Tensor:
+    """The LBSP threshold of a u8 value with the LUT walk ``delta``
+    (``pallas_consensus._thr_closed_form``); f32 ops in the reference's
+    order, with its division by ``div`` and 4 taken as reciprocal products."""
+    f32 = torch.float32
+    vf = v.to(f32) * rel
+    base = torch.clamp(torch.round(vf * recip(div)), 0.0, 255.0)
+    lo = torch.ceil(vf * recip(4.0))
+    hi = torch.full((), hi_const, dtype=f32, device=v.device)
+    lower = torch.minimum(base, lo)
+    upper = torch.maximum(base, hi)
+    return torch.minimum(torch.maximum(base + delta.to(f32), lower), upper).to(torch.int32)
+
+
+def color_desc_thresholds(R, unstable, gray: bool, min_cd: int, desc_off: int):
+    """Per-pixel colour and descriptor thresholds from R(x) and the previous
+    frame's unstable mask (``lbsp_family.py:902-914``)."""
+    stab_off = torch.full((), float(min_cd // 5), dtype=torch.float32, device=R.device)
+    zero = torch.zeros((), dtype=torch.float32, device=R.device)
+    ct = (R * min_cd - torch.where(unstable, zero, stab_off)).to(torch.int32)
+    if gray:
+        ct = ct // 2
+    n = torch.floor(R + 0.5).to(torch.int32)
+    # XLA's shift-left gives 0 for shifts >= 32
+    pow2 = torch.where((n >= 0) & (n < 32), torch.ones_like(n) << n.clamp(0, 31), torch.zeros_like(n))
+    dt = pow2 + desc_off + torch.where(unstable, desc_off, 0).to(torch.int32)
+    return ct, dt
+
+
+def resolve_spread(vals, u3, u5):
+    """For each destination pixel: did its drawn 3×3 / 5×5 source fire, and
+    the winning source's packed value per channel (3×3 wins)."""
+    C = len(vals)
+    ok3 = torch.zeros(vals[0].shape, dtype=torch.bool, device=vals[0].device)
+    ok5 = torch.zeros_like(ok3)
+    for k, (dx, dy) in enumerate(NB5):
+        fv = shift_clamped(vals[0], dy, dx) >> 24
+        if k in NB3_IN_NB5:
+            ok3 = ok3 | ((u3 == k) & ((fv & 1) != 0))
+        ok5 = ok5 | ((u5 == k) & ((fv & 2) != 0))
+    u = torch.where(ok3, u3, u5)
+    nbv = [torch.zeros_like(vals[0]) for _ in range(C)]
+    for k, (dx, dy) in enumerate(NB5):
+        sel = u == k
+        for c in range(C):
+            nbv[c] = torch.where(sel, shift_clamped(vals[c], dy, dx), nbv[c])
+    return ok3, ok5, nbv
+
+
+def apply_pending_ref(ctrl, vals, colors, descs):
+    """Replay a pending log into the banks (``_apply_pending_xla``).
+    Returns new banks (C-tuples of [N, H, W] u8 / u16) and the per-channel
+    post-apply colour sums (int32 [H, W])."""
+    C = len(colors)
+    N = colors[0].shape[0]
+    upd1, slot1, u3, u5, slot3, slot5 = unpack_pending_ctrl(ctrl)
+    ok3, ok5, nbv = resolve_spread(vals, u3, u5)
+    okn = ok3 | ok5
+    slotn = torch.where(ok3, slot3, slot5)
+    slot_axis = torch.arange(N, dtype=torch.int32, device=ctrl.device)[:, None, None]
+    m1 = upd1[None] & (slot1[None] == slot_axis)
+    mn = okn[None] & (slotn[None] == slot_axis)
+    new_colors, new_descs, bg_sum = [], [], []
+    for c in range(C):
+        own, nb = vals[c], nbv[c]
+        col = torch.where(mn, (nb & 0xFF)[None], torch.where(m1, (own & 0xFF)[None], colors[c].to(torch.int32)))
+        desc = torch.where(
+            mn, ((nb >> 8) & 0xFFFF)[None], torch.where(m1, ((own >> 8) & 0xFFFF)[None], descs[c].to(torch.int32))
+        )
+        new_colors.append(col.to(torch.uint8))
+        new_descs.append(desc.to(torch.uint16))
+        bg_sum.append(col.sum(dim=0, dtype=torch.int32))
+    return tuple(new_colors), tuple(new_descs), tuple(bg_sum)
+
+
+def intra_descriptors(planes, thr):
+    """C-tuple of u8 [H, W] -> (intra descriptors int32 ×C, neighbour stacks
+    int16 [16, H, W] ×C); ``thr(v)`` maps values to LBSP thresholds."""
+    descs, nbs = [], []
+    for img in planes:
+        nb = neighbor_stack(img)
+        t = thr(img).to(torch.int16)
+        d = torch.zeros(img.shape, dtype=torch.int32, device=img.device)
+        p = img.to(torch.int16)
+        for k in range(16):
+            d = d | (((nb[k] - p).abs() > t).to(torch.int32) << k)
+        descs.append(d)
+        nbs.append(nb)
+    return tuple(descs), tuple(nbs)
+
+
+def walk_ref(planes, colors, descs, intra, nbs, thr, color_thr, desc_thr, required):
+    """The sample walk of ``lbsp_family.py:922-952``, vectorised over the
+    N samples: sample j is counted iff it is good and fewer than
+    ``required`` earlier samples were good (the early exit)."""
+    C = len(planes)
+    cds, dds = [], []
+    for c in range(C):
+        s_col = colors[c].to(torch.int32)
+        s_desc = descs[c].to(torch.int32)
+        cds.append((planes[c].to(torch.int32)[None] - s_col).abs())
+        sthr = thr(colors[c])
+        inter = torch.zeros_like(s_col)
+        for k in range(16):
+            inter = inter | (((nbs[c][k].to(torch.int32)[None] - s_col).abs() > sthr).to(torch.int32) << k)
+        dds.append((popcount16(intra[c][None] ^ s_desc) + popcount16(inter ^ s_desc)) // 2)
+    if C == 1:
+        sum_d = torch.clamp((dds[0] // 4) * 15 + cds[0], max=255)
+        good = (cds[0] <= color_thr) & (dds[0] <= desc_thr) & (sum_d <= color_thr)
+        tot_desc, tot_sum = dds[0], sum_d
+    else:
+        sum_c = [torch.clamp((dds[c] // 2) * 15 + cds[c], max=255) for c in range(C)]
+        sc = (color_thr * 3) // 2
+        good = torch.ones_like(cds[0], dtype=torch.bool)
+        for c in range(C):
+            good = good & (cds[c] <= sc) & (sum_c[c] <= sc)
+        tot_desc = sum(dds)
+        tot_sum = sum(sum_c)
+        good = good & (tot_desc <= desc_thr * 3) & (tot_sum <= color_thr * 3)
+    g = good.to(torch.int32)
+    before = torch.cumsum(g, dim=0, dtype=torch.int32) - g
+    live = good & (before < required[None])
+    count = live.to(torch.int32).sum(dim=0, dtype=torch.int32)
+    mind = torch.where(live, tot_desc, 16 * C).amin(dim=0).to(torch.int32)
+    mins = torch.where(live, tot_sum, 255 * C).amin(dim=0).to(torch.int32)
+    return count, mind, mins
+
+
+def _check_args(planes, colors, descs, pend_vals):
+    C = len(planes)
+    if C not in (1, 3) or not (len(colors) == len(descs) == len(pend_vals) == C):
+        raise ValueError(f"consensus takes 1 or 3 channels, got {C}")
+
+
+def consensus_ref(
+    planes, colors, descs, pend_ctrl, pend_vals, lut_delta, R, unstable, required,
+    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int,
+):
+    """Plain torch. planes C-tuple u8 [H, W]; colors/descs C-tuples u8/u16
+    [N, H, W]; pend_ctrl int32 [H, W]; pend_vals C-tuple int32; lut_delta
+    int32 0-d; R f32; unstable bool; required int32 [H, W]. Returns
+    (count, min_desc, min_sum, intra ×C, bg_sum ×C, colors, descs), the
+    maps int32 and the banks new tensors."""
+    _check_args(planes, colors, descs, pend_vals)
+    C = len(planes)
+    colors, descs, bg_sum = apply_pending_ref(pend_ctrl, pend_vals, colors, descs)
+    thr = lambda v: thr_closed_form(v, lut_delta, rel, div, hi_const)  # noqa: E731
+    intra, nbs = intra_descriptors(planes, thr)
+    ct, dt = color_desc_thresholds(R, unstable, C == 1, min_cd, desc_off)
+    count, mind, mins = walk_ref(planes, colors, descs, intra, nbs, thr, ct, dt, required)
+    return count, mind, mins, intra, bg_sum, colors, descs
+
+
+def consensus(
+    planes, colors, descs, pend_ctrl, pend_vals, lut_delta, R, unstable, required,
+    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int,
+):
+    """Same contract as :func:`consensus_ref`. CPU tensors take the plain
+    version. CUDA tensors launch the kernel, which updates ``colors`` and
+    ``descs`` IN PLACE (each pixel writes at most two of its own slots) and
+    returns them."""
+    if planes[0].device.type == "cpu":
+        return consensus_ref(
+            planes, colors, descs, pend_ctrl, pend_vals, lut_delta, R, unstable, required,
+            rel, div, hi_const, min_cd, desc_off,
+        )
+    _check_args(planes, colors, descs, pend_vals)
+    C = len(planes)
+    H, W = planes[0].shape
+    N = colors[0].shape[0]
+    if N > 63:
+        raise ValueError("the pending log's 6-bit slots hold at most 63 samples")
+    req = _native.require
+    for c in range(C):
+        req(planes[c], f"planes[{c}]", torch.uint8, (H, W))
+        req(colors[c], f"colors[{c}]", torch.uint8, (N, H, W))
+        req(descs[c], f"descs[{c}]", torch.uint16, (N, H, W))
+        req(pend_vals[c], f"pend_vals[{c}]", torch.int32, (H, W))
+    req(pend_ctrl, "pend_ctrl", torch.int32, (H, W))
+    req(R, "R", torch.float32, (H, W))
+    req(unstable, "unstable", torch.bool, (H, W))
+    req(required, "required", torch.int32, (H, W))
+    req(lut_delta, "lut_delta", torch.int32, ())
+    dev = planes[0].device
+    px = torch.stack(planes).contiguous()
+    maps = torch.empty((3 + 2 * C, H, W), dtype=torch.int32, device=dev)
+    count, mind, mins = maps[0], maps[1], maps[2]
+    intra, bg_sum = maps[3 : 3 + C], maps[3 + C :]
+    ptr = lambda ts, c: ts[c].data_ptr() if c < C else None  # noqa: E731
+    rc = _native.library().tt_consensus(
+        px.data_ptr(),
+        ptr(colors, 0), ptr(colors, 1), ptr(colors, 2),
+        ptr(descs, 0), ptr(descs, 1), ptr(descs, 2),
+        pend_ctrl.data_ptr(),
+        ptr(pend_vals, 0), ptr(pend_vals, 1), ptr(pend_vals, 2),
+        R.data_ptr(), unstable.data_ptr(), required.data_ptr(), lut_delta.data_ptr(),
+        count.data_ptr(), mind.data_ptr(), mins.data_ptr(), intra.data_ptr(), bg_sum.data_ptr(),
+        C, N, H, W, rel, div, hi_const, min_cd, desc_off, _native.stream_ptr(),
+    )
+    _native.check(rc, "consensus")
+    _native.LAUNCHES["consensus"] += 1
+    return count, mind, mins, tuple(intra.unbind(0)), tuple(bg_sum.unbind(0)), colors, descs

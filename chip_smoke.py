@@ -5,23 +5,33 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--ptxas]
 
-It drives the port's main path - 720×1280×3 SuBSENSE followed by the default
-CCMSPF blob tracker - on a seeded synthetic clip, and fails (non-zero exit,
+It drives the port's two paths at 720×1280×3 on a seeded synthetic clip -
+SuBSENSE followed by the default CCMSPF blob tracker, and LOBSTER, GMG,
+DPTexture and MultiLayer through the registry - and fails (non-zero exit,
 no result line) on any broken phase:
 
 1. device: the card's name and power limit; no CUDA device is an error;
-2. build: compiles the four CUDA kernels from ``tracking_tpu_torch/csrc``
-   (``--ptxas`` prints each kernel's registers and spills);
-3. each kernel against its plain PyTorch version on the card at the main
-   path's shapes, exactly (consensus C=3 and C=1, hole-fill reachability,
-   CC labelling 8- and 4-connected, greedy assignment);
+2. build: compiles the eight CUDA kernels from ``tracking_tpu_torch/csrc``,
+   one ``nvcc`` per source in parallel (``--ptxas`` prints each kernel's
+   registers and spills);
+3. each kernel against its plain PyTorch version on the card at its path's
+   shapes, exactly (consensus C=3 and C=1, hole-fill reachability, CC
+   labelling 8- and 4-connected, greedy assignment; LOBSTER's consensus
+   C=3 and C=1, the GMG list update at t = 5, 19 and 30, the DPTexture
+   histograms, the MultiLayer update learning and not);
 4. the main path: warm start, then 64 frames of ``SuBSENSE.step`` and
    ``BlobTracker.step``; every kernel's launch count must be > 0, the mean
    foreground share in (0.1 %, 50 %), and a track active at the end;
-5. the first 16 frames again through the plain versions: masks, track ids
-   and positions must equal the kernel run's;
-6. timing with CUDA events: each kernel beside its plain version, and
-   ms/frame for the BGS step alone and for the full path.
+4b. the registry path: for each of the four algorithms, ``get_algorithm``,
+   ``init``, ``warm_start`` and 32 frames of ``step``; its kernel's launch
+   count must be > 0 and the mean foreground share after its training
+   window in (0.1 %, 50 %); then its first frames again through the plain
+   versions, with masks and the state equal to the kernel run's;
+5. the first 16 SuBSENSE + tracker frames again through the plain
+   versions: masks, track ids and positions must equal the kernel run's;
+6. timing with CUDA events: each kernel beside its plain version and its
+   bound, ms/frame for the SuBSENSE step alone, the full path and each of
+   the four algorithms, and the device's busy share under torch.profiler.
 
 The last two lines are a JSON object of the per-kernel results and
 ``{"ok": true, "device": {...}}``.
@@ -46,7 +56,27 @@ SOURCES = {
     "flood_reach": ("tracking_tpu_torch/csrc/fill.cu", "tracking_tpu/ops/pallas_fill.py:185"),
     "label_components": ("tracking_tpu_torch/csrc/cc.cu", "tracking_tpu/ops/pallas_cc.py:196"),
     "greedy_assign": ("tracking_tpu_torch/csrc/assoc.cu", "tracking_tpu/ops/pallas_assoc.py:74"),
+    "consensus_lobster": ("tracking_tpu_torch/csrc/consensus.cu", "tracking_tpu/ops/pallas_consensus.py:1254"),
+    "gmg_step": ("tracking_tpu_torch/csrc/gmg.cu", "tracking_tpu/ops/pallas_gmg.py:119"),
+    "texture_prox_cur": ("tracking_tpu_torch/csrc/texture.cu", "tracking_tpu/ops/pallas_texture.py:111"),
+    "multilayer_step": ("tracking_tpu_torch/csrc/multilayer.cu", "tracking_tpu/ops/pallas_multilayer.py:86"),
 }
+# the registry path: (algorithm, its kernel, first frame after its training
+# window, frames replayed through the plain versions)
+REGISTRY = (
+    ("LOBSTERBGS", "consensus_lobster", 1, 8),
+    ("GMG", "gmg_step", 21, 24),  # the mask is empty while GMG trains (20 frames)
+    ("DPTextureBGS", "texture_prox_cur", 1, 8),
+    ("MultiLayerBGS", "multilayer_step", 2, 8),  # the first frame's mask is empty
+)
+MAIN_KERNELS = ("consensus", "flood_reach", "label_components", "greedy_assign")
+REGISTRY_FRAMES = 32
+REGISTRY_TIMED = 16
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
+# tensor cores; the bound of a kernel is the larger of its bytes and its
+# operations over these
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def card_line() -> str:
@@ -66,11 +96,19 @@ def clone(tree):
 
 
 def max_err(a, b) -> float:
-    """Largest |a − b| over matching tensors (tuples compared leaf by leaf)."""
+    """Largest |a − b| over matching tensors (tuples and dicts compared leaf
+    by leaf; u32 leaves through their int32 view, which CUDA torch can
+    convert)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"leaf mismatch {sorted(set(a) ^ set(b))}")
+        return max((max_err(a[k], b[k]) for k in a), default=0.0)
     if isinstance(a, (tuple, list)):
         return max((max_err(x, y) for x, y in zip(a, b)), default=0.0)
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"shape/dtype mismatch {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+    if a.dtype == torch.uint32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max()) if a.numel() else 0.0
 
 
@@ -88,41 +126,306 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time for ``n_bytes`` of device memory
+    traffic and ``n_ops`` operations at the card's peaks."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def examined(good: torch.Tensor, req) -> torch.Tensor:
+    """Samples a walk examines per pixel: sample j is read iff fewer than
+    ``req`` earlier samples were good."""
+    g = good.to(torch.int32)
+    before = torch.cumsum(g, dim=0) - g
+    return (before < req).sum(dim=0)
+
+
+def consensus_cost(planes, banks_before, banks_after, good, req, in_bytes_px: int, out_maps: int):
+    """(bound_ms, bound_by) of a consensus (SuBSENSE's or LOBSTER's) on
+    these inputs: it must read the frame planes, every colour slot (for
+    bg_sum), the descriptors of the samples its walk examines and
+    ``in_bytes_px`` bytes per pixel of maps (the pending log, thresholds),
+    write the bank bytes the replay changes and ``out_maps`` int32 maps."""
+    (colors0, descs0), (colors, descs) = banks_before, banks_after
+    Cn = len(planes)
+    N, Hh, Ww = colors[0].shape
+    hw = Hh * Ww
+    walked = int(examined(good, req).sum())
+    changed = sum(int((a != b).sum()) for a, b in zip(colors0, colors))
+    changed += 2 * sum(int((a != b).sum()) for a, b in zip(descs0, descs))
+    n_bytes = Cn * hw + N * Cn * hw + 2 * Cn * walked + in_bytes_px * hw + changed + 4 * out_maps * hw
+    n_ops = N * Cn * hw + walked * Cn * 48  # bg_sum adds; ~48 integer ops per examined sample and channel
+    return bound(n_bytes, n_ops)
+
+
+def gmg_cost(code, nf, colors, weights, new_colors, new_weights):
+    """(bound_ms, bound_by) of a GMG list update on these inputs. Slots at
+    or past a pixel's list length hold (-1, 0) and never change, so the
+    update must read code and nf and write fg and nf1 (int32 maps), read
+    the colours its find examines (up to the first match, else the whole
+    list) and the list's weights (each one is decayed or summed), and write
+    the colour and weight slots that change."""
+    K, Hh, Ww = colors.shape
+    kidx = torch.arange(K, device=colors.device)[:, None, None]
+    match = (colors == code[None]) & (kidx < nf[None])
+    fi = torch.where(match, kidx, K).amin(dim=0)
+    col_read = int(torch.where(fi < K, fi + 1, nf).sum())
+    listed = int(nf.sum())
+    changed = int((new_colors != colors).sum()) + int((new_weights != weights).sum())
+    n_bytes = 16 * Hh * Ww + 4 * col_read + 4 * listed + 4 * changed
+    print(f"  gmg_step bound: mean list length {listed / (Hh * Ww):.3f}, {col_read} colours read, "
+          f"{changed} slots changed, {n_bytes / 1e6:.1f} MB", flush=True)
+    return bound(n_bytes, 12 * (listed + Hh * Ww))  # ~12 operations per list slot and per pixel
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
     print(f"  ok: {what}", flush=True)
 
 
-def profile_full_path(algo, tracker, state0, frames, dev, tag, n_frames: int = 8, top: int = 14) -> None:
-    """Where the time goes: torch.profiler over ``n_frames`` of the full path
-    after a warm-up; device time by kernel and the device's busy share of
-    the wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(run_frame, frame_ids, tag, label, top: int = 14) -> None:
+    """Where the time goes: torch.profiler over ``run_frame(t)`` for the
+    frames ``frame_ids``, after the caller's warm-up; device time by kernel
+    and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    s, tr = clone(state0), tracker.init(device=dev)
-    for t in range(1, 17):
-        s, fg, _ = algo.step(s, frames[t])
-        tr, _ = tracker.step(tr, fg)
+    n_frames = len(frame_ids)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(17, 17 + n_frames):
-            s, fg, _ = algo.step(s, frames[t])
-            tr, _ = tracker.step(tr, fg)
+        for t in frame_ids:
+            run_frame(t)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
     dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
     busy = sum(dev_us(e) for e in events)
     if busy == 0.0:
-        print(f"  {tag} profile: the profiler saw no device time", flush=True)
+        print(f"  {tag} {label} profile: the profiler saw no device time", flush=True)
         return
-    print(f"  {tag} profile over {n_frames} full-path frames (profiler on): device busy "
+    print(f"  {tag} {label} profile over {n_frames} frames (profiler on): device busy "
           f"{busy / n_frames / 1e3:.3f} ms/frame of {wall_us / n_frames / 1e3:.3f} ms wall "
           f"= {busy / wall_us:.1%} busy; {sum(e.count for e in events) / n_frames:.0f} kernels/frame", flush=True)
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         print(f"    {dev_us(e) / n_frames / 1e3:8.4f} ms/frame  {e.count / n_frames:6.1f}x  {e.key[:90]}", flush=True)
+
+
+def profile_full_path(algo, tracker, state0, frames, dev, tag, n_frames: int = 8) -> None:
+    """The SuBSENSE + tracker path under the profiler, after 16 frames."""
+    box = {"s": clone(state0), "tr": tracker.init(device=dev)}
+
+    def run_frame(t):
+        box["s"], fg, _ = algo.step(box["s"], frames[t])
+        box["tr"], _ = tracker.step(box["tr"], fg)
+
+    for t in range(1, 17):
+        run_frame(t)
+    profile(run_frame, range(17, 17 + n_frames), tag, "full path")
+
+
+def check_registry_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
+    """Phase 3 for the registry path's four kernels, each against its plain
+    version on inputs its algorithm made at 720p, exactly."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.bgs.gmg import _quantize
+    from tracking_tpu_torch.ops.consensus import (
+        consensus_lobster, consensus_lobster_ref, intra_descriptors, sample_good_lobster_ref, thr_lobster,
+    )
+    from tracking_tpu_torch.ops.gmg import gmg_step, gmg_step_ref
+    from tracking_tpu_torch.ops.multilayer import LEAF_SPEC, multilayer_step, multilayer_step_ref
+    from tracking_tpu_torch.ops.texture import NUM_BINS, texture_prox_cur, texture_prox_cur_ref
+
+    hw = H * W
+
+    def compare(name, what, a, b):
+        e = max_err(a, b)
+        errs[name] = max(errs[name], e)
+        check(e == 0.0, f"{name} {what} equal (max |err| {e})")
+
+    # K5: LOBSTER's consensus, banks after warm start + 3 steps
+    lob = get_algorithm("LOBSTERBGS")()
+    for c in (3, 1):
+        fr = frames if c == 3 else frames[..., 0].contiguous()
+        st = lob.warm_start(lob.init(H, W, c, device=dev), fr[0])
+        for t in range(1, 4):
+            st, _, _ = lob.step(st, fr[t])
+        planes = tuple(fr[4][..., i].contiguous() for i in range(c)) if c == 3 else (fr[4],)
+        kw = lob._kernel_kw(c)
+
+        def lob_args(s):
+            return (planes, s["colors"], s["descs"], s["pend_ctrl"], s["pend_vals"])
+
+        k_out = consensus_lobster(*lob_args(clone(st)), **kw)
+        p_out = consensus_lobster_ref(*lob_args(clone(st)), **kw)
+        for name, a, b in zip(("count", "intra", "bg_sum", "colors", "descs"), k_out, p_out):
+            compare("consensus_lobster", f"C={c} {name}", a, b)
+        n_short = int((p_out[0] < kw["req"]).sum())
+        check(0 < n_short < hw, f"consensus_lobster C={c}: {n_short} px short of the required samples")
+        if c == 3:
+            timing_inputs["consensus_lobster"] = (lob_args(clone(st)), kw)
+            thr = lambda v: thr_lobster(v, kw["rel"], kw["offset"], kw["div"])  # noqa: E731
+            _, nbs = intra_descriptors(planes, thr)
+            good = sample_good_lobster_ref(planes, p_out[3], p_out[4], nbs, thr, *(kw[k] for k in ("c_sc", "d_sc", "c_tot", "d_tot")))
+            bounds["consensus_lobster"] = consensus_cost(
+                planes, (st["colors"], st["descs"]), (p_out[3], p_out[4]), good, kw["req"], 4 * (1 + c), 1 + 2 * c
+            )
+
+    # K6: GMG's list update, real lists after 24 steps, at t = 5, 19 and 30
+    gmg = get_algorithm("GMG")()
+    cfg = gmg.config
+    st = gmg.init(H, W, C, device=dev)
+    for t in range(1, 25):
+        st, _, _ = gmg.step(st, frames[t])
+    code = _quantize(frames[25], cfg.quantizationLevels)
+    kw = dict(lr=cfg.learningRate, prior=cfg.backgroundPrior, thr=cfg.decisionThreshold,
+              init_frames=cfg.initializationFrames)
+    for tt in (5, 19, 30):
+        tv = torch.tensor(tt, dtype=torch.int32, device=dev)
+
+        def gmg_args(s):
+            return (code, s["nf"], s["colors"].view(torch.int32), s["weights"], tv)
+
+        k_out = gmg_step(*gmg_args(clone(st)), **kw)
+        p_out = gmg_step_ref(*gmg_args(clone(st)), **kw)
+        for name, a, b in zip(("fg", "nf", "colors", "weights"), k_out, p_out):
+            compare("gmg_step", f"t={tt} {name}", a, b)
+    check(int(st["nf"].max()) > 1 and int((p_out[0] > 0).sum()) > 0, f"gmg_step lists up to {int(st['nf'].max())} long, fg at t=30")
+    timing_inputs["gmg_step"] = (gmg_args(clone(st)), kw)
+    bounds["gmg_step"] = gmg_cost(code, st["nf"], st["colors"].view(torch.int32), st["weights"], p_out[2], p_out[3])
+
+    # K7: DPTexture's histograms, the model after warm start + 3 steps
+    tex = get_algorithm("DPTextureBGS")()
+    st = tex.warm_start(tex.init(H, W, C, device=dev), frames[0])
+    for t in range(1, 4):
+        st, _, _ = tex.step(st, frames[t])
+    codes = tex._codes(frames[4])
+    k_out = texture_prox_cur(codes, st["model"])
+    p_out = texture_prox_cur_ref(codes, st["model"])
+    for name, a, b in zip(("prox", "cur"), k_out, p_out):
+        compare("texture_prox_cur", name, a, b)
+    timing_inputs["texture_prox_cur"] = ((codes, st["model"]), {})
+    bounds["texture_prox_cur"] = bound(3 * hw + 2 * 3 * NUM_BINS * hw + 4 * hw, 3 * hw * (121 + 3 * NUM_BINS))
+
+    # K8: MultiLayer's update, a state 8 frames in, learning and not
+    ml = get_algorithm("MultiLayerBGS")()
+    st = ml.warm_start(ml.init(H, W, C, device=dev), frames[0])
+    for t in range(1, 9):
+        st, _, _ = ml.step(st, frames[t])
+    cf, pat = ml.features(frames[9])
+    fidx = st["t"] + 1
+    scal = ml.rates(fidx)
+    for learn in (True, False):
+        k_maps, k_dist = multilayer_step(ml.config, clone(st), cf, pat, scal, fidx, learn)
+        p_maps, p_dist = multilayer_step_ref(ml.config, clone(st), cf, pat, scal, fidx, learn)
+        diffs = {k: max_err(k_maps[k], p_maps[k]) for k in p_maps}
+        diffs["dist"] = max_err(k_dist, p_dist)
+        if any(diffs.values()):
+            n_px = {k: int((k_maps[k] != p_maps[k]).reshape(-1, H * W).any(0).sum()) for k in p_maps}
+            print(f"  multilayer_step learn={learn} differs: max |err| {diffs}; px differing {n_px}", flush=True)
+        e = max(diffs.values())
+        errs["multilayer_step"] = max(errs["multilayer_step"], e)
+        check(e == 0.0, f"multilayer_step learn={learn}: every leaf and the distance equal (max |err| {e})")
+    check(int(p_maps["n"].max()) > 1, f"multilayer lists up to {int(p_maps['n'].max())} modes")
+    timing_inputs["multilayer_step"] = ((ml.config, clone(st), cf, pat, scal, fidx, True), {})
+    state_px = sum(st[leaf][0].numel() // hw for leaf, _ in LEAF_SPEC) * ml.config.max_mode_num * 4 + 8
+    bounds["multilayer_step"] = bound(hw * (2 * state_px + 4 * (3 + 6) + 4), 450 * hw)
+
+
+def registry_path(frames, dev, results):
+    """Phase 4b: each registry algorithm at 720p through its kernel, then its
+    first frames again through the plain versions. Returns the warm-started
+    states (algo, state) for the timing phase."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.ops import _native
+
+    starts = {}
+    for name, kern, first, n_plain in REGISTRY:
+        algo = get_algorithm(name)()
+        start = algo.warm_start(algo.init(H, W, C, device=dev), frames[0])
+        starts[name] = (algo, clone(start))
+        print(f"[4b] {name}: warm start + {REGISTRY_FRAMES} frames at {H}x{W}x{C}", flush=True)
+        s, masks, snap = clone(start), [], None
+        _native.reset_launches()
+        for t in range(1, REGISTRY_FRAMES + 1):
+            s, fg, _ = algo.step(s, frames[t])
+            masks.append(fg)
+            if t == n_plain:
+                snap = clone(s)
+        torch.cuda.synchronize()
+        launches = dict(_native.LAUNCHES)
+        print(f"  launches: {launches}", flush=True)
+        check(launches[kern] > 0, f"{kern} launched {launches[kern]} times on the {name} path")
+        results[kern]["launches"] = launches[kern]
+        share = float(torch.stack(masks[first - 1 :]).gt(0).to(torch.float32).mean())
+        check(0.001 < share < 0.5, f"{name} mean foreground share {share:.4f} over frames {first}-{REGISTRY_FRAMES} in (0.001, 0.5)")
+        s = clone(start)
+        for t in range(1, n_plain + 1):
+            s, fg, _ = algo.step(s, frames[t], use_kernels=False)
+            if not torch.equal(fg, masks[t - 1]):
+                raise AssertionError(f"{name}: the plain path's mask differs from the kernel path's at frame {t}")
+        e = max_err(s, snap)
+        check(e == 0.0, f"{name}: masks over {n_plain} frames and the state after them equal through the plain versions")
+    return starts
+
+
+def time_registry(timing_inputs, results, starts, frames, tag) -> None:
+    """Phase 6 for the registry path: each kernel beside its plain version
+    (plain, kernel, kernel, plain) and ms/frame for each algorithm, twice."""
+    from tracking_tpu_torch.ops.consensus import consensus_lobster, consensus_lobster_ref
+    from tracking_tpu_torch.ops.gmg import gmg_step, gmg_step_ref
+    from tracking_tpu_torch.ops.multilayer import multilayer_step, multilayer_step_ref
+    from tracking_tpu_torch.ops.texture import texture_prox_cur, texture_prox_cur_ref
+
+    pairs = {
+        "consensus_lobster": (consensus_lobster, consensus_lobster_ref, 20, 3),
+        "gmg_step": (gmg_step, gmg_step_ref, 20, 3),
+        "texture_prox_cur": (texture_prox_cur, texture_prox_cur_ref, 20, 3),
+        "multilayer_step": (multilayer_step, multilayer_step_ref, 20, 3),
+    }
+    for k, (fk, fp, rk, rp) in pairs.items():
+        args, kw = timing_inputs[k]
+        time_pair(k, lambda: fk(*args, **kw), lambda: fp(*args, **kw), rk, rp, results, tag)
+    for name, (algo, start) in starts.items():
+        ms = []
+        for _ in range(2):
+            s = clone(start)
+            for t in range(1, 5):  # warm-up
+                s, _, _ = algo.step(s, frames[t])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            for t in range(5, 5 + REGISTRY_TIMED):
+                s, _, _ = algo.step(s, frames[t])
+            ev1.record()
+            torch.cuda.synchronize()
+            ms.append(ev0.elapsed_time(ev1) / REGISTRY_TIMED)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  {tag} {name} step: {ms[0]:.3f} / {ms[1]:.3f} ms/frame = {1000 / min(ms):.1f} fps "
+              f"({REGISTRY_TIMED} frames, {H}x{W}x{C}); peak device memory {peak:.2f} GiB", flush=True)
+        box = {"s": s}
+
+        def run_frame(t, algo=algo, box=box):
+            box["s"], _, _ = algo.step(box["s"], frames[t])
+
+        profile(run_frame, range(5 + REGISTRY_TIMED, 13 + REGISTRY_TIMED), tag, name, top=6)
+
+
+def time_pair(k, fk, fp, rk, rp, results, tag) -> None:
+    """A kernel's and its plain version's ms, in turns (plain, kernel,
+    kernel, plain), beside the kernel's bound."""
+    ms_p1 = cuda_ms(fp, rp)
+    ms_k1 = cuda_ms(fk, rk)
+    ms_k2 = cuda_ms(fk, rk)
+    ms_p2 = cuda_ms(fp, rp)
+    r = results[k]
+    r["ms"] = min(ms_k1, ms_k2)
+    r["plain_ms"] = min(ms_p1, ms_p2)
+    print(f"  {tag} {k}: kernel {ms_k1:.4f} / {ms_k2:.4f} ms, plain {ms_p1:.4f} / {ms_p2:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) = {r['bound_ms'] / r['ms']:.1%} of it reached", flush=True)
 
 
 def main(argv) -> None:
@@ -134,7 +437,9 @@ def main(argv) -> None:
     from tracking_tpu_torch.ops import _native
     from tracking_tpu_torch.ops.assoc import greedy_assign, greedy_assign_ref
     from tracking_tpu_torch.ops.cc import label_components, label_components_ref
-    from tracking_tpu_torch.ops.consensus import consensus, consensus_ref
+    from tracking_tpu_torch.ops.consensus import (
+        color_desc_thresholds, consensus, consensus_ref, intra_descriptors, sample_good_ref, thr_closed_form,
+    )
     from tracking_tpu_torch.ops.fill import flood_reach, flood_reach_ref
     from tracking_tpu_torch.ops.morphology import morph_close
     from tracking_tpu_torch.synth import make_clip
@@ -167,8 +472,13 @@ def main(argv) -> None:
     algo = get_algorithm("subsense")()
     tracker = BlobTracker()
     state0 = algo.warm_start(algo.init(H, W, C, device=dev), frames[0])
-    results = {k: {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1]} for k in SOURCES}
+    results = {
+        k: {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1], "library_ms": None}
+        for k in SOURCES
+    }
     errs = {k: 0.0 for k in SOURCES}
+    bounds = {}
+    hw = H * W
 
     # -- 3. kernels against their plain versions at the main path's shapes --
     print("[3] kernels vs plain versions (exact)", flush=True)
@@ -197,6 +507,16 @@ def main(argv) -> None:
         if c == 3:
             timing_inputs["consensus"] = (cons_args(clone(st)), kw)
             state_for_masks = st
+            thr = lambda v: thr_closed_form(v, st["lut_delta"], kw["rel"], kw["div"], kw["hi_const"])  # noqa: E731
+            _, nbs = intra_descriptors(planes, thr)
+            ct, dt = color_desc_thresholds(st["R"], st["unstable"], False, kw["min_cd"], kw["desc_off"])
+            good, _, _ = sample_good_ref(planes, p_out[5], p_out[6], p_out[3], nbs, thr, ct, dt)
+            bounds["consensus"] = consensus_cost(
+                planes, (st["colors"], st["descs"]), (p_out[5], p_out[6]), good, req[None], 4 * (1 + c) + 9, 3 + 2 * c
+            )
+            walked = int(examined(good, req[None]).sum())
+            print(f"  consensus C=3: the walk examines {walked} samples ({walked / hw:.3f} per px), "
+                  f"bound {bounds['consensus'][0]:.4f} ms", flush=True)
 
     raw = state_for_masks["last_raw"]
     pre_flood = morph_close(raw, 3)
@@ -246,6 +566,11 @@ def main(argv) -> None:
         if e != 0.0:
             raise AssertionError(f"greedy_assign differs on random matrix {i}")
     check(True, "greedy_assign equal on 20 random gated 32x64 matrices with ties")
+    bounds["flood_reach"] = bound(3 * hw, 10 * hw)  # bg + seeds read, reach written (bool)
+    bounds["label_components"] = bound(5 * hw, 20 * hw)  # mask read (u8), labels written (int32)
+    check_registry_kernels(frames, dev, errs, timing_inputs, bounds)
+    for k, (b_ms, b_by) in bounds.items():
+        results[k]["bound_ms"], results[k]["bound_by"] = b_ms, b_by
 
     # -- 4. the main path --------------------------------------------------
     print(f"[4] main path: warm start + {MAIN_FRAMES} frames of SuBSENSE + CCMSPF at {H}x{W}x{C}", flush=True)
@@ -263,9 +588,9 @@ def main(argv) -> None:
     torch.cuda.synchronize()
     launches = dict(_native.LAUNCHES)
     print(f"  launches: {launches}", flush=True)
-    for k, n in launches.items():
-        check(n > 0, f"{k} launched {n} times on the main path")
-        results[k]["launches"] = n
+    for k in MAIN_KERNELS:
+        check(launches[k] > 0, f"{k} launched {launches[k]} times on the main path")
+        results[k]["launches"] = launches[k]
     share = float(torch.stack(masks).gt(0).to(torch.float32).mean())
     check(0.001 < share < 0.5, f"mean foreground share {share:.4f} in (0.001, 0.5)")
     n_active = int(trk["active"].sum())
@@ -282,6 +607,11 @@ def main(argv) -> None:
     errs["greedy_assign"] = max(errs["greedy_assign"], e)
     check(e == 0.0 and int((b[0] >= 0).sum()) >= 1, f"greedy_assign equal on the tracker's cost matrix ({int((b[0] >= 0).sum())} pairs)")
     timing_inputs["greedy_assign"] = (cost,)
+    Kt, Bt = cost.shape
+    results["greedy_assign"]["bound_ms"], results["greedy_assign"]["bound_by"] = bound(4 * Kt * Bt + 4 * Kt + Bt, Kt * Kt * Bt)
+
+    # -- 4b. the registry path ---------------------------------------------
+    starts = registry_path(frames, dev, results)
 
     # -- 5. path against path ----------------------------------------------
     print(f"[5] the first {PATH_FRAMES} frames through the plain versions", flush=True)
@@ -309,14 +639,10 @@ def main(argv) -> None:
                           lambda: greedy_assign_ref(*timing_inputs["greedy_assign"]), 200, 20),
     }
     for k, (fk, fp, rk, rp) in plain_fns.items():
-        ms_p1 = cuda_ms(fp, rp)
-        ms_k1 = cuda_ms(fk, rk)
-        ms_k2 = cuda_ms(fk, rk)
-        ms_p2 = cuda_ms(fp, rp)
-        results[k]["ms"] = min(ms_k1, ms_k2)
-        results[k]["plain_ms"] = min(ms_p1, ms_p2)
+        time_pair(k, fk, fp, rk, rp, results, tag)
+    time_registry(timing_inputs, results, starts, frames, tag)
+    for k in SOURCES:
         results[k]["max_abs_err"] = errs[k]
-        print(f"  {tag} {k}: kernel {ms_k1:.4f} / {ms_k2:.4f} ms, plain {ms_p1:.4f} / {ms_p2:.4f} ms", flush=True)
 
     def run(frames_range, with_tracker: bool):
         s = clone(state0)
@@ -336,6 +662,7 @@ def main(argv) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / len(frames_range)
 
+    torch.cuda.reset_peak_memory_stats()
     span = range(17, 17 + TIMED_FRAMES)
     bgs_ms = [run(span, False), run(span, False)]
     full_ms = [run(span, True), run(span, True)]
@@ -343,7 +670,7 @@ def main(argv) -> None:
         print(f"  {tag} {name}: {v[0]:.3f} / {v[1]:.3f} ms/frame = {1000 / min(v):.1f} fps "
               f"({TIMED_FRAMES} frames, {H}x{W}x{C})", flush=True)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  {tag} peak device memory {peak:.2f} GiB", flush=True)
+    print(f"  {tag} peak device memory of the SuBSENSE + tracker runs {peak:.2f} GiB", flush=True)
     profile_full_path(algo, tracker, state0, frames, dev, tag)
 
     print(json.dumps({"kernels": [results[k] for k in SOURCES]}))

@@ -14,12 +14,18 @@ import pytest
 import torch
 
 from torch_parity import assert_tree_equal
+from tracking_tpu.bgs import gmg as JG
 from tracking_tpu.bgs import lbsp_family as JLF
+from tracking_tpu.bgs import multilayer as JM
+from tracking_tpu.bgs import texture as JT
 from tracking_tpu.core.registry import list_algorithms as j_list_algorithms
 from tracking_tpu.track import tracker as JTR
 from tracking_tpu_torch import convert, get_algorithm, list_algorithms
+from tracking_tpu_torch.bgs import gmg as TG
 from tracking_tpu_torch.bgs import lbsp_family as TLF
-from tracking_tpu_torch.ops import _native, assoc, cc, consensus, fill
+from tracking_tpu_torch.bgs import multilayer as TM
+from tracking_tpu_torch.bgs import texture as TT
+from tracking_tpu_torch.ops import _native, assoc, cc, consensus, fill, gmg, multilayer, texture
 from tracking_tpu_torch.track import tracker as TTR
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -62,7 +68,14 @@ def test_no_jax_or_reference_imports():
             assert top not in ("jax", "jaxlib", "tracking_tpu"), f"{f.relative_to(REPO)} imports {mod}"
 
 
-@pytest.mark.parametrize("ref,port", [(JLF.SuBSENSEConfig, TLF.SuBSENSEConfig), (JTR.TrackerConfig, TTR.TrackerConfig)])
+@pytest.mark.parametrize(
+    "ref,port",
+    [
+        (JLF.SuBSENSEConfig, TLF.SuBSENSEConfig), (JTR.TrackerConfig, TTR.TrackerConfig),
+        (JLF.LOBSTERConfig, TLF.LOBSTERConfig), (JG.GMGConfig, TG.GMGConfig),
+        (JT.DPTextureConfig, TT.DPTextureConfig), (JM.MultiLayerConfig, TM.MultiLayerConfig),
+    ],
+)
 def test_config_fields_and_defaults_match(ref, port):
     def spec(cls):
         return [(f.name, f.default, f.init) for f in dataclasses.fields(cls)]
@@ -71,13 +84,23 @@ def test_config_fields_and_defaults_match(ref, port):
     assert port() == port().replace()
 
 
-def test_registry():
-    cls = get_algorithm("subsense")
-    assert cls is get_algorithm(36) is get_algorithm("SuBSENSEBGS") is TLF.SuBSENSE
-    assert cls.type_id == 36
+@pytest.mark.parametrize(
+    "name,type_id,aliases,cls",
+    [
+        ("SuBSENSEBGS", 36, ("subsense",), TLF.SuBSENSE),
+        ("LOBSTERBGS", 37, ("lobster",), TLF.LOBSTER),
+        ("GMG", 8, ("gmg",), TG.GMG),
+        ("DPTextureBGS", 16, ("texture-lbp", "dp-texture"), TT.DPTextureBGS),
+        ("MultiLayerBGS", 23, ("multilayer",), TM.MultiLayerBGS),
+    ],
+)
+def test_registry(name, type_id, aliases, cls):
+    assert get_algorithm(name) is get_algorithm(type_id) is cls
+    assert all(get_algorithm(a) is cls for a in aliases)
+    assert cls.name == name and cls.type_id == type_id
     assert set(list_algorithms()) <= set(j_list_algorithms())
     with pytest.raises(KeyError):
-        get_algorithm("LOBSTERBGS")
+        get_algorithm("MOG2")  # registered in the reference, not ported
 
 
 @pytest.mark.parametrize("c", [1, 3])
@@ -86,18 +109,98 @@ def test_init_state_mirrors_reference(c):
     converter round-trips it."""
     h, w = 24, 40
     want = jax.device_get(JLF.SuBSENSE().init(h, w, c))
-    got = TLF.SuBSENSE().init(h, w, c)
+    got = TLF.SuBSENSE().init(h, w, c, device="cpu")
     assert_tree_equal(want, got)
-    assert_tree_equal(want, convert.state_from_numpy(want))
-    assert_tree_equal(got, convert.state_from_numpy(convert.state_to_numpy(got)))
+    assert_tree_equal(want, convert.state_from_numpy(want, device="cpu"))
+    assert_tree_equal(got, convert.state_from_numpy(convert.state_to_numpy(got), device="cpu"))
+
+
+@pytest.mark.parametrize(
+    "ref,port,c",
+    [
+        (JLF.LOBSTER, TLF.LOBSTER, 3), (JLF.LOBSTER, TLF.LOBSTER, 1), (JG.GMG, TG.GMG, 3),
+        (JT.DPTextureBGS, TT.DPTextureBGS, 3), (JM.MultiLayerBGS, TM.MultiLayerBGS, 3),
+    ],
+)
+def test_slice2_init_states_mirror_reference(ref, port, c):
+    h, w = 24, 40
+    want = jax.device_get(ref().init(h, w, c))
+    got = port().init(h, w, c, device="cpu")
+    assert_tree_equal(want, got)
+    assert_tree_equal(want, convert.state_from_numpy(want, device="cpu"))
+    assert_tree_equal(got, convert.state_from_numpy(convert.state_to_numpy(got), device="cpu"))
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: TLF.SuBSENSE().init(8, 8, 3), lambda: TLF.LOBSTER().init(8, 8, 3), lambda: TG.GMG().init(8, 8, 3),
+        lambda: TT.DPTextureBGS().init(8, 8, 3), lambda: TM.MultiLayerBGS().init(8, 8, 3),
+        lambda: TTR.BlobTracker().init(), lambda: convert.state_from_numpy({"t": np.zeros((), np.int32)}),
+    ],
+    ids=["subsense", "lobster", "gmg", "dptexture", "multilayer", "tracker", "convert"],
+)
+def test_entry_points_default_to_the_card(make):
+    """With no device given, states are made on the card: on a host without
+    CUDA that is PyTorch's own error, never a silent CPU state."""
+    if torch.cuda.is_available():
+        state = make()
+        assert state["t"].is_cuda if "t" in state else state["ids"].is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("name", ["SuBSENSEBGS", "LOBSTERBGS", "GMG", "DPTextureBGS", "MultiLayerBGS"])
+def test_run_video_uses_only_the_returned_state(name):
+    """``step`` consumes its state (kernels may update it in place), while
+    the masks and bg images it returned stay valid. Here a step that
+    overwrites every other input tensor it did not return gives the same run
+    as the plain one, so the frame loop reads only returned states."""
+    from tracking_tpu_torch.runner.scan import run_video
+    from tracking_tpu_torch.synth import make_clip
+
+    cls = get_algorithm(name)
+    images = set()  # storages of the masks and bg images returned so far
+
+    class Consuming(cls):
+        def step(self, state, frame, **kw):
+            out = super().step(state, frame, **kw)
+            images.update(x.untyped_storage().data_ptr() for x in out[1:])
+            kept = images | {x.untyped_storage().data_ptr() for x in _leaves(out[0])}
+            for x in _leaves(state):
+                if x.untyped_storage().data_ptr() not in kept and x.dtype != torch.uint32:
+                    x.fill_(float("nan") if x.is_floating_point() else 7)
+            return out
+
+    frames = torch.from_numpy(make_clip(24, 16, 24, 3, seed=3))
+    want_state, want = run_video(cls(), frames)
+    got_state, got = run_video(Consuming(), frames)
+    assert torch.equal(got, want)
+    assert_tree_equal(want_state, got_state)
+
+
+def test_multilayer_checkpoints_not_ported():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        TM.MultiLayerBGS(saveModel=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        TM.MultiLayerBGS(bg_model_preload="models/x")
 
 
 def test_tracker_state_mirrors_reference():
     want = jax.device_get(JTR.BlobTracker().init())
-    got = TTR.BlobTracker().init()
+    got = TTR.BlobTracker().init(device="cpu")
     assert list(got) == list(JTR.TrackTable._fields)
     assert_tree_equal(want._asdict(), got)
-    assert_tree_equal(want._asdict(), convert.state_from_numpy(want))
+    assert_tree_equal(want._asdict(), convert.state_from_numpy(want, device="cpu"))
 
 
 def test_wrappers_refuse_other_devices():
@@ -123,6 +226,21 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="1 or 3 channels"):
         consensus.consensus_ref(planes * 2, banks * 2, descs * 2, i32, (i32, i32), None, None, None, None,
                                 rel=0.333, div=1.0, hi_const=85.0, min_cd=30, desc_off=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        consensus.consensus_lobster(planes, banks, descs, i32, (i32,), **TLF.LOBSTER()._kernel_kw(1))
+    k64 = dict(dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        gmg.gmg_step(i32, i32, torch.empty((64, 8, 12), **k64), torch.empty((64, 8, 12), **meta),
+                     torch.empty((), **k64), lr=0.025, prior=0.8, thr=0.7, init_frames=20)
+    with pytest.raises(ValueError, match="CUDA"):
+        texture.texture_prox_cur(torch.empty((3, 8, 12), dtype=torch.uint8, **meta),
+                                 torch.empty((3, 64, 8, 12), dtype=torch.uint8, **meta))
+    ml = TM.MultiLayerBGS()
+    state = {k: v.to("meta") for k, v in ml.init(8, 12, 3, device="cpu").items()}
+    with pytest.raises(ValueError, match="CUDA"):
+        multilayer.multilayer_step(ml.config, state, torch.empty((3, 8, 12), **meta),
+                                   torch.empty((6, 8, 12), **meta), torch.empty((4,), **meta),
+                                   torch.empty((), **k64), True)
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -132,7 +250,13 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _native.build()
     assert not (tmp_path / "build").exists()
-    assert {p.name for p in _native.sources()} >= {"consensus.cu", "fill.cu", "cc.cu", "assoc.cu"}
+    assert {p.name for p in _native.sources()} >= {
+        "consensus.cu", "fill.cu", "cc.cu", "assoc.cu", "gmg.cu", "texture.cu", "multilayer.cu"
+    }
+    assert set(_native.LAUNCHES) == {
+        "consensus", "flood_reach", "label_components", "greedy_assign",
+        "consensus_lobster", "gmg_step", "texture_prox_cur", "multilayer_step",
+    }
     assert "-fmad=false" in _native.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _native.NVCC_FLAGS
     assert not any("fast" in f for f in _native.NVCC_FLAGS)
 
@@ -142,10 +266,10 @@ def test_convert_round_trips_a_stepped_state():
 
     frames = torch.from_numpy(make_clip(3, 24, 32, 3, seed=1))
     algo = TLF.SuBSENSE()
-    st = algo.warm_start(algo.init(24, 32, 3), frames[0])
+    st = algo.warm_start(algo.init(24, 32, 3, device="cpu"), frames[0])
     st, fg, bg = algo.step(st, frames[1])
     assert fg.dtype == torch.uint8 and bg.shape == (24, 32, 3)
-    back = convert.state_from_numpy(convert.state_to_numpy(st))
+    back = convert.state_from_numpy(convert.state_to_numpy(st), device="cpu")
     assert_tree_equal(st, back)
     assert isinstance(back["colors"], tuple) and back["key"].dtype == torch.uint32
     assert np.asarray(convert.state_to_numpy(st)["t"]).shape == ()

@@ -21,9 +21,9 @@ def test_subsense_then_tracker():
     frames = make_clip(22, 64, 96, 3, seed=11, n_objects=2)
     ja, ta = JSuBSENSE(), TSuBSENSE()
     jb = jax.jit(ja.warm_start)(ja.init(64, 96, 3), jnp.asarray(frames[0]))
-    tb = ta.warm_start(ta.init(64, 96, 3), torch.from_numpy(frames[0]))
+    tb = ta.warm_start(ta.init(64, 96, 3, device="cpu"), torch.from_numpy(frames[0]))
     jt, tt = JTracker(), TTracker()
-    js, ts = jt.init(), tt.init()
+    js, ts = jt.init(), tt.init(device="cpu")
     jstep = jax.jit(jt.step)
     births = 0
     for t in range(1, frames.shape[0]):

@@ -30,7 +30,7 @@ def test_subsense_scaling_branch_with_auto_reset():
     js = jax.jit(ja.warm_start)(ja.init(h, w, 3), jnp.asarray(frames[0]))
     js = dict(js, t=jnp.int32(100), ds_lt=tuple(jnp.zeros_like(d) for d in js["ds_lt"]),
               ds_st=tuple(jnp.full_like(d, 120.0) for d in js["ds_st"]))
-    shares, ts = run_both(frames, jstate=js)
+    shares, ts = run_both(ja, TSuBSENSE(), frames, jstate=js)
     # frame 1 triggered the refresh (cooldown set to 25, then counted down)
     assert int(ts["cooldown"]) == 25 - 4
     assert float(ts["lr_lower"]) < 2.0  # the brightness jump capped the rates

@@ -35,7 +35,7 @@ def test_tracker_matches_reference_through_a_crossing(tracker_type, detector):
     masks = crossing_masks(24, 96, 128)
     jt = JTracker(JConfig(trackerType=tracker_type, blobDetector=detector))
     tt = TTracker(trackerType=tracker_type, blobDetector=detector)
-    js, ts = jt.init(), tt.init()
+    js, ts = jt.init(), tt.init(device="cpu")
     assert_tree_equal(jax.device_get(js)._asdict(), ts)
     collided = False
     jstep = jax.jit(jt.step)

@@ -9,9 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from tracking_tpu.bgs.lbsp_family import SuBSENSE as JSuBSENSE
 from tracking_tpu.runner.scan import run_video as jrun
-from tracking_tpu_torch.bgs.lbsp_family import SuBSENSE as TSuBSENSE
 from tracking_tpu_torch.convert import state_from_numpy
 from tracking_tpu_torch.runner.scan import run_video as trun
 
@@ -70,27 +68,35 @@ def assert_tree_equal(ref, got, path: str = "", tol: dict | None = None) -> None
         np.testing.assert_array_equal(got, ref, err_msg=path)
 
 
-def run_both(frames, jstate=None):
-    """Warm-start both packages on frame 0 (or start both from ``jstate``)
-    and step frames 1.. one at a time, comparing after each frame. Returns
-    the per-frame foreground shares."""
-    ja, ta = JSuBSENSE(), TSuBSENSE()
+def assert_step_equal(t, ref, got):
+    """Default per-frame check of :func:`run_both`: mask, bg image and every
+    state leaf bit-exact. ``ref`` = (mask, bg, state) of the JAX package as
+    numpy, ``got`` the port's as tensors."""
+    np.testing.assert_array_equal(got[0].numpy(), ref[0], err_msg=f"mask, frame {t}")
+    np.testing.assert_array_equal(got[1].numpy(), ref[1], err_msg=f"bg, frame {t}")
+    assert_tree_equal(ref[2], got[2], f"frame {t}")
+
+
+def run_both(ja, ta, frames, jstate=None, check=assert_step_equal):
+    """Warm-start the JAX algorithm ``ja`` and its port ``ta`` on frame 0
+    (or start both from the JAX state ``jstate``) and step frames 1.. one at
+    a time through both packages' ``run_video``, calling ``check(t, ref,
+    got)`` after each frame. Returns the per-frame foreground shares and the
+    port's final state."""
     h, w = frames.shape[1:3]
     c = frames.shape[3] if frames.ndim == 4 else 1
     if jstate is None:
         js = jax.jit(ja.warm_start)(ja.init(h, w, c), jnp.asarray(frames[0]))
-        ts = ta.warm_start(ta.init(h, w, c), torch.from_numpy(frames[0]))
+        ts = ta.warm_start(ta.init(h, w, c, device="cpu"), torch.from_numpy(frames[0]))
         assert_tree_equal(jax.device_get(js), ts, "warm_start")
     else:
         js = jstate
-        ts = state_from_numpy(jax.device_get(js))
+        ts = state_from_numpy(jax.device_get(js), device="cpu")
     shares = []
     for t in range(1, frames.shape[0]):
         js, (jm, jb) = jrun(ja, jnp.asarray(frames[t : t + 1]), state=js, with_background=True)
         ts, (tm, tb) = trun(ta, torch.from_numpy(frames[t : t + 1]), state=ts, with_background=True)
-        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm), err_msg=f"mask, frame {t}")
-        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb), err_msg=f"bg, frame {t}")
-        assert_tree_equal(jax.device_get(js), ts, f"frame {t}")
+        check(t, (np.asarray(jm), np.asarray(jb), jax.device_get(js)), (tm, tb, ts))
         shares.append(float((tm.numpy() > 0).mean()))
     return shares, ts
 

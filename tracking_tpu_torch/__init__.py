@@ -5,14 +5,19 @@ and never JAX or ``tracking_tpu``. Module names mirror the reference's:
 
 - ``bgs/base.py``, ``core/registry.py``, ``runner/scan.py``: the
   ``init`` / ``warm_start`` / ``step`` contract, registry and frame loop;
-- ``bgs/lbsp_family.py``: SuBSENSE (type 36);
+- ``bgs/lbsp_family.py``: SuBSENSE (type 36) and LOBSTER (37);
+  ``bgs/gmg.py``: GMG (8); ``bgs/texture.py``: DPTexture (16);
+  ``bgs/multilayer.py``: MultiLayer (23);
 - ``ops/rng.py``: JAX's threefry key chain and the counter-hash field;
 - ``ops/lbsp.py``, ``ops/morphology.py``, ``ops/filters.py``,
-  ``ops/feedback.py`` (``pallas_feedback.py``): plain torch;
-- ``ops/consensus.py``, ``ops/fill.py``, ``ops/cc.py``, ``ops/assoc.py``:
-  each holds a CUDA kernel (``csrc/``, replacing ``pallas_consensus``,
-  ``pallas_fill``, ``pallas_cc``, ``pallas_assoc``) beside its plain
-  version; CPU tensors take the plain version, CUDA tensors the kernel;
+  ``ops/color.py``, ``ops/sort.py``, ``ops/feedback.py``
+  (``pallas_feedback.py``): plain torch;
+- ``ops/consensus.py``, ``ops/fill.py``, ``ops/cc.py``, ``ops/assoc.py``,
+  ``ops/gmg.py``, ``ops/texture.py``, ``ops/multilayer.py``: each holds
+  CUDA kernels (``csrc/``, replacing ``pallas_consensus``, ``pallas_fill``,
+  ``pallas_cc``, ``pallas_assoc``, ``pallas_gmg``, ``pallas_texture``,
+  ``pallas_multilayer``) beside their plain versions; CPU tensors take the
+  plain version, CUDA tensors the kernel;
 - ``track/``: Kalman filters, mean-shift and the CC / CCMSPF blob tracker;
 - ``convert.py``: states to and from the JAX package's pytrees.
 """

@@ -1,4 +1,5 @@
-"""SuBSENSE (type 36), counterpart of ``tracking_tpu/bgs/lbsp_family.py``.
+"""SuBSENSE (type 36) and LOBSTER (type 37), counterpart of
+``tracking_tpu/bgs/lbsp_family.py``.
 
 Self-Balanced SENsitivity SEgmenter: 50-sample colour+LBSP consensus with
 per-pixel feedback (distance threshold R(x), update rate T(x), variation
@@ -14,7 +15,12 @@ consensus. On CUDA tensors the consensus, the hole-fill reachability and
 CUDA consensus updates the state's banks in place.
 
 Left out of this port: the spatially sharded mode (``ctx``), the v2/v3
-consensus variants and the fused whole-step kernel; LOBSTER.
+consensus variants and the fused whole-step kernel.
+
+LOBSTER (below SuBSENSE) is the same model with fixed thresholds: N = 35
+samples, a 1/16 stochastic self and 3×3-neighbour update logged the same
+way, and a 9×9 median. Its consensus is the CUDA kernel
+``consensus_lobster`` on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from tracking_tpu_torch.ops import rng
 from tracking_tpu_torch.ops.consensus import (
     apply_pending_ref,
     consensus,
+    consensus_lobster,
+    consensus_lobster_ref,
     consensus_ref,
     intra_descriptors,
     nb3_to_nb5_idx,
@@ -39,6 +47,7 @@ from tracking_tpu_torch.ops.consensus import (
     pack_pending_vals,
     recip,
     thr_closed_form,
+    thr_lobster,
 )
 from tracking_tpu_torch.ops.feedback import FeedbackConsts, feedback
 from tracking_tpu_torch.ops.filters import binary_median_blur
@@ -62,6 +71,7 @@ LBSPDESC_RATIO_MAX = 0.5
 DOWNSAMPLE_RATIO = 8
 DEFAULT_FRAME_AREA = 320 * 240
 DEFAULT_MEDIAN_KSIZE = 9
+_RMAX = 1 << 30
 
 # 7×7 gaussian init-sampling pattern (RandUtils.h:13-25), flattened x outer,
 # y inner, for inverse-CDF sampling
@@ -183,7 +193,7 @@ class SuBSENSE(BGSAlgorithm):
             t_lower, t_upper = FEEDBACK_T_LOWER * 2, FEEDBACK_T_UPPER * 2
         return scaling, use3x3, ksize, t_lower, t_upper
 
-    def init(self, h: int, w: int, c: int = 3, device=None) -> State:
+    def init(self, h: int, w: int, c: int = 3, device="cuda") -> State:
         cfg = self.config
         c = max(c, 1)
         N = cfg.nBGSamples
@@ -433,6 +443,115 @@ class SuBSENSE(BGSAlgorithm):
             "auto_reset": auto_reset,
             "lr_lower": lr_lower,
             "lr_upper": lr_upper,
+            "pend_ctrl": pend_ctrl,
+            "pend_vals": pend_vals,
+        }
+        return new_state, final, _from_planes(bg_planes, was_gray)
+
+
+@dataclasses.dataclass(frozen=True)
+class LOBSTERConfig(BGSConfig):
+    fRelLBSPThreshold: float = 0.365
+    nLBSPThresholdOffset: int = 0
+    nDescDistThreshold: int = 4
+    nColorDistThreshold: int = 30
+    nBGSamples: int = 35
+    nRequiredBGSamples: int = 2
+    learningRate: float = 16.0
+    showOutput: bool = True
+
+
+@register("LOBSTERBGS", type_id=37, aliases=("lobster",))
+class LOBSTER(BGSAlgorithm):
+    """LOcal Binary Similarity segmenTER (St-Charles & Bilodeau, WACV 2014):
+    consensus over N = 35 colour+LBSP samples with fixed thresholds and
+    stochastic 1/16 updates."""
+
+    Config = LOBSTERConfig
+
+    def _kernel_kw(self, c: int):
+        """The consensus's thresholds (``lbsp_family.py:509-516``)."""
+        cfg = self.config
+        if c == 1:
+            c_sc, d_sc = cfg.nColorDistThreshold // 2, cfg.nDescDistThreshold
+        else:
+            c_sc, d_sc = (cfg.nColorDistThreshold * 3) // 2, (cfg.nDescDistThreshold * 3) // 2
+        return dict(
+            rel=cfg.fRelLBSPThreshold, offset=float(cfg.nLBSPThresholdOffset), div=2.0 if c == 1 else 1.0,
+            c_sc=c_sc, d_sc=d_sc, c_tot=cfg.nColorDistThreshold * 3, d_tot=cfg.nDescDistThreshold * 3,
+            req=cfg.nRequiredBGSamples,
+        )
+
+    def init(self, h: int, w: int, c: int = 3, device="cuda") -> State:
+        N = self.config.nBGSamples
+        c = max(c, 1)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return {
+            "t": zeros((), torch.int32),
+            "key": rng.prng_key(0, device=device),
+            "colors": tuple(zeros((N, h, w), torch.uint8) for _ in range(c)),
+            "descs": tuple(zeros((N, h, w), torch.uint16) for _ in range(c)),
+            "last_final": zeros((h, w), torch.uint8),
+            "pend_ctrl": zeros((h, w), torch.int32),
+            "pend_vals": tuple(zeros((h, w), torch.int32) for _ in range(c)),
+        }
+
+    def warm_start(self, state: State, frame: torch.Tensor) -> State:
+        """initialize + refreshModel(1.0) (LOBSTER.cpp:28-36)."""
+        cfg = self.config
+        planes, _ = _to_planes(frame)
+        h, w = planes[0].shape
+        kw = self._kernel_kw(len(planes))
+        intra, _ = intra_descriptors(planes, lambda v: thr_lobster(v, kw["rel"], kw["offset"], kw["div"]))
+        key, sub = rng.split(state["key"], 2)
+        colors, descs = _refresh_samples(
+            sub, cfg.nBGSamples, cfg.nBGSamples, 0, planes, intra,
+            torch.ones((h, w), dtype=torch.bool, device=frame.device), state["colors"], state["descs"],
+        )
+        return dict(state, key=key, colors=colors, descs=descs)
+
+    def step(self, state: State, frame: torch.Tensor, use_kernels: bool = True) -> StepResult:
+        """One frame (``lbsp_family.py:484-654`` without ``ctx``). On CUDA
+        tensors the consensus kernel runs (and the banks update in place)
+        unless ``use_kernels=False``."""
+        cfg = self.config
+        N = cfg.nBGSamples
+        planes, was_gray = _to_planes(frame)
+        c = len(planes)
+        h, w = planes[0].shape
+        roi = _roi_mask(h, w, frame.device)
+        keys = rng.split(state["key"], 8)
+
+        cons = consensus_lobster if use_kernels else consensus_lobster_ref
+        count, intra, bg_sums, colors, descs = cons(
+            planes, state["colors"], state["descs"], state["pend_ctrl"], state["pend_vals"], **self._kernel_kw(c)
+        )
+        is_bg = (count >= cfg.nRequiredBGSamples) & roi
+        raw_fg = torch.where(roi & ~is_bg, 255, 0).to(torch.uint8)
+
+        # stochastic self + 3×3-neighbour updates (:209-222), logged for the
+        # next step; the 5×5 fields stay zero with their fire bit clear
+        lr = int(np.ceil(cfg.learningRate))
+        self_upd = is_bg & (rng.field_randint(keys[2], (h, w), 0, _RMAX) % lr == 0)
+        slot_self = rng.field_randint(keys[3], (h, w), 0, N)
+        src_fire = is_bg & (rng.field_randint(keys[4], (h, w), 0, _RMAX) % lr == 0)
+        o_idx = rng.field_randint(keys[5], (h, w), 0, 8)
+        slot_nb = rng.field_randint(keys[6], (h, w), 0, N)
+        zero = torch.zeros((h, w), dtype=torch.int32, device=frame.device)
+        pend_ctrl = pack_pending_ctrl(self_upd, slot_self, nb3_to_nb5_idx(o_idx), zero, slot_nb, zero)
+        pend_vals = pack_pending_vals(planes, intra, src_fire)
+
+        final = binary_median_blur(raw_fg, DEFAULT_MEDIAN_KSIZE)
+        bg_planes = tuple(torch.round(bg_sums[ci].to(torch.float32) * recip(N)).to(torch.uint8) for ci in range(c))
+        new_state = {
+            "t": state["t"] + 1,
+            "key": keys[0],
+            "colors": colors,
+            "descs": descs,
+            "last_final": final,
             "pend_ctrl": pend_ctrl,
             "pend_vals": pend_vals,
         }

@@ -1,7 +1,8 @@
 """States to and from the JAX package's pytrees, as numpy.
 
-A SuBSENSE state is a dict whose colour leaves are tuples; a tracker state
-is the reference's ``TrackTable`` (a NamedTuple). Both become the port's
+An algorithm's state is a dict (SuBSENSE's and LOBSTER's colour leaves are
+tuples, GMG's colour codes u32); a tracker state is the reference's
+``TrackTable`` (a NamedTuple). Both become the port's
 dict-of-tensors form with the same leaf names, shapes and dtypes, so both
 packages can start from one state and be compared leaf by leaf. The caller
 turns JAX arrays into numpy (``jax.device_get``) first: this module does
@@ -14,8 +15,9 @@ import numpy as np
 import torch
 
 
-def state_from_numpy(tree, device=None):
-    """numpy pytree (dict / NamedTuple / tuple / array) -> port state."""
+def state_from_numpy(tree, device="cuda"):
+    """numpy pytree (dict / NamedTuple / tuple / array) -> port state, on
+    the card unless ``device`` says otherwise."""
     if hasattr(tree, "_fields"):  # a NamedTuple such as TrackTable
         return {k: state_from_numpy(getattr(tree, k), device) for k in tree._fields}
     if isinstance(tree, dict):

@@ -65,20 +65,13 @@ __device__ __forceinline__ int lbsp_thr(int v, float delta, float rel, float inv
   return (int)fminf(fmaxf(base + delta, lower), upper);
 }
 
+// Step 1, shared by both kernels: replay frame t-1's pending log into this
+// pixel's slots in place (see the header). LOBSTER's log sets only 3x3 spreads (u5 = 0 with the 5x5 fire bit clear),
+// so the same decode serves it.
 template <int C>
-__global__ void consensus_kernel(const uint8_t* __restrict__ planes, Banks banks, const int32_t* __restrict__ ctrl_map,
-                                 const float* __restrict__ R_map, const bool* __restrict__ unstable_map,
-                                 const int32_t* __restrict__ required_map, const int32_t* __restrict__ lut_delta,
-                                 int32_t* count_out, int32_t* mind_out, int32_t* mins_out, int32_t* intra_out,
-                                 int32_t* bg_out, int N, int H, int W, float rel, float inv_div, float hi,
-                                 int min_cd, int desc_off) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const int HW = H * W;
-  const int p = y * W + x;
-
-  // -- 1. replay the pending log ---------------------------------------------
+__device__ __forceinline__ void replay_pending(const Banks& banks, const int32_t* __restrict__ ctrl_map, int x, int y,
+                                               int p, int N, int H, int W) {
+  const size_t HW = (size_t)H * W;
   const int ctrl = ctrl_map[p];
   const bool upd1 = (ctrl & 1) != 0;
   const int slot1 = (ctrl >> 1) & 63;
@@ -120,11 +113,36 @@ __global__ void consensus_kernel(const uint8_t* __restrict__ planes, Banks banks
       banks.col[c][(size_t)slotn * HW + p] = (uint8_t)(nb & 0xFF);
       banks.desc[c][(size_t)slotn * HW + p] = (uint16_t)((nb >> 8) & 0xFFFF);
     }
-    // -- 2. background sum over the updated colour slots --------------------
+  }
+}
+
+// Step 2, shared: bg_sum = the sum of the N colour slots after the replay.
+template <int C>
+__device__ __forceinline__ void bank_sums(const Banks& banks, int32_t* bg_out, int p, int N, size_t HW) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
     int s = 0;
     for (int j = 0; j < N; ++j) s += banks.col[c][(size_t)j * HW + p];
     bg_out[(size_t)c * HW + p] = s;
   }
+}
+
+template <int C>
+__global__ void consensus_kernel(const uint8_t* __restrict__ planes, Banks banks, const int32_t* __restrict__ ctrl_map,
+                                 const float* __restrict__ R_map, const bool* __restrict__ unstable_map,
+                                 const int32_t* __restrict__ required_map, const int32_t* __restrict__ lut_delta,
+                                 int32_t* count_out, int32_t* mind_out, int32_t* mins_out, int32_t* intra_out,
+                                 int32_t* bg_out, int N, int H, int W, float rel, float inv_div, float hi,
+                                 int min_cd, int desc_off) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const int HW = H * W;
+  const int p = y * W + x;
+
+  // -- 1. replay the pending log; 2. background sums -------------------------
+  replay_pending<C>(banks, ctrl_map, x, y, p, N, H, W);
+  bank_sums<C>(banks, bg_out, p, N, HW);
 
   // -- 3. intra descriptors from edge-clamped neighbours ---------------------
   const float delta = (float)lut_delta[0];
@@ -230,6 +248,116 @@ TT_EXPORT int tt_consensus(const void* planes, void* col0, void* col1, void* col
   } else if (C == 3) {
     consensus_kernel<3><<<grid, block, 0, stream>>>(px, b, cm, Rm, um, rq, ld, o0, o1, o2, o3, o4, N, H, W, rel,
                                                     inv_div, hi_const, min_cd, desc_off);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// consensus_lobster: LOBSTER's consensus, one thread per pixel. Replaces
+// tracking_tpu/ops/pallas_consensus.py:consensus_lobster_pallas
+// (_make_lobster_kernel). Steps 1-2 are the shared replay and bg_sum above;
+// then the intra descriptor with LOBSTER's threshold
+// thr(v) = clip(rint((v*rel + offset) * (1/div)), 0, 255) on edge-clamped
+// neighbours, and the walk with fixed thresholds: per channel cd <= c_sc and
+// dd <= d_sc, where dd is the popcount of (inter-frame descriptor XOR the
+// sample's descriptor); for C = 3 also sum(cd) <= c_tot and sum(dd) <= d_tot.
+// The walk stops once `req` good samples are counted.
+//
+// Bound on the H100: device-memory bytes. At 720p colour bg_sum alone reads
+// every colour slot, 96.8 MB (35 x 921,600 px x 3 channels x 1 B): 0.029 ms
+// at 3.35 TB/s; with the descriptors of the samples the walk examines, the
+// pending log and the output maps, chip_smoke.py counts 0.048 ms on its
+// clip. The design is consensus_kernel's: banks in place, coalesced slot
+// planes, each pixel's bytes touched once.
+__device__ __forceinline__ int lobster_thr(int v, float rel, float offset, float inv_div) {
+  return (int)fminf(fmaxf(rintf(((float)v * rel + offset) * inv_div), 0.0f), 255.0f);
+}
+
+template <int C>
+__global__ void lobster_kernel(const uint8_t* __restrict__ planes, Banks banks, const int32_t* __restrict__ ctrl_map,
+                               int32_t* count_out, int32_t* intra_out, int32_t* bg_out, int N, int H, int W,
+                               float rel, float offset, float inv_div, int c_sc, int d_sc, int c_tot, int d_tot,
+                               int req) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const int HW = H * W;
+  const int p = y * W + x;
+  replay_pending<C>(banks, ctrl_map, x, y, p, N, H, W);
+  bank_sums<C>(banks, bg_out, p, N, HW);
+
+  int px[C], nbv[C][16];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const uint8_t* pl = planes + (size_t)c * HW;
+    px[c] = pl[p];
+    const int thr = lobster_thr(px[c], rel, offset, inv_div);
+    int d = 0;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      int v = pl[clampi(y + kLbspDy[k], 0, H - 1) * W + clampi(x + kLbspDx[k], 0, W - 1)];
+      nbv[c][k] = v;
+      d |= (abs(v - px[c]) > thr ? 1 : 0) << k;
+    }
+    intra_out[(size_t)c * HW + p] = d;
+  }
+
+  int count = 0;
+  for (int j = 0; j < N && count < req; ++j) {
+    int sum_cd = 0, sum_dd = 0;
+    bool good = true;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int s_col = banks.col[c][(size_t)j * HW + p];
+      const int s_desc = banks.desc[c][(size_t)j * HW + p];
+      const int cd = abs(px[c] - s_col);
+      const int sthr = lobster_thr(s_col, rel, offset, inv_div);
+      int inter = 0;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) inter |= (abs(nbv[c][k] - s_col) > sthr ? 1 : 0) << k;
+      const int dd = popc16(inter ^ s_desc);
+      good = good && (cd <= c_sc) && (dd <= d_sc);
+      sum_cd += cd;
+      sum_dd += dd;
+    }
+    if (C > 1) good = good && (sum_cd <= c_tot) && (sum_dd <= d_tot);
+    if (good) ++count;
+  }
+  count_out[p] = count;
+}
+
+TT_EXPORT int tt_consensus_lobster(const void* planes, void* col0, void* col1, void* col2, void* desc0, void* desc1,
+                                   void* desc2, const void* ctrl, const void* val0, const void* val1,
+                                   const void* val2, void* count, void* intra, void* bg_sum, int C, int N, int H,
+                                   int W, float rel, float offset, float div, int c_sc, int d_sc, int c_tot,
+                                   int d_tot, int req, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  Banks b;
+  b.col[0] = static_cast<uint8_t*>(col0);
+  b.col[1] = static_cast<uint8_t*>(col1);
+  b.col[2] = static_cast<uint8_t*>(col2);
+  b.desc[0] = static_cast<uint16_t*>(desc0);
+  b.desc[1] = static_cast<uint16_t*>(desc1);
+  b.desc[2] = static_cast<uint16_t*>(desc2);
+  b.vals[0] = static_cast<const int32_t*>(val0);
+  b.vals[1] = static_cast<const int32_t*>(val1);
+  b.vals[2] = static_cast<const int32_t*>(val2);
+  const float inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
+  dim3 block(32, 8);
+  dim3 grid((W + 31) / 32, (H + 7) / 8);
+  const uint8_t* px = static_cast<const uint8_t*>(planes);
+  const int32_t* cm = static_cast<const int32_t*>(ctrl);
+  int32_t* o0 = static_cast<int32_t*>(count);
+  int32_t* o1 = static_cast<int32_t*>(intra);
+  int32_t* o2 = static_cast<int32_t*>(bg_sum);
+  if (C == 1) {
+    lobster_kernel<1><<<grid, block, 0, stream>>>(px, b, cm, o0, o1, o2, N, H, W, rel, offset, inv_div, c_sc, d_sc,
+                                                  c_tot, d_tot, req);
+  } else if (C == 3) {
+    lobster_kernel<3><<<grid, block, 0, stream>>>(px, b, cm, o0, o1, o2, N, H, W, rel, offset, inv_div, c_sc, d_sc,
+                                                  c_tot, d_tot, req);
   } else {
     return (int)cudaErrorInvalidValue;
   }

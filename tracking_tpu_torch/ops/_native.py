@@ -1,10 +1,11 @@
 """Build, load and count the port's CUDA kernels.
 
 The kernels are CUDA C++ for Hopper (``sm_90a``) in ``tracking_tpu_torch/csrc``
-with a plain C interface. On first use they are compiled by ``nvcc`` into one
-shared library under ``build/tracking_tpu_torch/`` beside the package (the
-file name carries a hash of the sources, so an edited source rebuilds) and
-loaded with ``ctypes``. Nothing here runs at import time: the CPU tests
+with a plain C interface. On first use each source is compiled by its own
+``nvcc`` process, all at once, and the objects are linked into one shared
+library under ``build/tracking_tpu_torch/`` beside the package (the file
+name carries a hash of the sources, so an edited source rebuilds), loaded
+with ``ctypes``. Nothing here runs at import time: the CPU tests
 import every module on a machine with no ``nvcc`` and no card.
 
 Flags: ``-fmad=false`` and no fast math. The thresholds the kernels compute
@@ -35,7 +36,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-LAUNCHES = {"consensus": 0, "flood_reach": 0, "label_components": 0, "greedy_assign": 0}
+LAUNCHES = {
+    "consensus": 0, "flood_reach": 0, "label_components": 0, "greedy_assign": 0,
+    "consensus_lobster": 0, "gmg_step": 0, "texture_prox_cur": 0, "multilayer_step": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +51,10 @@ _SIGNATURES = {
     "tt_flood_reach": [_P] * 5 + [_I] * 2 + [_P],
     "tt_label_components": [_P] * 2 + [_I] * 3 + [_P],
     "tt_greedy_assign": [_P] * 3 + [_I] * 2 + [_P],
+    "tt_consensus_lobster": [_P] * 14 + [_I] * 4 + [_F] * 3 + [_I] * 5 + [_P],
+    "tt_gmg_step": [_P] * 7 + [_I] * 3 + [_F] * 5 + [_I, _P],
+    "tt_texture_prox_cur": [_P] * 4 + [_I] * 3 + [_P],
+    "tt_multilayer_step": [_P] * 18 + [_I] * 3 + [_F] * 14 + [_P],
     "tt_error_string": [_I],
 }
 
@@ -73,7 +81,8 @@ def sources():
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into the shared library (once per source hash)."""
+    """Compile csrc/*.cu into the shared library (once per source hash):
+    one ``nvcc -c`` per source, all started together, then one link."""
     digest = hashlib.sha256()
     for p in sources():
         digest.update(p.name.encode())
@@ -84,16 +93,33 @@ def build(verbose: bool = False) -> Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, out)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"] + (["-Xptxas=-v"] if verbose else [])
+    procs = [
+        subprocess.Popen([nvcc, *compile_flags, "-c", "-o", str(o), str(s)], stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True)
+        for s, o in zip(srcs, objs)
+    ]
+    errors = []
+    for s, proc in zip(srcs, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{s.name} ({proc.returncode}):\n{err}")
+        elif verbose:
+            print(f"{s.name}:\n{err}", end="")
+    try:
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
 
 

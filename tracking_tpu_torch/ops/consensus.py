@@ -15,7 +15,11 @@ Per pixel, in order:
 4. walk the samples, counting good ones up to ``required`` and keeping the
    minimum descriptor and sum distances of the counted ones.
 
-Also here: the pending-log helpers of ``pallas_consensus.py:258-320``.
+Also here: the pending-log helpers of ``pallas_consensus.py:258-320``, and
+LOBSTER's consensus, the same four steps with fixed thresholds and the
+inter-frame descriptor distance only: the kernel ``consensus_lobster``
+(replacing ``pallas_consensus.consensus_lobster_pallas``) beside its plain
+version ``consensus_lobster_ref``.
 """
 
 from __future__ import annotations
@@ -181,10 +185,9 @@ def intra_descriptors(planes, thr):
     return tuple(descs), tuple(nbs)
 
 
-def walk_ref(planes, colors, descs, intra, nbs, thr, color_thr, desc_thr, required):
-    """The sample walk of ``lbsp_family.py:922-952``, vectorised over the
-    N samples: sample j is counted iff it is good and fewer than
-    ``required`` earlier samples were good (the early exit)."""
+def sample_good_ref(planes, colors, descs, intra, nbs, thr, color_thr, desc_thr):
+    """Per sample, whether it is good, and its total descriptor and sum
+    distances (``lbsp_family.py:922-952``): bool / int32 [N, H, W]."""
     C = len(planes)
     cds, dds = [], []
     for c in range(C):
@@ -209,6 +212,15 @@ def walk_ref(planes, colors, descs, intra, nbs, thr, color_thr, desc_thr, requir
         tot_desc = sum(dds)
         tot_sum = sum(sum_c)
         good = good & (tot_desc <= desc_thr * 3) & (tot_sum <= color_thr * 3)
+    return good, tot_desc, tot_sum
+
+
+def walk_ref(planes, colors, descs, intra, nbs, thr, color_thr, desc_thr, required):
+    """The sample walk, vectorised over the N samples: sample j is counted
+    iff it is good and fewer than ``required`` earlier samples were good
+    (the early exit)."""
+    C = len(planes)
+    good, tot_desc, tot_sum = sample_good_ref(planes, colors, descs, intra, nbs, thr, color_thr, desc_thr)
     g = good.to(torch.int32)
     before = torch.cumsum(g, dim=0, dtype=torch.int32) - g
     live = good & (before < required[None])
@@ -292,3 +304,97 @@ def consensus(
     _native.check(rc, "consensus")
     _native.LAUNCHES["consensus"] += 1
     return count, mind, mins, tuple(intra.unbind(0)), tuple(bg_sum.unbind(0)), colors, descs
+
+
+# -- LOBSTER ------------------------------------------------------------------
+
+
+def thr_lobster(v: torch.Tensor, rel: float, offset: float, div: float) -> torch.Tensor:
+    """LOBSTER's closed-form LBSP threshold of a u8 value
+    (``lbsp_family.LOBSTER._thr_fn``): ``clip(rint((v·rel + offset)/div),
+    0, 255)`` in f32, the division taken as XLA's reciprocal product."""
+    raw = (v.to(torch.float32) * rel + offset) * recip(div)
+    return torch.clamp(torch.round(raw), 0.0, 255.0).to(torch.int32)
+
+
+def sample_good_lobster_ref(planes, colors, descs, nbs, thr, c_sc: int, d_sc: int, c_tot: int, d_tot: int):
+    """Per sample, whether it is good for LOBSTER (``lbsp_family.py:518-539``):
+    the descriptor distance is the inter-frame Hamming distance only and the
+    thresholds are fixed. bool [N, H, W]."""
+    C = len(planes)
+    cds, dds = [], []
+    for c in range(C):
+        s_col = colors[c].to(torch.int32)
+        s_desc = descs[c].to(torch.int32)
+        cds.append((planes[c].to(torch.int32)[None] - s_col).abs())
+        sthr = thr(colors[c])
+        inter = torch.zeros_like(s_col)
+        for k in range(16):
+            inter = inter | (((nbs[c][k].to(torch.int32)[None] - s_col).abs() > sthr).to(torch.int32) << k)
+        dds.append(popcount16(inter ^ s_desc))
+    good = torch.ones_like(cds[0], dtype=torch.bool)
+    for c in range(C):
+        good = good & (cds[c] <= c_sc) & (dds[c] <= d_sc)
+    if C > 1:
+        good = good & (sum(cds) <= c_tot) & (sum(dds) <= d_tot)
+    return good
+
+
+def consensus_lobster_ref(
+    planes, colors, descs, pend_ctrl, pend_vals,
+    rel: float, offset: float, div: float, c_sc: int, d_sc: int, c_tot: int, d_tot: int, req: int,
+):
+    """Plain torch LOBSTER consensus. planes C-tuple u8 [H, W]; colors /
+    descs C-tuples u8 / u16 [N, H, W]; pend_ctrl int32 [H, W] (3×3 spreads
+    only); pend_vals C-tuple int32. Returns (count, intra ×C, bg_sum ×C,
+    colors, descs), the maps int32 and the banks new tensors."""
+    _check_args(planes, colors, descs, pend_vals)
+    colors, descs, bg_sum = apply_pending_ref(pend_ctrl, pend_vals, colors, descs)
+    thr = lambda v: thr_lobster(v, rel, offset, div)  # noqa: E731
+    intra, nbs = intra_descriptors(planes, thr)
+    good = sample_good_lobster_ref(planes, colors, descs, nbs, thr, c_sc, d_sc, c_tot, d_tot)
+    count = torch.clamp(good.sum(dim=0, dtype=torch.int32), max=req)  # the walk stops at req
+    return count, intra, bg_sum, colors, descs
+
+
+def consensus_lobster(
+    planes, colors, descs, pend_ctrl, pend_vals,
+    rel: float, offset: float, div: float, c_sc: int, d_sc: int, c_tot: int, d_tot: int, req: int,
+):
+    """Same contract as :func:`consensus_lobster_ref`. CPU tensors take the
+    plain version. CUDA tensors launch the kernel (``csrc/consensus.cu``,
+    replacing ``pallas_consensus.consensus_lobster_pallas``), which updates
+    ``colors`` and ``descs`` IN PLACE and returns them."""
+    if planes[0].device.type == "cpu":
+        return consensus_lobster_ref(
+            planes, colors, descs, pend_ctrl, pend_vals, rel, offset, div, c_sc, d_sc, c_tot, d_tot, req
+        )
+    _check_args(planes, colors, descs, pend_vals)
+    C = len(planes)
+    H, W = planes[0].shape
+    N = colors[0].shape[0]
+    if N > 63:
+        raise ValueError("the pending log's 6-bit slots hold at most 63 samples")
+    req_ = _native.require
+    for c in range(C):
+        req_(planes[c], f"planes[{c}]", torch.uint8, (H, W))
+        req_(colors[c], f"colors[{c}]", torch.uint8, (N, H, W))
+        req_(descs[c], f"descs[{c}]", torch.uint16, (N, H, W))
+        req_(pend_vals[c], f"pend_vals[{c}]", torch.int32, (H, W))
+    req_(pend_ctrl, "pend_ctrl", torch.int32, (H, W))
+    px = torch.stack(planes).contiguous()
+    maps = torch.empty((1 + 2 * C, H, W), dtype=torch.int32, device=planes[0].device)
+    count, intra, bg_sum = maps[0], maps[1 : 1 + C], maps[1 + C :]
+    ptr = lambda ts, c: ts[c].data_ptr() if c < C else None  # noqa: E731
+    rc = _native.library().tt_consensus_lobster(
+        px.data_ptr(),
+        ptr(colors, 0), ptr(colors, 1), ptr(colors, 2),
+        ptr(descs, 0), ptr(descs, 1), ptr(descs, 2),
+        pend_ctrl.data_ptr(),
+        ptr(pend_vals, 0), ptr(pend_vals, 1), ptr(pend_vals, 2),
+        count.data_ptr(), intra.data_ptr(), bg_sum.data_ptr(),
+        C, N, H, W, rel, offset, div, c_sc, d_sc, c_tot, d_tot, req, _native.stream_ptr(),
+    )
+    _native.check(rc, "consensus_lobster")
+    _native.LAUNCHES["consensus_lobster"] += 1
+    return count, tuple(intra.unbind(0)), tuple(bg_sum.unbind(0)), colors, descs

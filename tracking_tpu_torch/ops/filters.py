@@ -1,7 +1,9 @@
-"""Binary median filter, counterpart of ``tracking_tpu/ops/filters.py``."""
+"""Binary median and Gaussian filters, counterpart of
+``tracking_tpu/ops/filters.py``."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tracking_tpu_torch.ops.lbsp import edge_pad
@@ -22,3 +24,50 @@ def binary_median_blur(mask_u8: torch.Tensor, ksize: int) -> torch.Tensor:
     for dx in range(1, ksize):
         out = out + cnt[:, dx : dx + W]
     return torch.where(2 * out > ksize * ksize, 255, 0).to(torch.uint8)
+
+
+def gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
+    """OpenCV ``getGaussianKernel`` for sigma > 0: exp(−i²/2σ²), normalised
+    in f64 and rounded to f32 (``filters.gaussian_kernel1d``)."""
+    if sigma <= 0:
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    half = (ksize - 1) * 0.5
+    xs = np.arange(ksize, dtype=np.float64) - half
+    k = np.exp(-(xs * xs) / (2.0 * sigma * sigma))
+    return (k / k.sum()).astype(np.float32)
+
+
+def _reflect101(n: int, r: int, device) -> torch.Tensor:
+    """Indices of ``BORDER_REFLECT_101`` padding by r on both sides."""
+    i = torch.arange(-r, n + r, device=device)
+    i = torch.where(i < 0, -i, i)
+    return torch.where(i >= n, 2 * (n - 1) - i, i)
+
+
+def _conv1d_axis(img: torch.Tensor, kernel: np.ndarray, axis: int) -> torch.Tensor:
+    """1-D correlation along ``axis`` with reflect-101 padding; the terms
+    are summed in index order, as the reference's unrolled sum."""
+    r = len(kernel) // 2
+    n = img.shape[axis]
+    x = img.index_select(axis, _reflect101(n, r, img.device))
+    out = None
+    for i, kv in enumerate(kernel):
+        term = x.narrow(axis, i, n) * float(kv)
+        out = term if out is None else out + term
+    return out
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 1.5) -> torch.Tensor:
+    """Separable Gaussian blur over the spatial dims of [..., H, W(, C)]
+    (``filters.gaussian_blur``): rows, then columns. u8 in -> f32 math ->
+    u8 out (round half to even); float in -> float out."""
+    kern = gaussian_kernel1d(ksize, sigma)
+    is_u8 = img.dtype == torch.uint8
+    x = img.to(torch.float32) if is_u8 else img
+    ch_last = img.ndim >= 3 and img.shape[-1] in (1, 3, 4)
+    h_ax, w_ax = (img.ndim - 3, img.ndim - 2) if ch_last else (img.ndim - 2, img.ndim - 1)
+    x = _conv1d_axis(x, kern, h_ax)
+    x = _conv1d_axis(x, kern, w_ax)
+    if is_u8:
+        return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+    return x

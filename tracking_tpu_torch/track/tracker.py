@@ -108,7 +108,7 @@ class BlobTracker:
             raise ValueError(f"unknown blobDetector {cfg.blobDetector!r}")
         self.config = cfg
 
-    def init(self, device=None) -> dict:
+    def init(self, device="cuda") -> dict:
         K = self.config.maxTracks
         kp = kalman.default_params(device=device)
         kx, kP = kalman.kalman_init(K, kp)

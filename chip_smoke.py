@@ -5,20 +5,23 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--ptxas]
 
-It drives the port's two paths at 720×1280×3 on a seeded synthetic clip -
-SuBSENSE followed by the default CCMSPF blob tracker, and LOBSTER, GMG,
-DPTexture and MultiLayer through the registry - and fails (non-zero exit,
-no result line) on any broken phase:
+It drives the port's paths at 720×1280×3 on a seeded synthetic clip -
+SuBSENSE followed by the default CCMSPF blob tracker; LOBSTER, GMG,
+DPTexture and MultiLayer through the registry; SuBSENSE's consensus v3 and
+fused step and subsenseShrink - and fails (non-zero exit, no result line)
+on any broken phase:
 
 1. device: the card's name and power limit; no CUDA device is an error;
-2. build: compiles the eight CUDA kernels from ``tracking_tpu_torch/csrc``,
+2. build: compiles the ten CUDA kernels from ``tracking_tpu_torch/csrc``,
    one ``nvcc`` per source in parallel (``--ptxas`` prints each kernel's
    registers and spills);
 3. each kernel against its plain PyTorch version on the card at its path's
    shapes, exactly (consensus C=3 and C=1, hole-fill reachability, CC
    labelling 8- and 4-connected, greedy assignment; LOBSTER's consensus
    C=3 and C=1, the GMG list update at t = 5, 19 and 30, the DPTexture
-   histograms, the MultiLayer update learning and not);
+   histograms, the MultiLayer update learning and not; the v3 read-only
+   walk C=3 and C=1, the fused whole step C=3 at t > 0 and t = 0 with the
+   scalar requirement and a random requirement map, and C=1);
 4. the main path: warm start, then 64 frames of ``SuBSENSE.step`` and
    ``BlobTracker.step``; every kernel's launch count must be > 0, the mean
    foreground share in (0.1 %, 50 %), and a track active at the end;
@@ -27,11 +30,17 @@ no result line) on any broken phase:
    count must be > 0 and the mean foreground share after its training
    window in (0.1 %, 50 %); then its first frames again through the plain
    versions, with masks and the state equal to the kernel run's;
+4c. the consensus variants: SuBSENSE with ``TRACKING_TPU_CONSENSUS=v3``,
+   SuBSENSE with ``TRACKING_TPU_FUSED=1`` and subsenseShrink fused, 32
+   frames each: the new kernel's launch count > 0 and ``consensus``'s 0,
+   the foreground share in (0.1 %, 50 %), the first 8 frames and the state
+   again through the plain versions;
 5. the first 16 SuBSENSE + tracker frames again through the plain
    versions: masks, track ids and positions must equal the kernel run's;
 6. timing with CUDA events: each kernel beside its plain version and its
    bound, ms/frame for the SuBSENSE step alone, the full path and each of
-   the four algorithms, and the device's busy share under torch.profiler.
+   the four algorithms, v1 / v3 / fused SuBSENSE steps in turns, and the
+   device's busy share and kernels per frame under torch.profiler.
 
 The last two lines are a JSON object of the per-kernel results and
 ``{"ok": true, "device": {...}}``.
@@ -39,6 +48,7 @@ The last two lines are a JSON object of the per-kernel results and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -60,6 +70,8 @@ SOURCES = {
     "gmg_step": ("tracking_tpu_torch/csrc/gmg.cu", "tracking_tpu/ops/pallas_gmg.py:119"),
     "texture_prox_cur": ("tracking_tpu_torch/csrc/texture.cu", "tracking_tpu/ops/pallas_texture.py:111"),
     "multilayer_step": ("tracking_tpu_torch/csrc/multilayer.cu", "tracking_tpu/ops/pallas_multilayer.py:86"),
+    "consensus_read": ("tracking_tpu_torch/csrc/consensus.cu", "tracking_tpu/ops/pallas_consensus.py:778"),
+    "consensus_feedback": ("tracking_tpu_torch/csrc/consensus.cu", "tracking_tpu/ops/pallas_consensus.py:1012"),
 }
 # the registry path: (algorithm, its kernel, first frame after its training
 # window, frames replayed through the plain versions)
@@ -72,6 +84,15 @@ REGISTRY = (
 MAIN_KERNELS = ("consensus", "flood_reach", "label_components", "greedy_assign")
 REGISTRY_FRAMES = 32
 REGISTRY_TIMED = 16
+# the consensus variants: (label, algorithm, environment, its kernel)
+VARIANTS = (
+    ("SuBSENSE v3", "SuBSENSEBGS", {"TRACKING_TPU_CONSENSUS": "v3"}, "consensus_read"),
+    ("SuBSENSE fused", "SuBSENSEBGS", {"TRACKING_TPU_FUSED": "1"}, "consensus_feedback"),
+    ("subsenseShrink fused", "subsenseShrink", {"TRACKING_TPU_FUSED": "1"}, "consensus_feedback"),
+)
+VARIANT_FRAMES = 32
+VARIANT_PLAIN = 8
+SWITCHES = ("TRACKING_TPU_CONSENSUS", "TRACKING_TPU_FUSED", "TRACKING_TPU_FUSED_INTERP")
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; the bound of a kernel is the larger of its bytes and its
 # operations over these
@@ -142,12 +163,15 @@ def examined(good: torch.Tensor, req) -> torch.Tensor:
     return (before < req).sum(dim=0)
 
 
-def consensus_cost(planes, banks_before, banks_after, good, req, in_bytes_px: int, out_maps: int):
+def consensus_cost(planes, banks_before, banks_after, good, req, in_bytes_px: int, out_maps: int,
+                   extra_bytes_px: int = 0, extra_ops_px: int = 0):
     """(bound_ms, bound_by) of a consensus (SuBSENSE's or LOBSTER's) on
     these inputs: it must read the frame planes, every colour slot (for
     bg_sum), the descriptors of the samples its walk examines and
     ``in_bytes_px`` bytes per pixel of maps (the pending log, thresholds),
-    write the bank bytes the replay changes and ``out_maps`` int32 maps."""
+    write the bank bytes the replay changes and ``out_maps`` int32 maps;
+    plus ``extra_bytes_px`` / ``extra_ops_px`` per pixel (the fused step's
+    feedback state)."""
     (colors0, descs0), (colors, descs) = banks_before, banks_after
     Cn = len(planes)
     N, Hh, Ww = colors[0].shape
@@ -156,7 +180,8 @@ def consensus_cost(planes, banks_before, banks_after, good, req, in_bytes_px: in
     changed = sum(int((a != b).sum()) for a, b in zip(colors0, colors))
     changed += 2 * sum(int((a != b).sum()) for a, b in zip(descs0, descs))
     n_bytes = Cn * hw + N * Cn * hw + 2 * Cn * walked + in_bytes_px * hw + changed + 4 * out_maps * hw
-    n_ops = N * Cn * hw + walked * Cn * 48  # bg_sum adds; ~48 integer ops per examined sample and channel
+    n_bytes += extra_bytes_px * hw
+    n_ops = N * Cn * hw + walked * Cn * 48 + extra_ops_px * hw  # ~48 integer ops per examined sample and channel
     return bound(n_bytes, n_ops)
 
 
@@ -334,6 +359,212 @@ def check_registry_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
     bounds["multilayer_step"] = bound(hw * (2 * state_px + 4 * (3 + 6) + 4), 450 * hw)
 
 
+@contextlib.contextmanager
+def switches(env):
+    """The JAX package's switches (``SWITCHES``) set to ``env`` inside the
+    block, and restored after it."""
+    saved = {k: os.environ.get(k) for k in SWITCHES}
+    for k in SWITCHES:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def capture_call(module, name, run):
+    """(args, kwargs) of the first call of ``module.name`` while ``run()``
+    runs, the tensors cloned before the call (kernels update them in place)."""
+    orig = getattr(module, name)
+    box = []
+
+    def spy(*a, **k):
+        if not box:
+            box.append((clone(a), k))
+        return orig(*a, **k)
+
+    setattr(module, name, spy)
+    try:
+        run()
+    finally:
+        setattr(module, name, orig)
+    return box[0]
+
+
+def check_variant_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
+    """Phase 3 for the consensus variants' two kernels, each against its
+    plain version on the inputs a 720p step of its path gives it, exactly:
+    the v3 walk (C=3, C=1) and the fused step (C=3 at t > 0 and t = 0, with
+    the scalar requirement and a random map; C=1)."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.bgs import lbsp_family as LF
+    from tracking_tpu_torch.ops.consensus import (
+        color_desc_thresholds, consensus_feedback, consensus_feedback_ref, consensus_read, consensus_read_ref,
+        intra_descriptors, roi_map, sample_good_ref, thr_closed_form,
+    )
+
+    hw = H * W
+
+    def compare(name, what, a, b):
+        e = max_err(a, b)
+        errs[name] = max(errs[name], e)
+        check(e == 0.0, f"{name} {what} equal (max |err| {e})")
+
+    def walked_samples(planes, colors, descs, intra, lut_delta, R, unstable, req, kw):
+        thr = lambda v: thr_closed_form(v, lut_delta, kw["rel"], kw["div"], kw["hi_const"])  # noqa: E731
+        _, nbs = intra_descriptors(planes, thr)
+        ct, dt = color_desc_thresholds(R, unstable, len(planes) == 1, kw["min_cd"], kw["desc_off"])
+        good, _, _ = sample_good_ref(planes, colors, descs, intra, nbs, thr, ct, dt)
+        return good, int(examined(good, req[None]).sum())
+
+    for c in (3, 1):
+        fr = frames if c == 3 else frames[..., 0].contiguous()
+        # K9: the v3 walk, on the banks of a v3 state 3 frames in
+        with switches({"TRACKING_TPU_CONSENSUS": "v3"}):
+            algo = get_algorithm("subsense")()
+            st = algo.warm_start(algo.init(H, W, c, device=dev), fr[0])
+            for t in range(1, 4):
+                st, _, _ = algo.step(st, fr[t])
+            args, kw = capture_call(LF, "consensus_read", lambda: algo.step(clone(st), fr[4]))
+        k_out = consensus_read(*clone(args), **kw)
+        p_out = consensus_read_ref(*clone(args), **kw)
+        for name, a, b in zip(("count", "min_desc", "min_sum", "intra"), k_out, p_out):
+            compare("consensus_read", f"C={c} {name}", a, b)
+        planes, colors, descs, lut_delta, R, unstable, req = args
+        check(int((p_out[0] < req).sum()) > 0, f"consensus_read C={c} has pixels short of the required samples")
+        if c == 3:
+            timing_inputs["consensus_read"] = (args, kw)
+            _, walked = walked_samples(planes, colors, descs, p_out[3], lut_delta, R, unstable, req, kw)
+            # the frame, R, unstable, required; the examined samples; 3 + C int32 maps out
+            bounds["consensus_read"] = bound(c * hw + 9 * hw + 3 * c * walked + 4 * (3 + c) * hw, walked * c * 48)
+            print(f"  consensus_read C=3: the walk examines {walked} samples ({walked / hw:.3f} per px), "
+                  f"bound {bounds['consensus_read'][0]:.4f} ms", flush=True)
+
+        # K10: the fused step, on a v1 state 3 frames in
+        with switches({}):
+            algo = get_algorithm("subsense")()
+            st = algo.warm_start(algo.init(H, W, c, device=dev), fr[0])
+            for t in range(1, 4):
+                st, _, _ = algo.step(st, fr[t])
+        with switches({"TRACKING_TPU_FUSED": "1"}):
+            args, kw = capture_call(LF, "consensus_feedback", lambda: algo.step(clone(st), fr[4]))
+        cases = [("t>0 scalar requirement", args)]
+        if c == 3:
+            gen = torch.Generator(device="cpu").manual_seed(3)
+            req_map = torch.where(torch.rand((H, W), generator=gen) < 0.3, 7, 2).to(torch.int32).to(dev)
+            scal0 = args[14][:5] + (torch.zeros_like(args[14][5]),)
+            cases += [
+                ("t=0 scalar requirement", args[:14] + (scal0,)),
+                ("t>0 random requirement map", args[:8] + (req_map,) + args[9:]),
+                ("t=0 random requirement map", args[:8] + (req_map,) + args[9:14] + (scal0,)),
+            ]
+        names = ("flags", "pend_ctrl", "pend_vals", "f32 maps", "bg_sum", "colors", "descs")
+        for what, a in cases:
+            k_out = consensus_feedback(*clone(a), **kw)
+            p_out = consensus_feedback_ref(*clone(a), **kw)
+            for name, x, y in zip(names, k_out, p_out):
+                compare("consensus_feedback", f"C={c} {what} {name}", x, y)
+            if what == cases[0][0]:
+                p_main = p_out
+        check(0 < int((p_main[0] & 1).sum()) < hw, f"consensus_feedback C={c}: foreground and background pixels")
+        if c == 3:
+            timing_inputs["consensus_feedback"] = (args, kw)
+            planes = args[0]
+            req_eff = torch.where(roi_map(H, W, dev), args[8], 0)
+            intra = tuple((v >> 8) & 0xFFFF for v in p_main[2])
+            good, walked = walked_samples(planes, p_main[5], p_main[6], intra, args[5], args[6], args[7], req_eff, kw)
+            # feedback state per px: 9 f32 maps in, 16 B of bits, 5 mask bytes, the last frame's colour and
+            # descriptors (3 B per channel), 8 f32 maps out
+            fb_px = 9 * 4 + 16 + 5 + 3 * c + 8 * 4
+            bounds["consensus_feedback"] = consensus_cost(
+                planes, (args[1], args[2]), (p_main[5], p_main[6]), good, req_eff[None], 4 * (1 + c) + 9,
+                2 + 2 * c, extra_bytes_px=fb_px, extra_ops_px=120,
+            )
+            print(f"  consensus_feedback C=3: the walk examines {walked} samples ({walked / hw:.3f} per px), "
+                  f"{fb_px} B/px of feedback state, bound {bounds['consensus_feedback'][0]:.4f} ms", flush=True)
+
+
+def variant_paths(frames, dev, results):
+    """Phase 4c: SuBSENSE v3, SuBSENSE fused and subsenseShrink fused at
+    720p, each through its new kernel with the launch counts zeroed just
+    before and read just after, then its first frames again through the
+    plain versions. Returns the warm-started states for the timing phase."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.ops import _native
+
+    starts = {}
+    for label, name, env, kern in VARIANTS:
+        with switches(env):
+            algo = get_algorithm(name)()
+            start = algo.warm_start(algo.init(H, W, C, device=dev), frames[0])
+            starts[label] = (algo, env, clone(start))
+            print(f"[4c] {label} ({env}): warm start + {VARIANT_FRAMES} frames at {H}x{W}x{C}", flush=True)
+            s, masks, snap = clone(start), [], None
+            _native.reset_launches()
+            for t in range(1, VARIANT_FRAMES + 1):
+                s, fg, _ = algo.step(s, frames[t])
+                masks.append(fg)
+                if t == VARIANT_PLAIN:
+                    snap = clone(s)
+            torch.cuda.synchronize()
+            launches = dict(_native.LAUNCHES)
+            print(f"  launches: {launches}", flush=True)
+            check(launches[kern] > 0, f"{kern} launched {launches[kern]} times on the {label} path")
+            check(launches["consensus"] == 0, f"consensus launched {launches['consensus']} times on the {label} path")
+            results[kern].setdefault("launches", launches[kern])
+            share = float(torch.stack(masks).gt(0).to(torch.float32).mean())
+            check(0.001 < share < 0.5, f"{label} mean foreground share {share:.4f} in (0.001, 0.5)")
+            s = clone(start)
+            for t in range(1, VARIANT_PLAIN + 1):
+                s, fg, _ = algo.step(s, frames[t], use_kernels=False)
+                if not torch.equal(fg, masks[t - 1]):
+                    raise AssertionError(f"{label}: the plain path's mask differs from the kernel path's at frame {t}")
+            e = max_err(s, snap)
+            check(e == 0.0, f"{label}: masks over {VARIANT_PLAIN} frames and the state after them equal through "
+                            "the plain versions")
+    return starts
+
+
+def time_variants(algo, state0, starts, frames, tag) -> None:
+    """Phase 6 for the consensus variants: v1 / v3 / fused SuBSENSE step
+    ms/frame in turns (v1, v3, fused, fused, v3, v1), then kernels per frame
+    and the busy share of v1, v3 and fused under the profiler."""
+    runs = {"v1": (algo, {}, state0), "v3": starts["SuBSENSE v3"], "fused": starts["SuBSENSE fused"]}
+    ms = {k: [] for k in runs}
+    for k in ("v1", "v3", "fused", "fused", "v3", "v1"):
+        a, env, start = runs[k]
+        with switches(env):
+            s = clone(start)
+            for t in range(1, 5):  # warm-up
+                s, _, _ = a.step(s, frames[t])
+            torch.cuda.synchronize()
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            for t in range(5, 5 + TIMED_FRAMES):
+                s, _, _ = a.step(s, frames[t])
+            ev1.record()
+            torch.cuda.synchronize()
+            ms[k].append(ev0.elapsed_time(ev1) / TIMED_FRAMES)
+    for k, v in ms.items():
+        print(f"  {tag} SuBSENSE {k} step (in turns): {v[0]:.3f} / {v[1]:.3f} ms/frame = {1000 / min(v):.1f} fps "
+              f"({TIMED_FRAMES} frames, {H}x{W}x{C})", flush=True)
+    for k, (a, env, start) in runs.items():
+        with switches(env):
+            box = {"s": clone(start)}
+            for t in range(1, 5):
+                box["s"], _, _ = a.step(box["s"], frames[t])
+
+            def run_frame(t, a=a, box=box):
+                box["s"], _, _ = a.step(box["s"], frames[t])
+
+            profile(run_frame, range(5, 13), tag, f"SuBSENSE {k} step", top=6)
+
+
 def registry_path(frames, dev, results):
     """Phase 4b: each registry algorithm at 720p through its kernel, then its
     first frames again through the plain versions. Returns the warm-started
@@ -433,7 +664,7 @@ def main(argv) -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check runs only on a GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tracking_tpu_torch import get_algorithm
-    from tracking_tpu_torch.bgs.lbsp_family import _roi_mask
+    from tracking_tpu_torch.ops.consensus import roi_map
     from tracking_tpu_torch.ops import _native
     from tracking_tpu_torch.ops.assoc import greedy_assign, greedy_assign_ref
     from tracking_tpu_torch.ops.cc import label_components, label_components_ref
@@ -476,6 +707,8 @@ def main(argv) -> None:
         k: {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1], "library_ms": None}
         for k in SOURCES
     }
+    # consensus_read also stands for the retired v2 walk (the same function)
+    results["consensus_read"]["also_replaces"] = "attic/pallas_consensus2.py:265"
     errs = {k: 0.0 for k in SOURCES}
     bounds = {}
     hw = H * W
@@ -489,7 +722,7 @@ def main(argv) -> None:
         for t in range(1, 4):
             st, _, _ = algo.step(st, fr[t])
         planes = tuple(fr[4][..., i].contiguous() for i in range(c)) if c == 3 else (fr[4],)
-        req = torch.where(_roi_mask(H, W, dev), algo.config.nRequiredBGSamples, 0).to(torch.int32)
+        req = torch.where(roi_map(H, W, dev), algo.config.nRequiredBGSamples, 0).to(torch.int32)
         kw = algo._kernel_kw(c)
 
         def cons_args(s):
@@ -569,6 +802,7 @@ def main(argv) -> None:
     bounds["flood_reach"] = bound(3 * hw, 10 * hw)  # bg + seeds read, reach written (bool)
     bounds["label_components"] = bound(5 * hw, 20 * hw)  # mask read (u8), labels written (int32)
     check_registry_kernels(frames, dev, errs, timing_inputs, bounds)
+    check_variant_kernels(frames, dev, errs, timing_inputs, bounds)
     for k, (b_ms, b_by) in bounds.items():
         results[k]["bound_ms"], results[k]["bound_by"] = b_ms, b_by
 
@@ -613,6 +847,9 @@ def main(argv) -> None:
     # -- 4b. the registry path ---------------------------------------------
     starts = registry_path(frames, dev, results)
 
+    # -- 4c. the consensus variants ----------------------------------------
+    variant_starts = variant_paths(frames, dev, results)
+
     # -- 5. path against path ----------------------------------------------
     print(f"[5] the first {PATH_FRAMES} frames through the plain versions", flush=True)
     st_p = clone(state0)
@@ -641,6 +878,15 @@ def main(argv) -> None:
     for k, (fk, fp, rk, rp) in plain_fns.items():
         time_pair(k, fk, fp, rk, rp, results, tag)
     time_registry(timing_inputs, results, starts, frames, tag)
+    from tracking_tpu_torch.ops.consensus import (
+        consensus_feedback, consensus_feedback_ref, consensus_read, consensus_read_ref,
+    )
+
+    for k, fk, fp in (("consensus_read", consensus_read, consensus_read_ref),
+                      ("consensus_feedback", consensus_feedback, consensus_feedback_ref)):
+        v_args, v_kw = timing_inputs[k]
+        time_pair(k, lambda fk=fk: fk(*v_args, **v_kw), lambda fp=fp: fp(*v_args, **v_kw), 20, 3, results, tag)
+    time_variants(algo, state0, variant_starts, frames, tag)
     for k in SOURCES:
         results[k]["max_abs_err"] = errs[k]
 

@@ -17,6 +17,7 @@ from torch_parity import assert_tree_equal
 from tracking_tpu.bgs import gmg as JG
 from tracking_tpu.bgs import lbsp_family as JLF
 from tracking_tpu.bgs import multilayer as JM
+from tracking_tpu.bgs import subsense_shrink as JS
 from tracking_tpu.bgs import texture as JT
 from tracking_tpu.core.registry import list_algorithms as j_list_algorithms
 from tracking_tpu.track import tracker as JTR
@@ -24,6 +25,7 @@ from tracking_tpu_torch import convert, get_algorithm, list_algorithms
 from tracking_tpu_torch.bgs import gmg as TG
 from tracking_tpu_torch.bgs import lbsp_family as TLF
 from tracking_tpu_torch.bgs import multilayer as TM
+from tracking_tpu_torch.bgs import subsense_shrink as TS
 from tracking_tpu_torch.bgs import texture as TT
 from tracking_tpu_torch.ops import _native, assoc, cc, consensus, fill, gmg, multilayer, texture
 from tracking_tpu_torch.track import tracker as TTR
@@ -74,6 +76,7 @@ def test_no_jax_or_reference_imports():
         (JLF.SuBSENSEConfig, TLF.SuBSENSEConfig), (JTR.TrackerConfig, TTR.TrackerConfig),
         (JLF.LOBSTERConfig, TLF.LOBSTERConfig), (JG.GMGConfig, TG.GMGConfig),
         (JT.DPTextureConfig, TT.DPTextureConfig), (JM.MultiLayerConfig, TM.MultiLayerConfig),
+        (JS.SuBSENSEShrinkConfig, TS.SuBSENSEShrinkConfig),
     ],
 )
 def test_config_fields_and_defaults_match(ref, port):
@@ -92,10 +95,12 @@ def test_config_fields_and_defaults_match(ref, port):
         ("GMG", 8, ("gmg",), TG.GMG),
         ("DPTextureBGS", 16, ("texture-lbp", "dp-texture"), TT.DPTextureBGS),
         ("MultiLayerBGS", 23, ("multilayer",), TM.MultiLayerBGS),
+        ("subsenseShrink", None, ("subsense-shrink", "yzbx"), TS.SuBSENSEShrink),
     ],
 )
 def test_registry(name, type_id, aliases, cls):
-    assert get_algorithm(name) is get_algorithm(type_id) is cls
+    assert get_algorithm(name) is cls
+    assert type_id is None or get_algorithm(type_id) is cls
     assert all(get_algorithm(a) is cls for a in aliases)
     assert cls.name == name and cls.type_id == type_id
     assert set(list_algorithms()) <= set(j_list_algorithms())
@@ -132,13 +137,43 @@ def test_slice2_init_states_mirror_reference(ref, port, c):
 
 
 @pytest.mark.parametrize(
+    "ref,port,c,mode",
+    [
+        (JLF.SuBSENSE, TLF.SuBSENSE, 3, "v3"), (JLF.SuBSENSE, TLF.SuBSENSE, 1, "v3"),
+        (JS.SuBSENSEShrink, TS.SuBSENSEShrink, 3, "v1"), (JS.SuBSENSEShrink, TS.SuBSENSEShrink, 1, "v3"),
+    ],
+)
+def test_slice3_states_mirror_reference(monkeypatch, ref, port, c, mode):
+    """Consensus v3's ``bg_sum`` (in place of the pending log) and
+    subsenseShrink's box leaves: the same leaves as the JAX pytree at init,
+    and a stepped state crosses ``convert`` both ways unchanged."""
+    from tracking_tpu_torch.synth import make_clip
+
+    monkeypatch.setenv("TRACKING_TPU_CONSENSUS", mode)
+    h, w = 24, 40
+    want = jax.device_get(ref().init(h, w, c))
+    got = port().init(h, w, c, device="cpu")
+    assert ("bg_sum" in got) == (mode == "v3") and ("pend_ctrl" in got) == (mode == "v1")
+    assert ("box_up" in got) == (port is TS.SuBSENSEShrink)
+    assert_tree_equal(want, got)
+    algo = port()
+    frames = torch.from_numpy(make_clip(3, h, w, c, seed=4))
+    st = algo.warm_start(got, frames[0])
+    for t in (1, 2):
+        st, _, _ = algo.step(st, frames[t])
+    assert_tree_equal(st, convert.state_from_numpy(convert.state_to_numpy(st), device="cpu"))
+    assert_tree_equal(jax.device_get(want), convert.state_to_numpy(convert.state_from_numpy(want, device="cpu")))
+
+
+@pytest.mark.parametrize(
     "make",
     [
         lambda: TLF.SuBSENSE().init(8, 8, 3), lambda: TLF.LOBSTER().init(8, 8, 3), lambda: TG.GMG().init(8, 8, 3),
         lambda: TT.DPTextureBGS().init(8, 8, 3), lambda: TM.MultiLayerBGS().init(8, 8, 3),
         lambda: TTR.BlobTracker().init(), lambda: convert.state_from_numpy({"t": np.zeros((), np.int32)}),
+        lambda: TS.SuBSENSEShrink().init(8, 8, 3),
     ],
-    ids=["subsense", "lobster", "gmg", "dptexture", "multilayer", "tracker", "convert"],
+    ids=["subsense", "lobster", "gmg", "dptexture", "multilayer", "tracker", "convert", "subsense-shrink"],
 )
 def test_entry_points_default_to_the_card(make):
     """With no device given, states are made on the card: on a host without
@@ -159,8 +194,15 @@ def _leaves(tree):
     return [tree]
 
 
-@pytest.mark.parametrize("name", ["SuBSENSEBGS", "LOBSTERBGS", "GMG", "DPTextureBGS", "MultiLayerBGS"])
-def test_run_video_uses_only_the_returned_state(name):
+@pytest.mark.parametrize(
+    "name,env",
+    [("SuBSENSEBGS", {}), ("LOBSTERBGS", {}), ("GMG", {}), ("DPTextureBGS", {}), ("MultiLayerBGS", {}),
+     ("subsenseShrink", {}), ("SuBSENSEBGS", {"TRACKING_TPU_CONSENSUS": "v3"}),
+     ("SuBSENSEBGS", {"TRACKING_TPU_FUSED": "1"})],
+    ids=["SuBSENSEBGS", "LOBSTERBGS", "GMG", "DPTextureBGS", "MultiLayerBGS", "subsenseShrink", "SuBSENSE-v3",
+         "SuBSENSE-fused"],
+)
+def test_run_video_uses_only_the_returned_state(monkeypatch, name, env):
     """``step`` consumes its state (kernels may update it in place), while
     the masks and bg images it returned stay valid. Here a step that
     overwrites every other input tensor it did not return gives the same run
@@ -168,6 +210,8 @@ def test_run_video_uses_only_the_returned_state(name):
     from tracking_tpu_torch.runner.scan import run_video
     from tracking_tpu_torch.synth import make_clip
 
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     cls = get_algorithm(name)
     images = set()  # storages of the masks and bg images returned so far
 
@@ -228,6 +272,17 @@ def test_wrappers_refuse_other_devices():
                                 rel=0.333, div=1.0, hi_const=85.0, min_cd=30, desc_off=3)
     with pytest.raises(ValueError, match="CUDA"):
         consensus.consensus_lobster(planes, banks, descs, i32, (i32,), **TLF.LOBSTER()._kernel_kw(1))
+    f32 = torch.empty((8, 12), **meta)
+    d0 = torch.empty((), dtype=torch.int32, **meta)
+    kw = TLF.SuBSENSE()._kernel_kw(1)
+    with pytest.raises(ValueError, match="CUDA"):
+        consensus.consensus_read(planes, banks, descs, d0, f32, m, i32, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        consensus.consensus_feedback(
+            planes, banks, descs, i32, (i32,), d0, f32, m, i32, planes, (torch.empty((8, 12), dtype=torch.uint16, **meta),),
+            torch.empty((4, 8, 12), dtype=torch.int32, **meta), (m,) * 5, (f32,) * 9, (d0,) * 6, **kw,
+            use3x3_global=True, k=None,
+        )
     k64 = dict(dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="CUDA"):
         gmg.gmg_step(i32, i32, torch.empty((64, 8, 12), **k64), torch.empty((64, 8, 12), **meta),
@@ -251,12 +306,14 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
         _native.build()
     assert not (tmp_path / "build").exists()
     assert {p.name for p in _native.sources()} >= {
-        "consensus.cu", "fill.cu", "cc.cu", "assoc.cu", "gmg.cu", "texture.cu", "multilayer.cu"
+        "consensus.cu", "fill.cu", "cc.cu", "assoc.cu", "gmg.cu", "texture.cu", "multilayer.cu", "feedback.cuh"
     }
     assert set(_native.LAUNCHES) == {
         "consensus", "flood_reach", "label_components", "greedy_assign",
         "consensus_lobster", "gmg_step", "texture_prox_cur", "multilayer_step",
+        "consensus_read", "consensus_feedback",
     }
+    assert {"tt_consensus_read", "tt_consensus_feedback"} <= set(_native._SIGNATURES)
     assert "-fmad=false" in _native.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _native.NVCC_FLAGS
     assert not any("fast" in f for f in _native.NVCC_FLAGS)
 

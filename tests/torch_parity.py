@@ -101,6 +101,22 @@ def run_both(ja, ta, frames, jstate=None, check=assert_step_equal):
     return shares, ts
 
 
+def count_calls(monkeypatch, module, name):
+    """Replace ``module.name`` for the test with a wrapper that records each
+    call; returns the record (a list that grows by one per call). Shows
+    which branch a step took: a JAX step calls a function it imports from a
+    module while it is traced, the port's at every step."""
+    calls = []
+    fn = getattr(module, name)
+
+    def counted(*a, **k):
+        calls.append(1)
+        return fn(*a, **k)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
 def step_both(jstep, tt, js, ts, mask):
     """One step of both trackers (``jstep`` = the jitted JAX step), compared."""
     js, jtr = jstep(js, jnp.asarray(mask))

@@ -5,9 +5,10 @@ and never JAX or ``tracking_tpu``. Module names mirror the reference's:
 
 - ``bgs/base.py``, ``core/registry.py``, ``runner/scan.py``: the
   ``init`` / ``warm_start`` / ``step`` contract, registry and frame loop;
-- ``bgs/lbsp_family.py``: SuBSENSE (type 36) and LOBSTER (37);
-  ``bgs/gmg.py``: GMG (8); ``bgs/texture.py``: DPTexture (16);
-  ``bgs/multilayer.py``: MultiLayer (23);
+- ``bgs/lbsp_family.py``: SuBSENSE (type 36; consensus v1, v3 and the
+  fused step) and LOBSTER (37); ``bgs/subsense_shrink.py``:
+  subsenseShrink; ``bgs/gmg.py``: GMG (8); ``bgs/texture.py``: DPTexture
+  (16); ``bgs/multilayer.py``: MultiLayer (23);
 - ``ops/rng.py``: JAX's threefry key chain and the counter-hash field;
 - ``ops/lbsp.py``, ``ops/morphology.py``, ``ops/filters.py``,
   ``ops/color.py``, ``ops/sort.py``, ``ops/feedback.py``

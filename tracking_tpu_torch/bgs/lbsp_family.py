@@ -7,15 +7,27 @@ modulator v(x), rolling D_min averages), blink detection, unstable-region
 masking, LBSP-threshold LUT rescaling and, from 320×240 up, downsampled
 camera-motion analysis with automatic partial model resets.
 
-The step follows the reference's v1 path: frame t's stochastic bank writes
-are logged (``pend_ctrl`` / ``pend_vals``) and replayed by frame t+1's
-consensus. On CUDA tensors the consensus, the hole-fill reachability and
-(in the tracker) CC labelling and assignment are hand-written kernels;
+The step follows the reference's v1 path by default: frame t's stochastic
+bank writes are logged (``pend_ctrl`` / ``pend_vals``) and replayed by frame
+t+1's consensus. On CUDA tensors the consensus, the hole-fill reachability
+and (in the tracker) CC labelling and assignment are hand-written kernels;
 ``step(..., use_kernels=False)`` runs their plain versions instead. The
 CUDA consensus updates the state's banks in place.
 
-Left out of this port: the spatially sharded mode (``ctx``), the v2/v3
-consensus variants and the fused whole-step kernel.
+The JAX package's two opt-in variants, under its own switches:
+
+- ``TRACKING_TPU_CONSENSUS=v3`` (read by ``init``, see :func:`_use_v2`):
+  the state carries ``bg_sum`` instead of the log, the walk only reads the
+  banks (the kernel ``consensus_read``) and the step's slot writes apply
+  eagerly with frame-global slots (:func:`_apply_updates_global`);
+- ``TRACKING_TPU_FUSED=1`` (read by ``step``) on a v1 state: replay, walk,
+  feedback and the next log in one kernel, ``consensus_feedback``.
+
+On CPU tensors, or with ``use_kernels=False``, both take their plain
+versions. The requirement is a per-pixel map: ``nRequiredBGSamples`` plus
+the state's ``shrink_req_offset`` where subsenseShrink sets one.
+
+Left out of this port: the spatially sharded mode (``ctx``).
 
 LOBSTER (below SuBSENSE) is the same model with fixed thresholds: N = 35
 samples, a 1/16 stochastic self and 3×3-neighbour update logged the same
@@ -26,6 +38,7 @@ way, and a 9×9 median. Its consensus is the CUDA kernel
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 import numpy as np
@@ -39,13 +52,19 @@ from tracking_tpu_torch.ops.consensus import (
     apply_pending_ref,
     consensus,
     consensus_lobster,
+    consensus_feedback,
+    consensus_feedback_ref,
     consensus_lobster_ref,
+    consensus_read,
+    consensus_read_ref,
     consensus_ref,
     intra_descriptors,
     nb3_to_nb5_idx,
     pack_pending_ctrl,
     pack_pending_vals,
     recip,
+    resolve_spread,
+    roi_map,
     thr_closed_form,
     thr_lobster,
 )
@@ -93,13 +112,6 @@ _INIT_DX = np.repeat(np.arange(7) - 3, 7)
 _INIT_DY = np.tile(np.arange(7) - 3, 7)
 
 
-def _roi_mask(h: int, w: int, device=None) -> torch.Tensor:
-    """LBSP ROI: excludes the 2-px border."""
-    roi = torch.zeros((h, w), dtype=torch.bool, device=device)
-    roi[BORDER : h - BORDER, BORDER : w - BORDER] = True
-    return roi
-
-
 def _sample_offset_field(key: torch.Tensor, shape) -> torch.Tensor:
     """Gaussian-weighted 7×7 offset index per element (0..48): an
     inverse-CDF draw, ``#(cdf < r)``."""
@@ -137,6 +149,60 @@ def _refresh_samples(key, n_samples, n_refresh, start, last_color, last_desc, ok
         for c in range(len(descs))
     )
     return new_colors, new_descs
+
+
+def _use_v2() -> bool:
+    """Consensus variant from ``TRACKING_TPU_CONSENSUS`` (``lbsp_family.py:
+    255-288``): ``v1`` (the default) logs the step's bank writes for the
+    next consensus; any other value but ``v2`` selects v3, whose state
+    carries the bank colour sum ``bg_sum`` and applies the writes eagerly
+    (:func:`_apply_updates_global`). ``v2``, the retired grouped-DMA walk,
+    raises as in the JAX package."""
+    mode = os.environ.get("TRACKING_TPU_CONSENSUS", "v1")
+    if mode == "v2":
+        raise RuntimeError(
+            "TRACKING_TPU_CONSENSUS=v2 (grouped-DMA walk) was retired to "
+            "attic/pallas_consensus2.py - a measured regression (PERF.md "
+            "'Consensus v2 A/B'); use v3 for the eager-update research "
+            "path, or see attic/README.md to reproduce the v2 A/B"
+        )
+    return mode != "v1"
+
+
+def _use_fused() -> bool:
+    """The fused whole step, ``TRACKING_TPU_FUSED=1`` (``lbsp_family.py:
+    869-874``). The JAX package's ``TRACKING_TPU_FUSED_INTERP`` selects its
+    interpret-mode kernel on the CPU; the port has no interpret mode (CPU
+    tensors take the plain version), so it reads only this switch."""
+    return os.environ.get("TRACKING_TPU_FUSED") == "1"
+
+
+def _apply_updates_global(upd1, u3, u5, s1, s3, s5, vals, colors, descs, bg_sum):
+    """Consensus v3's bank update (``lbsp_family.py:316-357``): v1's per-pixel
+    write decisions with frame-global slots ``s1`` / ``s3`` / ``s5`` (0-d
+    int tensors, used on the device: no host sync), applied at once to the
+    ≤ 3 touched slot planes. Later writes win: self, then the 5×5-only
+    spread, then the 3×3 spread. ``bg_sum`` (C-tuple int32) moves by
+    new − old at each written slot.
+
+    The banks are updated IN PLACE (the desc banks through an int16 view)
+    and returned; returns (colors, descs, bg_sum)."""
+    C = len(colors)
+    ok3, ok5, nbv = resolve_spread(vals, u3, u5)
+    bg_sum = list(bg_sum)
+    writes = ((s1, upd1 != 0, vals), (s5, ok5 & ~ok3, nbv), (s3, ok3, nbv))
+    for slot, mask, src in writes:
+        idx = slot.reshape(1).to(torch.int64)
+        for c in range(C):
+            col = (src[c] & 0xFF).to(torch.uint8)
+            desc = ((src[c] >> 8) & 0xFFFF).to(torch.uint16).view(torch.int16)
+            old_c = colors[c].index_select(0, idx)[0]
+            new_c = torch.where(mask, col, old_c)
+            colors[c].index_copy_(0, idx, new_c[None])
+            d16 = descs[c].view(torch.int16)
+            d16.index_copy_(0, idx, torch.where(mask, desc, d16.index_select(0, idx)[0])[None])
+            bg_sum[c] = bg_sum[c] + (new_c.to(torch.int32) - old_c.to(torch.int32))
+    return colors, descs, tuple(bg_sum)
 
 
 def _to_planes(frame: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], bool]:
@@ -207,7 +273,7 @@ class SuBSENSE(BGSAlgorithm):
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, **kw)
 
-        return {
+        st = {
             "t": zeros((), torch.int32),
             "key": rng.prng_key(0, device=device),
             "colors": tuple(zeros((N, h, w), torch.uint8) for _ in range(c)),
@@ -239,10 +305,15 @@ class SuBSENSE(BGSAlgorithm):
             "auto_reset": torch.ones((), dtype=torch.bool, **kw),
             "lr_lower": torch.full((), t_lower, dtype=torch.float32, **kw),
             "lr_upper": torch.full((), t_upper, dtype=torch.float32, **kw),
-            # deferred stochastic-update log (zero ctrl = no writes)
-            "pend_ctrl": zeros((h, w), torch.int32),
-            "pend_vals": tuple(zeros((h, w), torch.int32) for _ in range(c)),
         }
+        if _use_v2():
+            # v3 carries the banks' colour sum instead of a write log
+            st["bg_sum"] = tuple(zeros((h, w), torch.int32) for _ in range(c))
+        else:
+            # deferred stochastic-update log (zero ctrl = no writes)
+            st["pend_ctrl"] = zeros((h, w), torch.int32)
+            st["pend_vals"] = tuple(zeros((h, w), torch.int32) for _ in range(c))
+        return st
 
     def _thr(self, c: int, delta):
         kw = self._kernel_kw(c)
@@ -259,14 +330,16 @@ class SuBSENSE(BGSAlgorithm):
             sub, cfg.nBGSamples, cfg.nBGSamples, 0, planes, intra,
             torch.ones((h, w), dtype=torch.bool, device=frame.device), state["colors"], state["descs"],
         )
-        return dict(state, key=key, colors=colors, descs=descs)
+        out = dict(state, key=key, colors=colors, descs=descs)
+        if "bg_sum" in state:
+            out["bg_sum"] = tuple(cc.to(torch.int32).sum(dim=0, dtype=torch.int32) for cc in colors)
+        return out
 
     def step(self, state: State, frame: torch.Tensor, use_kernels: bool = True) -> StepResult:
         """One frame. On CUDA tensors the kernels run (and the banks update in
         place) unless ``use_kernels=False``."""
         cfg = self.config
         N = cfg.nBGSamples
-        required = cfg.nRequiredBGSamples
         planes, was_gray = _to_planes(frame)
         c = len(planes)
         h, w = planes[0].shape
@@ -277,7 +350,7 @@ class SuBSENSE(BGSAlgorithm):
             return torch.full((), x, dtype=f32, device=dev)
 
         scaling, use3x3_global, median_ksize, t_lower_static, t_upper_static = self._size_policy(h, w)
-        roi = _roi_mask(h, w, dev)
+        roi = roi_map(h, w, dev)
         n_roi_px = (h - 2 * BORDER) * (w - 2 * BORDER)
         t = state["t"]
         keys = rng.split(state["key"], 12)
@@ -288,19 +361,14 @@ class SuBSENSE(BGSAlgorithm):
         a_lt = cf(1.0) / torch.minimum(fidx, cf(float(cfg.nSamplesForMovingAvgs)))
         a_st = cf(1.0) / torch.minimum(fidx, cf(float(cfg.nSamplesForMovingAvgs // 4)))
 
-        # -- pending replay + sample consensus (:332-357) ---------------------
-        # border pixels get required 0 so their walk stops at once (:954-961)
-        required_eff = torch.where(roi, required, 0).to(i32)
-        cons = consensus if use_kernels else consensus_ref
-        count, min_desc, min_sum, intra, bg_sums, colors, descs = cons(
-            planes, state["colors"], state["descs"], state["pend_ctrl"], state["pend_vals"],
-            state["lut_delta"], state["R"], state["unstable"], required_eff, **self._kernel_kw(c),
-        )
-        first = t == 0
-        last_color = tuple(torch.where(first, planes[ci], state["last_color"][ci]) for ci in range(c))
-        last_desc = tuple(torch.where(first, intra[ci], state["last_desc"][ci].to(i32)) for ci in range(c))
-
-        # -- feedback stage (:358-431) ----------------------------------------
+        # the per-pixel requirement (:816-821); subsenseShrink raises it by 5
+        # where its shrink-box mask fires. Border pixels get 0 in the walk
+        # so it stops at once (:954-961); the feedback takes the true map.
+        required = torch.full((h, w), cfg.nRequiredBGSamples, dtype=i32, device=dev)
+        if "shrink_req_offset" in state:
+            required = required + state["shrink_req_offset"]
+        v2 = "bg_sum" in state  # consensus v3 (see _use_v2)
+        use_fused = not v2 and _use_fused()
         bits = rng.as_i32(rng.field_bits(keys[2], (4, h, w)))
         consts = FeedbackConsts(
             t_incr=FEEDBACK_T_INCR, t_decr=FEEDBACK_T_DECR, t_lower=FEEDBACK_T_LOWER,
@@ -308,35 +376,85 @@ class SuBSENSE(BGSAlgorithm):
             rdist_min=UNSTABLE_REG_RDIST_MIN, ratio_min=UNSTABLE_REG_RATIO_MIN,
             ghost_s_min=GHOSTDET_S_MIN, ghost_d_max=GHOSTDET_D_MAX,
         )
-        fb = feedback(
-            dict(
-                count=count, mind=min_desc, mins=min_sum,
-                required=torch.full((h, w), required, dtype=i32, device=dev),
-                roi=roi, planes=planes, intras=intra,
-                last_colors=last_color, last_descs=last_desc,
-                bits=tuple(bits[i] for i in range(4)),
-                mean_last=state["mean_last"], dmin_lt=state["dmin_lt"], dmin_st=state["dmin_st"],
-                raw_lt=state["raw_lt"], raw_st=state["raw_st"],
-                final_lt=state["final_lt"], final_st=state["final_st"],
-                R=state["R"], T=state["T"], v=state["v"],
-                last_final=state["last_final"], blinks_old=state["blinks"],
-                last_blink_mask=state["last_blink_mask"], last_raw=state["last_raw"],
-                last_dil_inv=state["last_dil_inv"],
-            ),
-            (a_lt, a_st, state["lr_lower"], state["lr_upper"], state["cooldown"]),
-            C=c, N=N, use3x3_global=bool(use3x3_global), k=consts,
-        )
-        is_fg = fb.is_fg
+
+        if use_fused:
+            # -- replay + consensus + feedback + next log in one call (:1121-1170)
+            fused = consensus_feedback if use_kernels else consensus_feedback_ref
+            flags, pend_ctrl, pend_vals, f32o, bg_sums, colors, descs = fused(
+                planes, state["colors"], state["descs"], state["pend_ctrl"], state["pend_vals"],
+                state["lut_delta"], state["R"], state["unstable"], required,
+                state["last_color"], state["last_desc"], bits,
+                (state["last_final"], state["blinks"], state["last_blink_mask"], state["last_raw"],
+                 state["last_dil_inv"]),
+                (state["mean_last"], state["dmin_lt"], state["dmin_st"], state["raw_lt"], state["raw_st"],
+                 state["final_lt"], state["final_st"], state["T"], state["v"]),
+                (a_lt, a_st, state["lr_lower"], state["lr_upper"], state["cooldown"], t),
+                **self._kernel_kw(c), use3x3_global=bool(use3x3_global), k=consts,
+            )
+            intra = tuple((pv >> 8) & 0xFFFF for pv in pend_vals)
+            flag = lambda b: ((flags >> b) & 1) != 0  # noqa: E731
+            is_fg, unstable, nz, curr_blink, blinks_pre = (flag(b) for b in range(5))
+            mean_last, dmin_lt, dmin_st, raw_lt, raw_st, T, v, R = f32o
+        else:
+            required_eff = torch.where(roi, required, 0)
+            if v2:
+                # -- v3: the banks are current; the walk only reads them ------
+                walk = consensus_read if use_kernels else consensus_read_ref
+                count, min_desc, min_sum, intra = walk(
+                    planes, state["colors"], state["descs"], state["lut_delta"], state["R"], state["unstable"],
+                    required_eff, **self._kernel_kw(c),
+                )
+                bg_sums, colors, descs = state["bg_sum"], state["colors"], state["descs"]
+            else:
+                # -- pending replay + sample consensus (:332-357) -------------
+                cons = consensus if use_kernels else consensus_ref
+                count, min_desc, min_sum, intra, bg_sums, colors, descs = cons(
+                    planes, state["colors"], state["descs"], state["pend_ctrl"], state["pend_vals"],
+                    state["lut_delta"], state["R"], state["unstable"], required_eff, **self._kernel_kw(c),
+                )
+            first = t == 0
+            last_color = tuple(torch.where(first, planes[ci], state["last_color"][ci]) for ci in range(c))
+            last_desc = tuple(torch.where(first, intra[ci], state["last_desc"][ci].to(i32)) for ci in range(c))
+
+            # -- feedback stage (:358-431) ------------------------------------
+            fb = feedback(
+                dict(
+                    count=count, mind=min_desc, mins=min_sum, required=required,
+                    roi=roi, planes=planes, intras=intra,
+                    last_colors=last_color, last_descs=last_desc,
+                    bits=tuple(bits[i] for i in range(4)),
+                    mean_last=state["mean_last"], dmin_lt=state["dmin_lt"], dmin_st=state["dmin_st"],
+                    raw_lt=state["raw_lt"], raw_st=state["raw_st"],
+                    final_lt=state["final_lt"], final_st=state["final_st"],
+                    R=state["R"], T=state["T"], v=state["v"],
+                    last_final=state["last_final"], blinks_old=state["blinks"],
+                    last_blink_mask=state["last_blink_mask"], last_raw=state["last_raw"],
+                    last_dil_inv=state["last_dil_inv"],
+                ),
+                (a_lt, a_st, state["lr_lower"], state["lr_upper"], state["cooldown"]),
+                C=c, N=N, use3x3_global=bool(use3x3_global), k=consts,
+            )
+            is_fg, unstable, nz, curr_blink, blinks_pre = fb.is_fg, fb.unstable, fb.nz, fb.curr_blink, fb.blinks_pre
+            mean_last, dmin_lt, dmin_st, raw_lt, raw_st = fb.mean_last, fb.dmin_lt, fb.dmin_st, fb.raw_lt, fb.raw_st
+            T, v, R = fb.T, fb.v, fb.R
+
+            # BG self + neighbour-spread writes (:381-404)
+            fires = fb.fire3.to(torch.uint8) | (fb.fire5.to(torch.uint8) << 1)
+            if v2:
+                # v3: applied now, at frame-global slots (:1221-1234)
+                slots = rng.randint(keys[4], (3,), 0, N)
+                colors, descs, bg_sums = _apply_updates_global(
+                    fb.upd1, nb3_to_nb5_idx(fb.o3), fb.o5, slots[0], slots[1], slots[2],
+                    pack_pending_vals(planes, intra, fires), colors, descs, bg_sums,
+                )
+            else:
+                # v1: logged for the next step's consensus
+                pend_ctrl = pack_pending_ctrl(fb.upd1, fb.slot1, nb3_to_nb5_idx(fb.o3), fb.o5, fb.slot3, fb.slot5)
+                pend_vals = pack_pending_vals(planes, intra, fires)
         raw_fg = torch.where(is_fg, 255, 0).to(torch.uint8)
 
-        # BG self + neighbour-spread writes, logged for the next step
-        fires = fb.fire3.to(torch.uint8) | (fb.fire5.to(torch.uint8) << 1)
-        pend_ctrl = pack_pending_ctrl(fb.upd1, fb.slot1, nb3_to_nb5_idx(fb.o3), fb.o5, fb.slot3, fb.slot5)
-        pend_vals = pack_pending_vals(planes, intra, fires)
-        T, v, R = fb.T, fb.v, fb.R
-
         # nonzero-descriptor ratio (:430-431)
-        nz_ratio = (fb.nz & roi).sum().to(f32) * recip(n_roi_px)
+        nz_ratio = (nz & roi).sum().to(f32) * recip(n_roi_px)
 
         # -- post-processing (:624-642) ---------------------------------------
         pre_flood = morph_close(raw_fg, 3)
@@ -346,7 +464,7 @@ class SuBSENSE(BGSAlgorithm):
         fg1 = torch.where(is_fg | holes | (pre_flood_eroded > 0), 255, 0).to(torch.uint8)
         final = binary_median_blur(fg1, median_ksize)
         dil_inv = ~(dilate(dilate(dilate(final, 3), 3), 3) > 0)
-        blinks = fb.blinks_pre & dil_inv
+        blinks = blinks_pre & dil_inv
         final_fg = final > 0
         final_lt = state["final_lt"] * (1 - a_lt) + final_fg.to(f32) * a_lt
         final_st = state["final_st"] * (1 - a_st) + final_fg.to(f32) * a_st
@@ -386,14 +504,21 @@ class SuBSENSE(BGSAlgorithm):
             n_refresh = max(int(0.1 * N), 1)
             start = rng.randint(keys[8], (), 0, N)
             # The reference refreshes after frame t's writes: the rare trigger
-            # branch applies the pending log eagerly, refreshes, and clears
-            # the log. Branching needs the flag on the host (one sync).
+            # branch applies the pending log eagerly (v1; v3's banks are
+            # current), refreshes, and clears the log or recomputes v3's
+            # bank sum. Branching needs the flag on the host (one sync).
             if bool(trigger):
-                ac, ad, _ = apply_pending_ref(pend_ctrl, pend_vals, colors, descs)
-                colors, descs = _refresh_samples(
-                    keys[9], N, n_refresh, start, planes, intra, ~final_fg, ac, ad
-                )
-                pend_ctrl = torch.zeros_like(pend_ctrl)
+                if v2:
+                    colors, descs = _refresh_samples(
+                        keys[9], N, n_refresh, start, planes, intra, ~final_fg, colors, descs
+                    )
+                    bg_sums = tuple(cc.to(i32).sum(dim=0, dtype=i32) for cc in colors)
+                else:
+                    ac, ad, _ = apply_pending_ref(pend_ctrl, pend_vals, colors, descs)
+                    colors, descs = _refresh_samples(
+                        keys[9], N, n_refresh, start, planes, intra, ~final_fg, ac, ad
+                    )
+                    pend_ctrl = torch.zeros_like(pend_ctrl)
             T = torch.where(trigger, torch.ones_like(T), T)
             cooldown = torch.where(trigger, cfg.nSamplesForMovingAvgs // 4, cooldown).to(i32)
             auto_reset = torch.where(
@@ -419,20 +544,20 @@ class SuBSENSE(BGSAlgorithm):
             "R": R,
             "T": T,
             "v": v,
-            "mean_last": fb.mean_last,
-            "dmin_lt": fb.dmin_lt,
-            "dmin_st": fb.dmin_st,
-            "raw_lt": fb.raw_lt,
-            "raw_st": fb.raw_st,
+            "mean_last": mean_last,
+            "dmin_lt": dmin_lt,
+            "dmin_st": dmin_st,
+            "raw_lt": raw_lt,
+            "raw_st": raw_st,
             "final_lt": final_lt,
             "final_st": final_st,
-            "unstable": fb.unstable,
+            "unstable": unstable,
             "blinks": blinks,
             "last_color": planes,
             "last_desc": tuple(d.to(torch.uint16) for d in intra),
             "last_raw": raw_fg,
             "last_final": final,
-            "last_blink_mask": fb.curr_blink,
+            "last_blink_mask": curr_blink,
             "last_dil_inv": dil_inv,
             "lut_delta": lut_delta,
             "ds_lt": ds_lt,
@@ -443,9 +568,12 @@ class SuBSENSE(BGSAlgorithm):
             "auto_reset": auto_reset,
             "lr_lower": lr_lower,
             "lr_upper": lr_upper,
-            "pend_ctrl": pend_ctrl,
-            "pend_vals": pend_vals,
         }
+        if v2:
+            new_state["bg_sum"] = bg_sums
+        else:
+            new_state["pend_ctrl"] = pend_ctrl
+            new_state["pend_vals"] = pend_vals
         return new_state, final, _from_planes(bg_planes, was_gray)
 
 
@@ -522,7 +650,7 @@ class LOBSTER(BGSAlgorithm):
         planes, was_gray = _to_planes(frame)
         c = len(planes)
         h, w = planes[0].shape
-        roi = _roi_mask(h, w, frame.device)
+        roi = roi_map(h, w, frame.device)
         keys = rng.split(state["key"], 8)
 
         cons = consensus_lobster if use_kernels else consensus_lobster_ref

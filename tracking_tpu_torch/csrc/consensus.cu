@@ -29,7 +29,13 @@
 // Thresholds are f32 expressions the reference evaluates without fused
 // multiply-adds and with XLA's reciprocal product for a constant divisor:
 // build with -fmad=false, and pass 1/div as the f32 `inv_div`.
+//
+// The file's other kernels share these steps as device functions:
+// lobster_kernel (LOBSTER's consensus), read_walk_kernel (steps 3-4 on
+// read-only banks, consensus v3) and fused_kernel (steps 1-4 followed by the
+// feedback stage of feedback.cuh and the next frame's pending log).
 #include "common.cuh"
+#include "feedback.cuh"
 
 struct Banks {
   uint8_t* col[3];
@@ -127,26 +133,35 @@ __device__ __forceinline__ void bank_sums(const Banks& banks, int32_t* bg_out, i
   }
 }
 
+// The banks as the walk reads them. No __restrict__: consensus_kernel and
+// fused_kernel read slots their own replay has just written.
+struct ConstBanks {
+  const uint8_t* col[3];
+  const uint16_t* desc[3];
+};
+
+__device__ __forceinline__ ConstBanks as_const(const Banks& b) {
+  ConstBanks r;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    r.col[c] = b.col[c];
+    r.desc[c] = b.desc[c];
+  }
+  return r;
+}
+
+// Steps 3-4, shared by consensus_kernel, read_walk_kernel and fused_kernel:
+// the intra LBSP descriptors from 16 edge-clamped neighbours, the colour and
+// descriptor thresholds from R and the previous unstable mask, then the walk
+// over the N samples, stopping once `req` good samples are counted. Only the
+// slots the walk reaches are read.
 template <int C>
-__global__ void consensus_kernel(const uint8_t* __restrict__ planes, Banks banks, const int32_t* __restrict__ ctrl_map,
-                                 const float* __restrict__ R_map, const bool* __restrict__ unstable_map,
-                                 const int32_t* __restrict__ required_map, const int32_t* __restrict__ lut_delta,
-                                 int32_t* count_out, int32_t* mind_out, int32_t* mins_out, int32_t* intra_out,
-                                 int32_t* bg_out, int N, int H, int W, float rel, float inv_div, float hi,
-                                 int min_cd, int desc_off) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const int HW = H * W;
-  const int p = y * W + x;
-
-  // -- 1. replay the pending log; 2. background sums -------------------------
-  replay_pending<C>(banks, ctrl_map, x, y, p, N, H, W);
-  bank_sums<C>(banks, bg_out, p, N, HW);
-
-  // -- 3. intra descriptors from edge-clamped neighbours ---------------------
-  const float delta = (float)lut_delta[0];
-  int px[C], intra[C], nbv[C][16];
+__device__ __forceinline__ void lbsp_walk(const uint8_t* __restrict__ planes, const ConstBanks& banks, int x, int y,
+                                          int p, int N, int H, int W, float delta, float rel, float inv_div, float hi,
+                                          float R, bool unst, int req, int min_cd, int desc_off, int px[C],
+                                          int intra[C], int& count_out, int& mind_out, int& mins_out) {
+  const size_t HW = (size_t)H * W;
+  int nbv[C][16];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const uint8_t* pl = planes + (size_t)c * HW;
@@ -160,20 +175,16 @@ __global__ void consensus_kernel(const uint8_t* __restrict__ planes, Banks banks
       d |= (abs(v - px[c]) > thr ? 1 : 0) << k;
     }
     intra[c] = d;
-    intra_out[(size_t)c * HW + p] = d;
   }
 
-  // -- 4. thresholds from R and the previous unstable mask, then the walk ----
-  const bool unst = unstable_map[p];
-  const float ctf = R_map[p] * (float)min_cd - (unst ? 0.0f : (float)(min_cd / 5));
+  const float ctf = R * (float)min_cd - (unst ? 0.0f : (float)(min_cd / 5));
   int ct = (int)ctf;
   if (C == 1) ct = floordiv2(ct);
-  const int n_exp = (int)floorf(R_map[p] + 0.5f);
+  const int n_exp = (int)floorf(R + 0.5f);
   const int pow2 = (n_exp >= 0 && n_exp < 32) ? (int)(1u << n_exp) : 0;
   const int dt = pow2 + desc_off + (unst ? desc_off : 0);
   const int sc = C == 3 ? floordiv2(ct * 3) : ct;
 
-  const int req = required_map[p];
   int count = 0, mind = 16 * C, mins = 255 * C;
   for (int j = 0; j < N && count < req; ++j) {
     int tot_desc = 0, tot_sum = 0;
@@ -207,6 +218,34 @@ __global__ void consensus_kernel(const uint8_t* __restrict__ planes, Banks banks
       mins = min(mins, tot_sum);
     }
   }
+  count_out = count;
+  mind_out = mind;
+  mins_out = mins;
+}
+
+template <int C>
+__global__ void consensus_kernel(const uint8_t* __restrict__ planes, Banks banks, const int32_t* __restrict__ ctrl_map,
+                                 const float* __restrict__ R_map, const bool* __restrict__ unstable_map,
+                                 const int32_t* __restrict__ required_map, const int32_t* __restrict__ lut_delta,
+                                 int32_t* count_out, int32_t* mind_out, int32_t* mins_out, int32_t* intra_out,
+                                 int32_t* bg_out, int N, int H, int W, float rel, float inv_div, float hi,
+                                 int min_cd, int desc_off) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const int HW = H * W;
+  const int p = y * W + x;
+
+  // -- 1. replay the pending log; 2. background sums -------------------------
+  replay_pending<C>(banks, ctrl_map, x, y, p, N, H, W);
+  bank_sums<C>(banks, bg_out, p, N, HW);
+
+  // -- 3-4. intra descriptors, thresholds, the walk ----------------------------
+  int px[C], intra[C], count, mind, mins;
+  lbsp_walk<C>(planes, as_const(banks), x, y, p, N, H, W, (float)lut_delta[0], rel, inv_div, hi, R_map[p],
+               unstable_map[p], required_map[p], min_cd, desc_off, px, intra, count, mind, mins);
+#pragma unroll
+  for (int c = 0; c < C; ++c) intra_out[(size_t)c * HW + p] = intra[c];
   count_out[p] = count;
   mind_out[p] = mind;
   mins_out[p] = mins;
@@ -358,6 +397,249 @@ TT_EXPORT int tt_consensus_lobster(const void* planes, void* col0, void* col1, v
   } else if (C == 3) {
     lobster_kernel<3><<<grid, block, 0, stream>>>(px, b, cm, o0, o1, o2, N, H, W, rel, offset, inv_div, c_sc, d_sc,
                                                   c_tot, d_tot, req);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// read_walk_kernel: consensus v3's read-only walk, one thread per pixel.
+// Replaces tracking_tpu/ops/pallas_consensus.py:consensus_read_pallas
+// (_make_read_kernel) and, with the same inputs and outputs, the retired v2
+// walk attic/pallas_consensus2.py:consensus_walk_pallas. The banks are
+// already current (the step applies its slot writes eagerly, in plain torch,
+// with frame-global slots), so there is no replay, no bg_sum and no write:
+// steps 3-4 of consensus_kernel on const banks. `required` arrives
+// ROI-zeroed. The v2 TPU kernel fetched bank slot groups on demand so that
+// converged tiles skip the rest; a thread that reads a pixel's slots only as
+// its walk reaches them is that design's natural form here, so one kernel
+// stands for both TPU kernels.
+//
+// Bound on the H100: device-memory bytes - the frame, R, unstable and
+// required (10 B/px), the samples each walk examines (3 B per channel), and
+// 4 + C int32 maps written.
+template <int C>
+__global__ void read_walk_kernel(const uint8_t* __restrict__ planes, ConstBanks banks, const float* __restrict__ R_map,
+                                 const bool* __restrict__ unstable_map, const int32_t* __restrict__ required_map,
+                                 const int32_t* __restrict__ lut_delta, int32_t* count_out, int32_t* mind_out,
+                                 int32_t* mins_out, int32_t* intra_out, int N, int H, int W, float rel, float inv_div,
+                                 float hi, int min_cd, int desc_off) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const size_t HW = (size_t)H * W;
+  const int p = y * W + x;
+  int px[C], intra[C], count, mind, mins;
+  lbsp_walk<C>(planes, banks, x, y, p, N, H, W, (float)lut_delta[0], rel, inv_div, hi, R_map[p], unstable_map[p],
+               required_map[p], min_cd, desc_off, px, intra, count, mind, mins);
+#pragma unroll
+  for (int c = 0; c < C; ++c) intra_out[(size_t)c * HW + p] = intra[c];
+  count_out[p] = count;
+  mind_out[p] = mind;
+  mins_out[p] = mins;
+}
+
+TT_EXPORT int tt_consensus_read(const void* planes, const void* col0, const void* col1, const void* col2,
+                                const void* desc0, const void* desc1, const void* desc2, const void* R,
+                                const void* unstable, const void* required, const void* lut_delta, void* count,
+                                void* mind, void* mins, void* intra, int C, int N, int H, int W, float rel, float div,
+                                float hi_const, int min_cd, int desc_off, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  ConstBanks b;
+  b.col[0] = static_cast<const uint8_t*>(col0);
+  b.col[1] = static_cast<const uint8_t*>(col1);
+  b.col[2] = static_cast<const uint8_t*>(col2);
+  b.desc[0] = static_cast<const uint16_t*>(desc0);
+  b.desc[1] = static_cast<const uint16_t*>(desc1);
+  b.desc[2] = static_cast<const uint16_t*>(desc2);
+  const float inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
+  dim3 block(32, 8);
+  dim3 grid((W + 31) / 32, (H + 7) / 8);
+  const uint8_t* px = static_cast<const uint8_t*>(planes);
+  const float* Rm = static_cast<const float*>(R);
+  const bool* um = static_cast<const bool*>(unstable);
+  const int32_t* rq = static_cast<const int32_t*>(required);
+  const int32_t* ld = static_cast<const int32_t*>(lut_delta);
+  int32_t* o0 = static_cast<int32_t*>(count);
+  int32_t* o1 = static_cast<int32_t*>(mind);
+  int32_t* o2 = static_cast<int32_t*>(mins);
+  int32_t* o3 = static_cast<int32_t*>(intra);
+  if (C == 1) {
+    read_walk_kernel<1><<<grid, block, 0, stream>>>(px, b, Rm, um, rq, ld, o0, o1, o2, o3, N, H, W, rel, inv_div,
+                                                    hi_const, min_cd, desc_off);
+  } else if (C == 3) {
+    read_walk_kernel<3><<<grid, block, 0, stream>>>(px, b, Rm, um, rq, ld, o0, o1, o2, o3, N, H, W, rel, inv_div,
+                                                    hi_const, min_cd, desc_off);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fused_kernel: SuBSENSE's whole per-pixel step in one thread. Replaces
+// tracking_tpu/ops/pallas_consensus.py:consensus_feedback_pallas
+// (_make_fused_kernel). Per pixel, in order:
+//   1-2. replay_pending and bank_sums, as consensus_kernel (banks in place);
+//   the ROI from the coordinates, and the walk's ROI-zeroed requirement
+//   beside the true one: the walk stops at the ROI-zeroed value, the
+//   feedback divides by the true one (a zero there would make 0/0 on the
+//   border);
+//   3-4. lbsp_walk;
+//   frame 0 adopts this frame's values and descriptors as the last frame's
+//   (t is read on the card);
+//   5. feedback_core (feedback.cuh);
+//   6. the outputs: the flags word (bit 0 is_fg, 1 unstable, 2 nz,
+//   3 curr_blink, 4 blinks_pre), the next frame's pending log, eight f32
+//   maps (mean_last, dmin_lt, dmin_st, raw_lt, raw_st, T, v, R) and bg_sum.
+//
+// The pending log is double-buffered: the replay reads the OLD pend_vals of
+// up to 24 neighbours while this kernel writes the NEW log, so the new log
+// goes to separate output maps (written in place it would race with the
+// neighbours' spread picks). Only the banks are updated in place: a thread
+// writes only its own pixel's slots. The TPU kernel aliases only the banks
+// too.
+//
+// Bound on the H100: device-memory bytes - consensus_kernel's plus 101 B/px
+// of feedback state (10 f32 maps in, 8 out, 16 B of random bits, five mask
+// bytes, the last frame's colour and descriptors, the flags word and the new
+// log).
+struct FusedArgs {
+  const uint8_t* planes;
+  Banks banks;
+  const int32_t* ctrl;
+  const float* R;
+  const bool* unstable;
+  const int32_t* required;
+  const int32_t* lut_delta;
+  const uint8_t* last_color[3];
+  const uint16_t* last_desc[3];
+  const int32_t* bits;
+  const uint8_t* masks[5];  // last_final, blinks_old, last_blink_mask, last_raw, last_dil_inv
+  const float* f32_in[9];   // mean_last, dmin_lt, dmin_st, raw_lt, raw_st, final_lt, final_st, T, v
+  const float* fscal;       // a_lt, a_st, lr_lower, lr_upper
+  const int32_t* iscal;     // cooldown, t
+  int32_t* out_i;           // flags, pend_ctrl, pend_vals x C, bg_sum x C
+  float* out_f;             // mean_last, dmin_lt, dmin_st, raw_lt, raw_st, T, v, R
+};
+
+// NB3 offset index (0..7) -> its index in the 5x5 order (ops/consensus.py NB3_IN_NB5)
+__constant__ int8_t kNb3InNb5[8] = {6, 7, 8, 11, 12, 15, 16, 17};
+
+template <int C>
+__global__ void fused_kernel(FusedArgs a, int N, int H, int W, float rel, float inv_div, float hi, int min_cd,
+                             int desc_off, bool use3x3_global, FbConsts k) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const size_t HW = (size_t)H * W;
+  const int p = y * W + x;
+
+  // -- 1. replay the old log (banks in place); 2. background sums -------------
+  replay_pending<C>(a.banks, a.ctrl, x, y, p, N, H, W);
+  bank_sums<C>(a.banks, a.out_i + (2 + C) * HW, p, N, HW);
+
+  // -- ROI and the two requirements -------------------------------------------
+  const bool roi = y >= 2 && y <= H - 3 && x >= 2 && x <= W - 3;
+  const int req_true = a.required[p];
+  const int req_eff = roi ? req_true : 0;
+
+  // -- 3-4. the walk ----------------------------------------------------------
+  const float R_old = a.R[p];
+  int px[C], intra[C], count, mind, mins;
+  lbsp_walk<C>(a.planes, as_const(a.banks), x, y, p, N, H, W, (float)a.lut_delta[0], rel, inv_div, hi, R_old,
+               a.unstable[p], req_eff, min_cd, desc_off, px, intra, count, mind, mins);
+
+  // -- frame 0 adopts this frame as the last one ------------------------------
+  const bool first = a.iscal[1] == 0;
+  int lc[C], ld[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    lc[c] = first ? px[c] : (int)a.last_color[c][p];
+    ld[c] = first ? intra[c] : (int)a.last_desc[c][p];
+  }
+
+  // -- 5. feedback -------------------------------------------------------------
+  int bits[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) bits[i] = a.bits[i * HW + p];
+  FbState s;
+  s.mean_last = a.f32_in[0][p];
+  s.dmin_lt = a.f32_in[1][p];
+  s.dmin_st = a.f32_in[2][p];
+  s.raw_lt = a.f32_in[3][p];
+  s.raw_st = a.f32_in[4][p];
+  s.final_lt = a.f32_in[5][p];
+  s.final_st = a.f32_in[6][p];
+  s.T = a.f32_in[7][p];
+  s.v = a.f32_in[8][p];
+  s.R = R_old;
+  s.last_final = a.masks[0][p] != 0;
+  s.blinks_old = a.masks[1][p] != 0;
+  s.last_blink_mask = a.masks[2][p] != 0;
+  s.last_raw = a.masks[3][p] != 0;
+  s.last_dil_inv = a.masks[4][p] != 0;
+  FbScalars sc;
+  sc.a_lt = a.fscal[0];
+  sc.a_st = a.fscal[1];
+  sc.lr_lower = a.fscal[2];
+  sc.lr_upper = a.fscal[3];
+  sc.cooldown = a.iscal[0];
+  const FbOut fb = feedback_core<C>(count, mind, mins, req_true, roi, px, intra, lc, ld, bits, s, sc, N,
+                                    use3x3_global, k);
+
+  // -- 6. packed outputs ------------------------------------------------------
+  a.out_i[p] = (int)fb.is_fg | ((int)fb.unstable << 1) | ((int)fb.nz << 2) | ((int)fb.curr_blink << 3) |
+               ((int)fb.blinks_pre << 4);
+  a.out_i[HW + p] = (int)fb.upd1 | (fb.slot1 << 1) | ((int)kNb3InNb5[fb.o3] << 7) | (fb.o5 << 12) |
+                    (fb.slot3 << 17) | (fb.slot5 << 23);
+  const int fires = (int)fb.fire3 | ((int)fb.fire5 << 1);
+#pragma unroll
+  for (int c = 0; c < C; ++c) a.out_i[(2 + c) * HW + p] = px[c] | (intra[c] << 8) | (c == 0 ? fires << 24 : 0);
+  const float f32_out[8] = {fb.mean_last, fb.dmin_lt, fb.dmin_st, fb.raw_lt, fb.raw_st, fb.T, fb.v, fb.R};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) a.out_f[i * HW + p] = f32_out[i];
+}
+
+// ptrs: the 40 device pointers in the order of ops/consensus.py:consensus_feedback
+// (planes, col x3, desc x3, pend_ctrl, pend_vals x3, R, unstable, required,
+// lut_delta, last_color x3, last_desc x3, bits, masks x5, f32 state x9, fscal,
+// iscal, int outputs, f32 outputs); kc: the 12 FbConsts in field order.
+TT_EXPORT int tt_consensus_feedback(void* const* ptrs, const float* kc, int C, int N, int H, int W, float rel,
+                                    float div, float hi_const, int min_cd, int desc_off, int use3x3_global,
+                                    void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  FusedArgs a;
+  int i = 0;
+  a.planes = static_cast<const uint8_t*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) a.banks.col[c] = static_cast<uint8_t*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) a.banks.desc[c] = static_cast<uint16_t*>(ptrs[i++]);
+  a.ctrl = static_cast<const int32_t*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) a.banks.vals[c] = static_cast<const int32_t*>(ptrs[i++]);
+  a.R = static_cast<const float*>(ptrs[i++]);
+  a.unstable = static_cast<const bool*>(ptrs[i++]);
+  a.required = static_cast<const int32_t*>(ptrs[i++]);
+  a.lut_delta = static_cast<const int32_t*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) a.last_color[c] = static_cast<const uint8_t*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) a.last_desc[c] = static_cast<const uint16_t*>(ptrs[i++]);
+  a.bits = static_cast<const int32_t*>(ptrs[i++]);
+  for (int m = 0; m < 5; ++m) a.masks[m] = static_cast<const uint8_t*>(ptrs[i++]);
+  for (int f = 0; f < 9; ++f) a.f32_in[f] = static_cast<const float*>(ptrs[i++]);
+  a.fscal = static_cast<const float*>(ptrs[i++]);
+  a.iscal = static_cast<const int32_t*>(ptrs[i++]);
+  a.out_i = static_cast<int32_t*>(ptrs[i++]);
+  a.out_f = static_cast<float*>(ptrs[i++]);
+  FbConsts k = {kc[0], kc[1], kc[2], kc[3], kc[4], kc[5], kc[6], kc[7], kc[8], kc[9], kc[10], kc[11]};
+  const float inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
+  dim3 block(32, 8);
+  dim3 grid((W + 31) / 32, (H + 7) / 8);
+  if (C == 1) {
+    fused_kernel<1><<<grid, block, 0, stream>>>(a, N, H, W, rel, inv_div, hi_const, min_cd, desc_off,
+                                                use3x3_global != 0, k);
+  } else if (C == 3) {
+    fused_kernel<3><<<grid, block, 0, stream>>>(a, N, H, W, rel, inv_div, hi_const, min_cd, desc_off,
+                                                use3x3_global != 0, k);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -15,20 +15,29 @@ Per pixel, in order:
 4. walk the samples, counting good ones up to ``required`` and keeping the
    minimum descriptor and sum distances of the counted ones.
 
-Also here: the pending-log helpers of ``pallas_consensus.py:258-320``, and
+Also here: the pending-log helpers of ``pallas_consensus.py:258-320``;
 LOBSTER's consensus, the same four steps with fixed thresholds and the
 inter-frame descriptor distance only: the kernel ``consensus_lobster``
 (replacing ``pallas_consensus.consensus_lobster_pallas``) beside its plain
-version ``consensus_lobster_ref``.
+version ``consensus_lobster_ref``; consensus v3's read-only walk, steps 3-4
+on banks that are already current: ``consensus_read`` (replacing
+``pallas_consensus.consensus_read_pallas`` and the retired
+``attic/pallas_consensus2.py:consensus_walk_pallas``) beside
+``consensus_read_ref``; and the fused whole step, steps 1-4 followed by the
+feedback stage and the next frame's pending log: ``consensus_feedback``
+(replacing ``pallas_consensus.consensus_feedback_pallas``) beside
+``consensus_feedback_ref``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from tracking_tpu_torch.ops import _native
-from tracking_tpu_torch.ops.lbsp import edge_pad, neighbor_stack, popcount16
+from tracking_tpu_torch.ops.lbsp import BORDER, edge_pad, neighbor_stack, popcount16
 
 # 5×5 neighbour offsets (x, y) in the reference's traversal order
 NB5 = tuple(
@@ -230,10 +239,27 @@ def walk_ref(planes, colors, descs, intra, nbs, thr, color_thr, desc_thr, requir
     return count, mind, mins
 
 
-def _check_args(planes, colors, descs, pend_vals):
+def _check_args(planes, *per_channel):
     C = len(planes)
-    if C not in (1, 3) or not (len(colors) == len(descs) == len(pend_vals) == C):
+    if C not in (1, 3) or any(len(x) != C for x in per_channel):
         raise ValueError(f"consensus takes 1 or 3 channels, got {C}")
+
+
+def consensus_read_ref(
+    planes, colors, descs, lut_delta, R, unstable, required,
+    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int,
+):
+    """Plain torch read-only walk (consensus v3: the banks are already
+    current, nothing is written). Same tensors as :func:`consensus_ref`
+    without the pending log; ``required`` arrives ROI-zeroed. Returns
+    (count, min_desc, min_sum, intra ×C), int32 [H, W]."""
+    _check_args(planes, colors, descs)
+    C = len(planes)
+    thr = lambda v: thr_closed_form(v, lut_delta, rel, div, hi_const)  # noqa: E731
+    intra, nbs = intra_descriptors(planes, thr)
+    ct, dt = color_desc_thresholds(R, unstable, C == 1, min_cd, desc_off)
+    count, mind, mins = walk_ref(planes, colors, descs, intra, nbs, thr, ct, dt, required)
+    return count, mind, mins, intra
 
 
 def consensus_ref(
@@ -246,12 +272,10 @@ def consensus_ref(
     (count, min_desc, min_sum, intra ×C, bg_sum ×C, colors, descs), the
     maps int32 and the banks new tensors."""
     _check_args(planes, colors, descs, pend_vals)
-    C = len(planes)
     colors, descs, bg_sum = apply_pending_ref(pend_ctrl, pend_vals, colors, descs)
-    thr = lambda v: thr_closed_form(v, lut_delta, rel, div, hi_const)  # noqa: E731
-    intra, nbs = intra_descriptors(planes, thr)
-    ct, dt = color_desc_thresholds(R, unstable, C == 1, min_cd, desc_off)
-    count, mind, mins = walk_ref(planes, colors, descs, intra, nbs, thr, ct, dt, required)
+    count, mind, mins, intra = consensus_read_ref(
+        planes, colors, descs, lut_delta, R, unstable, required, rel, div, hi_const, min_cd, desc_off
+    )
     return count, mind, mins, intra, bg_sum, colors, descs
 
 
@@ -304,6 +328,209 @@ def consensus(
     _native.check(rc, "consensus")
     _native.LAUNCHES["consensus"] += 1
     return count, mind, mins, tuple(intra.unbind(0)), tuple(bg_sum.unbind(0)), colors, descs
+
+
+def consensus_read(
+    planes, colors, descs, lut_delta, R, unstable, required,
+    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int,
+):
+    """Same contract as :func:`consensus_read_ref`. CPU tensors take the
+    plain version. CUDA tensors launch ``read_walk_kernel``
+    (``csrc/consensus.cu``, replacing ``pallas_consensus.consensus_read_pallas``
+    and the retired ``attic/pallas_consensus2.py:consensus_walk_pallas``),
+    which only reads the banks."""
+    if planes[0].device.type == "cpu":
+        return consensus_read_ref(
+            planes, colors, descs, lut_delta, R, unstable, required, rel, div, hi_const, min_cd, desc_off
+        )
+    _check_args(planes, colors, descs)
+    C = len(planes)
+    H, W = planes[0].shape
+    N = colors[0].shape[0]
+    req = _native.require
+    for c in range(C):
+        req(planes[c], f"planes[{c}]", torch.uint8, (H, W))
+        req(colors[c], f"colors[{c}]", torch.uint8, (N, H, W))
+        req(descs[c], f"descs[{c}]", torch.uint16, (N, H, W))
+    req(R, "R", torch.float32, (H, W))
+    req(unstable, "unstable", torch.bool, (H, W))
+    req(required, "required", torch.int32, (H, W))
+    req(lut_delta, "lut_delta", torch.int32, ())
+    px = torch.stack(planes).contiguous()
+    maps = torch.empty((3 + C, H, W), dtype=torch.int32, device=px.device)
+    count, mind, mins, intra = maps[0], maps[1], maps[2], maps[3:]
+    ptr = lambda ts, c: ts[c].data_ptr() if c < C else None  # noqa: E731
+    rc = _native.library().tt_consensus_read(
+        px.data_ptr(),
+        ptr(colors, 0), ptr(colors, 1), ptr(colors, 2),
+        ptr(descs, 0), ptr(descs, 1), ptr(descs, 2),
+        R.data_ptr(), unstable.data_ptr(), required.data_ptr(), lut_delta.data_ptr(),
+        count.data_ptr(), mind.data_ptr(), mins.data_ptr(), intra.data_ptr(),
+        C, N, H, W, rel, div, hi_const, min_cd, desc_off, _native.stream_ptr(),
+    )
+    _native.check(rc, "consensus_read")
+    _native.LAUNCHES["consensus_read"] += 1
+    return count, mind, mins, tuple(intra.unbind(0))
+
+
+# -- the fused whole step --------------------------------------------------------
+
+
+def roi_map(h: int, w: int, device=None) -> torch.Tensor:
+    """The LBSP ROI: bool [h, w], the 2-px border outside."""
+    roi = torch.zeros((h, w), dtype=torch.bool, device=device)
+    roi[BORDER : h - BORDER, BORDER : w - BORDER] = True
+    return roi
+
+
+def _required_map(required, h: int, w: int, device) -> torch.Tensor:
+    return torch.broadcast_to(torch.as_tensor(required, dtype=torch.int32, device=device), (h, w)).contiguous()
+
+
+def consensus_feedback_ref(
+    planes, colors, descs, pend_ctrl, pend_vals, lut_delta, R, unstable, required,
+    last_color, last_desc, bits, masks, f32_state, scalars,
+    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int, use3x3_global: bool, k,
+):
+    """Plain torch whole step (``pallas_consensus.consensus_feedback_pallas``):
+    :func:`consensus_ref` with the ROI-zeroed requirement, frame 0's adoption
+    of this frame as ``last_color`` / ``last_desc``, the feedback stage
+    (``ops/feedback.feedback``) with the TRUE requirement, then the next
+    frame's pending log and the flags word (bit 0 is_fg, 1 unstable, 2 nz,
+    3 curr_blink, 4 blinks_pre).
+
+    Tensors as in :func:`consensus_ref`, plus ``required`` (an int or an
+    int32 [H, W] map: the true requirement), ``last_color`` / ``last_desc``
+    (C-tuples of u8 / u16), ``bits`` (int32 [4, H, W]), ``masks``
+    (last_final, blinks_old, last_blink_mask, last_raw, last_dil_inv;
+    nonzero = set), ``f32_state`` (mean_last, dmin_lt, dmin_st, raw_lt,
+    raw_st, final_lt, final_st, T, v) and ``scalars`` (a_lt, a_st,
+    lr_lower, lr_upper, cooldown, t as 0-d tensors); ``k`` the
+    ``FeedbackConsts``. Returns (flags, pend_ctrl, pend_vals ×C,
+    (mean_last, dmin_lt, dmin_st, raw_lt, raw_st, T, v, R), bg_sum ×C,
+    colors, descs)."""
+    from tracking_tpu_torch.ops.feedback import feedback
+
+    _check_args(planes, colors, descs, pend_vals, last_color, last_desc)
+    C = len(planes)
+    H, W = planes[0].shape
+    dev = planes[0].device
+    roi = roi_map(H, W, dev)
+    req = _required_map(required, H, W, dev)
+    count, mind, mins, intra, bg_sum, colors, descs = consensus_ref(
+        planes, colors, descs, pend_ctrl, pend_vals, lut_delta, R, unstable, torch.where(roi, req, 0),
+        rel, div, hi_const, min_cd, desc_off,
+    )
+    a_lt, a_st, lr_lower, lr_upper, cooldown, t = scalars
+    first = t == 0
+    mean_last, dmin_lt, dmin_st, raw_lt, raw_st, final_lt, final_st, T, v = f32_state
+    last_final, blinks_old, last_blink_mask, last_raw, last_dil_inv = masks
+    fb = feedback(
+        dict(
+            count=count, mind=mind, mins=mins, required=req, roi=roi, planes=planes, intras=intra,
+            last_colors=tuple(torch.where(first, planes[c], last_color[c]) for c in range(C)),
+            last_descs=tuple(torch.where(first, intra[c], last_desc[c].to(torch.int32)) for c in range(C)),
+            bits=tuple(bits[i] for i in range(4)),
+            mean_last=mean_last, dmin_lt=dmin_lt, dmin_st=dmin_st, raw_lt=raw_lt, raw_st=raw_st,
+            final_lt=final_lt, final_st=final_st, R=R, T=T, v=v,
+            last_final=last_final, blinks_old=blinks_old, last_blink_mask=last_blink_mask,
+            last_raw=last_raw, last_dil_inv=last_dil_inv,
+        ),
+        (a_lt, a_st, lr_lower, lr_upper, cooldown),
+        C=C, N=colors[0].shape[0], use3x3_global=use3x3_global, k=k,
+    )
+    i32 = lambda m: m.to(torch.int32)  # noqa: E731
+    flags = i32(fb.is_fg) | (i32(fb.unstable) << 1) | (i32(fb.nz) << 2) | (i32(fb.curr_blink) << 3) | (
+        i32(fb.blinks_pre) << 4
+    )
+    new_ctrl = pack_pending_ctrl(fb.upd1, fb.slot1, nb3_to_nb5_idx(fb.o3), fb.o5, fb.slot3, fb.slot5)
+    new_vals = pack_pending_vals(planes, intra, i32(fb.fire3) | (i32(fb.fire5) << 1))
+    f32_out = (fb.mean_last, fb.dmin_lt, fb.dmin_st, fb.raw_lt, fb.raw_st, fb.T, fb.v, fb.R)
+    return flags, new_ctrl, new_vals, f32_out, bg_sum, colors, descs
+
+
+def _feedback_consts_f32(k) -> list:
+    """The ``FbConsts`` of ``csrc/feedback.cuh`` in field order: the f32
+    roundings of the Python doubles the plain version uses (``v_decr / 4``
+    and ``v_decr / 2`` are formed in double first, as there)."""
+    return [k.t_incr, k.t_decr, k.t_lower, k.v_incr, k.v_decr, k.v_decr / 4, k.v_decr / 2, k.r_var,
+            k.rdist_min, k.ratio_min, k.ghost_s_min, k.ghost_d_max]
+
+
+def consensus_feedback(
+    planes, colors, descs, pend_ctrl, pend_vals, lut_delta, R, unstable, required,
+    last_color, last_desc, bits, masks, f32_state, scalars,
+    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int, use3x3_global: bool, k,
+):
+    """Same contract as :func:`consensus_feedback_ref`. CPU tensors take the
+    plain version. CUDA tensors launch ``fused_kernel``
+    (``csrc/consensus.cu``, replacing
+    ``pallas_consensus.consensus_feedback_pallas``), which updates ``colors``
+    and ``descs`` IN PLACE and writes the new pending log to new tensors (the
+    old one is read by the neighbours' replay). ``t`` and the other scalars
+    stay on the card."""
+    if planes[0].device.type == "cpu":
+        return consensus_feedback_ref(
+            planes, colors, descs, pend_ctrl, pend_vals, lut_delta, R, unstable, required,
+            last_color, last_desc, bits, masks, f32_state, scalars,
+            rel, div, hi_const, min_cd, desc_off, use3x3_global, k,
+        )
+    _check_args(planes, colors, descs, pend_vals, last_color, last_desc)
+    C = len(planes)
+    H, W = planes[0].shape
+    N = colors[0].shape[0]
+    if N > 63:
+        raise ValueError("the pending log's 6-bit slots hold at most 63 samples")
+    dev = planes[0].device
+    required = _required_map(required, H, W, dev)
+    req = _native.require
+    for c in range(C):
+        req(planes[c], f"planes[{c}]", torch.uint8, (H, W))
+        req(colors[c], f"colors[{c}]", torch.uint8, (N, H, W))
+        req(descs[c], f"descs[{c}]", torch.uint16, (N, H, W))
+        req(pend_vals[c], f"pend_vals[{c}]", torch.int32, (H, W))
+        req(last_color[c], f"last_color[{c}]", torch.uint8, (H, W))
+        req(last_desc[c], f"last_desc[{c}]", torch.uint16, (H, W))
+    req(pend_ctrl, "pend_ctrl", torch.int32, (H, W))
+    req(R, "R", torch.float32, (H, W))
+    req(unstable, "unstable", torch.bool, (H, W))
+    req(required, "required", torch.int32, (H, W))
+    req(lut_delta, "lut_delta", torch.int32, ())
+    req(bits, "bits", torch.int32, (4, H, W))
+    if len(masks) != 5 or len(f32_state) != 9 or len(scalars) != 6:
+        raise ValueError("consensus_feedback takes 5 masks, 9 f32 maps and 6 scalars")
+    for i, m in enumerate(masks):
+        if m.dtype not in (torch.uint8, torch.bool):
+            raise ValueError(f"masks[{i}]: expected uint8 or bool, got {m.dtype}")
+        req(m, f"masks[{i}]", m.dtype, (H, W))
+    for i, f in enumerate(f32_state):
+        req(f, f"f32_state[{i}]", torch.float32, (H, W))
+    a_lt, a_st, lr_lower, lr_upper, cooldown, t = scalars
+    fscal = torch.stack([torch.as_tensor(s, device=dev).to(torch.float32) for s in (a_lt, a_st, lr_lower, lr_upper)])
+    iscal = torch.stack([torch.as_tensor(s, device=dev).to(torch.int32) for s in (cooldown, t)])
+    px = torch.stack(planes).contiguous()
+    out_i = torch.empty((2 + 2 * C, H, W), dtype=torch.int32, device=dev)
+    out_f = torch.empty((8, H, W), dtype=torch.float32, device=dev)
+    per_c = lambda ts: [ts[c].data_ptr() if c < C else None for c in range(3)]  # noqa: E731
+    ptrs = (
+        [px.data_ptr()] + per_c(colors) + per_c(descs) + [pend_ctrl.data_ptr()] + per_c(pend_vals)
+        + [R.data_ptr(), unstable.data_ptr(), required.data_ptr(), lut_delta.data_ptr()]
+        + per_c(last_color) + per_c(last_desc) + [bits.data_ptr()]
+        + [m.data_ptr() for m in masks] + [f.data_ptr() for f in f32_state]
+        + [fscal.data_ptr(), iscal.data_ptr(), out_i.data_ptr(), out_f.data_ptr()]
+    )
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_consts = (ctypes.c_float * 12)(*_feedback_consts_f32(k))
+    rc = _native.library().tt_consensus_feedback(
+        c_ptrs, c_consts, C, N, H, W, rel, div, hi_const, min_cd, desc_off, int(use3x3_global),
+        _native.stream_ptr(),
+    )
+    _native.check(rc, "consensus_feedback")
+    _native.LAUNCHES["consensus_feedback"] += 1
+    vals, bg_sum = out_i[2 : 2 + C], out_i[2 + C :]
+    return (
+        out_i[0], out_i[1], tuple(vals.unbind(0)), tuple(out_f.unbind(0)), tuple(bg_sum.unbind(0)), colors, descs
+    )
 
 
 # -- LOBSTER ------------------------------------------------------------------

@@ -9,6 +9,7 @@ filling is the 4-connected reachability of background pixels from a seed
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,22 +33,47 @@ def _separable(img: torch.Tensor, ksize: int, reducer, pad_value: int) -> torch.
     return _reduce_axis(_reduce_axis(img, ksize, h_ax, reducer, pad_value), ksize, w_ax, reducer, pad_value)
 
 
-def erode(img: torch.Tensor, ksize: int = 3) -> torch.Tensor:
-    """Erosion with a ksize×ksize rectangle; border value = max (u8 masks)."""
+def _shift_reduce(img: torch.Tensor, se: np.ndarray, reducer, pad_value: int) -> torch.Tensor:
+    """Reduce over the structuring element's set positions: shifted slices
+    of the constant-padded image, in row-major SE order."""
+    kh, kw = se.shape
+    H, W = img.shape[-2], img.shape[-1]
+    x = F.pad(img, (kw // 2, kw // 2, kh // 2, kh // 2), mode="constant", value=pad_value)
+    out = None
+    for dy in range(kh):
+        for dx in range(kw):
+            if se[dy, dx]:
+                v = x[..., dy : dy + H, dx : dx + W]
+                out = v if out is None else reducer(out, v)
+    return out
+
+
+def _morph(img: torch.Tensor, ksize: int, se, reducer, pad_value: int, name: str) -> torch.Tensor:
     if img.dtype != torch.uint8:
-        raise ValueError("erode takes u8 images")
-    return _separable(img, ksize, torch.minimum, 255)
+        raise ValueError(f"{name} takes u8 images")
+    if se is None:
+        return _separable(img, ksize, reducer, pad_value)
+    se = np.asarray(se, dtype=bool)
+    if se.all() and se.shape[0] == se.shape[1] and min(se.shape) > 1:
+        return _separable(img, se.shape[0], reducer, pad_value)
+    return _shift_reduce(img, se, reducer, pad_value)
 
 
-def dilate(img: torch.Tensor, ksize: int = 3) -> torch.Tensor:
-    """Dilation with a ksize×ksize rectangle; border value = min (u8 masks)."""
-    if img.dtype != torch.uint8:
-        raise ValueError("dilate takes u8 images")
-    return _separable(img, ksize, torch.maximum, 0)
+def erode(img: torch.Tensor, ksize: int = 3, se=None) -> torch.Tensor:
+    """Erosion with a ksize×ksize rectangle or the boolean structuring
+    element ``se`` (such as subsenseShrink's 3×3 cross); border value = max
+    (u8 masks)."""
+    return _morph(img, ksize, se, torch.minimum, 255, "erode")
 
 
-def morph_close(img: torch.Tensor, ksize: int = 3) -> torch.Tensor:
-    return erode(dilate(img, ksize), ksize)
+def dilate(img: torch.Tensor, ksize: int = 3, se=None) -> torch.Tensor:
+    """Dilation with a ksize×ksize rectangle or ``se``; border value = min
+    (u8 masks)."""
+    return _morph(img, ksize, se, torch.maximum, 0, "dilate")
+
+
+def morph_close(img: torch.Tensor, ksize: int = 3, se=None) -> torch.Tensor:
+    return erode(dilate(img, ksize, se), ksize, se)
 
 
 def fill_holes(mask_u8: torch.Tensor, seed: str = "border", use_kernels: bool = True) -> torch.Tensor:

@@ -5,14 +5,15 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--ptxas]
 
-It drives the port's paths at 720×1280×3 on a seeded synthetic clip -
+It drives the port's paths at 720×1280×3 on seeded synthetic clips -
 SuBSENSE followed by the default CCMSPF blob tracker; LOBSTER, GMG,
 DPTexture and MultiLayer through the registry; SuBSENSE's consensus v3 and
-fused step and subsenseShrink - and fails (non-zero exit, no result line)
-on any broken phase:
+fused step and subsenseShrink; FGD (FG_0) followed by the tracker, and
+FGDSimple (FG_0S) - and fails (non-zero exit, no result line) on any broken
+phase:
 
 1. device: the card's name and power limit; no CUDA device is an error;
-2. build: compiles the ten CUDA kernels from ``tracking_tpu_torch/csrc``,
+2. build: compiles the eleven CUDA kernels from ``tracking_tpu_torch/csrc``,
    one ``nvcc`` per source in parallel (``--ptxas`` prints each kernel's
    registers and spills);
 3. each kernel against its plain PyTorch version on the card at its path's
@@ -21,7 +22,10 @@ on any broken phase:
    C=3 and C=1, the GMG list update at t = 5, 19 and 30, the DPTexture
    histograms, the MultiLayer update learning and not; the v3 read-only
    walk C=3 and C=1, the fused whole step C=3 at t > 0 and t = 0 with the
-   scalar requirement and a random requirement map, and C=1);
+   scalar requirement and a random requirement map, and C=1; FGD's table
+   phase on inputs of real steps - the noisy and the quiet clip, the first
+   frame, f32 statistics - on the quiet step with its tables filled, and on
+   random tables with ties);
 4. the main path: warm start, then 64 frames of ``SuBSENSE.step`` and
    ``BlobTracker.step``; every kernel's launch count must be > 0, the mean
    foreground share in (0.1 %, 50 %), and a track active at the end;
@@ -35,15 +39,26 @@ on any broken phase:
    frames each: the new kernel's launch count > 0 and ``consensus``'s 0,
    the foreground share in (0.1 %, 50 %), the first 8 frames and the state
    again through the plain versions;
+4d. the FG_0 path on the quiet clip (sensor noise 0.5: FGD's change test
+   fires on most pixels at the main clip's 2.5): ``get_algorithm("FG_0")``,
+   warm start, 64 frames of ``FGD.step`` and ``BlobTracker.step``; the
+   launch counts of ``fgd_tables``, the fill, CC and assignment > 0, the
+   foreground share after frame 1 in (0.1 %, 50 %), a track active at the
+   end, the first 8 frames (masks, tracks, state) again through the plain
+   versions; FG_0S for 16 frames with the same kernel-vs-plain check;
 5. the first 16 SuBSENSE + tracker frames again through the plain
    versions: masks, track ids and positions must equal the kernel run's;
 6. timing with CUDA events: each kernel beside its plain version and its
    bound, ms/frame for the SuBSENSE step alone, the full path and each of
-   the four algorithms, v1 / v3 / fused SuBSENSE steps in turns, and the
-   device's busy share and kernels per frame under torch.profiler.
+   the four algorithms, v1 / v3 / fused SuBSENSE steps in turns, CC
+   labelling on FGD's masks (quiet and flooded) beside SuBSENSE's, FGD's
+   table kernel on young, full and noisy-clip tables, the FGD step with the
+   table kernel against the plain table phase in turns and the FG_0 path,
+   each on young and on full tables, and the device's busy share and
+   kernels per frame under torch.profiler.
 
-The last two lines are a JSON object of the per-kernel results and
-``{"ok": true, "device": {...}}``.
+The last three lines are a JSON object of the per-kernel results, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -72,6 +87,7 @@ SOURCES = {
     "multilayer_step": ("tracking_tpu_torch/csrc/multilayer.cu", "tracking_tpu/ops/pallas_multilayer.py:86"),
     "consensus_read": ("tracking_tpu_torch/csrc/consensus.cu", "tracking_tpu/ops/pallas_consensus.py:778"),
     "consensus_feedback": ("tracking_tpu_torch/csrc/consensus.cu", "tracking_tpu/ops/pallas_consensus.py:1012"),
+    "fgd_tables": ("tracking_tpu_torch/csrc/fgd.cu", "tracking_tpu/ops/pallas_fgd.py:64"),
 }
 # the registry path: (algorithm, its kernel, first frame after its training
 # window, frames replayed through the plain versions)
@@ -92,6 +108,15 @@ VARIANTS = (
 )
 VARIANT_FRAMES = 32
 VARIANT_PLAIN = 8
+# the FG_0 path (FGD + tracker) on the quiet clip: its kernels, frames
+# replayed through the plain versions, FG_0S frames, timed frames
+FGD_KERNELS = ("fgd_tables", "flood_reach", "label_components", "greedy_assign")
+FGD_NOISE = 0.5
+FGD_PLAIN = 8
+FGDS_FRAMES = 16
+FGD_TIMED = 16
+# the kernel table's row for fgd_tables: the full tables a deployed model runs on
+FGD_ROW = "quiet clip, frame 6, full tables"
 SWITCHES = ("TRACKING_TPU_CONSENSUS", "TRACKING_TPU_FUSED", "TRACKING_TPU_FUSED_INTERP")
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; the bound of a kernel is the larger of its bytes and its
@@ -113,7 +138,7 @@ def clone(tree):
         return {k: clone(v) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(clone(v) for v in tree)
-    return tree.clone()
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def max_err(a, b) -> float:
@@ -645,9 +670,9 @@ def time_registry(timing_inputs, results, starts, frames, tag) -> None:
         profile(run_frame, range(5 + REGISTRY_TIMED, 13 + REGISTRY_TIMED), tag, name, top=6)
 
 
-def time_pair(k, fk, fp, rk, rp, results, tag) -> None:
+def time_pair(k, fk, fp, rk, rp, results, tag, label=None) -> None:
     """A kernel's and its plain version's ms, in turns (plain, kernel,
-    kernel, plain), beside the kernel's bound."""
+    kernel, plain), beside the kernel's bound, into ``results[k]``."""
     ms_p1 = cuda_ms(fp, rp)
     ms_k1 = cuda_ms(fk, rk)
     ms_k2 = cuda_ms(fk, rk)
@@ -655,8 +680,300 @@ def time_pair(k, fk, fp, rk, rp, results, tag) -> None:
     r = results[k]
     r["ms"] = min(ms_k1, ms_k2)
     r["plain_ms"] = min(ms_p1, ms_p2)
-    print(f"  {tag} {k}: kernel {ms_k1:.4f} / {ms_k2:.4f} ms, plain {ms_p1:.4f} / {ms_p2:.4f} ms, "
+    print(f"  {tag} {label or k}: kernel {ms_k1:.4f} / {ms_k2:.4f} ms, plain {ms_p1:.4f} / {ms_p2:.4f} ms, "
           f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) = {r['bound_ms'] / r['ms']:.1%} of it reached", flush=True)
+
+
+def fgd_cost(args, out):
+    """(bound_ms, bound_by), bytes per pixel and table occupancy of FGD's
+    table phase on these inputs, counting what this run's data needs. A
+    pixel consults one table: the colour table where it did not change (or
+    on the first frame), the co-occurrence table where it did. There it must
+    read its own key, the P of every entry (for the least P and the match's
+    rank), the key bytes of the used entries (P > 0) up to the first match,
+    each up to its first differing byte, and the Pb of the used entries (an
+    unused entry has Pb = 0 in every state the algorithm reaches); and write
+    the P, Pb and key bytes whose value changes. Every pixel reads
+    ``changed``, reads fg_age where it is foreground, writes fg_age where it
+    changes and writes two masks. ``out`` is the plain version's result."""
+    cfg, st, ckey, cckey, changed, first = args
+    upd, is_bg, _ = out
+    hw = changed.numel()
+    sb = st["ct_P"].element_size()
+    n_bytes = n_ops = 0
+    occ = {}
+    for prefix, key, consult in (("ct", ckey, ~changed | first), ("cc", cckey, changed)):
+        keys, P, Pb = st[f"{prefix}_key"], st[f"{prefix}_P"], st[f"{prefix}_Pb"]
+        N, Ck = keys.shape[:2]
+        used = (P > 0) & consult[None]
+        lead = torch.cumprod((keys == key[None]).to(torch.int32), dim=1).sum(dim=1)  # leading equal key bytes
+        kidx = torch.arange(N, device=P.device)[:, None, None]
+        fi = torch.where(used & (lead == Ck), kidx, N).amin(dim=0)
+        examined = used & (kidx <= fi[None])
+        key_read = int(torch.where(examined, (lead + 1).clamp(max=Ck), 0).sum())
+        n_px, n_used = int(consult.sum()), int(used.sum())
+        stat_w = int((upd[f"{prefix}_P"] != P).sum()) + int((upd[f"{prefix}_Pb"] != Pb).sum())
+        key_w = int((upd[f"{prefix}_key"] != keys).sum())
+        n_bytes += n_px * (Ck + N * sb) + key_read + (n_used + stat_w) * sb + key_w
+        n_ops += 2 * key_read + 8 * N * n_px  # a compare per key byte; least P, rank and decay per entry
+        occ[prefix] = (n_px / hw, n_used / max(n_px, 1), int(examined.sum()) / max(n_px, 1))
+    n_fg = int((~is_bg).sum())
+    age_w = int((upd["fg_age"] != st["fg_age"]).sum())
+    n_bytes += 3 * hw + 4 * (n_fg + age_w)
+    return bound(n_bytes, n_ops), n_bytes / hw, occ
+
+
+def aged(cfg, state, seed: int = 5):
+    """A copy of an FGD ``state`` with every unused entry (P = 0) of both
+    tables filled as hours of running leave a table: a key next to the
+    pixel's background colour (each byte of colour-table entry 0, or of its
+    co-occurrence with itself, moved by -2..2 within the quantised range),
+    P = alpha2 · (1 − alpha2)^k of an entry last seen k = 100..2000 frames
+    ago, and Pb = P or 0. The used entries keep their keys and statistics."""
+    st = clone(state)
+    dev = st["fg_age"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bg_key = st["ct_key"][0]
+    for prefix, centre, levels in (("ct", bg_key, cfg.Lc), ("cc", torch.cat([bg_key >> 1, bg_key >> 1]), cfg.Lcc)):
+        keys, P, Pb = st[f"{prefix}_key"], st[f"{prefix}_P"], st[f"{prefix}_Pb"]
+        empty = P == 0
+        step = torch.randint(-2, 3, keys.shape, generator=gen, device=dev, dtype=torch.int32)
+        near = (centre[None].to(torch.int32) + step).clamp(0, levels - 1).to(torch.uint8)
+        keys.copy_(torch.where(empty[:, None], near, keys))
+        k = torch.randint(100, 2001, P.shape, generator=gen, device=dev).to(torch.float64)
+        p_old = (cfg.alpha2 * (1.0 - cfg.alpha2) ** k).to(torch.float32)
+        seen_bg = torch.rand(P.shape, generator=gen, device=dev) < 0.5
+        P.copy_(torch.where(empty, p_old, P.to(torch.float32)).to(P.dtype))
+        Pb.copy_(torch.where(empty, torch.where(seen_bg, p_old, 0.0), Pb.to(torch.float32)).to(Pb.dtype))
+    return st
+
+
+def check_fgd_kernel(frames, quiet, dev, errs, timing_inputs, bounds) -> None:
+    """Phase 3 for FGD's table kernel against its plain version at 720p,
+    exactly: on inputs captured from real FGD steps (the noisy and the quiet
+    clip, the first frame, f32 statistics), on the quiet step with full
+    tables and on random tables with forced ties; each timed input's bound."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.bgs import fgd as BF
+    from tracking_tpu_torch.ops.fgd import TABLE_LEAVES, fgd_tables, fgd_tables_ref
+
+    def compare(what, args):
+        k_out = fgd_tables(*clone(args))
+        p_out = fgd_tables_ref(*clone(args))
+        e = max(max_err(k_out[0], p_out[0]), max_err(k_out[1], p_out[1]), max_err(k_out[2], p_out[2]))
+        errs["fgd_tables"] = max(errs["fgd_tables"], e)
+        fg = float((~p_out[1]).to(torch.float32).mean())
+        check(e == 0.0, f"fgd_tables {what}: every table leaf, is_bg and lab_bg equal (max |err| {e}); "
+                        f"changed {float(args[4].to(torch.float32).mean()):.4f}, raw foreground {fg:.4f}")
+        return p_out
+
+    def captured(fr, n_steps):
+        algo = get_algorithm("FG_0")()
+        st = algo.warm_start(algo.init(H, W, C, device=dev), fr[0])
+        for t in range(1, n_steps):
+            st, _, _ = algo.step(st, fr[t])
+        return capture_call(BF, "fgd_tables", lambda: algo.step(clone(st), fr[n_steps]))[0]
+
+    first_args, _ = capture_call(BF, "fgd_tables", lambda: get_algorithm("FG_0")().step(
+        get_algorithm("FG_0")().init(H, W, C, device=dev), quiet[0]))
+    compare("first frame (t = 0)", first_args)
+    # the timed cases: a young model (6 frames, tables nearly empty), the
+    # noisy clip's model after 64 frames (its co-occurrence tables full) and
+    # the young quiet model with full tables (a model that ran for hours)
+    quiet_args = captured(quiet, 6)
+    cases = {"quiet clip, frame 6 (young tables)": quiet_args,
+             "noisy clip, frame 64": captured(frames, MAIN_FRAMES),
+             FGD_ROW: (quiet_args[0], aged(quiet_args[0], quiet_args[1]), *quiet_args[2:])}
+    outs = {what: compare(what, a) for what, a in cases.items()}
+    compare("noisy clip, frame 6", captured(frames, 6))
+    saved = BF.FGD.STAT_DTYPE
+    BF.FGD.STAT_DTYPE = torch.float32
+    try:
+        f32_args = captured(frames, 4)
+    finally:
+        BF.FGD.STAT_DTYPE = saved
+    compare("f32 statistics, noisy clip, frame 4", f32_args)
+
+    # random tables with forced ties: keys from 2 values per byte (matches,
+    # repeated matches), P from 4 values with unused entries (rank and
+    # argmin ties), fg_age around absorbFrames
+    cfg = quiet_args[0]
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    vals = torch.tensor([0.0, 0.005, 0.01, 0.25], dtype=torch.float32)
+    st = {}
+    for prefix, n, ck in (("ct", cfg.N2c, C), ("cc", cfg.N2cc, 2 * C)):
+        st[f"{prefix}_key"] = torch.randint(0, 2, (n, ck, H, W), generator=gen, dtype=torch.uint8).to(dev)
+        P = vals[torch.randint(0, 4, (n, H, W), generator=gen)]
+        st[f"{prefix}_P"] = P.to(torch.float16).to(dev)
+        st[f"{prefix}_Pb"] = (P * vals[torch.randint(0, 4, (n, H, W), generator=gen)] * 4).to(torch.float16).to(dev)
+    st["fg_age"] = torch.randint(27, 32, (H, W), generator=gen, dtype=torch.int32).to(dev)
+    keys = (torch.randint(0, 2, (C, H, W), generator=gen, dtype=torch.uint8).to(dev),
+            torch.randint(0, 2, (2 * C, H, W), generator=gen, dtype=torch.uint8).to(dev))
+    changed = (torch.rand((H, W), generator=gen) < 0.5).to(dev)
+    compare("random tables with ties", (cfg, st, *keys, changed, torch.zeros((), dtype=torch.bool, device=dev)))
+
+    timed = {}
+    for what, a in cases.items():
+        (b_ms, b_by), bpx, occ = fgd_cost(a, outs[what])
+        timed[what] = (a, b_ms, b_by)
+        tabs = "; ".join(f"{pf} table: {o[0]:.4f} of pixels, {o[1]:.2f} used and {o[2]:.2f} examined entries a pixel"
+                         for pf, o in occ.items())
+        print(f"  fgd_tables bound, {what}: {tabs}; {bpx:.1f} B/px = {b_ms:.4f} ms ({b_by})", flush=True)
+    timing_inputs["fgd_tables"] = timed
+    _, *bounds["fgd_tables"] = timed[FGD_ROW]
+    full16 = 2 * sum(quiet_args[1][k].numel() * quiet_args[1][k].element_size() for k in TABLE_LEAVES) / (H * W)
+    full32 = full16 + 2 * 2 * (cfg.N2c + cfg.N2cc) * 2  # P and Pb at 4 bytes in place of 2
+    inputs = 3 * C + 1 + 2  # keys, changed, two masks
+    print(f"  fgd_tables, both whole tables streamed in and out: f16 {full16 + inputs:.0f} B/px = "
+          f"{(full16 + inputs) * H * W / HBM_BYTES_PER_S * 1e3:.4f} ms, f32 {full32 + inputs:.0f} B/px = "
+          f"{(full32 + inputs) * H * W / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+
+
+def fgd_path(quiet, dev, results, tracker, timing_inputs):
+    """Phase 4d: FG_0 (FGD) + the CCMSPF tracker at 720p on the quiet clip,
+    with the launch counts zeroed just before and read just after, then the
+    first frames again through the plain versions; FG_0S through the
+    registry with the same checks. Returns the FG_0 start state."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.ops import _native
+
+    algo = get_algorithm("FG_0")()
+    start = algo.warm_start(algo.init(H, W, C, device=dev), quiet[0])
+    print(f"[4d] FG_0 path: warm start + {MAIN_FRAMES} frames of FGD + CCMSPF at {H}x{W}x{C}, quiet clip", flush=True)
+    s, trk = clone(start), tracker.init(device=dev)
+    masks, ids, xs, ys, snap = [], [], [], [], None
+    _native.reset_launches()
+    for t in range(1, MAIN_FRAMES + 1):
+        s, fg, _ = algo.step(s, quiet[t])
+        trk, tracks = tracker.step(trk, fg)
+        masks.append(fg)
+        ids.append(tracks.ids)
+        xs.append(tracks.x)
+        ys.append(tracks.y)
+        if t == FGD_PLAIN:
+            snap = clone(s)
+    torch.cuda.synchronize()
+    launches = dict(_native.LAUNCHES)
+    print(f"  launches: {launches}", flush=True)
+    for k in FGD_KERNELS:
+        check(launches[k] > 0, f"{k} launched {launches[k]} times on the FG_0 path")
+    results["fgd_tables"]["launches"] = launches["fgd_tables"]
+    shares = torch.stack(masks[1:]).gt(0).to(torch.float32).mean(dim=(1, 2))
+    print(f"  foreground share per frame: {[round(float(x), 4) for x in shares]}", flush=True)
+    share = float(shares.mean())
+    check(0.001 < share < 0.5, f"FG_0 mean foreground share {share:.4f} after frame 1 in (0.001, 0.5)")
+    n_active = int(trk["active"].sum())
+    check(n_active >= 1, f"{n_active} tracks active at the end of the FG_0 path")
+    timing_inputs["fgd_mask"] = masks[int(shares.argmax()) + 1]
+    s, trk = clone(start), tracker.init(device=dev)
+    for t in range(1, FGD_PLAIN + 1):
+        s, fg, _ = algo.step(s, quiet[t], use_kernels=False)
+        trk, tr = tracker.step(trk, fg, use_kernels=False)
+        i = t - 1
+        if not (torch.equal(fg, masks[i]) and torch.equal(tr.ids, ids[i]) and torch.equal(tr.x, xs[i])
+                and torch.equal(tr.y, ys[i])):
+            raise AssertionError(f"FG_0 path: the plain path differs from the kernel path at frame {t}")
+    e = max_err(s, snap)
+    check(e == 0.0, f"FG_0 path: masks, tracks over {FGD_PLAIN} frames and the FGD state after them equal through "
+                    "the plain versions")
+
+    simple = get_algorithm("FG_0S")()
+    s0 = simple.warm_start(simple.init(H, W, C, device=dev), quiet[0])
+    print(f"[4d] FG_0S: warm start + {FGDS_FRAMES} frames at {H}x{W}x{C}, quiet clip", flush=True)
+    s, masks = clone(s0), []
+    _native.reset_launches()
+    for t in range(1, FGDS_FRAMES + 1):
+        s, fg, _ = simple.step(s, quiet[t])
+        masks.append(fg)
+        if t == FGD_PLAIN:
+            snap = clone(s)
+    torch.cuda.synchronize()
+    n = _native.LAUNCHES["fgd_tables"]
+    check(n > 0, f"fgd_tables launched {n} times on the FG_0S path")
+    share = float(torch.stack(masks[1:]).gt(0).to(torch.float32).mean())
+    print(f"  FG_0S mean foreground share {share:.4f} after frame 1 (it floods: no share check)", flush=True)
+    s = clone(s0)
+    for t in range(1, FGD_PLAIN + 1):
+        s, fg, _ = simple.step(s, quiet[t], use_kernels=False)
+        if not torch.equal(fg, masks[t - 1]):
+            raise AssertionError(f"FG_0S: the plain path's mask differs from the kernel path's at frame {t}")
+    e = max_err(s, snap)
+    check(e == 0.0, f"FG_0S: masks over {FGD_PLAIN} frames and the state after them equal through the plain versions")
+    return algo, start
+
+
+def time_fgd(timing_inputs, results, algo, start, tracker, frames, quiet, dev, tag) -> None:
+    """Phase 6 for FGD: the table kernel beside its plain version on young,
+    full and noisy-clip tables; CC labelling on FGD's masks beside
+    SuBSENSE's; on a young model and on the same model with full tables, the
+    step with the table kernel against the step with the plain table phase
+    (all else the same) in turns, and the FG_0 path ms/frame; the FG_0 path
+    under the profiler."""
+    from tracking_tpu_torch.bgs import fgd as BF
+    from tracking_tpu_torch.ops.cc import label_components
+    from tracking_tpu_torch.ops.fgd import fgd_tables, fgd_tables_ref
+
+    s = algo.init(H, W, C, device=dev)
+    for t in range(7):
+        s, noisy_mask, _ = algo.step(s, frames[t])
+    for what, m in (("SuBSENSE's frame-3 mask (phase 3)", timing_inputs["label_components"][0]),
+                    ("FG_0's densest quiet-clip mask", timing_inputs["fgd_mask"]),
+                    ("FGD's noisy-clip mask, frame 6", noisy_mask)):
+        ms = [cuda_ms(lambda m=m: label_components(m), 50) for _ in range(2)]
+        print(f"  {tag} label_components on {what} ({float(m.gt(0).to(torch.float32).mean()):.4f} foreground): "
+              f"{ms[0]:.4f} / {ms[1]:.4f} ms", flush=True)
+
+    for what, (args, b_ms, b_by) in timing_inputs["fgd_tables"].items():
+        row = {"bound_ms": b_ms, "bound_by": b_by}
+        time_pair("fgd_tables", lambda args=args: fgd_tables(*args), lambda args=args: fgd_tables_ref(*args), 20, 3,
+                  {"fgd_tables": row}, tag, label=f"fgd_tables, {what}")
+        if what == FGD_ROW:
+            results["fgd_tables"].update(ms=row["ms"], plain_ms=row["plain_ms"])
+
+    def run(model, with_tracker: bool):
+        s, tr = clone(model), tracker.init(device=dev)
+        for t in range(1, 5):  # warm-up
+            s, fg, _ = algo.step(s, quiet[t])
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for t in range(5, 5 + FGD_TIMED):
+            s, fg, _ = algo.step(s, quiet[t])
+            if with_tracker:
+                tr, _ = tracker.step(tr, fg)
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / FGD_TIMED
+
+    # the model just started (tables nearly empty) and the same model with
+    # full tables (see aged)
+    models = {"young tables": start, "full tables": aged(algo.config, start)}
+    for label, model in models.items():
+        ab = {"kernel": [], "plain": []}
+        for arm in ("kernel", "plain", "plain", "kernel"):
+            BF.fgd_tables = fgd_tables if arm == "kernel" else fgd_tables_ref
+            try:
+                ab[arm].append(run(model, False))
+            finally:
+                BF.fgd_tables = fgd_tables
+        for arm, v in ab.items():
+            print(f"  {tag} FGD step, {label}, table phase {arm} (in turns): {v[0]:.3f} / {v[1]:.3f} ms/frame "
+                  f"({FGD_TIMED} frames, {H}x{W}x{C})", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    for label, model in models.items():
+        full = [run(model, True), run(model, True)]
+        print(f"  {tag} FG_0 path (FGD + tracking), {label}: {full[0]:.3f} / {full[1]:.3f} ms/frame = "
+              f"{1000 / min(full):.1f} fps ({FGD_TIMED} frames)", flush=True)
+    print(f"  {tag} peak device memory of the FG_0 runs {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    box = {"s": clone(start), "tr": tracker.init(device=dev)}
+
+    def run_frame(t):
+        box["s"], fg, _ = algo.step(box["s"], quiet[t])
+        box["tr"], _ = tracker.step(box["tr"], fg)
+
+    for t in range(1, 5):
+        run_frame(t)
+    profile(run_frame, range(5, 13), tag, "FG_0 path", top=10)
 
 
 def main(argv) -> None:
@@ -699,7 +1016,9 @@ def main(argv) -> None:
     t0 = time.perf_counter()
     clip = make_clip(1 + MAIN_FRAMES, H, W, C, seed=0)
     frames = torch.from_numpy(clip).to(dev)
-    print(f"  synthetic clip {tuple(frames.shape)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    quiet = torch.from_numpy(make_clip(1 + MAIN_FRAMES, H, W, C, seed=0, noise=FGD_NOISE)).to(dev)
+    print(f"  synthetic clips {tuple(frames.shape)}, sensor noise 2.5 and {FGD_NOISE}, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     algo = get_algorithm("subsense")()
     tracker = BlobTracker()
     state0 = algo.warm_start(algo.init(H, W, C, device=dev), frames[0])
@@ -803,6 +1122,7 @@ def main(argv) -> None:
     bounds["label_components"] = bound(5 * hw, 20 * hw)  # mask read (u8), labels written (int32)
     check_registry_kernels(frames, dev, errs, timing_inputs, bounds)
     check_variant_kernels(frames, dev, errs, timing_inputs, bounds)
+    check_fgd_kernel(frames, quiet, dev, errs, timing_inputs, bounds)
     for k, (b_ms, b_by) in bounds.items():
         results[k]["bound_ms"], results[k]["bound_by"] = b_ms, b_by
 
@@ -850,6 +1170,9 @@ def main(argv) -> None:
     # -- 4c. the consensus variants ----------------------------------------
     variant_starts = variant_paths(frames, dev, results)
 
+    # -- 4d. the FG_0 path -------------------------------------------------
+    fgd_algo, fgd_start = fgd_path(quiet, dev, results, tracker, timing_inputs)
+
     # -- 5. path against path ----------------------------------------------
     print(f"[5] the first {PATH_FRAMES} frames through the plain versions", flush=True)
     st_p = clone(state0)
@@ -887,6 +1210,7 @@ def main(argv) -> None:
         v_args, v_kw = timing_inputs[k]
         time_pair(k, lambda fk=fk: fk(*v_args, **v_kw), lambda fp=fp: fp(*v_args, **v_kw), 20, 3, results, tag)
     time_variants(algo, state0, variant_starts, frames, tag)
+    time_fgd(timing_inputs, results, fgd_algo, fgd_start, tracker, frames, quiet, dev, tag)
     for k in SOURCES:
         results[k]["max_abs_err"] = errs[k]
 

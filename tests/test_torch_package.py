@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from torch_parity import assert_tree_equal
+from tracking_tpu.bgs import fgd as JF
 from tracking_tpu.bgs import gmg as JG
 from tracking_tpu.bgs import lbsp_family as JLF
 from tracking_tpu.bgs import multilayer as JM
@@ -22,12 +23,13 @@ from tracking_tpu.bgs import texture as JT
 from tracking_tpu.core.registry import list_algorithms as j_list_algorithms
 from tracking_tpu.track import tracker as JTR
 from tracking_tpu_torch import convert, get_algorithm, list_algorithms
+from tracking_tpu_torch.bgs import fgd as TF
 from tracking_tpu_torch.bgs import gmg as TG
 from tracking_tpu_torch.bgs import lbsp_family as TLF
 from tracking_tpu_torch.bgs import multilayer as TM
 from tracking_tpu_torch.bgs import subsense_shrink as TS
 from tracking_tpu_torch.bgs import texture as TT
-from tracking_tpu_torch.ops import _native, assoc, cc, consensus, fill, gmg, multilayer, texture
+from tracking_tpu_torch.ops import _native, assoc, cc, consensus, fgd, fill, gmg, multilayer, texture
 from tracking_tpu_torch.track import tracker as TTR
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -76,7 +78,8 @@ def test_no_jax_or_reference_imports():
         (JLF.SuBSENSEConfig, TLF.SuBSENSEConfig), (JTR.TrackerConfig, TTR.TrackerConfig),
         (JLF.LOBSTERConfig, TLF.LOBSTERConfig), (JG.GMGConfig, TG.GMGConfig),
         (JT.DPTextureConfig, TT.DPTextureConfig), (JM.MultiLayerConfig, TM.MultiLayerConfig),
-        (JS.SuBSENSEShrinkConfig, TS.SuBSENSEShrinkConfig),
+        (JS.SuBSENSEShrinkConfig, TS.SuBSENSEShrinkConfig), (JF.FGDConfig, TF.FGDConfig),
+        (JF.FGDSimple.Config, TF.FGDSimple.Config),
     ],
 )
 def test_config_fields_and_defaults_match(ref, port):
@@ -96,6 +99,8 @@ def test_config_fields_and_defaults_match(ref, port):
         ("DPTextureBGS", 16, ("texture-lbp", "dp-texture"), TT.DPTextureBGS),
         ("MultiLayerBGS", 23, ("multilayer",), TM.MultiLayerBGS),
         ("subsenseShrink", None, ("subsense-shrink", "yzbx"), TS.SuBSENSEShrink),
+        ("FGD", None, ("FG_0", "fgd"), TF.FGD),
+        ("FGDSimple", None, ("FG_0S", "fgd-simple"), TF.FGDSimple),
     ],
 )
 def test_registry(name, type_id, aliases, cls):
@@ -171,9 +176,9 @@ def test_slice3_states_mirror_reference(monkeypatch, ref, port, c, mode):
         lambda: TLF.SuBSENSE().init(8, 8, 3), lambda: TLF.LOBSTER().init(8, 8, 3), lambda: TG.GMG().init(8, 8, 3),
         lambda: TT.DPTextureBGS().init(8, 8, 3), lambda: TM.MultiLayerBGS().init(8, 8, 3),
         lambda: TTR.BlobTracker().init(), lambda: convert.state_from_numpy({"t": np.zeros((), np.int32)}),
-        lambda: TS.SuBSENSEShrink().init(8, 8, 3),
+        lambda: TS.SuBSENSEShrink().init(8, 8, 3), lambda: TF.FGD().init(8, 8, 3),
     ],
-    ids=["subsense", "lobster", "gmg", "dptexture", "multilayer", "tracker", "convert", "subsense-shrink"],
+    ids=["subsense", "lobster", "gmg", "dptexture", "multilayer", "tracker", "convert", "subsense-shrink", "fgd"],
 )
 def test_entry_points_default_to_the_card(make):
     """With no device given, states are made on the card: on a host without
@@ -198,9 +203,9 @@ def _leaves(tree):
     "name,env",
     [("SuBSENSEBGS", {}), ("LOBSTERBGS", {}), ("GMG", {}), ("DPTextureBGS", {}), ("MultiLayerBGS", {}),
      ("subsenseShrink", {}), ("SuBSENSEBGS", {"TRACKING_TPU_CONSENSUS": "v3"}),
-     ("SuBSENSEBGS", {"TRACKING_TPU_FUSED": "1"})],
+     ("SuBSENSEBGS", {"TRACKING_TPU_FUSED": "1"}), ("FGD", {}), ("FGDSimple", {})],
     ids=["SuBSENSEBGS", "LOBSTERBGS", "GMG", "DPTextureBGS", "MultiLayerBGS", "subsenseShrink", "SuBSENSE-v3",
-         "SuBSENSE-fused"],
+         "SuBSENSE-fused", "FGD", "FGDSimple"],
 )
 def test_run_video_uses_only_the_returned_state(monkeypatch, name, env):
     """``step`` consumes its state (kernels may update it in place), while
@@ -230,6 +235,35 @@ def test_run_video_uses_only_the_returned_state(monkeypatch, name, env):
     got_state, got = run_video(Consuming(), frames)
     assert torch.equal(got, want)
     assert_tree_equal(want_state, got_state)
+
+
+@pytest.mark.parametrize(
+    "ref,port,dtype",
+    [(JF.FGD, TF.FGD, "float16"), (JF.FGD, TF.FGD, "float32"), (JF.FGDSimple, TF.FGDSimple, "float16"),
+     (JF.FGDSimple, TF.FGDSimple, "float32")],
+)
+def test_fgd_states_mirror_reference(monkeypatch, ref, port, dtype):
+    """FGD's and FGDSimple's init states have the JAX pytree's leaves, with
+    f16 or f32 statistics (``STAT_DTYPE``), and a stepped state crosses
+    ``convert`` both ways unchanged, its f16 leaves included."""
+    from tracking_tpu_torch.synth import make_clip
+
+    monkeypatch.setattr(JF.FGD, "STAT_DTYPE", getattr(jax.numpy, dtype))
+    monkeypatch.setattr(TF.FGD, "STAT_DTYPE", getattr(torch, dtype))
+    h, w = 24, 40
+    want = jax.device_get(ref().init(h, w, 3))
+    got = port().init(h, w, 3, device="cpu")
+    assert_tree_equal(want, got)
+    assert got["ct_P"].dtype == getattr(torch, dtype) and got["cc_key"].shape == (40, 6, h, w)
+    algo = port()
+    frames = torch.from_numpy(make_clip(3, h, w, 3, seed=4))
+    st = algo.warm_start(got, frames[0])
+    for t in range(3):
+        st, _, _ = algo.step(st, frames[t])
+    assert float(st["cc_P"].float().max()) > 0.0
+    back = convert.state_from_numpy(convert.state_to_numpy(st), device="cpu")
+    assert_tree_equal(st, back)
+    assert back["ct_Pb"].dtype == getattr(torch, dtype)
 
 
 def test_multilayer_checkpoints_not_ported():
@@ -296,6 +330,11 @@ def test_wrappers_refuse_other_devices():
         multilayer.multilayer_step(ml.config, state, torch.empty((3, 8, 12), **meta),
                                    torch.empty((6, 8, 12), **meta), torch.empty((4,), **meta),
                                    torch.empty((), **k64), True)
+    fg_state = {k: v.to("meta") for k, v in TF.FGD().init(8, 12, 3, device="cpu").items()}
+    u8 = dict(dtype=torch.uint8, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        fgd.fgd_tables(TF.FGDConfig(), fg_state, torch.empty((3, 8, 12), **u8), torch.empty((6, 8, 12), **u8), m,
+                       torch.empty((), dtype=torch.bool, **meta))
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -306,14 +345,15 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
         _native.build()
     assert not (tmp_path / "build").exists()
     assert {p.name for p in _native.sources()} >= {
-        "consensus.cu", "fill.cu", "cc.cu", "assoc.cu", "gmg.cu", "texture.cu", "multilayer.cu", "feedback.cuh"
+        "consensus.cu", "fill.cu", "cc.cu", "assoc.cu", "gmg.cu", "texture.cu", "multilayer.cu", "feedback.cuh",
+        "fgd.cu",
     }
     assert set(_native.LAUNCHES) == {
         "consensus", "flood_reach", "label_components", "greedy_assign",
         "consensus_lobster", "gmg_step", "texture_prox_cur", "multilayer_step",
-        "consensus_read", "consensus_feedback",
+        "consensus_read", "consensus_feedback", "fgd_tables",
     }
-    assert {"tt_consensus_read", "tt_consensus_feedback"} <= set(_native._SIGNATURES)
+    assert {"tt_consensus_read", "tt_consensus_feedback", "tt_fgd_tables"} <= set(_native._SIGNATURES)
     assert "-fmad=false" in _native.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _native.NVCC_FLAGS
     assert not any("fast" in f for f in _native.NVCC_FLAGS)
 

@@ -8,17 +8,19 @@ and never JAX or ``tracking_tpu``. Module names mirror the reference's:
 - ``bgs/lbsp_family.py``: SuBSENSE (type 36; consensus v1, v3 and the
   fused step) and LOBSTER (37); ``bgs/subsense_shrink.py``:
   subsenseShrink; ``bgs/gmg.py``: GMG (8); ``bgs/texture.py``: DPTexture
-  (16); ``bgs/multilayer.py``: MultiLayer (23);
+  (16); ``bgs/multilayer.py``: MultiLayer (23); ``bgs/fgd.py``: FGD and
+  FGDSimple (FG_0, FG_0S);
 - ``ops/rng.py``: JAX's threefry key chain and the counter-hash field;
 - ``ops/lbsp.py``, ``ops/morphology.py``, ``ops/filters.py``,
   ``ops/color.py``, ``ops/sort.py``, ``ops/feedback.py``
   (``pallas_feedback.py``): plain torch;
 - ``ops/consensus.py``, ``ops/fill.py``, ``ops/cc.py``, ``ops/assoc.py``,
-  ``ops/gmg.py``, ``ops/texture.py``, ``ops/multilayer.py``: each holds
-  CUDA kernels (``csrc/``, replacing ``pallas_consensus``, ``pallas_fill``,
-  ``pallas_cc``, ``pallas_assoc``, ``pallas_gmg``, ``pallas_texture``,
-  ``pallas_multilayer``) beside their plain versions; CPU tensors take the
-  plain version, CUDA tensors the kernel;
+  ``ops/gmg.py``, ``ops/texture.py``, ``ops/multilayer.py``, ``ops/fgd.py``:
+  each holds CUDA kernels (``csrc/``, replacing ``pallas_consensus``,
+  ``pallas_fill``, ``pallas_cc``, ``pallas_assoc``, ``pallas_gmg``,
+  ``pallas_texture``, ``pallas_multilayer``, ``pallas_fgd``) beside their
+  plain versions; CPU tensors take the plain version, CUDA tensors the
+  kernel;
 - ``track/``: Kalman filters, mean-shift and the CC / CCMSPF blob tracker;
 - ``convert.py``: states to and from the JAX package's pytrees.
 """

@@ -39,7 +39,7 @@ NVCC_FLAGS = [
 LAUNCHES = {
     "consensus": 0, "flood_reach": 0, "label_components": 0, "greedy_assign": 0,
     "consensus_lobster": 0, "gmg_step": 0, "texture_prox_cur": 0, "multilayer_step": 0,
-    "consensus_read": 0, "consensus_feedback": 0,
+    "consensus_read": 0, "consensus_feedback": 0, "fgd_tables": 0,
 }
 
 _P = ctypes.c_void_p
@@ -58,6 +58,7 @@ _SIGNATURES = {
     "tt_multilayer_step": [_P] * 18 + [_I] * 3 + [_F] * 14 + [_P],
     "tt_consensus_read": [_P] * 15 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
     "tt_consensus_feedback": [_P] * 2 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
+    "tt_fgd_tables": [_P] * 13 + [_I] * 9 + [_F] * 3 + [_P],
     "tt_error_string": [_I],
 }
 

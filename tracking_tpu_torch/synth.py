@@ -35,10 +35,12 @@ def _objects(h: int, w: int, n: int, t_len: int, rng: np.random.Generator):
 
 
 def make_clip(t_len: int, h: int, w: int, c: int = 3, seed: int = 0, n_objects: int = 3,
-              brightness_jump: tuple[int, int] | None = None) -> np.ndarray:
+              brightness_jump: tuple[int, int] | None = None, noise: float = 2.5) -> np.ndarray:
     """u8 [T, H, W, C] (or [T, H, W] for c=1). ``brightness_jump=(frame,
     delta)`` adds ``delta`` to every pixel from that frame on (a global
-    illumination change)."""
+    illumination change). ``noise`` is the per-frame sensor noise's standard
+    deviation in levels: FGD's change test (a channel moving more than 2
+    levels) fires on most pixels at the default 2.5, so its clips use 0.5."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     base = 110.0 + 35.0 * np.sin(xx / 9.0 + 0.5)[..., None] * np.cos(yy / 13.0)[..., None]
@@ -47,7 +49,7 @@ def make_clip(t_len: int, h: int, w: int, c: int = 3, seed: int = 0, n_objects: 
     objs = _objects(h, w, n_objects, t_len, rng)
     frames = np.empty((t_len, h, w, c), np.uint8)
     for t in range(t_len):
-        f = base + 2.5 * rng.standard_normal((h, w, c), dtype=np.float32)
+        f = base + noise * rng.standard_normal((h, w, c), dtype=np.float32)
         for shape, hh, hw, colour, (y0, x0), (vy, vx) in objs:
             cy, cx = y0 + vy * t, x0 + vx * t
             ya, yb = max(int(cy) - hh - 1, 0), min(int(cy) + hh + 2, h)

@@ -9,12 +9,14 @@ It drives the port's paths at 720×1280×3 on seeded synthetic clips -
 SuBSENSE followed by the default CCMSPF blob tracker; LOBSTER, GMG,
 DPTexture and MultiLayer through the registry; SuBSENSE's consensus v3 and
 fused step and subsenseShrink; FGD (FG_0) followed by the tracker, and
-FGDSimple (FG_0S) - and fails (non-zero exit, no result line) on any broken
+FGDSimple (FG_0S); the row-sharded SuBSENSE + CCMSPF pipeline in 4 shards
+on the one card - and fails (non-zero exit, no result line) on any broken
 phase:
 
 1. device: the card's name and power limit; no CUDA device is an error;
-2. build: compiles the eleven CUDA kernels from ``tracking_tpu_torch/csrc``,
-   one ``nvcc`` per source in parallel (``--ptxas`` prints each kernel's
+2. build: compiles the twelve CUDA kernels from ``tracking_tpu_torch/csrc``
+   (the 13 TPU kernels' counterparts: ``consensus_read`` replaces two), one
+   ``nvcc`` per source in parallel (``--ptxas`` prints each kernel's
    registers and spills);
 3. each kernel against its plain PyTorch version on the card at its path's
    shapes, exactly (consensus C=3 and C=1, hole-fill reachability, CC
@@ -25,7 +27,11 @@ phase:
    scalar requirement and a random requirement map, and C=1; FGD's table
    phase on inputs of real steps - the noisy and the quiet clip, the first
    frame, f32 statistics - on the quiet step with its tables filled, and on
-   random tables with ties);
+   random tables with ties; the min-label fixed point on a 180-row shard of
+   SuBSENSE's frame-3 mask with its neighbour's boundary row injected, 8- and
+   4-connected, on a serpentine crossing the shard cut ten times and on a
+   random mask; the consensus's slab mode on three shards' halo slabs,
+   against its plain version and the unsharded kernel's rows);
 4. the main path: warm start, then 64 frames of ``SuBSENSE.step`` and
    ``BlobTracker.step``; every kernel's launch count must be > 0, the mean
    foreground share in (0.1 %, 50 %), and a track active at the end;
@@ -46,6 +52,15 @@ phase:
    foreground share after frame 1 in (0.1 %, 50 %), a track active at the
    end, the first 8 frames (masks, tracks, state) again through the plain
    versions; FG_0S for 16 frames with the same kernel-vs-plain check;
+4e. the row-sharded pipeline: ``run_video_spatial_tracked`` in 4 shards of
+   180 rows, 16 frames in lockstep and 8 pipelined, against the unsharded
+   kernel path on the same frames (masks, per-frame track x, the tracker
+   table, the gathered SuBSENSE state leaf by leaf); the launch counts of
+   ``label_fixpoint``, ``consensus`` (here all in slab mode),
+   ``flood_reach`` and ``greedy_assign`` > 0 and ``label_components``' 0;
+   the first 4 frames again through the plain versions; the most
+   components a frame had (the sharded blob table follows the unsharded one
+   up to 128);
 5. the first 16 SuBSENSE + tracker frames again through the plain
    versions: masks, track ids and positions must equal the kernel run's;
 6. timing with CUDA events: each kernel beside its plain version and its
@@ -54,8 +69,10 @@ phase:
    labelling on FGD's masks (quiet and flooded) beside SuBSENSE's, FGD's
    table kernel on young, full and noisy-clip tables, the FGD step with the
    table kernel against the plain table phase in turns and the FG_0 path,
-   each on young and on full tables, and the device's busy share and
-   kernels per frame under torch.profiler.
+   each on young and on full tables, the min-label fixed point, the slab
+   mode's ms beside the unsharded consensus's, the sharded path's ms/frame
+   beside the unsharded path's in turns and its peak memory, and the
+   device's busy share and kernels per frame under torch.profiler.
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -88,6 +105,7 @@ SOURCES = {
     "consensus_read": ("tracking_tpu_torch/csrc/consensus.cu", "tracking_tpu/ops/pallas_consensus.py:778"),
     "consensus_feedback": ("tracking_tpu_torch/csrc/consensus.cu", "tracking_tpu/ops/pallas_consensus.py:1012"),
     "fgd_tables": ("tracking_tpu_torch/csrc/fgd.cu", "tracking_tpu/ops/pallas_fgd.py:64"),
+    "label_fixpoint": ("tracking_tpu_torch/csrc/cc.cu", "tracking_tpu/ops/pallas_cc.py:270"),
 }
 # the registry path: (algorithm, its kernel, first frame after its training
 # window, frames replayed through the plain versions)
@@ -117,12 +135,28 @@ FGDS_FRAMES = 16
 FGD_TIMED = 16
 # the kernel table's row for fgd_tables: the full tables a deployed model runs on
 FGD_ROW = "quiet clip, frame 6, full tables"
+# the row-sharded path: shards, frames in lockstep, pipelined and through the
+# plain versions (the halo and the blob table's root candidates are
+# parallel/spatial.py's HALO and N_CAND)
+SHARDS = 4
+SPATIAL_FRAMES = 16
+SPATIAL_PIPELINED = 8
+SPATIAL_PLAIN = 4
+SPATIAL_KERNELS = ("label_fixpoint", "consensus", "flood_reach", "greedy_assign")
+SPATIAL_TIMED = (8, 2)  # ms/frame = (T(8 frames) - T(2 frames)) / 6
 SWITCHES = ("TRACKING_TPU_CONSENSUS", "TRACKING_TPU_FUSED", "TRACKING_TPU_FUSED_INTERP")
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; the bound of a kernel is the larger of its bytes and its
 # operations over these
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+
+
+T0 = time.perf_counter()
+
+
+def elapsed() -> str:
+    return f"(t = {time.perf_counter() - T0:.1f} s)"
 
 
 def card_line() -> str:
@@ -236,13 +270,14 @@ def check(cond: bool, what: str) -> None:
     print(f"  ok: {what}", flush=True)
 
 
-def profile(run_frame, frame_ids, tag, label, top: int = 14) -> None:
+def profile(run_frame, frame_ids, tag, label, top: int = 14, n_frames=None) -> None:
     """Where the time goes: torch.profiler over ``run_frame(t)`` for the
     frames ``frame_ids``, after the caller's warm-up; device time by kernel
-    and the device's busy share of the wall time."""
+    and the device's busy share of the wall time. ``n_frames`` (default:
+    one per id) is what the per-frame figures divide by."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    n_frames = len(frame_ids)
+    n_frames = n_frames or len(frame_ids)
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -976,6 +1011,239 @@ def time_fgd(timing_inputs, results, algo, start, tracker, frames, quiet, dev, t
     profile(run_frame, range(5, 13), tag, "FG_0 path", top=10)
 
 
+def shard_rows(rank: int):
+    """Global rows [r0 - E, r0 + h + E) of shard ``rank`` (E the sharded
+    path's halo) and (r0, h)."""
+    from tracking_tpu_torch.parallel.spatial import HALO
+
+    h = H // SHARDS
+    r0 = rank * h
+    return torch.arange(r0 - HALO, r0 + h + HALO), r0, h
+
+
+def check_spatial_kernels(algo, state3, frames, dev, errs, timing_inputs, bounds) -> None:
+    """Phase 3 for the sharded path: ``label_fixpoint`` against its plain
+    version on shards of real and built masks, and the consensus's slab mode
+    against its plain version and against the unsharded kernel's rows, on
+    the halo slabs of the first, second and last of 4 shards, exactly."""
+    from tracking_tpu_torch.ops.cc import label_components_ref, label_fixpoint, label_fixpoint_ref
+    from tracking_tpu_torch.ops.consensus import (
+        color_desc_thresholds, consensus, consensus_ref, intra_descriptors, roi_map, sample_good_ref,
+        thr_closed_form,
+    )
+    from tracking_tpu_torch.parallel.spatial import HALO, inject_row
+
+    big = H * W
+    final = state3["last_final"] > 0
+    # the real mask's shard: the one whose upper cut the most foreground crosses
+    cross = [int((final[r * (H // SHARDS) - 1] & final[r * (H // SHARDS)]).sum()) for r in range(1, SHARDS)]
+    rank_real = 1 + max(range(SHARDS - 1), key=lambda i: cross[i])
+
+    def fixpoint_case(what, mask, conn, rank=1):
+        """Shard ``rank``'s rows of ``mask``, global-offset labels, the
+        previous shard's boundary row of the global labelling injected."""
+        _, r0, h = shard_rows(rank)
+        glob = label_components_ref(mask, conn)
+        fg = (mask[r0 : r0 + h] > 0).contiguous()
+        iota = r0 * W + torch.arange(h * W, dtype=torch.int32, device=dev).reshape(h, W)
+        lab0 = torch.where(fg, iota, big).to(torch.int32)
+        nb = glob[r0 - 1 : r0]
+        lab0[:1] = inject_row(lab0[:1], torch.where(nb >= 0, nb, big), big, conn)
+        a, conv = label_fixpoint(fg, lab0, big, conn)
+        b, _ = label_fixpoint_ref(fg, lab0, big, conn)
+        e = max_err(a, b)
+        errs["label_fixpoint"] = max(errs["label_fixpoint"], e)
+        n_inj = int((lab0[0] < r0 * W).sum())
+        check(e == 0.0 and conv, f"label_fixpoint ({conn}-conn) equal on {what}, rows {r0}-{r0 + h - 1}, "
+                                 f"{n_inj} px of the first row injected")
+        return fg, lab0, b, glob
+
+    print(f"  the frame-3 mask's foreground crosses the shard cuts at rows {[r * (H // SHARDS) for r in range(1, SHARDS)]} "
+          f"in {cross} columns", flush=True)
+    fg, lab0, _, _ = fixpoint_case("SuBSENSE's frame-3 mask", final, 8, rank_real)
+    timing_inputs["label_fixpoint"] = (fg, lab0, big, rank_real)
+    fixpoint_case("SuBSENSE's frame-3 mask", final, 4, rank_real)
+    _, r0, h = shard_rows(1)
+    serp = torch.zeros((H, W), dtype=torch.uint8, device=dev)
+    for k in range(10):  # strokes across the cut, joined above it and below it in turn
+        x = 100 + 40 * k
+        serp[r0 - 30 : r0 + 31, x : x + 3] = 255
+        if k % 2 == 0:
+            serp[r0 - 30 : r0 - 27, x : x + 43] = 255
+        elif k < 9:
+            serp[r0 + 28 : r0 + 31, x : x + 43] = 255
+    _, _, b, glob = fixpoint_case("a serpentine crossing the shard cut ten times", serp, 8)
+    check(torch.equal(torch.where(b < big, b, -1), glob[r0 : r0 + h]),
+          "label_fixpoint on the serpentine gives the global labels (one component)")
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    fixpoint_case("a random mask of density 0.45", (torch.rand((H, W), generator=gen) < 0.45).to(dev), 8)
+    bounds["label_fixpoint"] = bound(9 * h * W, 10 * h * W)  # fg 1 + lab0 4 + labels 4 B/px; ~10 ops/px
+
+    # the consensus's slab mode: the state after 3 steps, frame 4
+    kw = algo._kernel_kw(C)
+    planes = tuple(frames[4][..., i].contiguous() for i in range(C))
+    req_full = torch.where(roi_map(H, W, dev), algo.config.nRequiredBGSamples, 0).to(torch.int32)
+    full = consensus(planes, *clone((state3["colors"], state3["descs"], state3["pend_ctrl"], state3["pend_vals"])),
+                     state3["lut_delta"], state3["R"], state3["unstable"], req_full, **kw)
+    for rank in (0, 1, SHARDS - 1):
+        rows, r0, h = shard_rows(rank)
+        rows = rows.to(dev)
+
+        def own(x):
+            return x[..., r0 : r0 + h, :].contiguous()
+
+        slab = tuple(p.index_select(0, rows.clamp(0, H - 1)).contiguous() for p in planes)
+        vals = tuple(v.index_select(0, rows.clamp(2, H - 3)).contiguous() for v in state3["pend_vals"])
+        args = (slab, tuple(map(own, state3["colors"])), tuple(map(own, state3["descs"])), own(state3["pend_ctrl"]),
+                vals, state3["lut_delta"], own(state3["R"]), own(state3["unstable"]), own(req_full))
+        k_out = consensus(*clone(args), **kw, row_ext=HALO)
+        p_out = consensus_ref(*clone(args), **kw, row_ext=HALO)
+        for name, a, b, u in zip(("count", "min_desc", "min_sum", "intra", "bg_sum", "colors", "descs"),
+                                 k_out, p_out, full):
+            e = max_err(a, b)
+            errs["consensus"] = max(errs["consensus"], e)
+            check(e == 0.0 and max_err(a, tuple(map(own, u)) if isinstance(u, tuple) else own(u)) == 0.0,
+                  f"consensus slab mode, shard {rank} (rows {r0}-{r0 + h - 1}, halo {HALO}): {name} equal "
+                  f"to its plain version and to the unsharded kernel's rows")
+        if rank == 1:
+            timing_inputs["consensus_slab"] = (clone(args), kw)
+            thr = lambda v: thr_closed_form(v, state3["lut_delta"], kw["rel"], kw["div"], kw["hi_const"])  # noqa: E731
+            _, nbs = intra_descriptors(tuple(map(own, planes)), thr)
+            ct, dt = color_desc_thresholds(args[6], args[7], False, kw["min_cd"], kw["desc_off"])
+            good, _, _ = sample_good_ref(tuple(map(own, planes)), p_out[5], p_out[6], p_out[3], nbs, thr, ct, dt)
+            # the owned rows' bytes: the halo rows the stencils read (2 of the
+            # 8 above and below) add 2 % and are left out of the bound
+            timing_inputs["consensus_slab_bound"] = consensus_cost(
+                tuple(map(own, planes)), (args[1], args[2]), (p_out[5], p_out[6]), good, args[8][None],
+                4 * (1 + C) + 9, 3 + 2 * C,
+            )
+
+
+def count_components(mask) -> int:
+    from tracking_tpu_torch.ops.cc import label_components
+
+    lab = label_components(mask)
+    return int((lab == torch.arange(H * W, device=mask.device, dtype=torch.int32).reshape(H, W)).sum())
+
+
+def spatial_path(algo, tracker, state0, frames, dev, results) -> None:
+    """Phase 4e: the row-sharded SuBSENSE + CCMSPF pipeline in 4 shards,
+    lockstep and pipelined, against the unsharded kernel path on the same
+    frames, with the launch counts zeroed just before each sharded run and
+    read just after; then its first frames through the plain versions."""
+    from tracking_tpu_torch.ops import _native
+    from tracking_tpu_torch.parallel.spatial import HALO, N_CAND, run_video_spatial_tracked
+
+    print(f"[4e] sharded path: {SHARDS} shards of {H // SHARDS} rows (halo {HALO}), "
+          f"{SPATIAL_FRAMES} frames of SuBSENSE + CCMSPF at {H}x{W}x{C} {elapsed()}", flush=True)
+    s, tr = clone(state0), tracker.init(device=dev)
+    ref_masks, ref_xs, snaps = [], [], {}
+    for t in range(1, SPATIAL_FRAMES + 1):
+        s, fg, _ = algo.step(s, frames[t])
+        tr, tracks = tracker.step(tr, fg)
+        ref_masks.append(fg)
+        ref_xs.append(tracks.x)
+        if t in (SPATIAL_PLAIN, SPATIAL_PIPELINED, SPATIAL_FRAMES):
+            snaps[t] = (clone(s), clone(tr))
+    n_comp = max(count_components(m) for m in ref_masks)
+    note = "" if n_comp <= N_CAND else f" - FINDING: above {N_CAND}, the sharded blob table may differ"
+    print(f"  the most components in a frame: {n_comp}{note}", flush=True)
+
+    def compare(what, out, n):
+        st, ts, masks, xs = out
+        check(torch.equal(masks, torch.stack(ref_masks[:n])), f"{what}: masks equal the unsharded path's ({n} frames)")
+        check(torch.equal(xs, torch.stack(ref_xs[:n])), f"{what}: per-frame track x equal")
+        e_t, e_s = max_err(ts, snaps[n][1]), max_err(st, snaps[n][0])
+        check(e_t == 0.0 and e_s == 0.0, f"{what}: the tracker table and the gathered SuBSENSE state equal, leaf by "
+                                         f"leaf (max |err| {e_t}, {e_s})")
+
+    runs = (("lockstep", SPATIAL_FRAMES, dict()), ("pipelined", SPATIAL_PIPELINED, dict(pipelined=True)),
+            ("plain versions", SPATIAL_PLAIN, dict(use_kernels=False)))
+    for what, n, kw in runs:
+        _native.reset_launches()
+        out = run_video_spatial_tracked(algo, tracker, frames[1 : n + 1], n_shards=SHARDS, states=clone(state0),
+                                        **kw)
+        torch.cuda.synchronize()
+        launches = dict(_native.LAUNCHES)
+        print(f"  {what} launches: {launches}", flush=True)
+        if what == "plain versions":
+            check(sum(launches.values()) == 0, "no kernel launched through the plain versions")
+        else:
+            for k in SPATIAL_KERNELS:
+                check(launches[k] > 0, f"{k} launched {launches[k]} times on the sharded path ({what})")
+            check(launches["label_components"] == 0, "label_components launched 0 times on the sharded path")
+            if what == "lockstep":
+                results["label_fixpoint"]["launches"] = launches["label_fixpoint"]
+                results["consensus"]["slab_mode"] = {"launches": launches["consensus"]}
+                print(f"  per frame: {launches['label_fixpoint'] / n:.2f} label_fixpoint, "
+                      f"{launches['consensus'] / n:.2f} consensus (slab mode) launches", flush=True)
+        compare(f"sharded path, {what}", out, n)
+        print(f"  {elapsed()}", flush=True)
+
+
+def time_spatial(algo, tracker, state0, frames, dev, timing_inputs, results, tag) -> None:
+    """Phase 6 for the sharded path: label_fixpoint and the slab mode beside
+    their plain versions and bounds, the unsharded consensus on the same
+    state beside the slab mode, the sharded and unsharded paths' ms/frame in
+    turns, the sharded path's peak memory and its kernels per frame."""
+    from tracking_tpu_torch.ops.cc import label_fixpoint, label_fixpoint_ref
+    from tracking_tpu_torch.ops.consensus import consensus, consensus_ref
+    from tracking_tpu_torch.parallel.spatial import HALO, run_video_spatial_tracked
+
+    fg, lab0, big, rank = timing_inputs["label_fixpoint"]
+    _, r0, h = shard_rows(rank)
+    time_pair("label_fixpoint", lambda: label_fixpoint(fg, lab0, big), lambda: label_fixpoint_ref(fg, lab0, big),
+              50, 5, results, tag, label=f"label_fixpoint (rows {r0}-{r0 + h - 1} of the frame-3 mask)")
+    _, r0, h = shard_rows(1)
+    args, kw = timing_inputs["consensus_slab"]
+    b_ms, b_by = timing_inputs["consensus_slab_bound"]
+    row = {"bound_ms": b_ms, "bound_by": b_by}
+    time_pair("slab", lambda: consensus(*args, **kw, row_ext=HALO),
+              lambda: consensus_ref(*args, **kw, row_ext=HALO), 20, 3, {"slab": row}, tag,
+              label=f"consensus slab mode (rows {r0}-{r0 + h - 1} + halo {HALO})")
+    results["consensus"]["slab_mode"].update(ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=b_ms, bound_by=b_by)
+    print(f"  {tag} consensus: slab mode {row['ms']:.4f} ms a shard x {SHARDS} = {SHARDS * row['ms']:.4f} ms against "
+          f"{results['consensus']['ms']:.4f} ms unsharded (phase 3 state, frame 4)", flush=True)
+
+    def unsharded(n):
+        s, tr = clone(state0), tracker.init(device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(1, n + 1):
+            s, fg, _ = algo.step(s, frames[t])
+            tr, _ = tracker.step(tr, fg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def sharded(n, shards=SHARDS):
+        st = clone(state0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_video_spatial_tracked(algo, tracker, frames[1 : n + 1], n_shards=shards, states=st)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # ms/frame as (T(long) - T(short)) / (long - short): the state's split
+    # and join and the threads' start cancel; in turns, wall time with the
+    # device synchronized. One shard runs the sharded code on one thread:
+    # its gap to the unsharded path is the sharded algorithm's own extra
+    # work, the gap from it to 4 shards the threads'.
+    long_, short = SPATIAL_TIMED
+    arms = {"unsharded": unsharded, f"{SHARDS} shards": sharded, "1 shard": lambda n: sharded(n, 1)}
+    ms = {k: [] for k in arms}
+    for arm in ("unsharded", f"{SHARDS} shards", "1 shard", "1 shard", f"{SHARDS} shards", "unsharded"):
+        if arm == f"{SHARDS} shards":
+            torch.cuda.reset_peak_memory_stats()
+        ms[arm].append((arms[arm](long_) - arms[arm](short)) / (long_ - short) * 1e3)
+        if arm == f"{SHARDS} shards":
+            peak = torch.cuda.max_memory_allocated() / 2**30
+    for arm, v in ms.items():
+        print(f"  {tag} SuBSENSE + CCMSPF, {arm} (in turns): {v[0]:.3f} / {v[1]:.3f} ms/frame", flush=True)
+    print(f"  {tag} peak device memory of a sharded run of {long_} frames {peak:.2f} GiB", flush=True)
+    profile(lambda _: run_video_spatial_tracked(algo, tracker, frames[1:4], n_shards=SHARDS, states=clone(state0)),
+            [0], tag, f"sharded path ({SHARDS} shards, 3 frames with the split and join)", n_frames=3)
+
+
 def main(argv) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check runs only on a GPU")
@@ -1033,7 +1301,7 @@ def main(argv) -> None:
     hw = H * W
 
     # -- 3. kernels against their plain versions at the main path's shapes --
-    print("[3] kernels vs plain versions (exact)", flush=True)
+    print(f"[3] kernels vs plain versions (exact) {elapsed()}", flush=True)
     timing_inputs = {}
     for c in (3, 1):
         fr = frames if c == 3 else frames[..., 0].contiguous()
@@ -1123,11 +1391,14 @@ def main(argv) -> None:
     check_registry_kernels(frames, dev, errs, timing_inputs, bounds)
     check_variant_kernels(frames, dev, errs, timing_inputs, bounds)
     check_fgd_kernel(frames, quiet, dev, errs, timing_inputs, bounds)
+    print(f"  {elapsed()}", flush=True)
+    check_spatial_kernels(algo, state_for_masks, frames, dev, errs, timing_inputs, bounds)
+    print(f"  {elapsed()}", flush=True)
     for k, (b_ms, b_by) in bounds.items():
         results[k]["bound_ms"], results[k]["bound_by"] = b_ms, b_by
 
     # -- 4. the main path --------------------------------------------------
-    print(f"[4] main path: warm start + {MAIN_FRAMES} frames of SuBSENSE + CCMSPF at {H}x{W}x{C}", flush=True)
+    print(f"[4] main path: warm start + {MAIN_FRAMES} frames of SuBSENSE + CCMSPF at {H}x{W}x{C} {elapsed()}", flush=True)
     st = clone(state0)
     trk = tracker.init(device=dev)
     masks, ids, xs, ys, shares = [], [], [], [], []
@@ -1173,8 +1444,11 @@ def main(argv) -> None:
     # -- 4d. the FG_0 path -------------------------------------------------
     fgd_algo, fgd_start = fgd_path(quiet, dev, results, tracker, timing_inputs)
 
+    # -- 4e. the row-sharded path ------------------------------------------
+    spatial_path(algo, tracker, state0, frames, dev, results)
+
     # -- 5. path against path ----------------------------------------------
-    print(f"[5] the first {PATH_FRAMES} frames through the plain versions", flush=True)
+    print(f"[5] the first {PATH_FRAMES} frames through the plain versions {elapsed()}", flush=True)
     st_p = clone(state0)
     trk_p = tracker.init(device=dev)
     for t in range(1, PATH_FRAMES + 1):
@@ -1187,7 +1461,7 @@ def main(argv) -> None:
     check(True, f"masks, track ids and positions equal over {PATH_FRAMES} frames")
 
     # -- 6. timing ---------------------------------------------------------
-    print(f"[6] timing {tag}", flush=True)
+    print(f"[6] timing {tag} {elapsed()}", flush=True)
     args, kw = timing_inputs["consensus"]
     plain_fns = {
         "consensus": (lambda: consensus(*args, **kw), lambda: consensus_ref(*args, **kw), 20, 3),
@@ -1211,6 +1485,9 @@ def main(argv) -> None:
         time_pair(k, lambda fk=fk: fk(*v_args, **v_kw), lambda fp=fp: fp(*v_args, **v_kw), 20, 3, results, tag)
     time_variants(algo, state0, variant_starts, frames, tag)
     time_fgd(timing_inputs, results, fgd_algo, fgd_start, tracker, frames, quiet, dev, tag)
+    print(f"  {elapsed()}", flush=True)
+    time_spatial(algo, tracker, state0, frames, dev, timing_inputs, results, tag)
+    print(f"  {elapsed()}", flush=True)
     for k in SOURCES:
         results[k]["max_abs_err"] = errs[k]
 

@@ -351,9 +351,11 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert set(_native.LAUNCHES) == {
         "consensus", "flood_reach", "label_components", "greedy_assign",
         "consensus_lobster", "gmg_step", "texture_prox_cur", "multilayer_step",
-        "consensus_read", "consensus_feedback", "fgd_tables",
+        "consensus_read", "consensus_feedback", "fgd_tables", "label_fixpoint",
     }
-    assert {"tt_consensus_read", "tt_consensus_feedback", "tt_fgd_tables"} <= set(_native._SIGNATURES)
+    assert {"tt_consensus_read", "tt_consensus_feedback", "tt_fgd_tables", "tt_label_fixpoint"} <= set(
+        _native._SIGNATURES
+    )
     assert "-fmad=false" in _native.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _native.NVCC_FLAGS
     assert not any("fast" in f for f in _native.NVCC_FLAGS)
 

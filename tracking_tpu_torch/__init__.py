@@ -22,6 +22,10 @@ and never JAX or ``tracking_tpu``. Module names mirror the reference's:
   plain versions; CPU tensors take the plain version, CUDA tensors the
   kernel;
 - ``track/``: Kalman filters, mean-shift and the CC / CCMSPF blob tracker;
+- ``parallel/``: row sharding of one stream (``spatial.py``) over the
+  thread ranks of ``mesh.ShardGroup`` on one device; ``ops/cc.py``'s
+  ``label_fixpoint`` (replacing ``pallas_cc.label_fixpoint_pallas``) is its
+  CC core;
 - ``convert.py``: states to and from the JAX package's pytrees.
 """
 

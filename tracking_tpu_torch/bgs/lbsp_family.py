@@ -27,7 +27,16 @@ On CPU tensors, or with ``use_kernels=False``, both take their plain
 versions. The requirement is a per-pixel map: ``nRequiredBGSamples`` plus
 the state's ``shrink_req_offset`` where subsenseShrink sets one.
 
-Left out of this port: the spatially sharded mode (``ctx``).
+Row-sharded mode: ``SuBSENSE.step(..., ctx=SpatialCtx)`` runs one rank of
+``parallel/spatial.py``'s single-stream sharding (``lbsp_family.py:806-1400``,
+every ``ctx`` branch) on a v1 state: the frame arrives as a halo slab, the
+consensus runs its slab mode, RNG fields are drawn at the global shape and
+row-sliced, the nonzero-descriptor count is summed over ranks, the
+post-processing is ``sharded_postproc``, the motion analysis gathers the
+downsampled column sums, and the refresh reads border-extended slabs. The
+fused step and v3 states raise there (the JAX package runs its fused step
+without ``ctx`` only; v3 with ``ctx`` is not ported), and LOBSTER has no
+sharded mode in this port.
 
 LOBSTER (below SuBSENSE) is the same model with fixed thresholds: N = 35
 samples, a 1/16 stochastic self and 3×3-neighbour update logged the same
@@ -120,21 +129,37 @@ def _sample_offset_field(key: torch.Tensor, shape) -> torch.Tensor:
     return torch.bucketize(r, cdf).clamp(0, 48)
 
 
-def _refresh_samples(key, n_samples, n_refresh, start, last_color, last_desc, ok_mask, colors, descs):
+def _refresh_samples(key, n_samples, n_refresh, start, last_color, last_desc, ok_mask, colors, descs, ctx=None):
     """refreshModel (SuBSENSE :249-291): slots [start, start+n_refresh) mod N
     take the value of a random gaussian-weighted nearby position (clamped to
     the ROI interior) where that position's ``ok_mask`` and the pixel's own
-    hold. ``start`` may be an int or a 0-d tensor."""
+    hold. ``start`` may be an int or a 0-d tensor.
+
+    With ``ctx`` (a rank of the row sharding, ``lbsp_family.py:134-163``)
+    the inputs are the rank's rows: the offset field is drawn at the global
+    shape and row-sliced, and the sources are read from border-extended
+    slabs, whose rows carry the ROI clamp (the JAX package's ``shift`` hook
+    reads them the same way)."""
     h, w = ok_mask.shape
     dev = ok_mask.device
     N = n_samples
-    idx = _sample_offset_field(key, (n_refresh, h, w))
+    idx = _sample_offset_field(key, (n_refresh, h if ctx is None else ctx.H, w))
+    if ctx is not None:
+        idx = ctx.rng_rows(idx)
     dy = torch.as_tensor(_INIT_DY, device=dev)[idx]
     dx = torch.as_tensor(_INIT_DX, device=dev)[idx]
     ys = torch.arange(h, device=dev)[:, None]
     xs = torch.arange(w, device=dev)[None, :]
-    src = (ys + dy).clamp(BORDER, h - BORDER - 1) * w + (xs + dx).clamp(BORDER, w - BORDER - 1)
-    ok = ok_mask.reshape(-1)[src] & ok_mask[None]
+    ok_own = ok_mask
+    if ctx is None:
+        rows = (ys + dy).clamp(BORDER, h - BORDER - 1)
+    else:
+        rows = ctx.halo + ys + dy
+        last_color = tuple(ctx.extend_border(p) for p in last_color)
+        last_desc = tuple(ctx.extend_border(d) for d in last_desc)
+        ok_mask = ctx.extend_border(ok_mask)
+    src = rows * w + (xs + dx).clamp(BORDER, w - BORDER - 1)
+    ok = ok_mask.reshape(-1)[src] & ok_own[None]
     slots = (torch.arange(n_refresh, device=dev) + start) % N
 
     def apply(bank, plane):
@@ -335,23 +360,32 @@ class SuBSENSE(BGSAlgorithm):
             out["bg_sum"] = tuple(cc.to(torch.int32).sum(dim=0, dtype=torch.int32) for cc in colors)
         return out
 
-    def step(self, state: State, frame: torch.Tensor, use_kernels: bool = True) -> StepResult:
+    def step(self, state: State, frame: torch.Tensor, use_kernels: bool = True, ctx=None) -> StepResult:
         """One frame. On CUDA tensors the kernels run (and the banks update in
-        place) unless ``use_kernels=False``."""
+        place) unless ``use_kernels=False``. ``ctx`` (a
+        ``parallel.spatial.SpatialCtx``) runs one rank of the row-sharded
+        step: ``frame`` is this rank's halo-extended slab and the state its
+        rows (module docstring)."""
         cfg = self.config
         N = cfg.nBGSamples
-        planes, was_gray = _to_planes(frame)
+        planes_in, was_gray = _to_planes(frame)
+        if ctx is not None:
+            planes_ext = planes_in  # the runner extended the frame's rows
+            planes = tuple(ctx.crop(p) for p in planes_ext)
+        else:
+            planes = planes_in
         c = len(planes)
         h, w = planes[0].shape
+        H = ctx.H if ctx is not None else h  # the global height
         dev = frame.device
         f32, i32 = torch.float32, torch.int32
 
         def cf(x):
             return torch.full((), x, dtype=f32, device=dev)
 
-        scaling, use3x3_global, median_ksize, t_lower_static, t_upper_static = self._size_policy(h, w)
-        roi = roi_map(h, w, dev)
-        n_roi_px = (h - 2 * BORDER) * (w - 2 * BORDER)
+        scaling, use3x3_global, median_ksize, t_lower_static, t_upper_static = self._size_policy(H, w)
+        roi = roi_map(h, w, dev) if ctx is None else ctx.roi(w)
+        n_roi_px = (H - 2 * BORDER) * (w - 2 * BORDER)
         t = state["t"]
         keys = rng.split(state["key"], 12)
         new_key = keys[0]
@@ -369,7 +403,14 @@ class SuBSENSE(BGSAlgorithm):
             required = required + state["shrink_req_offset"]
         v2 = "bg_sum" in state  # consensus v3 (see _use_v2)
         use_fused = not v2 and _use_fused()
-        bits = rng.as_i32(rng.field_bits(keys[2], (4, h, w)))
+        if ctx is not None and (v2 or use_fused):
+            raise NotImplementedError(
+                "the row-sharded step runs consensus v1 without the fused kernel (the JAX package's fused "
+                "step takes no ctx; v3 with ctx is not ported)"
+            )
+        bits = rng.as_i32(rng.field_bits(keys[2], (4, H, w)))
+        if ctx is not None:
+            bits = ctx.rng_rows(bits)  # the global draw, row-sliced
         consts = FeedbackConsts(
             t_incr=FEEDBACK_T_INCR, t_decr=FEEDBACK_T_DECR, t_lower=FEEDBACK_T_LOWER,
             v_incr=FEEDBACK_V_INCR, v_decr=FEEDBACK_V_DECR, r_var=FEEDBACK_R_VAR,
@@ -408,9 +449,17 @@ class SuBSENSE(BGSAlgorithm):
             else:
                 # -- pending replay + sample consensus (:332-357) -------------
                 cons = consensus if use_kernels else consensus_ref
+                if ctx is None:
+                    k_planes, k_vals, row_ext = planes, state["pend_vals"], 0
+                else:
+                    # the slab mode: planes and pending values as halo slabs
+                    # (:991-1018, with E = the frame's halo)
+                    k_planes, row_ext = planes_ext, ctx.halo
+                    k_vals = tuple(ctx.extend_border(v) for v in state["pend_vals"])
                 count, min_desc, min_sum, intra, bg_sums, colors, descs = cons(
-                    planes, state["colors"], state["descs"], state["pend_ctrl"], state["pend_vals"],
+                    k_planes, state["colors"], state["descs"], state["pend_ctrl"], k_vals,
                     state["lut_delta"], state["R"], state["unstable"], required_eff, **self._kernel_kw(c),
+                    row_ext=row_ext,
                 )
             first = t == 0
             last_color = tuple(torch.where(first, planes[ci], state["last_color"][ci]) for ci in range(c))
@@ -454,16 +503,24 @@ class SuBSENSE(BGSAlgorithm):
         raw_fg = torch.where(is_fg, 255, 0).to(torch.uint8)
 
         # nonzero-descriptor ratio (:430-431)
-        nz_ratio = (nz & roi).sum().to(f32) * recip(n_roi_px)
+        nz_sum = (nz & roi).sum().to(f32)
+        if ctx is not None:
+            nz_sum = ctx.psum(nz_sum)
+        nz_ratio = nz_sum * recip(n_roi_px)
 
         # -- post-processing (:624-642) ---------------------------------------
-        pre_flood = morph_close(raw_fg, 3)
-        filled = fill_holes(pre_flood, seed="corner", use_kernels=use_kernels)
-        holes = (filled > 0) & ~(pre_flood > 0)
-        pre_flood_eroded = erode(erode(erode(pre_flood, 3), 3), 3)
-        fg1 = torch.where(is_fg | holes | (pre_flood_eroded > 0), 255, 0).to(torch.uint8)
-        final = binary_median_blur(fg1, median_ksize)
-        dil_inv = ~(dilate(dilate(dilate(final, 3), 3), 3) > 0)
+        if ctx is None:
+            pre_flood = morph_close(raw_fg, 3)
+            filled = fill_holes(pre_flood, seed="corner", use_kernels=use_kernels)
+            holes = (filled > 0) & ~(pre_flood > 0)
+            pre_flood_eroded = erode(erode(erode(pre_flood, 3), 3), 3)
+            fg1 = torch.where(is_fg | holes | (pre_flood_eroded > 0), 255, 0).to(torch.uint8)
+            final = binary_median_blur(fg1, median_ksize)
+            dil_inv = ~(dilate(dilate(dilate(final, 3), 3), 3) > 0)
+        else:
+            from tracking_tpu_torch.parallel.spatial import sharded_postproc
+
+            final, dil_inv = sharded_postproc(ctx, raw_fg, is_fg, median_ksize, use_kernels=use_kernels)
         blinks = blinks_pre & dil_inv
         final_fg = final > 0
         final_lt = state["final_lt"] * (1 - a_lt) + final_fg.to(f32) * a_lt
@@ -482,14 +539,21 @@ class SuBSENSE(BGSAlgorithm):
         auto_reset = state["auto_reset"]
         ds_lt, ds_st = state["ds_lt"], state["ds_st"]
         if scaling:
-            dsh, dsw = h // DOWNSAMPLE_RATIO, w // DOWNSAMPLE_RATIO
+            dsh, dsw = H // DOWNSAMPLE_RATIO, w // DOWNSAMPLE_RATIO
             r_ = DOWNSAMPLE_RATIO
 
             def ds_of(p):
                 cells = p[: dsh * r_, : dsw * r_].to(i32).reshape(dsh, r_, dsw, r_).sum(dim=(1, 3), dtype=i32)
                 return cells.to(f32) * recip(r_ * r_)
 
-            ds = tuple(ds_of(planes[ci]) for ci in range(c))
+            def ds_sharded(p):
+                # each rank's per-row 8-column sums, gathered: exact integers,
+                # so the two-stage sum is the one-shot cell sum (:1298-1330)
+                colsum = p[:, : dsw * r_].to(i32).reshape(h, dsw, r_).sum(dim=2, dtype=i32)
+                full = ctx.gather_rows(colsum)[: dsh * r_].reshape(dsh, r_, dsw).sum(dim=1, dtype=i32)
+                return full.to(f32) * recip(r_ * r_)
+
+            ds = tuple((ds_of if ctx is None else ds_sharded)(planes[ci]) for ci in range(c))
             ds_lt = tuple(ds_lt[ci] * (1 - a_lt) + ds[ci] * a_lt for ci in range(c))
             ds_st = tuple(ds_st[ci] * (1 - a_st) + ds[ci] * a_st for ci in range(c))
             perpx = [(ds_st[ci] - ds_lt[ci]).abs().to(i32) for ci in range(c)]
@@ -506,7 +570,9 @@ class SuBSENSE(BGSAlgorithm):
             # The reference refreshes after frame t's writes: the rare trigger
             # branch applies the pending log eagerly (v1; v3's banks are
             # current), refreshes, and clears the log or recomputes v3's
-            # bank sum. Branching needs the flag on the host (one sync).
+            # bank sum. Branching needs the flag on the host (one sync); the
+            # flag is the same on every rank, so all of them exchange halos
+            # in the branch together.
             if bool(trigger):
                 if v2:
                     colors, descs = _refresh_samples(
@@ -514,9 +580,13 @@ class SuBSENSE(BGSAlgorithm):
                     )
                     bg_sums = tuple(cc.to(i32).sum(dim=0, dtype=i32) for cc in colors)
                 else:
-                    ac, ad, _ = apply_pending_ref(pend_ctrl, pend_vals, colors, descs)
+                    shift_src = None
+                    if ctx is not None:  # the log's sources from border slabs
+                        vals_ext = tuple(ctx.extend_border(v) for v in pend_vals)
+                        shift_src = lambda ci, dy, dx: ctx.shift_ext(vals_ext[ci], dy, dx)  # noqa: E731
+                    ac, ad, _ = apply_pending_ref(pend_ctrl, pend_vals, colors, descs, shift_src)
                     colors, descs = _refresh_samples(
-                        keys[9], N, n_refresh, start, planes, intra, ~final_fg, ac, ad
+                        keys[9], N, n_refresh, start, planes, intra, ~final_fg, ac, ad, ctx=ctx
                     )
                     pend_ctrl = torch.zeros_like(pend_ctrl)
             T = torch.where(trigger, torch.ones_like(T), T)

@@ -30,6 +30,14 @@
 // multiply-adds and with XLA's reciprocal product for a constant divisor:
 // build with -fmad=false, and pass 1/div as the f32 `inv_div`.
 //
+// Slab mode (E > 0), for the row-sharded path (parallel/spatial.py): the
+// planes and the pending values arrive as [H + 2E, W] slabs of this shard's
+// H owned rows with E halo rows above and below (tracking_tpu's row_ext
+// contract). Their contents already carry the global row clamps - the planes
+// the edge clamp, the pending values the ROI-interior clamp - so in slab mode
+// the kernel reads rows E + y +/- d without a row clamp; columns keep their
+// clamps. The banks, the maps and the outputs stay owned-size [H, W].
+//
 // The file's other kernels share these steps as device functions:
 // lobster_kernel (LOBSTER's consensus), read_walk_kernel (steps 3-4 on
 // read-only banks, consensus v3) and fused_kernel (steps 1-4 followed by the
@@ -71,12 +79,19 @@ __device__ __forceinline__ int lbsp_thr(int v, float delta, float rel, float inv
   return (int)fminf(fmaxf(base + delta, lower), upper);
 }
 
+// The pending values' row of a spread source at global offset -dy from row
+// y: clamped into the ROI interior, or, in slab mode, the slab row that holds
+// that clamp already.
+__device__ __forceinline__ int src_row(int y, int dy, int H, int E) {
+  return E > 0 ? E + y - dy : clampi(y - dy, 2, H - 3);
+}
+
 // Step 1, shared by both kernels: replay frame t-1's pending log into this
 // pixel's slots in place (see the header). LOBSTER's log sets only 3x3 spreads (u5 = 0 with the 5x5 fire bit clear),
-// so the same decode serves it.
+// so the same decode serves it. E > 0: the pending values are a slab (header).
 template <int C>
 __device__ __forceinline__ void replay_pending(const Banks& banks, const int32_t* __restrict__ ctrl_map, int x, int y,
-                                               int p, int N, int H, int W) {
+                                               int p, int N, int H, int W, int E = 0) {
   const size_t HW = (size_t)H * W;
   const int ctrl = ctrl_map[p];
   const bool upd1 = (ctrl & 1) != 0;
@@ -90,13 +105,13 @@ __device__ __forceinline__ void replay_pending(const Banks& banks, const int32_t
   if (u3 < 24) {
     nb5_offset(u3, dx, dy);
     if (dx >= -1 && dx <= 1 && dy >= -1 && dy <= 1) {
-      int q = clampi(y - dy, 2, H - 3) * W + clampi(x - dx, 2, W - 3);
+      int q = src_row(y, dy, H, E) * W + clampi(x - dx, 2, W - 3);
       ok3 = ((banks.vals[0][q] >> 24) & 1) != 0;
     }
   }
   if (u5 < 24) {
     nb5_offset(u5, dx, dy);
-    int q = clampi(y - dy, 2, H - 3) * W + clampi(x - dx, 2, W - 3);
+    int q = src_row(y, dy, H, E) * W + clampi(x - dx, 2, W - 3);
     ok5 = ((banks.vals[0][q] >> 24) & 2) != 0;
   }
   const bool okn = ok3 || ok5;
@@ -105,11 +120,12 @@ __device__ __forceinline__ void replay_pending(const Banks& banks, const int32_t
   int q_nb = -1;
   if (u < 24) {
     nb5_offset(u, dx, dy);
-    q_nb = clampi(y - dy, 2, H - 3) * W + clampi(x - dx, 2, W - 3);
+    q_nb = src_row(y, dy, H, E) * W + clampi(x - dx, 2, W - 3);
   }
+  const int pv = (y + E) * W + x;  // this pixel in the pending values
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const int own = banks.vals[c][p];
+    const int own = banks.vals[c][pv];
     const int nb = q_nb >= 0 ? banks.vals[c][q_nb] : 0;
     if (upd1 && slot1 < N) {
       banks.col[c][(size_t)slot1 * HW + p] = (uint8_t)(own & 0xFF);
@@ -154,23 +170,25 @@ __device__ __forceinline__ ConstBanks as_const(const Banks& b) {
 // the intra LBSP descriptors from 16 edge-clamped neighbours, the colour and
 // descriptor thresholds from R and the previous unstable mask, then the walk
 // over the N samples, stopping once `req` good samples are counted. Only the
-// slots the walk reaches are read.
+// slots the walk reaches are read. E > 0: the planes are [H + 2E, W] slabs
+// (header); the clamp to the slab's rows then never engages (E >= 2).
 template <int C>
 __device__ __forceinline__ void lbsp_walk(const uint8_t* __restrict__ planes, const ConstBanks& banks, int x, int y,
                                           int p, int N, int H, int W, float delta, float rel, float inv_div, float hi,
                                           float R, bool unst, int req, int min_cd, int desc_off, int px[C],
-                                          int intra[C], int& count_out, int& mind_out, int& mins_out) {
+                                          int intra[C], int& count_out, int& mind_out, int& mins_out, int E = 0) {
   const size_t HW = (size_t)H * W;
+  const int Hp = H + 2 * E;  // the planes' rows
   int nbv[C][16];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const uint8_t* pl = planes + (size_t)c * HW;
-    px[c] = pl[p];
+    const uint8_t* pl = planes + (size_t)c * Hp * W;
+    px[c] = pl[(y + E) * W + x];
     const int thr = lbsp_thr(px[c], delta, rel, inv_div, hi);
     int d = 0;
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
-      int v = pl[clampi(y + kLbspDy[k], 0, H - 1) * W + clampi(x + kLbspDx[k], 0, W - 1)];
+      int v = pl[clampi(y + E + kLbspDy[k], 0, Hp - 1) * W + clampi(x + kLbspDx[k], 0, W - 1)];
       nbv[c][k] = v;
       d |= (abs(v - px[c]) > thr ? 1 : 0) << k;
     }
@@ -229,21 +247,21 @@ __global__ void consensus_kernel(const uint8_t* __restrict__ planes, Banks banks
                                  const int32_t* __restrict__ required_map, const int32_t* __restrict__ lut_delta,
                                  int32_t* count_out, int32_t* mind_out, int32_t* mins_out, int32_t* intra_out,
                                  int32_t* bg_out, int N, int H, int W, float rel, float inv_div, float hi,
-                                 int min_cd, int desc_off) {
+                                 int min_cd, int desc_off, int E) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
+  if (x >= W || y >= H) return;  // y: an owned row; the slab rows are E + y
   const int HW = H * W;
   const int p = y * W + x;
 
   // -- 1. replay the pending log; 2. background sums -------------------------
-  replay_pending<C>(banks, ctrl_map, x, y, p, N, H, W);
+  replay_pending<C>(banks, ctrl_map, x, y, p, N, H, W, E);
   bank_sums<C>(banks, bg_out, p, N, HW);
 
   // -- 3-4. intra descriptors, thresholds, the walk ----------------------------
   int px[C], intra[C], count, mind, mins;
   lbsp_walk<C>(planes, as_const(banks), x, y, p, N, H, W, (float)lut_delta[0], rel, inv_div, hi, R_map[p],
-               unstable_map[p], required_map[p], min_cd, desc_off, px, intra, count, mind, mins);
+               unstable_map[p], required_map[p], min_cd, desc_off, px, intra, count, mind, mins, E);
 #pragma unroll
   for (int c = 0; c < C; ++c) intra_out[(size_t)c * HW + p] = intra[c];
   count_out[p] = count;
@@ -255,7 +273,9 @@ TT_EXPORT int tt_consensus(const void* planes, void* col0, void* col1, void* col
                            void* desc2, const void* ctrl, const void* val0, const void* val1, const void* val2,
                            const void* R, const void* unstable, const void* required, const void* lut_delta,
                            void* count, void* mind, void* mins, void* intra, void* bg_sum, int C, int N, int H,
-                           int W, float rel, float div, float hi_const, int min_cd, int desc_off, void* stream_) {
+                           int W, float rel, float div, float hi_const, int min_cd, int desc_off, int row_ext,
+                           void* stream_) {
+  if (row_ext != 0 && row_ext < 2) return (int)cudaErrorInvalidValue;  // the walk reads rows +/- 2
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   Banks b;
   b.col[0] = static_cast<uint8_t*>(col0);
@@ -283,10 +303,10 @@ TT_EXPORT int tt_consensus(const void* planes, void* col0, void* col1, void* col
   int32_t* o4 = static_cast<int32_t*>(bg_sum);
   if (C == 1) {
     consensus_kernel<1><<<grid, block, 0, stream>>>(px, b, cm, Rm, um, rq, ld, o0, o1, o2, o3, o4, N, H, W, rel,
-                                                    inv_div, hi_const, min_cd, desc_off);
+                                                    inv_div, hi_const, min_cd, desc_off, row_ext);
   } else if (C == 3) {
     consensus_kernel<3><<<grid, block, 0, stream>>>(px, b, cm, Rm, um, rq, ld, o0, o1, o2, o3, o4, N, H, W, rel,
-                                                    inv_div, hi_const, min_cd, desc_off);
+                                                    inv_div, hi_const, min_cd, desc_off, row_ext);
   } else {
     return (int)cudaErrorInvalidValue;
   }

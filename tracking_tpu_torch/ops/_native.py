@@ -13,8 +13,9 @@ are f32 expressions that the JAX reference evaluates without fused
 multiply-adds; a contracted ``a*b+c`` moves a threshold by one unit.
 
 Every wrapper adds one to its entry of :data:`LAUNCHES` where it launches its
-kernel and nowhere else, so a run can show which kernels its path went
-through.
+kernel and nowhere else (:func:`count_launch`, under a lock: the shards of
+``parallel.ShardGroup`` launch from several threads), so a run can show which
+kernels its path went through.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -39,8 +41,9 @@ NVCC_FLAGS = [
 LAUNCHES = {
     "consensus": 0, "flood_reach": 0, "label_components": 0, "greedy_assign": 0,
     "consensus_lobster": 0, "gmg_step": 0, "texture_prox_cur": 0, "multilayer_step": 0,
-    "consensus_read": 0, "consensus_feedback": 0, "fgd_tables": 0,
+    "consensus_read": 0, "consensus_feedback": 0, "fgd_tables": 0, "label_fixpoint": 0,
 }
+_LAUNCH_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,9 +51,10 @@ _F = ctypes.c_float
 # C signatures of the kernels' entry points (csrc/*.cu); each returns the
 # cudaError_t of its launches
 _SIGNATURES = {
-    "tt_consensus": [_P] * 20 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
+    "tt_consensus": [_P] * 20 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "tt_flood_reach": [_P] * 5 + [_I] * 2 + [_P],
     "tt_label_components": [_P] * 2 + [_I] * 3 + [_P],
+    "tt_label_fixpoint": [_P] * 4 + [_I] * 4 + [_P],
     "tt_greedy_assign": [_P] * 3 + [_I] * 2 + [_P],
     "tt_consensus_lobster": [_P] * 14 + [_I] * 4 + [_F] * 3 + [_I] * 5 + [_P],
     "tt_gmg_step": [_P] * 7 + [_I] * 3 + [_F] * 5 + [_I, _P],
@@ -66,8 +70,14 @@ _lib = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

@@ -52,5 +52,5 @@ def greedy_assign(cost: torch.Tensor):
         cost.data_ptr(), assign.data_ptr(), taken.data_ptr(), K, B, _native.stream_ptr()
     )
     _native.check(rc, "greedy_assign")
-    _native.LAUNCHES["greedy_assign"] += 1
+    _native.count_launch("greedy_assign")
     return assign, taken

@@ -12,6 +12,13 @@ per-label integer moments by scatter-add / scatter-min / scatter-max (order
 does not matter for integers), then the ``max_blobs`` largest components.
 ``jax.lax.top_k`` puts the lower index first among equal areas; a stable
 sort on −area does the same (``torch.topk`` promises no order for ties).
+
+For the row-sharded path (``parallel/spatial.py``): :func:`label_fixpoint`
+launches the CUDA kernel that replaces ``ops/pallas_cc.py:
+label_fixpoint_pallas`` (min of arbitrary initial labels over each
+component) beside its plain version :func:`label_fixpoint_ref`; and
+:func:`blob_row_moments` / :func:`blob_finalize` build the blob table from
+exact int32 per-row and per-column counts that shards can sum.
 """
 
 from __future__ import annotations
@@ -91,8 +98,100 @@ def label_components(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
         fg.data_ptr(), out.data_ptr(), H, W, connectivity, _native.stream_ptr()
     )
     _native.check(rc, "label_components")
-    _native.LAUNCHES["label_components"] += 1
+    _native.count_launch("label_components")
     return out
+
+
+def _run_min(lab: torch.Tensor, fg: torch.Tensor, big: int) -> torch.Tensor:
+    """Per row: the minimum label over each maximal foreground run, on the
+    run's pixels; ``big`` on background (one whole-line propagation step)."""
+    H, W = lab.shape
+    seg = torch.cumsum((~fg).to(torch.int32), dim=1)  # run id within the row
+    key = (torch.arange(H, device=lab.device, dtype=torch.int32)[:, None] * (W + 1) + seg).reshape(-1).long()
+    acc = torch.full((H * (W + 1),), big, dtype=torch.int32, device=lab.device)
+    acc.scatter_reduce_(0, key, torch.where(fg, lab, big).reshape(-1), reduce="amin", include_self=True)
+    return torch.where(fg, acc[key].reshape(H, W), big)
+
+
+def label_fixpoint_ref(fg: torch.Tensor, lab0: torch.Tensor, big: int, connectivity: int = 8):
+    """Plain torch: row and column run minima and one neighbour minimum,
+    repeated until nothing changes. ``fg`` bool [H, W]; ``lab0`` int32
+    [H, W], ``big`` on background. Returns (labels, converged): the
+    minimum of ``lab0`` over each component, ``big`` on background, and
+    True (there is no round cap)."""
+    lab = torch.where(fg, lab0, big)
+    while True:
+        new = torch.minimum(lab, _run_min(lab, fg, big))
+        new = torch.minimum(new, _run_min(new.t(), fg.t(), big).t())
+        new = _neighbor_min(new, fg, connectivity == 8, big)
+        if torch.equal(new, lab):
+            return lab, True
+        lab = new
+
+
+def label_fixpoint(fg: torch.Tensor, lab0: torch.Tensor, big: int, connectivity: int = 8,
+                   use_kernels: bool = True):
+    """Same contract as :func:`label_fixpoint_ref`. CPU tensors take the
+    plain version; CUDA tensors launch the kernel unless ``use_kernels=False``.
+    The JAX package's ``base`` argument steers only its pointer jumping and
+    has no counterpart here."""
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    if fg.device.type == "cpu" or not use_kernels:
+        return label_fixpoint_ref(fg, lab0, big, connectivity)
+    H, W = fg.shape
+    _native.require(fg, "fg", torch.bool, (H, W))
+    _native.require(lab0, "lab0", torch.int32, (H, W))
+    parent = torch.empty((H, W), dtype=torch.int32, device=fg.device)
+    out = torch.empty((H, W), dtype=torch.int32, device=fg.device)
+    rc = _native.library().tt_label_fixpoint(
+        fg.data_ptr(), lab0.data_ptr(), parent.data_ptr(), out.data_ptr(), H, W, connectivity, big,
+        _native.stream_ptr(),
+    )
+    _native.check(rc, "label_fixpoint")
+    _native.count_launch("label_fixpoint")
+    return out, True
+
+
+def blob_row_moments(cnt_rk: torch.Tensor, ys: torch.Tensor, H: int):
+    """Row-axis blob moments from an int32 per-row count matrix [rows, K]
+    whose rows are the global rows ``ys`` (``cc.py:blob_row_moments``):
+    area, Σy, and the bbox rows as maxima ((H−1)−min y and max y, −1 where
+    empty), all exact int32, so shards' partials combine by sum and max."""
+    cnt = cnt_rk.to(torch.int32)
+    pr = cnt > 0
+    ys = ys.to(torch.int32)[:, None]
+    area = cnt.sum(dim=0, dtype=torch.int32)
+    sy = (cnt * ys).sum(dim=0, dtype=torch.int32)
+    ny0 = torch.where(pr, (H - 1) - ys, -1).amax(dim=0).to(torch.int32)
+    y1 = torch.where(pr, ys, -1).amax(dim=0).to(torch.int32)
+    return area, sy, ny0, y1
+
+
+def blob_finalize(rows, cnt_wk: torch.Tensor, roots: torch.Tensor, H: int, W: int) -> Blobs:
+    """Blob table from combined row moments and full column counts [W, K]
+    (``cc.py:blob_finalize``)."""
+    area, sy, ny0, y1 = rows
+    dev = area.device
+    xs = torch.arange(W, dtype=torch.int32, device=dev)[:, None]
+    cnt_w = cnt_wk.to(torch.int32)
+    pw = cnt_w > 0
+    sx = (cnt_w * xs).sum(dim=0, dtype=torch.int32)
+    x0 = (W - 1) - torch.where(pw, (W - 1) - xs, -1).amax(dim=0)
+    x1 = torch.where(pw, xs, -1).amax(dim=0)
+    ok = area > 0
+    inv_a = torch.reciprocal(torch.clamp(area.to(torch.float32), min=1.0))
+    zf = torch.zeros((), dtype=torch.float32, device=dev)
+    return Blobs(
+        area=torch.where(ok, area, 0).to(torch.int32),
+        cx=torch.where(ok, sx.to(torch.float32) * inv_a, zf),
+        cy=torch.where(ok, sy.to(torch.float32) * inv_a, zf),
+        x0=torch.where(ok, x0, 0).to(torch.int32),
+        y0=torch.where(ok, (H - 1) - ny0, 0).to(torch.int32),
+        x1=torch.where(ok, x1, -1).to(torch.int32),
+        y1=torch.where(ok, y1, -1).to(torch.int32),
+        label=torch.where(ok, roots, -1).to(torch.int32),
+    )
 
 
 def _areas(mask: torch.Tensor, max_blobs: int, connectivity: int, use_kernels: bool):

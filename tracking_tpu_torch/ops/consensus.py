@@ -15,6 +15,12 @@ Per pixel, in order:
 4. walk the samples, counting good ones up to ``required`` and keeping the
    minimum descriptor and sum distances of the counted ones.
 
+Slab mode (``row_ext=E``, the row-sharded path of ``parallel/spatial.py``;
+``pallas_consensus.py:640-700``): ``planes`` and ``pend_vals`` arrive as
+[h + 2E, W] slabs of a shard's h owned rows, built by ``SpatialCtx.
+extend_plain`` and ``extend_border``, whose halo rows carry the global row
+clamps; every other tensor is owned-size.
+
 Also here: the pending-log helpers of ``pallas_consensus.py:258-320``;
 LOBSTER's consensus, the same four steps with fixed thresholds and the
 inter-frame descriptor distance only: the kernel ``consensus_lobster``
@@ -132,34 +138,40 @@ def color_desc_thresholds(R, unstable, gray: bool, min_cd: int, desc_off: int):
     return ct, dt
 
 
-def resolve_spread(vals, u3, u5):
+def resolve_spread(vals, u3, u5, shift_src=None):
     """For each destination pixel: did its drawn 3×3 / 5×5 source fire, and
-    the winning source's packed value per channel (3×3 wins)."""
+    the winning source's packed value per channel (3×3 wins).
+    ``shift_src(c, dy, dx)`` gives channel c's values shifted with the ROI
+    interior clamp (default :func:`shift_clamped` of ``vals[c]``; on a shard,
+    a shift of the border-extended slab)."""
     C = len(vals)
-    ok3 = torch.zeros(vals[0].shape, dtype=torch.bool, device=vals[0].device)
+    if shift_src is None:
+        shift_src = lambda c, dy, dx: shift_clamped(vals[c], dy, dx)  # noqa: E731
+    ok3 = torch.zeros(u3.shape, dtype=torch.bool, device=u3.device)
     ok5 = torch.zeros_like(ok3)
     for k, (dx, dy) in enumerate(NB5):
-        fv = shift_clamped(vals[0], dy, dx) >> 24
+        fv = shift_src(0, dy, dx) >> 24
         if k in NB3_IN_NB5:
             ok3 = ok3 | ((u3 == k) & ((fv & 1) != 0))
         ok5 = ok5 | ((u5 == k) & ((fv & 2) != 0))
     u = torch.where(ok3, u3, u5)
-    nbv = [torch.zeros_like(vals[0]) for _ in range(C)]
+    nbv = [torch.zeros(u3.shape, dtype=torch.int32, device=u3.device) for _ in range(C)]
     for k, (dx, dy) in enumerate(NB5):
         sel = u == k
         for c in range(C):
-            nbv[c] = torch.where(sel, shift_clamped(vals[c], dy, dx), nbv[c])
+            nbv[c] = torch.where(sel, shift_src(c, dy, dx), nbv[c])
     return ok3, ok5, nbv
 
 
-def apply_pending_ref(ctrl, vals, colors, descs):
+def apply_pending_ref(ctrl, vals, colors, descs, shift_src=None):
     """Replay a pending log into the banks (``_apply_pending_xla``).
     Returns new banks (C-tuples of [N, H, W] u8 / u16) and the per-channel
-    post-apply colour sums (int32 [H, W])."""
+    post-apply colour sums (int32 [H, W]). ``shift_src``: see
+    :func:`resolve_spread`."""
     C = len(colors)
     N = colors[0].shape[0]
     upd1, slot1, u3, u5, slot3, slot5 = unpack_pending_ctrl(ctrl)
-    ok3, ok5, nbv = resolve_spread(vals, u3, u5)
+    ok3, ok5, nbv = resolve_spread(vals, u3, u5, shift_src)
     okn = ok3 | ok5
     slotn = torch.where(ok3, slot3, slot5)
     slot_axis = torch.arange(N, dtype=torch.int32, device=ctrl.device)[:, None, None]
@@ -245,65 +257,91 @@ def _check_args(planes, *per_channel):
         raise ValueError(f"consensus takes 1 or 3 channels, got {C}")
 
 
+def _slab_rows(x: torch.Tensor, E: int) -> torch.Tensor:
+    return x[..., E : x.shape[-2] - E, :] if E else x
+
+
 def consensus_read_ref(
     planes, colors, descs, lut_delta, R, unstable, required,
-    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int,
+    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int, row_ext: int = 0,
 ):
     """Plain torch read-only walk (consensus v3: the banks are already
     current, nothing is written). Same tensors as :func:`consensus_ref`
     without the pending log; ``required`` arrives ROI-zeroed. Returns
-    (count, min_desc, min_sum, intra ×C), int32 [H, W]."""
+    (count, min_desc, min_sum, intra ×C), int32 [H, W]. ``row_ext=E``
+    (for :func:`consensus_ref`'s slab mode): the planes are [H + 2E, W]
+    slabs, cropped after the descriptors."""
     _check_args(planes, colors, descs)
     C = len(planes)
     thr = lambda v: thr_closed_form(v, lut_delta, rel, div, hi_const)  # noqa: E731
     intra, nbs = intra_descriptors(planes, thr)
+    intra, nbs, planes = (tuple(_slab_rows(t, row_ext) for t in ts) for ts in (intra, nbs, planes))
     ct, dt = color_desc_thresholds(R, unstable, C == 1, min_cd, desc_off)
     count, mind, mins = walk_ref(planes, colors, descs, intra, nbs, thr, ct, dt, required)
     return count, mind, mins, intra
 
 
+def slab_shift(slab: torch.Tensor, E: int, dy: int, dx: int, border: int = 2) -> torch.Tensor:
+    """:func:`shift_clamped` on a border-extended [h + 2E, W] slab: the
+    owned-shape S(y, x) = slab[E + y − dy, clip(x − dx, border, W−1−border)]
+    (the slab's rows already carry the row clamp; ``SpatialCtx.shift_ext``)."""
+    h = slab.shape[-2] - 2 * E
+    W = slab.shape[-1]
+    cols = (torch.arange(W, device=slab.device) - dx).clamp(border, W - border - 1)
+    return slab[..., E - dy : E - dy + h, :].index_select(-1, cols)
+
+
 def consensus_ref(
     planes, colors, descs, pend_ctrl, pend_vals, lut_delta, R, unstable, required,
-    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int,
+    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int, row_ext: int = 0,
 ):
     """Plain torch. planes C-tuple u8 [H, W]; colors/descs C-tuples u8/u16
     [N, H, W]; pend_ctrl int32 [H, W]; pend_vals C-tuple int32; lut_delta
     int32 0-d; R f32; unstable bool; required int32 [H, W]. Returns
     (count, min_desc, min_sum, intra ×C, bg_sum ×C, colors, descs), the
-    maps int32 and the banks new tensors."""
+    maps int32 and the banks new tensors. ``row_ext=E``: planes and
+    pend_vals are [H + 2E, W] slabs (module docstring); the spread sources
+    are shifts of the pending slab (``lbsp_family.py:1058-1069``) and the
+    descriptors are taken on the plane slab and cropped."""
     _check_args(planes, colors, descs, pend_vals)
-    colors, descs, bg_sum = apply_pending_ref(pend_ctrl, pend_vals, colors, descs)
+    E = row_ext
+    shift_src = (lambda c, dy, dx: slab_shift(pend_vals[c], E, dy, dx)) if E else None
+    own_vals = tuple(_slab_rows(v, E) for v in pend_vals)
+    colors, descs, bg_sum = apply_pending_ref(pend_ctrl, own_vals, colors, descs, shift_src)
     count, mind, mins, intra = consensus_read_ref(
-        planes, colors, descs, lut_delta, R, unstable, required, rel, div, hi_const, min_cd, desc_off
+        planes, colors, descs, lut_delta, R, unstable, required, rel, div, hi_const, min_cd, desc_off, E
     )
     return count, mind, mins, intra, bg_sum, colors, descs
 
 
 def consensus(
     planes, colors, descs, pend_ctrl, pend_vals, lut_delta, R, unstable, required,
-    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int,
+    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int, row_ext: int = 0,
 ):
     """Same contract as :func:`consensus_ref`. CPU tensors take the plain
     version. CUDA tensors launch the kernel, which updates ``colors`` and
     ``descs`` IN PLACE (each pixel writes at most two of its own slots) and
-    returns them."""
+    returns them; ``row_ext`` > 0 runs its slab mode (E >= 2)."""
     if planes[0].device.type == "cpu":
         return consensus_ref(
             planes, colors, descs, pend_ctrl, pend_vals, lut_delta, R, unstable, required,
-            rel, div, hi_const, min_cd, desc_off,
+            rel, div, hi_const, min_cd, desc_off, row_ext,
         )
     _check_args(planes, colors, descs, pend_vals)
     C = len(planes)
-    H, W = planes[0].shape
+    H, W = R.shape
+    Hp = H + 2 * row_ext
     N = colors[0].shape[0]
     if N > 63:
         raise ValueError("the pending log's 6-bit slots hold at most 63 samples")
+    if row_ext == 1 or row_ext < 0:
+        raise ValueError(f"row_ext must be 0 or >= 2 (the walk reads rows +-2), got {row_ext}")
     req = _native.require
     for c in range(C):
-        req(planes[c], f"planes[{c}]", torch.uint8, (H, W))
+        req(planes[c], f"planes[{c}]", torch.uint8, (Hp, W))
         req(colors[c], f"colors[{c}]", torch.uint8, (N, H, W))
         req(descs[c], f"descs[{c}]", torch.uint16, (N, H, W))
-        req(pend_vals[c], f"pend_vals[{c}]", torch.int32, (H, W))
+        req(pend_vals[c], f"pend_vals[{c}]", torch.int32, (Hp, W))
     req(pend_ctrl, "pend_ctrl", torch.int32, (H, W))
     req(R, "R", torch.float32, (H, W))
     req(unstable, "unstable", torch.bool, (H, W))
@@ -323,10 +361,10 @@ def consensus(
         ptr(pend_vals, 0), ptr(pend_vals, 1), ptr(pend_vals, 2),
         R.data_ptr(), unstable.data_ptr(), required.data_ptr(), lut_delta.data_ptr(),
         count.data_ptr(), mind.data_ptr(), mins.data_ptr(), intra.data_ptr(), bg_sum.data_ptr(),
-        C, N, H, W, rel, div, hi_const, min_cd, desc_off, _native.stream_ptr(),
+        C, N, H, W, rel, div, hi_const, min_cd, desc_off, row_ext, _native.stream_ptr(),
     )
     _native.check(rc, "consensus")
-    _native.LAUNCHES["consensus"] += 1
+    _native.count_launch("consensus")
     return count, mind, mins, tuple(intra.unbind(0)), tuple(bg_sum.unbind(0)), colors, descs
 
 
@@ -369,7 +407,7 @@ def consensus_read(
         C, N, H, W, rel, div, hi_const, min_cd, desc_off, _native.stream_ptr(),
     )
     _native.check(rc, "consensus_read")
-    _native.LAUNCHES["consensus_read"] += 1
+    _native.count_launch("consensus_read")
     return count, mind, mins, tuple(intra.unbind(0))
 
 
@@ -526,7 +564,7 @@ def consensus_feedback(
         _native.stream_ptr(),
     )
     _native.check(rc, "consensus_feedback")
-    _native.LAUNCHES["consensus_feedback"] += 1
+    _native.count_launch("consensus_feedback")
     vals, bg_sum = out_i[2 : 2 + C], out_i[2 + C :]
     return (
         out_i[0], out_i[1], tuple(vals.unbind(0)), tuple(out_f.unbind(0)), tuple(bg_sum.unbind(0)), colors, descs
@@ -623,5 +661,5 @@ def consensus_lobster(
         C, N, H, W, rel, offset, div, c_sc, d_sc, c_tot, d_tot, req, _native.stream_ptr(),
     )
     _native.check(rc, "consensus_lobster")
-    _native.LAUNCHES["consensus_lobster"] += 1
+    _native.count_launch("consensus_lobster")
     return count, tuple(intra.unbind(0)), tuple(bg_sum.unbind(0)), colors, descs

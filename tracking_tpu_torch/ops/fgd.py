@@ -141,5 +141,5 @@ def fgd_tables(cfg, state, ckey, cckey, changed, first):
         cfg.T, 1.0 - cfg.alpha2, cfg.alpha2, _native.stream_ptr(),
     )
     _native.check(rc, "fgd_tables")
-    _native.LAUNCHES["fgd_tables"] += 1
+    _native.count_launch("fgd_tables")
     return {k: state[k] for k in TABLE_LEAVES}, is_bg, lab_bg

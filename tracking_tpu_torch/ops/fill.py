@@ -53,5 +53,5 @@ def flood_reach(bg: torch.Tensor, reach0: torch.Tensor) -> torch.Tensor:
         out.data_ptr(), H, W, _native.stream_ptr(),
     )
     _native.check(rc, "flood_reach")
-    _native.LAUNCHES["flood_reach"] += 1
+    _native.count_launch("flood_reach")
     return out

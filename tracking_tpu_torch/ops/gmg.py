@@ -116,5 +116,5 @@ def gmg_step(code, nf, colors, weights, t, *, lr: float, prior: float, thr: floa
         k["lr"], k["oml"], k["prior"], k["omp"], thr, init_frames, _native.stream_ptr(),
     )
     _native.check(rc, "gmg_step")
-    _native.LAUNCHES["gmg_step"] += 1
+    _native.count_launch("gmg_step")
     return fg, nf1, colors, weights

@@ -100,6 +100,7 @@ def fill_holes(mask_u8: torch.Tensor, seed: str = "border", use_kernels: bool = 
     return torch.where(filled, 255, 0).to(torch.uint8)
 
 
-def reach_fixpoint(bg: torch.Tensor, reach0: torch.Tensor) -> torch.Tensor:
-    """4-connected reachability fixed point (the flood-fill core)."""
-    return flood_reach(bg, reach0)
+def reach_fixpoint(bg: torch.Tensor, reach0: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
+    """4-connected reachability fixed point (the flood-fill core).
+    ``use_kernels=False`` takes the plain reachability even on the card."""
+    return (flood_reach if use_kernels else flood_reach_ref)(bg, reach0)

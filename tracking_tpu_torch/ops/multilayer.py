@@ -324,7 +324,7 @@ def multilayer_step(cfg, state, cf, cur_pat, scal, frame_idx, learn: bool):
         H, W, int(learn), *_kernel_consts(cfg), _native.stream_ptr(),
     )
     _native.check(rc, "multilayer_step")
-    _native.LAUNCHES["multilayer_step"] += 1
+    _native.count_launch("multilayer_step")
     maps = {"n": state["n"], "bg_num": state["bg_num"]}
     for leaf, _ in LEAF_SPEC:
         maps[leaf] = state[leaf]

@@ -60,5 +60,5 @@ def texture_prox_cur(codes: torch.Tensor, model: torch.Tensor):
         codes.data_ptr(), model.data_ptr(), prox.data_ptr(), cur.data_ptr(), C, H, W, _native.stream_ptr()
     )
     _native.check(rc, "texture_prox_cur")
-    _native.LAUNCHES["texture_prox_cur"] += 1
+    _native.count_launch("texture_prox_cur")
     return prox, cur

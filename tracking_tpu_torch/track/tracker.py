@@ -23,7 +23,7 @@ from tracking_tpu_torch.ops import rng
 from tracking_tpu_torch.ops.assoc import BIG, greedy_assign, greedy_assign_ref
 from tracking_tpu_torch.ops.cc import Blobs, extract_blobs
 from tracking_tpu_torch.track import kalman
-from tracking_tpu_torch.track.meanshift import meanshift_refine_batch
+from tracking_tpu_torch.track.meanshift import meanshift_refine_batch, meanshift_refine_batch_sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,14 +142,22 @@ class BlobTracker:
         cost = torch.where(active[:, None] & blob_ok[None, :], cost, big)
         return torch.where(cost <= cfg.gateDistance, cost, big).contiguous()
 
-    def step(self, state: dict, fg_mask: torch.Tensor, use_kernels: bool = True) -> Tuple[dict, Tracks]:
+    def step(
+        self, state: dict, fg_mask: torch.Tensor, use_kernels: bool = True, blobs: Blobs | None = None, ctx=None
+    ) -> Tuple[dict, Tracks]:
         """One step on a foreground mask [H, W] (u8 or bool). On CUDA tensors
-        the CC and assignment kernels run unless ``use_kernels=False``."""
+        the CC and assignment kernels run unless ``use_kernels=False``.
+
+        ``blobs``: a precomputed blob table (the row-sharded pipeline's
+        ``sharded_extract_blobs``). ``ctx``: a ``parallel.spatial.SpatialCtx``
+        when ``fg_mask`` is this rank's rows; the CCMSPF refinement then sums
+        its window moments over the ranks (``tracker.py:221-300``)."""
         cfg = self.config
         K = cfg.maxTracks
         dev = fg_mask.device
         kp = kalman.default_params(device=dev)
-        blobs = extract_blobs(fg_mask, max_blobs=cfg.maxBlobs, use_kernels=use_kernels)
+        if blobs is None:
+            blobs = extract_blobs(fg_mask, max_blobs=cfg.maxBlobs, use_kernels=use_kernels)
         blob_ok = blobs.area >= cfg.minBlobArea
         blob_pos = _blob_xywh(blobs)
         four = torch.full((), 4.0, dtype=torch.float32, device=dev)
@@ -182,7 +190,10 @@ class BlobTracker:
                 & ~eye
             )
             colliding = overlap.any(dim=1) & matched
-            ms_y, ms_x, ms_mass = meanshift_refine_batch(fg_f, py, px)
+            if ctx is None:
+                ms_y, ms_x, ms_mass = meanshift_refine_batch(fg_f, py, px)
+            else:
+                ms_y, ms_x, ms_mass = meanshift_refine_batch_sharded(ctx, fg_f, py, px)
             ms_ok = colliding & (ms_mass > 0)
             z = torch.stack(
                 [torch.where(ms_ok, ms_x, z[:, 0]), torch.where(ms_ok, ms_y, z[:, 1]), z[:, 2], z[:, 3]], dim=1

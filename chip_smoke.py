@@ -16,10 +16,14 @@ phase:
 1. device: the card's name and power limit; no CUDA device is an error;
 2. build: compiles the twelve CUDA kernels from ``tracking_tpu_torch/csrc``
    (the 13 TPU kernels' counterparts: ``consensus_read`` replaces two), one
-   ``nvcc`` per source in parallel (``--ptxas`` prints each kernel's
-   registers and spills);
+   ``nvcc`` per source in parallel, and prints each kernel's registers,
+   spills and static shared memory (``--ptxas``: nvcc's own output);
 3. each kernel against its plain PyTorch version on the card at its path's
-   shapes, exactly (consensus C=3 and C=1, hole-fill reachability, CC
+   shapes, exactly (consensus C=3 and C=1, also with a requirement of N,
+   with good samples only in its last slots, at a ragged width and in slab
+   mode there; hole-fill reachability on a real mask and on a serpentine
+   through every tile row, a checkerboard, a 33-px comb, all background, all
+   foreground, 1xW, Hx1, (H-1)x(W-3) and 1x1, corner and border seeds; CC
    labelling 8- and 4-connected, greedy assignment; LOBSTER's consensus
    C=3 and C=1, the GMG list update at t = 5, 19 and 30, the DPTexture
    histograms, the MultiLayer update learning and not; the v3 read-only
@@ -71,8 +75,10 @@ phase:
    table kernel against the plain table phase in turns and the FG_0 path,
    each on young and on full tables, the min-label fixed point, the slab
    mode's ms beside the unsharded consensus's, the sharded path's ms/frame
-   beside the unsharded path's in turns and its peak memory, and the
-   device's busy share and kernels per frame under torch.profiler.
+   beside the unsharded path's in turns and its peak memory, the device
+   operations a call of the main path's four kernels (``consensus`` at most
+   1, ``flood_reach`` at most 3), and the device's busy share and kernels
+   per frame under torch.profiler.
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -81,6 +87,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -296,6 +303,26 @@ def profile(run_frame, frame_ids, tag, label, top: int = 14, n_frames=None) -> N
           f"= {busy / wall_us:.1%} busy; {sum(e.count for e in events) / n_frames:.0f} kernels/frame", flush=True)
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         print(f"    {dev_us(e) / n_frames / 1e3:8.4f} ms/frame  {e.count / n_frames:6.1f}x  {e.key[:90]}", flush=True)
+
+
+def device_ops(fn, label, tag, reps: int = 20) -> float:
+    """Device operations per call of ``fn`` (kernels, copies, memsets) under
+    torch.profiler, each with its device ms per call."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    n = sum(e.count for e in events) / reps
+    print(f"  {tag} {label}: {n:.1f} device operations a call: " + "; ".join(
+        f"{e.key[:60]} {getattr(e, 'self_device_time_total', 0.0) / reps / 1e3:.4f} ms ({e.count / reps:.1f}x)"
+        for e in events), flush=True)
+    return n
 
 
 def profile_full_path(algo, tracker, state0, frames, dev, tag, n_frames: int = 8) -> None:
@@ -1119,6 +1146,129 @@ def check_spatial_kernels(algo, state3, frames, dev, errs, timing_inputs, bounds
             )
 
 
+def fill_cases(dev):
+    """Phase 3's adversarial hole-fill masks, (what, background): a
+    serpentine corridor that turns in every other row (one set through
+    every tile row, the longest union chains), a checkerboard (every
+    background pixel alone under 4-connectivity), a comb of period 33 (its
+    teeth straddle the 32-px tiles; every other gap is closed at the top,
+    a hole for the corner seed but not for the border seed), all
+    background, all foreground, and random masks of the shapes 1 x W,
+    H x 1, (H - 1) x (W - 3) and 1 x 1."""
+    yy = torch.arange(H, device=dev)[:, None]
+    xx = torch.arange(W, device=dev)[None, :]
+    gap = torch.where((yy // 2) % 2 == 0, xx == W - 1, xx == 0)
+    serpentine_fg = (yy % 2 == 1) & ~gap
+    comb_fg = ((xx % 33 == 32) & (yy >= 1)) | ((yy == 1) & ((xx // 33) % 2 == 1))
+    cases = [
+        ("a serpentine through every tile row", ~serpentine_fg),
+        ("a checkerboard", (yy + xx) % 2 == 0),
+        ("a 33-px comb", ~comb_fg),
+        ("all background", torch.ones((H, W), dtype=torch.bool, device=dev)),
+        ("all foreground", torch.zeros((H, W), dtype=torch.bool, device=dev)),
+    ]
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    for h, w in ((1, W), (H, 1), (H - 1, W - 3), (1, 1)):
+        cases.append((f"random {h}x{w}", (torch.rand((h, w), generator=gen) > 0.35).to(dev)))
+    cases.append(("1x1 foreground", torch.zeros((1, 1), dtype=torch.bool, device=dev)))
+    return cases
+
+
+def seed_masks(bg):
+    """The hole fill's two seeds on ``bg``'s shape: the corner and the border."""
+    corner = torch.zeros_like(bg)
+    corner[0, 0] = True
+    border = torch.zeros_like(bg)
+    border[0, :] = border[-1, :] = border[:, 0] = border[:, -1] = True
+    return {"corner": corner & bg, "border": border & bg}
+
+
+def check_fill_adversarial(dev, errs) -> None:
+    """Phase 3: ``flood_reach`` against its plain version on
+    :func:`fill_cases`, corner and border seeds, exactly."""
+    from tracking_tpu_torch.ops.fill import flood_reach, flood_reach_ref
+
+    for what, bg in fill_cases(dev):
+        reached = {}
+        for name, sd in seed_masks(bg).items():
+            a, b = flood_reach(bg, sd), flood_reach_ref(bg, sd)
+            e = max_err(a, b)
+            errs["flood_reach"] = max(errs["flood_reach"], e)
+            if e != 0.0:
+                raise AssertionError(f"flood_reach ({name} seed) differs on {what} (max |err| {e})")
+            reached[name] = int(b.sum())
+        check(True, f"flood_reach equal on {what} {tuple(bg.shape)}, {int(bg.sum())} background px; reached from "
+                    f"the corner {reached['corner']}, from the border {reached['border']}")
+
+
+def check_consensus_adversarial(args, kw, dev, errs) -> None:
+    """Phase 3: the consensus against its plain version, exactly, on
+    inputs built from a 720p step's (``args``): a requirement of N, so
+    that every sample is walked; banks whose first N - 3 colour slots are
+    far from the frame, so that good samples lie only in the last slots; a
+    ragged width (W - 6 = 1274, no multiple of 4 or 16) with the step's
+    requirement and with N; and the slab mode at the ragged width."""
+    from tracking_tpu_torch.ops.consensus import consensus, consensus_ref
+    from tracking_tpu_torch.parallel.spatial import HALO
+
+    planes, colors, descs, ctrl, vals, lut, R, unst, req = args
+    Cn, N = len(planes), colors[0].shape[0]
+    wr = W - 6
+
+    def crop(a, wc):
+        cw = lambda x: x[..., :wc].contiguous()  # noqa: E731
+        return (tuple(map(cw, a[0])), tuple(map(cw, a[1])), tuple(map(cw, a[2])), cw(a[3]), tuple(map(cw, a[4])),
+                a[5], cw(a[6]), cw(a[7]), cw(a[8]))
+
+    far = tuple(torch.cat([(p[None] ^ 0x80).expand(N - 3, -1, -1), col[N - 3 :]]) for p, col in zip(planes, colors))
+    rows, r0, h = shard_rows(1)
+    rows = rows.to(dev)
+    own = lambda x: x[..., r0 : r0 + h, :].contiguous()  # noqa: E731
+    slab_rows = lambda ts, lo, hi: tuple(t.index_select(0, rows.clamp(lo, hi)).contiguous() for t in ts)  # noqa: E731
+    slab = (slab_rows(planes, 0, H - 1), tuple(map(own, colors)), tuple(map(own, descs)), own(ctrl),
+            slab_rows(vals, 2, H - 3), lut, own(R), own(unst), own(req))
+    full_n = torch.full_like(req, N)
+    cases = [
+        ("required = N", args[:8] + (full_n,), 0),
+        ("good samples only in the last 3 slots", (planes, far) + args[2:], 0),
+        (f"ragged width {H}x{wr}", crop(args, wr), 0),
+        (f"ragged width {H}x{wr}, required = N", crop(args[:8] + (full_n,), wr), 0),
+        (f"slab mode at the ragged width (rows {r0}-{r0 + h - 1} + halo {HALO})", crop(slab, wr), HALO),
+    ]
+    for what, a, E in cases:
+        k_out = consensus(*clone(a), **kw, row_ext=E)
+        p_out = consensus_ref(*clone(a), **kw, row_ext=E)
+        e = max(max_err(x, y) for x, y in zip(k_out, p_out))
+        errs["consensus"] = max(errs["consensus"], e)
+        short = int((p_out[0] < a[8]).sum())
+        check(e == 0.0, f"consensus C={Cn} {what}: all seven outputs equal (max |err| {e}); {short} px short of "
+                        f"their requirement")
+
+
+def ptxas_table(text: str) -> list:
+    """(kernel, registers, spill stores, spill loads, shared bytes) from
+    ``nvcc -Xptxas=-v`` output."""
+    import re
+
+    rows, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        if m:
+            n = int(m.group(1))
+            name = m.group(2)[:n]
+            t = re.match(r"IL[ib](\d+)E", m.group(2)[n:])
+            name += f"<{t.group(1)}>" if t else ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, int(m.group(1)), *spills, int(smem.group(1)) if smem else 0))
+            name = None
+    return rows
+
+
 def count_components(mask) -> int:
     from tracking_tpu_torch.ops.cc import label_components
 
@@ -1275,11 +1425,18 @@ def main(argv) -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    if "--ptxas" in argv:
+    nvcc_out = io.StringIO()
+    with contextlib.redirect_stdout(nvcc_out):
         _native.build(verbose=True)
     _native.library()
     print(f"[2] build {tag}: {time.perf_counter() - t0:.1f} s ({len(_native.sources())} sources, "
           f"nvcc {' '.join(_native.NVCC_FLAGS)})", flush=True)
+    if "--ptxas" in argv:
+        print(nvcc_out.getvalue(), flush=True)
+    table = ptxas_table(nvcc_out.getvalue())
+    print("  ptxas (registers, spill stores / loads in bytes, static shared bytes): " + (
+        "; ".join(f"{k} {r}, {ss}/{sl}, {sm}" for k, r, ss, sl, sm in table) if table
+        else "not printed, the library was built before this run"), flush=True)
 
     t0 = time.perf_counter()
     clip = make_clip(1 + MAIN_FRAMES, H, W, C, seed=0)
@@ -1324,6 +1481,7 @@ def main(argv) -> None:
             errs["consensus"] = max(errs["consensus"], e)
             check(e == 0.0, f"consensus C={c} {name} equal (max |err| {e})")
         check(int((k_out[0] < req).sum()) > 0, f"consensus C={c} has pixels short of the required samples")
+        check_consensus_adversarial(cons_args(st), kw, dev, errs)
         if c == 3:
             timing_inputs["consensus"] = (cons_args(clone(st)), kw)
             state_for_masks = st
@@ -1341,16 +1499,14 @@ def main(argv) -> None:
     raw = state_for_masks["last_raw"]
     pre_flood = morph_close(raw, 3)
     bg = pre_flood == 0
-    seeds = torch.zeros_like(bg)
-    seeds[0, 0] = True
-    border = torch.zeros_like(bg)
-    border[0, :] = border[-1, :] = border[:, 0] = border[:, -1] = True
-    for name, sd in (("corner", seeds), ("border", border)):
-        a, b = flood_reach(bg, sd & bg), flood_reach_ref(bg, sd & bg)
+    seeds = seed_masks(bg)
+    for name, sd in seeds.items():
+        a, b = flood_reach(bg, sd), flood_reach_ref(bg, sd)
         e = max_err(a, b)
         errs["flood_reach"] = max(errs["flood_reach"], e)
         check(e == 0.0, f"flood_reach ({name} seed) equal on a real post-close mask, {int((~b & bg).sum())} hole px")
-    timing_inputs["flood_reach"] = (bg, seeds & bg)
+    timing_inputs["flood_reach"] = (bg, seeds["corner"])
+    check_fill_adversarial(dev, errs)
 
     final = state_for_masks["last_final"]
     for conn in (8, 4):
@@ -1366,7 +1522,8 @@ def main(argv) -> None:
     for p in (0.0, 0.3, 0.45, 0.6, 1.0):
         fg = (torch.rand((H, W), generator=gen) < p).to(dev)
         e = max(max_err(label_components(fg, conn), label_components_ref(fg, conn)) for conn in (8, 4))
-        e = max(e, max_err(flood_reach(~fg, border & ~fg), flood_reach_ref(~fg, border & ~fg)))
+        sd = seed_masks(~fg)["border"]
+        e = max(e, max_err(flood_reach(~fg, sd), flood_reach_ref(~fg, sd)))
         errs["label_components"] = max(errs["label_components"], e)
         errs["flood_reach"] = max(errs["flood_reach"], e)
         if e != 0.0:
@@ -1474,6 +1631,12 @@ def main(argv) -> None:
     }
     for k, (fk, fp, rk, rp) in plain_fns.items():
         time_pair(k, fk, fp, rk, rp, results, tag)
+    # device operations a call and their device time (at the launch floor the
+    # CUDA-event times above follow the host's pace, the profiler's do not)
+    for k, most in (("consensus", 1), ("flood_reach", 3), ("label_components", None), ("greedy_assign", None)):
+        n_ops = device_ops(plain_fns[k][0], k, tag)
+        if most is not None:
+            check(n_ops <= most, f"{k} takes {n_ops:.1f} device operations a call (at most {most})")
     time_registry(timing_inputs, results, starts, frames, tag)
     from tracking_tpu_torch.ops.consensus import (
         consensus_feedback, consensus_feedback_ref, consensus_read, consensus_read_ref,

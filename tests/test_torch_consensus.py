@@ -86,15 +86,10 @@ def _xla_reference(planes, colors, descs, ctrl, vals, delta, R, unstable, requir
     return run(J(planes), J(colors), J(descs), J(ctrl), J(vals), jnp.int32(delta), J(R), J(unstable), J(required))
 
 
-@pytest.mark.parametrize(
-    "c,delta,shape",
-    [(1, 0, (37, 70)), (3, 0, (37, 70)), (3, -3, (24, 40)), (3, 5, (37, 70)), (1, 4, (24, 40))],
-)
-def test_consensus_ref_matches_pallas_and_xla(c, delta, shape):
-    h, w = shape
-    n = 9
-    rng = np.random.default_rng(10 * c + delta + 7)
-    planes, colors, descs, ctrl, vals, R, unstable, required = _inputs(rng, h, w, c, n)
+def _consensus_all_three(c, delta, planes, colors, descs, ctrl, vals, R, unstable, required):
+    """The port's consensus (its plain version here) beside the Pallas
+    kernel in interpret mode and the XLA branch; all seven outputs must be
+    equal. Returns the port's."""
     div = 3.0 if c == 1 else 1.0
     hi = float(np.rint(255 * REL))
     got = tc.consensus(
@@ -111,9 +106,36 @@ def test_consensus_ref_matches_pallas_and_xla(c, delta, shape):
     xla = _xla_reference(planes, colors, descs, ctrl, vals, delta, R, unstable, required, c)
     for ref in (pallas, xla):
         assert_tree_equal(tuple(jax.tree.map(np.asarray, tuple(ref))), tuple(got))
+    return got
+
+
+@pytest.mark.parametrize(
+    "c,delta,shape",
+    [(1, 0, (37, 70)), (3, 0, (37, 70)), (3, -3, (24, 40)), (3, 5, (37, 70)), (1, 4, (24, 40))],
+)
+def test_consensus_ref_matches_pallas_and_xla(c, delta, shape):
+    h, w = shape
+    n = 9
+    rng = np.random.default_rng(10 * c + delta + 7)
+    planes, colors, descs, ctrl, vals, R, unstable, required = _inputs(rng, h, w, c, n)
+    got = _consensus_all_three(c, delta, planes, colors, descs, ctrl, vals, R, unstable, required)
     count = got[0].numpy()
     assert (count == 2).any() and ((count < required) & (required > 0)).any()  # both outcomes occur
     assert not all(np.array_equal(a, b.numpy()) for a, b in zip(colors, got[5]))  # the log wrote slots
+
+
+@pytest.mark.parametrize("c", [3, 1])
+def test_consensus_ref_walks_every_sample(c):
+    """required = N at a width that is no multiple of 4 (37 x 74): every
+    pixel walks all N samples, the case chip_smoke.py's phase 3 holds the
+    kernel to on the card."""
+    h, w, n = 37, 74, 9
+    rng = np.random.default_rng(60 + c)
+    planes, colors, descs, ctrl, vals, R, unstable, _ = _inputs(rng, h, w, c, n)
+    required = np.full((h, w), n, np.int32)
+    got = _consensus_all_three(c, 0, planes, colors, descs, ctrl, vals, R, unstable, required)
+    count = got[0].numpy()
+    assert count.max() > 2 and (count < n).any()  # walks past the default requirement, and not all good
 
 
 def test_apply_pending_matches_xla():

@@ -3,6 +3,7 @@ JAX package, its configs and states mirror the reference's, and its kernel
 wrappers never fall back silently."""
 
 import ast
+import ctypes
 import dataclasses
 import pathlib
 import subprocess
@@ -356,6 +357,10 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert {"tt_consensus_read", "tt_consensus_feedback", "tt_fgd_tables", "tt_label_fixpoint"} <= set(
         _native._SIGNATURES
     )
+    # consensus takes the C plane pointers (no stacked copy); flood_reach no mark array
+    P = ctypes.c_void_p
+    assert _native._SIGNATURES["tt_consensus"][:3] == [P, P, P] and len(_native._SIGNATURES["tt_consensus"]) == 33
+    assert _native._SIGNATURES["tt_flood_reach"] == [P] * 4 + [ctypes.c_int] * 2 + [P]
     assert "-fmad=false" in _native.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _native.NVCC_FLAGS
     assert not any("fast" in f for f in _native.NVCC_FLAGS)
 

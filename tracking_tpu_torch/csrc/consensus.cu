@@ -1,5 +1,5 @@
-// consensus: SuBSENSE's sample consensus with deferred bank writes, one
-// thread per pixel, channels (C = 1 or 3) in a loop.
+// consensus: SuBSENSE's sample consensus with deferred bank writes,
+// channels (C = 1 or 3) in a loop.
 //
 // Replaces tracking_tpu/ops/pallas_consensus.py:consensus_pallas (its
 // kernel _make_kernel with _apply_pending_stage and _consensus_values). Per
@@ -9,7 +9,7 @@
 //      interior-replicated clamp (sources clamped into the 2-px ROI
 //      interior), and write the <= 2 touched slots IN PLACE - the spread
 //      after the self write, so it wins on a shared slot. Race-free: a
-//      thread writes only its own pixel's slots and reads only the packed
+//      pixel's writes touch only its own slots and read only the packed
 //      values, never another pixel's bank;
 //   2. bg_sum = the sum of the N colour slots after the writes;
 //   3. the intra LBSP descriptor from 16 edge-clamped neighbours;
@@ -21,10 +21,11 @@
 // 414.7 MB (50 x 921,600 px x (1 + 2) bytes x 3 channels); bg_sum reads every
 // colour slot (138 MB) and the walk reads the first few samples of both
 // banks for background pixels and up to all 50 for foreground ones. The
-// design keeps the banks in place (no copy), reads them coalesced (adjacent
-// threads, adjacent pixels of one [H, W] slot plane) and touches each
-// pixel's bytes once. The TPU's tile-wide early exit becomes a per-thread
-// one; warps with foreground pixels run longer (divergence, later work).
+// banks stay in place (no copy). consensus_kernel (below, "three phases")
+// reads a tile's colour slots once with 16-byte copies, writes back only the
+// 32-byte sectors its replay changes, and walks with byte-SIMD descriptors;
+// the other kernels of the file keep the first design, one thread per pixel
+// on the shared device functions replay_pending, bank_sums and lbsp_walk.
 //
 // Thresholds are f32 expressions the reference evaluates without fused
 // multiply-adds and with XLA's reciprocal product for a constant divisor:
@@ -149,8 +150,8 @@ __device__ __forceinline__ void bank_sums(const Banks& banks, int32_t* bg_out, i
   }
 }
 
-// The banks as the walk reads them. No __restrict__: consensus_kernel and
-// fused_kernel read slots their own replay has just written.
+// The banks as the walk reads them. No __restrict__: fused_kernel reads
+// slots its own replay has just written.
 struct ConstBanks {
   const uint8_t* col[3];
   const uint16_t* desc[3];
@@ -166,7 +167,7 @@ __device__ __forceinline__ ConstBanks as_const(const Banks& b) {
   return r;
 }
 
-// Steps 3-4, shared by consensus_kernel, read_walk_kernel and fused_kernel:
+// Steps 3-4, shared by read_walk_kernel and fused_kernel:
 // the intra LBSP descriptors from 16 edge-clamped neighbours, the colour and
 // descriptor thresholds from R and the previous unstable mask, then the walk
 // over the N samples, stopping once `req` good samples are counted. Only the
@@ -241,76 +242,468 @@ __device__ __forceinline__ void lbsp_walk(const uint8_t* __restrict__ planes, co
   mins_out = mins;
 }
 
+// ---------------------------------------------------------------------------
+// consensus_kernel: one block of CT_T threads per CT_H x 64 tile of pixels, in
+// three phases that share the block's shared memory (header, steps 1-4):
+//   A. replay and bg_sum: the tile's N colour slot planes of every channel
+//      are copied into shared memory with 16-byte cp.async copies while each
+//      pixel's thread decodes its pending log (pending_writes) and writes the
+//      descriptor slots to the banks. The colour slots are written into the
+//      shared copy, and only the 32-byte sectors that changed go back to the
+//      banks, whole. bg_sum adds the shared copy four pixels a word, u16 sums
+//      in 32-bit lanes (50 x 255 fits in 16 bits; integer sums do not depend
+//      on their order);
+//   B. the walk's first CT_BATCH samples, one thread per pixel: the 16 LBSP
+//      neighbours come from a shared tile of the planes with its 2-px halo,
+//      four to a register (lbsp_pack), and each descriptor takes 16 byte-SIMD
+//      steps (lbsp_bits); the threshold of a value is a shared table; the
+//      descriptors of CT_BATCH samples are loaded before the first is tested,
+//      the stop rule still applies sample by sample, and the colours come
+//      from the shared copy;
+//   C. the pixels whose walk has not stopped are queued in shared memory and
+//      every thread of the block walks the queue densely. A pixel's result
+//      does not depend on which thread computes it.
+// Why: the earlier one-thread-per-pixel kernel (0.61 ms on an H100 at 720p
+// colour, 96 registers) spent about half its time in the replay's slot
+// writes, one partial 32-byte sector each (colour and descriptor about
+// equally), and most of the rest in the walk's scalar descriptor steps, with
+// a third of the lanes idle beside foreground pixels (PERF.md section 6).
+// The descriptor slots are still written one at a time: staging them would
+// read the whole descriptor bank, twice the bytes of the colour bank.
+#define CT_W 64                 // tile columns
+#define CT_H 4                  // tile rows
+#define CT_T (CT_W * CT_H)      // threads: one per pixel
+#define CT_SLOT (CT_H * 64 + 32)  // shared bytes a slot plane of the tile: its rows + 32 B that spread the banks
+#define CT_BATCH 4              // descriptors loaded before the first is tested
+#define CT_PW (CT_W + 4)        // the planes' shared tile, 2-px halo
+#define CT_PH (CT_H + 4)
+
+struct ConsArgs {
+  const uint8_t* planes[3];
+  Banks banks;
+  const int32_t* ctrl;
+  const float* R;
+  const bool* unstable;
+  const int32_t* required;
+  const int32_t* lut_delta;
+  int32_t* count;
+  int32_t* mind;
+  int32_t* mins;
+  int32_t* intra;
+  int32_t* bg_sum;
+  int N, H, W, E;
+  float rel, inv_div, hi;
+  int min_cd, desc_off;
+  int vec;  // W % 16 == 0 and 16-byte aligned colour banks: whole 16-byte copies
+};
+
+// A pixel's pending writes, decoded as replay_pending decodes them: the slot
+// of the self write and of the spread (-1: none) and their packed values.
 template <int C>
-__global__ void consensus_kernel(const uint8_t* __restrict__ planes, Banks banks, const int32_t* __restrict__ ctrl_map,
-                                 const float* __restrict__ R_map, const bool* __restrict__ unstable_map,
-                                 const int32_t* __restrict__ required_map, const int32_t* __restrict__ lut_delta,
-                                 int32_t* count_out, int32_t* mind_out, int32_t* mins_out, int32_t* intra_out,
-                                 int32_t* bg_out, int N, int H, int W, float rel, float inv_div, float hi,
-                                 int min_cd, int desc_off, int E) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;  // y: an owned row; the slab rows are E + y
-  const int HW = H * W;
-  const int p = y * W + x;
+struct PendingWrites {
+  int slot1, slotn;
+  int own[C], nb[C];
+};
 
-  // -- 1. replay the pending log; 2. background sums -------------------------
-  replay_pending<C>(banks, ctrl_map, x, y, p, N, H, W, E);
-  bank_sums<C>(banks, bg_out, p, N, HW);
-
-  // -- 3-4. intra descriptors, thresholds, the walk ----------------------------
-  int px[C], intra[C], count, mind, mins;
-  lbsp_walk<C>(planes, as_const(banks), x, y, p, N, H, W, (float)lut_delta[0], rel, inv_div, hi, R_map[p],
-               unstable_map[p], required_map[p], min_cd, desc_off, px, intra, count, mind, mins, E);
+template <int C>
+__device__ __forceinline__ PendingWrites<C> pending_writes(const Banks& banks, const int32_t* __restrict__ ctrl_map,
+                                                           int x, int y, int p, int N, int H, int W, int E) {
+  const int ctrl = ctrl_map[p];
+  const bool upd1 = (ctrl & 1) != 0;
+  const int slot1 = (ctrl >> 1) & 63;
+  const int u3 = (ctrl >> 7) & 31;
+  const int u5 = (ctrl >> 12) & 31;
+  const int slot3 = (ctrl >> 17) & 63;
+  const int slot5 = (ctrl >> 23) & 63;
+  int dx, dy;
+  bool ok3 = false, ok5 = false;
+  if (u3 < 24) {
+    nb5_offset(u3, dx, dy);
+    if (dx >= -1 && dx <= 1 && dy >= -1 && dy <= 1) {
+      int q = src_row(y, dy, H, E) * W + clampi(x - dx, 2, W - 3);
+      ok3 = ((banks.vals[0][q] >> 24) & 1) != 0;
+    }
+  }
+  if (u5 < 24) {
+    nb5_offset(u5, dx, dy);
+    int q = src_row(y, dy, H, E) * W + clampi(x - dx, 2, W - 3);
+    ok5 = ((banks.vals[0][q] >> 24) & 2) != 0;
+  }
+  const bool okn = ok3 || ok5;
+  const int u = ok3 ? u3 : u5;
+  const int slotn = ok3 ? slot3 : slot5;
+  PendingWrites<C> w;
+  w.slot1 = upd1 && slot1 < N ? slot1 : -1;
+  w.slotn = okn && slotn < N ? slotn : -1;
+  int q_nb = 0;
+  if (w.slotn >= 0) {
+    nb5_offset(u, dx, dy);
+    q_nb = src_row(y, dy, H, E) * W + clampi(x - dx, 2, W - 3);
+  }
+  const int pv = (y + E) * W + x;
 #pragma unroll
-  for (int c = 0; c < C; ++c) intra_out[(size_t)c * HW + p] = intra[c];
-  count_out[p] = count;
-  mind_out[p] = mind;
-  mins_out[p] = mins;
+  for (int c = 0; c < C; ++c) {
+    w.own[c] = w.slot1 >= 0 ? banks.vals[c][pv] : 0;
+    w.nb[c] = w.slotn >= 0 ? banks.vals[c][q_nb] : 0;
+  }
+  return w;
 }
 
-TT_EXPORT int tt_consensus(const void* planes, void* col0, void* col1, void* col2, void* desc0, void* desc1,
-                           void* desc2, const void* ctrl, const void* val0, const void* val1, const void* val2,
-                           const void* R, const void* unstable, const void* required, const void* lut_delta,
-                           void* count, void* mind, void* mins, void* intra, void* bg_sum, int C, int N, int H,
-                           int W, float rel, float div, float hi_const, int min_cd, int desc_off, int row_ext,
-                           void* stream_) {
-  if (row_ext != 0 && row_ext < 2) return (int)cudaErrorInvalidValue;  // the walk reads rows +/- 2
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  Banks b;
-  b.col[0] = static_cast<uint8_t*>(col0);
-  b.col[1] = static_cast<uint8_t*>(col1);
-  b.col[2] = static_cast<uint8_t*>(col2);
-  b.desc[0] = static_cast<uint16_t*>(desc0);
-  b.desc[1] = static_cast<uint16_t*>(desc1);
-  b.desc[2] = static_cast<uint16_t*>(desc2);
-  b.vals[0] = static_cast<const int32_t*>(val0);
-  b.vals[1] = static_cast<const int32_t*>(val1);
-  b.vals[2] = static_cast<const int32_t*>(val2);
-  const float inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
-  dim3 block(32, 8);
-  dim3 grid((W + 31) / 32, (H + 7) / 8);
-  const uint8_t* px = static_cast<const uint8_t*>(planes);
-  const int32_t* cm = static_cast<const int32_t*>(ctrl);
-  const float* Rm = static_cast<const float*>(R);
-  const bool* um = static_cast<const bool*>(unstable);
-  const int32_t* rq = static_cast<const int32_t*>(required);
-  const int32_t* ld = static_cast<const int32_t*>(lut_delta);
-  int32_t* o0 = static_cast<int32_t*>(count);
-  int32_t* o1 = static_cast<int32_t*>(mind);
-  int32_t* o2 = static_cast<int32_t*>(mins);
-  int32_t* o3 = static_cast<int32_t*>(intra);
-  int32_t* o4 = static_cast<int32_t*>(bg_sum);
-  if (C == 1) {
-    consensus_kernel<1><<<grid, block, 0, stream>>>(px, b, cm, Rm, um, rq, ld, o0, o1, o2, o3, o4, N, H, W, rel,
-                                                    inv_div, hi_const, min_cd, desc_off, row_ext);
-  } else if (C == 3) {
-    consensus_kernel<3><<<grid, block, 0, stream>>>(px, b, cm, Rm, um, rq, ld, o0, o1, o2, o3, o4, N, H, W, rel,
-                                                    inv_div, hi_const, min_cd, desc_off, row_ext);
-  } else {
-    return (int)cudaErrorInvalidValue;
+// The 16 LBSP neighbours of tile pixel (r, cx), from a shared plane tile
+// with a 2-px halo, packed four to a word: neighbour k = 4i + b sits in
+// byte i of word 3 - b, the order lbsp_bits reads.
+__device__ __forceinline__ void lbsp_pack(const uint8_t* pl, int r, int cx, uint32_t nb[4]) {
+  constexpr int dx[16] = {-2, 2, 0, 0, -2, 2, 2, -2, 0, -1, 0, 1, -1, 1, 1, -1};  // kLbspDx, kLbspDy folded
+  constexpr int dy[16] = {0, 0, -2, 2, 2, -2, 2, -2, 1, 0, -1, 0, -1, 1, -1, 1};
+  nb[0] = nb[1] = nb[2] = nb[3] = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const uint32_t v = pl[(r + 2 + dy[k]) * CT_PW + cx + 2 + dx[k]];
+    nb[3 - (k & 3)] |= v << (8 * (k >> 2));
   }
+}
+
+// The LBSP descriptor of a value s against the packed neighbours: bit k set
+// where |nb_k - s| > t. s4 is s in all four bytes; K is 255 - t in all four
+// bytes and K7 = K & 0x7f7f7f7f. Per byte, d > t exactly when d + (255 - t)
+// carries out of bit 7: the carry is the majority of d's bit 7, K's bit 7
+// and the carry into bit 7, which the 7-bit sums give without crossing
+// bytes. The four words' carry bits are then gathered into bits 0-15.
+__device__ __forceinline__ int lbsp_bits(const uint32_t nb[4], uint32_t s4, uint32_t K, uint32_t K7) {
+  uint32_t g[4];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const uint32_t d = __vabsdiffu4(nb[w], s4);
+    const uint32_t lo = (d & 0x7f7f7f7fu) + K7;
+    g[w] = (d & K) | (d & lo) | (K & lo);
+  }
+  const uint32_t v = (g[0] & 0x80808080u) | ((g[1] >> 1) & 0x40404040u) | ((g[2] >> 2) & 0x20202020u) |
+                     ((g[3] >> 3) & 0x10101010u);
+  const uint32_t y = v >> 4;  // byte i: bits 3..0 = neighbours 4i..4i+3
+  return (int)__byte_perm(y | (y >> 4), 0, 0x4420);
+}
+
+// A pixel's walk context: packed neighbours, values, intra descriptors and
+// thresholds (lbsp_walk's, in the same f32 order).
+template <int C>
+struct WalkCtx {
+  uint32_t nb[C][4];
+  int px[C], intra[C];
+  int ct, dt, sc, req;
+};
+
+template <int C>
+__device__ __forceinline__ void walk_ctx(WalkCtx<C>& w, const uint8_t* s_pl, const uint2* lut, int r, int cx, float R,
+                                         bool unst, int req, int min_cd, int desc_off) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const uint8_t* pl = s_pl + c * CT_PH * CT_PW;
+    lbsp_pack(pl, r, cx, w.nb[c]);
+    w.px[c] = pl[(r + 2) * CT_PW + cx + 2];
+    const uint2 L = lut[w.px[c]];
+    w.intra[c] = lbsp_bits(w.nb[c], (uint32_t)w.px[c] * 0x01010101u, L.x, L.y);
+  }
+  const float ctf = R * (float)min_cd - (unst ? 0.0f : (float)(min_cd / 5));
+  int ct = (int)ctf;
+  if (C == 1) ct = floordiv2(ct);
+  const int n_exp = (int)floorf(R + 0.5f);
+  const int pow2 = (n_exp >= 0 && n_exp < 32) ? (int)(1u << n_exp) : 0;
+  w.ct = ct;
+  w.dt = pow2 + desc_off + (unst ? desc_off : 0);
+  w.sc = C == 3 ? floordiv2(ct * 3) : ct;
+  w.req = req;
+}
+
+// The walk from sample j until j_end, stopping once w.req good samples are
+// counted (lbsp_walk's rule); colours from the shared copy (byte `off` of a
+// slot plane), descriptors from the banks, CT_BATCH loads at a time.
+template <int C>
+__device__ __forceinline__ void walk_samples(const WalkCtx<C>& w, const uint8_t* s_col, int off, const Banks& banks,
+                                             int p, size_t HW, const uint2* lut, int N, int j_end, int& j,
+                                             int& count, int& mind, int& mins) {
+  while (j < j_end && count < w.req) {
+    int sd[CT_BATCH][C];
+#pragma unroll
+    for (int b = 0; b < CT_BATCH; ++b)
+#pragma unroll
+      for (int c = 0; c < C; ++c) sd[b][c] = j + b < N ? banks.desc[c][(size_t)(j + b) * HW + p] : 0;
+#pragma unroll
+    for (int b = 0; b < CT_BATCH; ++b) {
+      const int jj = j + b;
+      if (jj < N && count < w.req) {
+        // lbsp_walk's tests; a channel whose colour distance already fails
+        // makes the sample bad, so the descriptors after it are not computed
+        // (the totals count only for good samples)
+        int tot_desc = 0, tot_sum = 0;
+        bool good = true;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if (!good) break;
+          const int s_col_v = s_col[(c * N + jj) * CT_SLOT + off];
+          const int cd = abs(w.px[c] - s_col_v);
+          if (cd > (C == 1 ? w.ct : w.sc)) {
+            good = false;
+            break;
+          }
+          const uint2 L = lut[s_col_v];
+          const int inter = lbsp_bits(w.nb[c], (uint32_t)s_col_v * 0x01010101u, L.x, L.y);
+          const int dd = (__popc(w.intra[c] ^ sd[b][c]) + __popc(inter ^ sd[b][c])) >> 1;
+          if (C == 1) {
+            const int sum_d = min((dd / 4) * 15 + cd, 255);
+            good = (dd <= w.dt) && (sum_d <= w.ct);
+            tot_desc = dd;
+            tot_sum = sum_d;
+          } else {
+            const int sum_c = min((dd / 2) * 15 + cd, 255);
+            good = sum_c <= w.sc;
+            tot_desc += dd;
+            tot_sum += sum_c;
+          }
+        }
+        if (C == 3) good = good && (tot_desc <= w.dt * 3) && (tot_sum <= w.ct * 3);
+        if (good) {
+          ++count;
+          mind = min(mind, tot_desc);
+          mins = min(mins, tot_sum);
+        }
+      }
+    }
+    j += CT_BATCH;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int C>
+__host__ __device__ constexpr int ct_smem_bytes(int N) {
+  // colour copy, plane tile, threshold table, dirty flags (16-aligned), queue, queue length
+  return C * N * CT_SLOT + C * CT_PH * CT_PW + 256 * 8 + (C * N * 2 * CT_H + 15) / 16 * 16 + CT_T * 4 + 16;
+}
+
+template <int C>
+__global__ void __launch_bounds__(CT_T) consensus_kernel(ConsArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int N = a.N, H = a.H, W = a.W, E = a.E;
+  const size_t HW = (size_t)H * W;
+  uint8_t* s_col = smem;                                               // [C][N][CT_SLOT]
+  uint8_t* s_pl = s_col + C * N * CT_SLOT;                             // [C][CT_PH][CT_PW]
+  uint2* s_lut = reinterpret_cast<uint2*>(s_pl + C * CT_PH * CT_PW);  // value -> (K, K7) of its threshold
+  uint8_t* s_dirty = reinterpret_cast<uint8_t*>(s_lut + 256);         // [C][N][rows x 2 sectors]
+  unsigned* s_q = reinterpret_cast<unsigned*>(s_dirty + (C * N * 2 * CT_H + 15) / 16 * 16);
+  unsigned* s_qn = s_q + CT_T;
+  const int t = threadIdx.x, lane = t & 31;
+  const int x0 = blockIdx.x * CT_W, y0 = blockIdx.y * CT_H;
+  const int n_chunks = N * CT_H * 4;  // 16-byte chunks of a channel's slot planes in the tile
+
+  // -- A. this pixel's pending writes; the colour slots into shared memory ----
+  const int r = t >> 6, cx = t & 63;
+  const int x = x0 + cx, y = y0 + r;
+  const bool in = x < W && y < H;
+  const int p = y * W + x;
+  PendingWrites<C> pw;
+  pw.slot1 = pw.slotn = -1;
+  if (in) pw = pending_writes<C>(a.banks, a.ctrl, x, y, p, N, H, W, E);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    for (int i = t; i < n_chunks; i += CT_T) {
+      const int j = i / (CT_H * 4), rr = (i >> 2) % CT_H, k = i & 3;
+      const int yy = y0 + rr, xx = x0 + 16 * k;
+      if (yy < H && xx < W) {
+        uint8_t* dst = s_col + (c * N + j) * CT_SLOT + rr * 64 + 16 * k;
+        const uint8_t* src = a.banks.col[c] + (size_t)j * HW + (size_t)yy * W + xx;
+        if (a.vec) {
+          cp_async16(dst, src);
+        } else {
+          for (int b = 0; b < 16 && xx + b < W; ++b) dst[b] = src[b];
+        }
+      }
+    }
+  }
+  const int Hp = H + 2 * E;
+  for (int i = t; i < C * CT_PH * CT_PW; i += CT_T) {
+    const int c = i / (CT_PH * CT_PW), rc = i % (CT_PH * CT_PW);
+    const int yy = clampi(y0 + rc / CT_PW - 2 + E, 0, Hp - 1), xx = clampi(x0 + rc % CT_PW - 2, 0, W - 1);
+    s_pl[i] = a.planes[c][(size_t)yy * W + xx];
+  }
+  for (int v = t; v < 256; v += CT_T) {
+    const uint32_t K = (uint32_t)(255 - lbsp_thr(v, (float)a.lut_delta[0], a.rel, a.inv_div, a.hi)) * 0x01010101u;
+    s_lut[v] = make_uint2(K, K & 0x7f7f7f7fu);
+  }
+  for (int i = t; i < C * N * 2 * CT_H; i += CT_T) s_dirty[i] = 0;
+  if (t == 0) *s_qn = 0;
+  // the descriptor writes go straight to the banks
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (pw.slot1 >= 0) a.banks.desc[c][(size_t)pw.slot1 * HW + p] = (uint16_t)((pw.own[c] >> 8) & 0xFFFF);
+    if (pw.slotn >= 0) a.banks.desc[c][(size_t)pw.slotn * HW + p] = (uint16_t)((pw.nb[c] >> 8) & 0xFFFF);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const int off = r * 64 + cx;        // this pixel's byte in a slot plane of the copy
+  const int sec = r * 2 + (cx >> 5);  // its 32-byte sector
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (pw.slot1 >= 0) {
+      s_col[(c * N + pw.slot1) * CT_SLOT + off] = (uint8_t)(pw.own[c] & 0xFF);
+      s_dirty[(c * N + pw.slot1) * 2 * CT_H + sec] = 1;
+    }
+    if (pw.slotn >= 0) {  // after the self write: the spread wins a shared slot
+      s_col[(c * N + pw.slotn) * CT_SLOT + off] = (uint8_t)(pw.nb[c] & 0xFF);
+      s_dirty[(c * N + pw.slotn) * 2 * CT_H + sec] = 1;
+    }
+  }
+  __syncthreads();
+
+  // the changed sectors back to the banks, whole
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    for (int i = t; i < n_chunks; i += CT_T) {
+      const int j = i / (CT_H * 4), rr = (i >> 2) % CT_H, k = i & 3;
+      const int yy = y0 + rr, xx = x0 + 16 * k;
+      if (s_dirty[(c * N + j) * 2 * CT_H + rr * 2 + (k >> 1)] && yy < H && xx < W) {
+        const uint8_t* src = s_col + (c * N + j) * CT_SLOT + rr * 64 + 16 * k;
+        uint8_t* dst = a.banks.col[c] + (size_t)j * HW + (size_t)yy * W + xx;
+        if (a.vec) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int b = 0; b < 16 && xx + b < W; ++b) dst[b] = src[b];
+        }
+      }
+    }
+  }
+  // bg_sum: lane = (slot group g, quad of 4 pixels); groups joined by shuffles
+  {
+    const int q = (t >> 5) * 8 + (lane & 7), g = lane >> 3;
+    const int qoff = (q >> 4) * 64 + 4 * (q & 15);
+    uint32_t lo[C], hi[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      lo[c] = hi[c] = 0;
+      for (int j = g; j < N; j += 4) {
+        const uint32_t v = *reinterpret_cast<const uint32_t*>(s_col + (c * N + j) * CT_SLOT + qoff);
+        lo[c] += v & 0x00ff00ffu;
+        hi[c] += (v >> 8) & 0x00ff00ffu;
+      }
+      lo[c] += __shfl_xor_sync(0xffffffffu, lo[c], 8);
+      hi[c] += __shfl_xor_sync(0xffffffffu, hi[c], 8);
+      lo[c] += __shfl_xor_sync(0xffffffffu, lo[c], 16);
+      hi[c] += __shfl_xor_sync(0xffffffffu, hi[c], 16);
+    }
+    const int yq = y0 + (q >> 4), xq = x0 + 4 * (q & 15);
+    if (g == 0 && yq < H) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int s4[4] = {(int)(lo[c] & 0xffff), (int)(hi[c] & 0xffff), (int)(lo[c] >> 16), (int)(hi[c] >> 16)};
+        int32_t* o = a.bg_sum + (size_t)c * HW + (size_t)yq * W + xq;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (xq + i < W) o[i] = s4[i];
+      }
+    }
+  }
+
+  // -- B. the walk's first samples, one thread per pixel ----------------------
+  WalkCtx<C> w;
+  int count = 0, mind = 16 * C, mins = 255 * C, j = 0;
+  if (in) {
+    walk_ctx<C>(w, s_pl, s_lut, r, cx, a.R[p], a.unstable[p], a.required[p], a.min_cd, a.desc_off);
+#pragma unroll
+    for (int c = 0; c < C; ++c) a.intra[(size_t)c * HW + p] = w.intra[c];
+    walk_samples<C>(w, s_col, off, a.banks, p, HW, s_lut, N, CT_BATCH, j, count, mind, mins);
+  }
+  const bool open = in && count < w.req && j < N;
+  if (in && !open) {
+    a.count[p] = count;
+    a.mind[p] = mind;
+    a.mins[p] = mins;
+  }
+  const unsigned m = __ballot_sync(0xffffffffu, open);
+  unsigned base = 0;
+  if (lane == 0 && m) base = atomicAdd(s_qn, (unsigned)__popc(m));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  if (open) s_q[base + __popc(m & ((1u << lane) - 1u))] = t | count << 10 | mind << 16 | (unsigned)mins << 22;
+  __syncthreads();
+
+  // -- C. the rest of the open walks, dense --------------------------------------
+  const int qn = (int)*s_qn;
+  for (int qi = t; qi < qn; qi += CT_T) {
+    const unsigned e = s_q[qi];  // pixel (10 bits), count and mind (6 each), mins (10)
+    const int tp = e & 1023, rq = tp >> 6, cq = tp & 63;
+    const int pq = (y0 + rq) * W + x0 + cq;
+    int cnt = (e >> 10) & 63, md = (e >> 16) & 63, ms = e >> 22, jq = CT_BATCH;
+    WalkCtx<C> wq;
+    walk_ctx<C>(wq, s_pl, s_lut, rq, cq, a.R[pq], a.unstable[pq], a.required[pq], a.min_cd, a.desc_off);
+    walk_samples<C>(wq, s_col, rq * 64 + cq, a.banks, pq, HW, s_lut, N, N, jq, cnt, md, ms);
+    a.count[pq] = cnt;
+    a.mind[pq] = md;
+    a.mins[pq] = ms;
+  }
+}
+
+template <int C>
+static int launch_consensus(const ConsArgs& a, cudaStream_t stream) {
+  // the dynamic shared memory the largest bank (N = 63) needs, set once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      consensus_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, ct_smem_bytes<C>(63));
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((a.W + CT_W - 1) / CT_W, (a.H + CT_H - 1) / CT_H);
+  consensus_kernel<C><<<grid, CT_T, ct_smem_bytes<C>(a.N), stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+TT_EXPORT int tt_consensus(const void* plane0, const void* plane1, const void* plane2, void* col0, void* col1,
+                           void* col2, void* desc0, void* desc1, void* desc2, const void* ctrl, const void* val0,
+                           const void* val1, const void* val2, const void* R, const void* unstable,
+                           const void* required, const void* lut_delta, void* count, void* mind, void* mins,
+                           void* intra, void* bg_sum, int C, int N, int H, int W, float rel, float div,
+                           float hi_const, int min_cd, int desc_off, int row_ext, void* stream_) {
+  if (row_ext != 0 && row_ext < 2) return (int)cudaErrorInvalidValue;  // the walk reads rows +/- 2
+  if (N < 1 || N > 63) return (int)cudaErrorInvalidValue;             // the log's 6-bit slots
+  ConsArgs a;
+  a.planes[0] = static_cast<const uint8_t*>(plane0);
+  a.planes[1] = static_cast<const uint8_t*>(plane1);
+  a.planes[2] = static_cast<const uint8_t*>(plane2);
+  void* cols[3] = {col0, col1, col2};
+  void* descs[3] = {desc0, desc1, desc2};
+  const void* vals[3] = {val0, val1, val2};
+  bool aligned = W % 16 == 0;
+  for (int c = 0; c < 3; ++c) {
+    a.banks.col[c] = static_cast<uint8_t*>(cols[c]);
+    a.banks.desc[c] = static_cast<uint16_t*>(descs[c]);
+    a.banks.vals[c] = static_cast<const int32_t*>(vals[c]);
+    if (c < C) aligned = aligned && (uintptr_t)cols[c] % 16 == 0;
+  }
+  a.ctrl = static_cast<const int32_t*>(ctrl);
+  a.R = static_cast<const float*>(R);
+  a.unstable = static_cast<const bool*>(unstable);
+  a.required = static_cast<const int32_t*>(required);
+  a.lut_delta = static_cast<const int32_t*>(lut_delta);
+  a.count = static_cast<int32_t*>(count);
+  a.mind = static_cast<int32_t*>(mind);
+  a.mins = static_cast<int32_t*>(mins);
+  a.intra = static_cast<int32_t*>(intra);
+  a.bg_sum = static_cast<int32_t*>(bg_sum);
+  a.N = N;
+  a.H = H;
+  a.W = W;
+  a.E = row_ext;
+  a.rel = rel;
+  a.inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
+  a.hi = hi_const;
+  a.min_cd = min_cd;
+  a.desc_off = desc_off;
+  a.vec = aligned ? 1 : 0;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (C == 1) return launch_consensus<1>(a, stream);
+  if (C == 3) return launch_consensus<3>(a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------

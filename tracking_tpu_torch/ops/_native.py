@@ -51,8 +51,8 @@ _F = ctypes.c_float
 # C signatures of the kernels' entry points (csrc/*.cu); each returns the
 # cudaError_t of its launches
 _SIGNATURES = {
-    "tt_consensus": [_P] * 20 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
-    "tt_flood_reach": [_P] * 5 + [_I] * 2 + [_P],
+    "tt_consensus": [_P] * 22 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
+    "tt_flood_reach": [_P] * 4 + [_I] * 2 + [_P],
     "tt_label_components": [_P] * 2 + [_I] * 3 + [_P],
     "tt_label_fixpoint": [_P] * 4 + [_I] * 4 + [_P],
     "tt_greedy_assign": [_P] * 3 + [_I] * 2 + [_P],

@@ -347,14 +347,12 @@ def consensus(
     req(unstable, "unstable", torch.bool, (H, W))
     req(required, "required", torch.int32, (H, W))
     req(lut_delta, "lut_delta", torch.int32, ())
-    dev = planes[0].device
-    px = torch.stack(planes).contiguous()
-    maps = torch.empty((3 + 2 * C, H, W), dtype=torch.int32, device=dev)
+    maps = torch.empty((3 + 2 * C, H, W), dtype=torch.int32, device=planes[0].device)
     count, mind, mins = maps[0], maps[1], maps[2]
     intra, bg_sum = maps[3 : 3 + C], maps[3 + C :]
     ptr = lambda ts, c: ts[c].data_ptr() if c < C else None  # noqa: E731
     rc = _native.library().tt_consensus(
-        px.data_ptr(),
+        ptr(planes, 0), ptr(planes, 1), ptr(planes, 2),
         ptr(colors, 0), ptr(colors, 1), ptr(colors, 2),
         ptr(descs, 0), ptr(descs, 1), ptr(descs, 2),
         pend_ctrl.data_ptr(),

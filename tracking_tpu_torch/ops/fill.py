@@ -4,8 +4,9 @@ and the XLA fixed point in ``tracking_tpu/ops/morphology.py:reach_fixpoint``.
 
 reach = reach0 ∪ {background pixels 4-connected through background pixels
 to a background pixel of reach0}. The kernel (``csrc/fill.cu``) is a
-union-find over background pixels; the plain version grows reach0 along
-whole rows and columns of background runs until nothing changes.
+union-find over background pixels in which the seeds are one more set,
+in three launches; the plain version grows reach0 along whole rows and
+columns of background runs until nothing changes.
 """
 
 from __future__ import annotations
@@ -46,11 +47,9 @@ def flood_reach(bg: torch.Tensor, reach0: torch.Tensor) -> torch.Tensor:
     _native.require(bg, "bg", torch.bool, (H, W))
     _native.require(reach0, "reach0", torch.bool, (H, W))
     parent = torch.empty((H, W), dtype=torch.int32, device=bg.device)
-    marked = torch.empty((H, W), dtype=torch.uint8, device=bg.device)
     out = torch.empty((H, W), dtype=torch.bool, device=bg.device)
     rc = _native.library().tt_flood_reach(
-        bg.data_ptr(), reach0.data_ptr(), parent.data_ptr(), marked.data_ptr(),
-        out.data_ptr(), H, W, _native.stream_ptr(),
+        bg.data_ptr(), reach0.data_ptr(), parent.data_ptr(), out.data_ptr(), H, W, _native.stream_ptr(),
     )
     _native.check(rc, "flood_reach")
     _native.count_launch("flood_reach")

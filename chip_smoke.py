@@ -34,7 +34,10 @@ phase:
    random tables with ties; the min-label fixed point on a 180-row shard of
    SuBSENSE's frame-3 mask with its neighbour's boundary row injected, 8- and
    4-connected, on a serpentine crossing the shard cut ten times and on a
-   random mask; the consensus's slab mode on three shards' halo slabs,
+   random mask; CC labelling and the fixed point, 8- and 4-connected, on
+   the hole fill's adversarial masks and their complements and on FGD's
+   flooded mask, the fixed point with random initial labels, whole and on
+   a shard's rows; the consensus's slab mode on three shards' halo slabs,
    against its plain version and the unsharded kernel's rows);
 4. the main path: warm start, then 64 frames of ``SuBSENSE.step`` and
    ``BlobTracker.step``; every kernel's launch count must be > 0, the mean
@@ -77,8 +80,9 @@ phase:
    mode's ms beside the unsharded consensus's, the sharded path's ms/frame
    beside the unsharded path's in turns and its peak memory, the device
    operations a call of the main path's four kernels (``consensus`` at most
-   1, ``flood_reach`` at most 3), and the device's busy share and kernels
-   per frame under torch.profiler.
+   1, ``flood_reach`` and ``label_components`` at most 3) and of
+   ``label_fixpoint`` (at most 4), an empty launch's time, and the device's
+   busy share and kernels per frame under torch.profiler.
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -319,7 +323,8 @@ def device_ops(fn, label, tag, reps: int = 20) -> float:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
     n = sum(e.count for e in events) / reps
-    print(f"  {tag} {label}: {n:.1f} device operations a call: " + "; ".join(
+    total = sum(getattr(e, "self_device_time_total", 0.0) for e in events) / reps / 1e3
+    print(f"  {tag} {label}: {n:.1f} device operations a call, {total:.4f} device ms: " + "; ".join(
         f"{e.key[:60]} {getattr(e, 'self_device_time_total', 0.0) / reps / 1e3:.4f} ms ({e.count / reps:.1f}x)"
         for e in events), flush=True)
     return n
@@ -964,7 +969,7 @@ def fgd_path(quiet, dev, results, tracker, timing_inputs):
     return algo, start
 
 
-def time_fgd(timing_inputs, results, algo, start, tracker, frames, quiet, dev, tag) -> None:
+def time_fgd(timing_inputs, results, algo, start, tracker, quiet, dev, tag) -> None:
     """Phase 6 for FGD: the table kernel beside its plain version on young,
     full and noisy-clip tables; CC labelling on FGD's masks beside
     SuBSENSE's; on a young model and on the same model with full tables, the
@@ -975,15 +980,13 @@ def time_fgd(timing_inputs, results, algo, start, tracker, frames, quiet, dev, t
     from tracking_tpu_torch.ops.cc import label_components
     from tracking_tpu_torch.ops.fgd import fgd_tables, fgd_tables_ref
 
-    s = algo.init(H, W, C, device=dev)
-    for t in range(7):
-        s, noisy_mask, _ = algo.step(s, frames[t])
     for what, m in (("SuBSENSE's frame-3 mask (phase 3)", timing_inputs["label_components"][0]),
                     ("FG_0's densest quiet-clip mask", timing_inputs["fgd_mask"]),
-                    ("FGD's noisy-clip mask, frame 6", noisy_mask)):
+                    ("FGD's noisy-clip mask, frame 6", timing_inputs["fgd_flooded"])):
         ms = [cuda_ms(lambda m=m: label_components(m), 50) for _ in range(2)]
         print(f"  {tag} label_components on {what} ({float(m.gt(0).to(torch.float32).mean()):.4f} foreground): "
               f"{ms[0]:.4f} / {ms[1]:.4f} ms", flush=True)
+        device_ops(lambda m=m: label_components(m), f"label_components on {what}", tag)
 
     for what, (args, b_ms, b_by) in timing_inputs["fgd_tables"].items():
         row = {"bound_ms": b_ms, "bound_by": b_by}
@@ -1201,6 +1204,54 @@ def check_fill_adversarial(dev, errs) -> None:
                     f"the corner {reached['corner']}, from the border {reached['border']}")
 
 
+def flooded_fgd_mask(frames, dev):
+    """FGD's mask at frame 6 of the noisy clip, started without a warm
+    start: its change test fires on most pixels, so the mask floods (one
+    component across every tile)."""
+    from tracking_tpu_torch import get_algorithm
+
+    algo = get_algorithm("FG_0")()
+    s = algo.init(H, W, C, device=dev)
+    for t in range(7):
+        s, mask, _ = algo.step(s, frames[t])
+    return mask
+
+
+def check_cc_adversarial(flooded, dev, errs) -> None:
+    """Phase 3: ``label_components`` and ``label_fixpoint``, 8- and
+    4-connected, against their plain versions on :func:`fill_cases` and
+    their complements and on FGD's flooded mask, exactly; the fixed point
+    with random initial labels (not ordered like the pixels), on the whole
+    mask and on its rows of shard 1 (a shard's shape)."""
+    from tracking_tpu_torch.ops.cc import label_components, label_components_ref, label_fixpoint, label_fixpoint_ref
+
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    cases = [(f"the fill's {what}" + (", complement" if inv else ""), ~m if inv else m)
+             for what, m in fill_cases(dev) for inv in (0, 1)]
+    cases.append(("FGD's flooded mask (noisy clip, frame 6)", flooded > 0))
+    _, r0, h = shard_rows(1)
+    for what, fg in cases:
+        parts = [fg] + ([fg[r0 : r0 + h].contiguous()] if fg.shape[0] == H else [])
+        for conn in (8, 4):
+            e = max_err(label_components(fg, conn), label_components_ref(fg, conn))
+            errs["label_components"] = max(errs["label_components"], e)
+            if e != 0.0:
+                raise AssertionError(f"label_components ({conn}-conn) differs on {what} (max |err| {e})")
+            for part in parts:
+                big = H * W
+                lab0 = torch.randint(0, big, part.shape, generator=gen, dtype=torch.int32).to(dev)
+                lab0 = torch.where(part, lab0, big)
+                (a, conv), (b, _) = label_fixpoint(part, lab0, big, conn), label_fixpoint_ref(part, lab0, big, conn)
+                e = max_err(a, b)
+                errs["label_fixpoint"] = max(errs["label_fixpoint"], e)
+                if e != 0.0 or not conv:
+                    raise AssertionError(f"label_fixpoint ({conn}-conn) differs on {what} {tuple(part.shape)} "
+                                         f"(max |err| {e})")
+        check(True, f"label_components and label_fixpoint (8, 4) equal on {what} {tuple(fg.shape)}, "
+                    f"{int(fg.sum())} foreground px" + (f"; the fixed point also on rows {r0}-{r0 + h - 1}"
+                                                        if len(parts) > 1 else ""))
+
+
 def check_consensus_adversarial(args, kw, dev, errs) -> None:
     """Phase 3: the consensus against its plain version, exactly, on
     inputs built from a 720p step's (``args``): a requirement of N, so
@@ -1344,6 +1395,8 @@ def time_spatial(algo, tracker, state0, frames, dev, timing_inputs, results, tag
     _, r0, h = shard_rows(rank)
     time_pair("label_fixpoint", lambda: label_fixpoint(fg, lab0, big), lambda: label_fixpoint_ref(fg, lab0, big),
               50, 5, results, tag, label=f"label_fixpoint (rows {r0}-{r0 + h - 1} of the frame-3 mask)")
+    n_ops = device_ops(lambda: label_fixpoint(fg, lab0, big), "label_fixpoint", tag)
+    check(n_ops <= 4, f"label_fixpoint takes {n_ops:.1f} device operations a call (at most 4)")
     _, r0, h = shard_rows(1)
     args, kw = timing_inputs["consensus_slab"]
     b_ms, b_by = timing_inputs["consensus_slab_bound"]
@@ -1548,6 +1601,8 @@ def main(argv) -> None:
     check_registry_kernels(frames, dev, errs, timing_inputs, bounds)
     check_variant_kernels(frames, dev, errs, timing_inputs, bounds)
     check_fgd_kernel(frames, quiet, dev, errs, timing_inputs, bounds)
+    timing_inputs["fgd_flooded"] = flooded_fgd_mask(frames, dev)
+    check_cc_adversarial(timing_inputs["fgd_flooded"], dev, errs)
     print(f"  {elapsed()}", flush=True)
     check_spatial_kernels(algo, state_for_masks, frames, dev, errs, timing_inputs, bounds)
     print(f"  {elapsed()}", flush=True)
@@ -1633,10 +1688,16 @@ def main(argv) -> None:
         time_pair(k, fk, fp, rk, rp, results, tag)
     # device operations a call and their device time (at the launch floor the
     # CUDA-event times above follow the host's pace, the profiler's do not)
-    for k, most in (("consensus", 1), ("flood_reach", 3), ("label_components", None), ("greedy_assign", None)):
+    for k, most in (("consensus", 1), ("flood_reach", 3), ("label_components", 3), ("greedy_assign", None)):
         n_ops = device_ops(plain_fns[k][0], k, tag)
         if most is not None:
             check(n_ops <= most, f"{k} takes {n_ops:.1f} device operations a call (at most {most})")
+    # the launch floor: an empty launch's time (a 1-element fill, back to
+    # back, CUDA events) times a call's launches
+    one = torch.zeros(1, device=dev)
+    empty_ms = cuda_ms(one.zero_, 500, 10)
+    print(f"  {tag} an empty launch: {empty_ms:.4f} ms; launch floor of label_components and flood_reach (3 "
+          f"launches) {3 * empty_ms:.4f} ms, of label_fixpoint (4) {4 * empty_ms:.4f} ms", flush=True)
     time_registry(timing_inputs, results, starts, frames, tag)
     from tracking_tpu_torch.ops.consensus import (
         consensus_feedback, consensus_feedback_ref, consensus_read, consensus_read_ref,
@@ -1647,7 +1708,7 @@ def main(argv) -> None:
         v_args, v_kw = timing_inputs[k]
         time_pair(k, lambda fk=fk: fk(*v_args, **v_kw), lambda fp=fp: fp(*v_args, **v_kw), 20, 3, results, tag)
     time_variants(algo, state0, variant_starts, frames, tag)
-    time_fgd(timing_inputs, results, fgd_algo, fgd_start, tracker, frames, quiet, dev, tag)
+    time_fgd(timing_inputs, results, fgd_algo, fgd_start, tracker, quiet, dev, tag)
     print(f"  {elapsed()}", flush=True)
     time_spatial(algo, tracker, state0, frames, dev, timing_inputs, results, tag)
     print(f"  {elapsed()}", flush=True)

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_tree_equal
+from torch_parity import EDGE_CASES, assert_tree_equal, edge_mask
 from tracking_tpu.ops import cc as jcc
 from tracking_tpu.ops import morphology as jmorph
 from tracking_tpu.ops.pallas_assoc import greedy_assign_pallas
@@ -96,30 +96,13 @@ def test_flood_reach_is_exact_past_the_reference_sweep_cap():
     assert capped.sum() < exact.sum()  # the reference's documented cap
 
 
-def _edge_mask(case):
-    """Background masks the fill kernel's design has to get right: a
-    checkerboard (every background pixel alone under 4-connectivity), a
-    comb of period 33 whose teeth straddle the kernel's 32-px tiles (every
-    other gap closed at the top), and 1 x W, H x 1 and 1 x 1 masks."""
-    y, x = np.mgrid[:40, :100]
-    rng = np.random.default_rng(5)
-    return {
-        "checkerboard": (y + x) % 2 == 0,
-        "comb33": ~(((x % 33 == 32) & (y >= 1)) | ((y == 1) & ((x // 33) % 2 == 1))),
-        "row": rng.uniform(size=(1, 70)) > 0.3,
-        "column": rng.uniform(size=(40, 1)) > 0.3,
-        "pixel_bg": np.ones((1, 1), bool),
-        "pixel_fg": np.zeros((1, 1), bool),
-    }[case]
-
-
-@pytest.mark.parametrize("case", ["checkerboard", "comb33", "row", "column", "pixel_bg", "pixel_fg"])
+@pytest.mark.parametrize("case", EDGE_CASES)
 @pytest.mark.parametrize("seed_mode", ["corner", "border"])
 def test_flood_reach_ref_on_edge_masks(case, seed_mode):
     """The plain version the card holds the kernel against, on the masks
     chip_smoke.py's phase 3 feeds both: equal to a BFS and, inside their
     round caps, to JAX's XLA fixed point and Pallas kernel."""
-    bg = _edge_mask(case)
+    bg = edge_mask(case)
     r0 = _seeds(bg.shape, seed_mode) & bg
     got = tfill.flood_reach_ref(torch.from_numpy(bg), torch.from_numpy(r0)).numpy()
     np.testing.assert_array_equal(got, _bfs_reach(bg, r0))

@@ -17,6 +17,7 @@ import torch
 from tracking_tpu.ops import cc as jcc
 from tracking_tpu.ops.pallas_cc import label_fixpoint_pallas
 from tracking_tpu_torch.ops import cc as tcc
+from torch_parity import CC_CASES, component_min, edge_mask
 
 
 def _spiral(h, w):
@@ -67,31 +68,6 @@ def _lab0(fg, mode, rng):
     return np.where(fg, lab, big).astype(np.int32), big, base
 
 
-def _component_min(fg, lab0, big, conn):
-    """Independent oracle: BFS per component, minimum of lab0."""
-    h, w = fg.shape
-    out = np.full((h, w), big, np.int32)
-    seen = np.zeros((h, w), bool)
-    nbrs = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1) if (dy or dx) and (conn == 8 or dy == 0 or dx == 0)]
-    for y0, x0 in zip(*np.nonzero(fg)):
-        if seen[y0, x0]:
-            continue
-        comp, stack = [], [(y0, x0)]
-        seen[y0, x0] = True
-        while stack:
-            y, x = stack.pop()
-            comp.append((y, x))
-            for dy, dx in nbrs:
-                yy, xx = y + dy, x + dx
-                if 0 <= yy < h and 0 <= xx < w and fg[yy, xx] and not seen[yy, xx]:
-                    seen[yy, xx] = True
-                    stack.append((yy, xx))
-        m = min(lab0[p] for p in comp)
-        for p in comp:
-            out[p] = m
-    return out
-
-
 CASES = [(mode, conn) for mode in ("iota", "shuffled", "injected") for conn in (8, 4)]
 
 
@@ -103,7 +79,7 @@ def test_label_fixpoint_matches_jax(mode, conn):
         got, conv = tcc.label_fixpoint(torch.from_numpy(fg), torch.from_numpy(lab0), big, conn)
         assert conv is True
         got = got.numpy()
-        want = _component_min(fg, lab0, big, conn)
+        want = component_min(fg, lab0, big, conn)
         np.testing.assert_array_equal(got, want, err_msg=f"{name}: vs the component-minimum oracle")
         xla, xla_conv = _XLA_FIXPOINT(jnp.asarray(fg), jnp.asarray(lab0), big=big, connectivity=conn,
                                       base=jnp.int32(base))
@@ -137,6 +113,26 @@ def test_labels_that_index_another_component():
     lab0 = np.where(fg, np.arange(h * w).reshape(h, w) + 1, BIG).astype(np.int32)
     got, _ = tcc.label_fixpoint(torch.from_numpy(fg), torch.from_numpy(lab0), BIG)
     pal, _ = label_fixpoint_pallas(jnp.asarray(fg), jnp.asarray(lab0), BIG, 8, interpret=True)
-    np.testing.assert_array_equal(got.numpy(), _component_min(fg, lab0, BIG, 8))
+    np.testing.assert_array_equal(got.numpy(), component_min(fg, lab0, BIG, 8))
     np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
     assert got[0, w - 1] == 6
+
+
+@pytest.mark.parametrize("case", CC_CASES)
+@pytest.mark.parametrize("conn", [8, 4])
+def test_label_fixpoint_on_edge_masks(case, conn):
+    """The masks of ``test_torch_cc_edges.py`` with injected boundary rows
+    (labels not ordered like the pixels' own), against the BFS oracle, the
+    XLA version and the Pallas kernel."""
+    fg = edge_mask(case)
+    lab0, big, base = _lab0(fg, "injected", np.random.default_rng(23))
+    got, conv = tcc.label_fixpoint(torch.from_numpy(fg), torch.from_numpy(lab0), big, conn)
+    assert conv is True
+    got = got.numpy()
+    np.testing.assert_array_equal(got, component_min(fg, lab0, big, conn))
+    xla, xla_conv = _XLA_FIXPOINT(jnp.asarray(fg), jnp.asarray(lab0), big=big, connectivity=conn, base=jnp.int32(base))
+    assert bool(xla_conv)
+    np.testing.assert_array_equal(got, np.asarray(xla))
+    pal, pal_conv = label_fixpoint_pallas(jnp.asarray(fg), jnp.asarray(lab0), big, conn, interpret=True)
+    assert bool(pal_conv)
+    np.testing.assert_array_equal(got, np.asarray(pal))

@@ -124,3 +124,61 @@ def step_both(jstep, tt, js, ts, mask):
     assert_tree_equal(jax.device_get(js)._asdict(), ts, tol=KALMAN_TOL)
     assert_tree_equal(jax.device_get(jtr)._asdict(), ttr._asdict(), tol=KALMAN_TOL)
     return js, ts, jtr
+
+
+EDGE_CASES = ("checkerboard", "comb33", "row", "column", "pixel_bg", "pixel_fg")
+CC_CASES = EDGE_CASES + ("teeth33", "serpentine", "random_odd")
+
+
+def edge_mask(case):
+    """Masks that union-find designs over 32-px tiles have to get right,
+    True = the set the kernel joins (background for the fill, foreground
+    for CC): a checkerboard (one set 8-connected, all singletons
+    4-connected), the gaps of a comb of period 33 whose teeth straddle the
+    tiles (every other gap closed at the top; ``teeth33`` is the comb
+    itself), 1 x W, H x 1 and 1 x 1 masks, a serpentine corridor turning in
+    every other row (one set through every tile row) and a random mask at
+    an odd width."""
+    y, x = np.mgrid[:40, :100]
+    if case == "teeth33":
+        return ~edge_mask("comb33")
+    if case == "serpentine":
+        gap = np.where((y // 2) % 2 == 0, x == 99, x == 0)
+        return ~((y % 2 == 1) & ~gap)
+    if case == "random_odd":
+        return np.random.default_rng(11).uniform(size=(37, 99)) < 0.45
+    rng = np.random.default_rng(5)
+    return {
+        "checkerboard": (y + x) % 2 == 0,
+        "comb33": ~(((x % 33 == 32) & (y >= 1)) | ((y == 1) & ((x // 33) % 2 == 1))),
+        "row": rng.uniform(size=(1, 70)) > 0.3,
+        "column": rng.uniform(size=(40, 1)) > 0.3,
+        "pixel_bg": np.ones((1, 1), bool),
+        "pixel_fg": np.zeros((1, 1), bool),
+    }[case]
+
+
+def component_min(fg, lab0, big, conn):
+    """Independent oracle: BFS per component of ``fg`` (8- or 4-connected),
+    the minimum of ``lab0`` on each component's pixels, ``big`` elsewhere."""
+    h, w = fg.shape
+    out = np.full((h, w), big, np.int32)
+    seen = np.zeros((h, w), bool)
+    nbrs = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1) if (dy or dx) and (conn == 8 or dy == 0 or dx == 0)]
+    for y0, x0 in zip(*np.nonzero(fg)):
+        if seen[y0, x0]:
+            continue
+        comp, stack = [], [(y0, x0)]
+        seen[y0, x0] = True
+        while stack:
+            y, x = stack.pop()
+            comp.append((y, x))
+            for dy, dx in nbrs:
+                yy, xx = y + dy, x + dx
+                if 0 <= yy < h and 0 <= xx < w and fg[yy, xx] and not seen[yy, xx]:
+                    seen[yy, xx] = True
+                    stack.append((yy, xx))
+        m = min(lab0[p] for p in comp)
+        for p in comp:
+            out[p] = m
+    return out

@@ -1,59 +1,101 @@
-// Shared helpers of the port's CUDA kernels: export macro and a two-level
-// union-find over the "active" pixels of an image (background for the hole
-// fill, foreground for CC labelling) whose links always point to the
-// smaller row-major index, so every root is the minimum index of its set.
+// Shared helpers of the port's CUDA kernels: the export macro and a
+// run-based two-level union-find over the "active" pixels of an image
+// (background for the hole fill in fill.cu, foreground for the CC labelling
+// in cc.cu). Links always point to the smaller index, so every root is the
+// minimum row-major index of its set; fill.cu adds one more set, the index
+// -1, below every pixel, which the find and the union below accept.
 //
-// Level 1 (uf_local_kernel): one thread block per 32x16 tile runs the
-// union-find in shared memory, where atomics are cheap and chains short,
-// and writes each pixel's tile-local root (a global index) to `parent`.
-// Level 2 (uf_border_kernel): only pixels with a neighbour in another tile
-// link across the border, with global atomicMin. A tile-local index order
-// is the global row-major order restricted to the tile, so tile minima are
-// global minima.
+// Level 1 (uf_tile_roots, inside each caller's tile kernel): one block of
+// 8 warps per 32x32 tile. Each warp takes a row of the tile as a
+// __ballot_sync bit mask, and a pixel's run start comes from the mask's
+// bits (run_start), with no atomics: a run is one set from the start. Then
+// one shared-memory union per pair of touching runs in neighbouring rows
+// (the strip scheme of Playne & Hawick's HA4, IEEE TPDS 2018):
+//   - 4-connected, the pair's first column of overlap (the first bit of
+//     each segment of row & up);
+//   - 8-connected, a run touches each run above whose span, widened by one
+//     column on each side, overlaps it. The run's start lane joins each run
+//     above at the first bit of that run inside the widened span (a contact
+//     segment of row & (up | up << 1 | up >> 1) can span two runs above:
+//     above 11011, below 11111).
+// A tile-local index order is the global row-major order restricted to the
+// tile, so tile roots are global minima too.
+// Level 2 (uf_border_kernel): global atomicMin unions across tile borders,
+// only at the first pixel of each run of pairs along a border; 8-connected,
+// also each diagonal pair across a border or a tile corner whose two
+// 4-neighbours in between are both inactive (otherwise 4-edges, joined
+// already, connect it).
+//
+// The pixel-wise two-level union-find that stood here before (a shared
+// union per pixel and neighbour over 32x16 tiles) made up most of the time
+// of the fill and of both CC kernels; the runs make about one union per
+// pair of runs.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define TT_EXPORT extern "C" __attribute__((visibility("default")))
-#define UF_TX 32
-#define UF_TY 16
+#define UF_T 32     // tile side
+#define UF_WARPS 8  // a warp takes the rows warp, warp + UF_WARPS, ...
+#define UF_KR (UF_T / UF_WARPS)
 
 inline unsigned tt_blocks(int n, int threads) { return (unsigned)((n + threads - 1) / threads); }
 
-// Root of x in a global parent array. Parents only ever decrease
-// (atomicMin), so a stale read is still an ancestor of x and the walk ends
-// at the current root. __ldcg reads L2, which the atomics update.
-__device__ __forceinline__ int uf_find(const int* parent, int x) {
-  int p = __ldcg(parent + x);
-  while (p != x) {
-    x = p;
-    p = __ldcg(parent + x);
-  }
-  return x;
+// The lane where this lane's run of set bits in m starts.
+__device__ __forceinline__ int run_start(unsigned m, int lane) {
+  const unsigned below = ~m & ((1u << lane) - 1u);
+  return below ? 32 - __clz(below) : 0;
 }
 
-// Merge the sets of a and b: the larger root is linked to the smaller one
-// (Playne & Hawick's atomicMin union, retried until it lands on a root).
+// Root of x (a pixel index, or -1, a root of itself) in a global parent
+// array. Parents only ever decrease (atomicMin), so a stale read is still an
+// ancestor of x and the walk ends at the current root. __ldcg reads L2,
+// which the atomics update.
+__device__ __forceinline__ int uf_find(const int* parent, int x) {
+  while (x >= 0) {
+    const int p = __ldcg(parent + x);
+    if (p == x) return x;
+    x = p;
+  }
+  return -1;
+}
+
+// Merge the sets of a and b: the larger root is linked below the smaller
+// one, retried until it lands on a root.
 __device__ __forceinline__ void uf_union(int* parent, int a, int b) {
   while (true) {
     a = uf_find(parent, a);
     b = uf_find(parent, b);
-    if (a < b) {
-      int old = atomicMin(parent + b, a);
-      if (old == b) return;
-      b = old;
-    } else if (b < a) {
-      int old = atomicMin(parent + a, b);
-      if (old == a) return;
-      a = old;
-    } else {
-      return;
+    if (a == b) return;
+    if (a > b) {
+      const int t = a;
+      a = b;
+      b = t;
     }
+    const int old = atomicMin(parent + b, a);
+    if (old == b) return;
+    b = old;
   }
 }
 
-// The same two operations on a shared-memory array of tile-local indices.
+// Final root of entry p once every union is done, with each entry on the
+// walked chain pointed at it (every writer writes the same value), so later
+// finds take two hops.
+__device__ __forceinline__ int uf_resolve(int* parent, int p) {
+  if (p < 0) return p;
+  const int q = __ldcg(parent + p);
+  if (q == p || q < 0) return q;
+  const int r = uf_find(parent, q);
+  for (int x = p; x >= 0 && x != r;) {
+    const int nx = __ldcg(parent + x);
+    if (nx != r) __stcg(parent + x, r);
+    x = nx;
+  }
+  return r;
+}
+
+// The same find and union on a shared-memory array of tile-local indices.
 __device__ __forceinline__ int suf_find(volatile int* s, int x) {
   int p = s[x];
   while (p != x) {
@@ -81,60 +123,81 @@ __device__ __forceinline__ void suf_union(int* s, int a, int b) {
   }
 }
 
-// Level 1. Launch with block (UF_TX, UF_TY) and one block per tile. Every
-// pixel gets a parent (inactive pixels point to themselves). Each active
-// pixel links to its active "backward" neighbours inside the tile: left and
-// up, plus up-left and up-right when 8-connected; together over all pixels
-// these cover every edge once.
+// Level 1 for a block of (UF_T, UF_WARPS) threads: act[k] says whether this
+// lane's pixel in tile row warp + UF_WARPS * k is active; rows[] receives
+// the tile's row masks and s[] the tile-local union-find. root[k] is the
+// pixel's tile-local root (row * UF_T + column), -1 where inactive.
 template <bool CONN8>
-static __global__ void uf_local_kernel(const bool* __restrict__ active, int* __restrict__ parent, int H, int W) {
-  __shared__ int s[UF_TX * UF_TY];
-  const int lx = threadIdx.x, ly = threadIdx.y, l = ly * UF_TX + lx;
-  const int x = blockIdx.x * UF_TX + lx, y = blockIdx.y * UF_TY + ly;
-  const bool in = x < W && y < H;
-  const bool a = in && active[y * W + x];
-  s[l] = l;
+__device__ __forceinline__ void uf_tile_roots(const bool (&act)[UF_KR], int* s, unsigned* rows,
+                                              int (&root)[UF_KR]) {
+  const int lane = threadIdx.x, warp = threadIdx.y;
+#pragma unroll
+  for (int k = 0; k < UF_KR; ++k) {
+    const int r = warp + UF_WARPS * k;
+    const unsigned m = __ballot_sync(0xffffffffu, act[k]);
+    if (lane == 0) rows[r] = m;
+    s[r * UF_T + lane] = r * UF_T + run_start(m, lane);
+  }
   __syncthreads();
-  if (a) {
-    const int i = y * W + x;
-    if (lx > 0 && active[i - 1]) suf_union(s, l, l - 1);
-    if (ly > 0) {
-      if (active[i - W]) suf_union(s, l, l - UF_TX);
-      if (CONN8) {
-        if (lx > 0 && active[i - W - 1]) suf_union(s, l, l - UF_TX - 1);
-        if (lx + 1 < UF_TX && x + 1 < W && active[i - W + 1]) suf_union(s, l, l - UF_TX + 1);
-      }
+#pragma unroll
+  for (int k = 0; k < UF_KR; ++k) {
+    const int r = warp + UF_WARPS * k;
+    if (r == 0 || !act[k]) continue;
+    const unsigned m = rows[r], up = rows[r - 1];
+    if (!CONN8) {
+      const unsigned both = m & up;
+      if (((both & ~(both << 1)) >> lane) & 1u) suf_union(s, r * UF_T + lane, (r - 1) * UF_T + lane);
+    } else if (run_start(m, lane) == lane) {
+      const unsigned rest = ~(m >> lane);  // 0 only for a run over the whole row
+      const int len = rest ? __ffs(rest) - 1 : 32;
+      const unsigned run = (len == 32 ? ~0u : (1u << len) - 1u) << lane;
+      const unsigned w = up & (run | (run << 1) | (run >> 1));
+      for (unsigned first = w & ~(w << 1); first; first &= first - 1u)
+        suf_union(s, r * UF_T + lane, (r - 1) * UF_T + __ffs(first) - 1);
     }
   }
   __syncthreads();
-  if (in) {
-    const int r = a ? suf_find(s, l) : l;
-    parent[y * W + x] = (blockIdx.y * UF_TY + r / UF_TX) * W + blockIdx.x * UF_TX + r % UF_TX;
-  }
+#pragma unroll
+  for (int k = 0; k < UF_KR; ++k) root[k] = act[k] ? suf_find(s, (warp + UF_WARPS * k) * UF_T + lane) : -1;
 }
 
-// Level 2: the backward edges that cross a tile border, one thread per pixel.
+// Level 2, one thread per border pixel: rows y = 32, 64, ... against the row
+// above, then columns x = 32, 64, ... against the column to the left.
 template <bool CONN8>
-static __global__ void uf_border_kernel(const bool* __restrict__ active, int* parent, int H, int W) {
+__global__ void uf_border_kernel(const uint8_t* __restrict__ active, int* parent, int H, int W) {
+  const int nh = ((H - 1) / UF_T) * W;
+  const int nv = ((W - 1) / UF_T) * H;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= H * W || !active[i]) return;
-  const int x = i % W, y = i / W;
-  const bool left_edge = x % UF_TX == 0, top_edge = y % UF_TY == 0;
-  if (x > 0 && left_edge && active[i - 1]) uf_union(parent, i, i - 1);
-  if (y > 0) {
-    if (top_edge && active[i - W]) uf_union(parent, i, i - W);
-    if (CONN8) {
-      if (x > 0 && (left_edge || top_edge) && active[i - W - 1]) uf_union(parent, i, i - W - 1);
-      if (x + 1 < W && ((x + 1) % UF_TX == 0 || top_edge) && active[i - W + 1]) uf_union(parent, i, i - W + 1);
+  auto on = [&](int p) { return active[p] != 0; };
+  if (i < nh) {
+    const int y = (i / W + 1) * UF_T, x = i % W;
+    const int q = y * W + x;
+    if (!on(q)) return;
+    const bool up = on(q - W);
+    if (up && (x % UF_T == 0 || !(on(q - 1) && on(q - W - 1)))) uf_union(parent, q, q - W);
+    if (CONN8 && !up) {  // the diagonals up from (y, x)
+      if (x > 0 && on(q - W - 1) && !on(q - 1)) uf_union(parent, q, q - W - 1);
+      if (x + 1 < W && on(q - W + 1) && !on(q + 1)) uf_union(parent, q, q - W + 1);
+    }
+  } else if (i < nh + nv) {
+    const int j = i - nh;
+    const int x = (j / H + 1) * UF_T, y = j % H;
+    const int q = y * W + x;
+    const bool a = on(q), left = on(q - 1);
+    if (a && left && (y % UF_T == 0 || !(on(q - W) && on(q - W - 1)))) uf_union(parent, q, q - 1);
+    if (CONN8 && y % UF_T != 0 && a != left) {  // the diagonals across the column (row y's are level 2's above)
+      if (a && on(q - W - 1) && !on(q - W)) uf_union(parent, q, q - W - 1);
+      if (left && on(q - W) && !on(q - W - 1)) uf_union(parent, q - 1, q - W);
     }
   }
 }
 
-// Both levels: afterwards uf_find(parent, p) is the minimum index of p's set.
+// Level 2's launch, where the image has a tile border. Any nonzero byte of
+// `active` is active.
 template <bool CONN8>
-static inline void uf_build(const bool* active, int* parent, int H, int W, cudaStream_t stream) {
-  dim3 tile(UF_TX, UF_TY);
-  dim3 tiles((W + UF_TX - 1) / UF_TX, (H + UF_TY - 1) / UF_TY);
-  uf_local_kernel<CONN8><<<tiles, tile, 0, stream>>>(active, parent, H, W);
-  uf_border_kernel<CONN8><<<tt_blocks(H * W, 256), 256, 0, stream>>>(active, parent, H, W);
+static inline void uf_border(const void* active, int* parent, int H, int W, cudaStream_t stream) {
+  const int n_border = ((H - 1) / UF_T) * W + ((W - 1) / UF_T) * H;
+  if (n_border > 0)
+    uf_border_kernel<CONN8><<<tt_blocks(n_border, 256), 256, 0, stream>>>(static_cast<const uint8_t*>(active),
+                                                                          parent, H, W);
 }

@@ -91,8 +91,10 @@ def label_components(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
     if mask.device.type == "cpu":
         return label_components_ref(mask, connectivity)
     H, W = mask.shape
-    fg = (mask > 0).contiguous()
-    _native.require(fg, "mask", torch.bool, (H, W))
+    # the kernel reads any nonzero byte as foreground: u8 and bool masks go
+    # in as they are, with no conversion launched
+    fg = (mask if mask.dtype in (torch.uint8, torch.bool) else mask > 0).contiguous()
+    _native.require(fg, "mask", fg.dtype, (H, W))
     out = torch.empty((H, W), dtype=torch.int32, device=mask.device)
     rc = _native.library().tt_label_components(
         fg.data_ptr(), out.data_ptr(), H, W, connectivity, _native.stream_ptr()

@@ -18,6 +18,7 @@ phase:
    (the 13 TPU kernels' counterparts: ``consensus_read`` replaces two), one
    ``nvcc`` per source in parallel, and prints each kernel's registers,
    spills and static shared memory (``--ptxas``: nvcc's own output);
+   ``fused_kernel`` must not spill;
 3. each kernel against its plain PyTorch version on the card at its path's
    shapes, exactly (consensus C=3 and C=1, also with a requirement of N,
    with good samples only in its last slots, at a ragged width and in slab
@@ -25,10 +26,16 @@ phase:
    through every tile row, a checkerboard, a 33-px comb, all background, all
    foreground, 1xW, Hx1, (H-1)x(W-3) and 1x1, corner and border seeds; CC
    labelling 8- and 4-connected, greedy assignment; LOBSTER's consensus
-   C=3 and C=1, the GMG list update at t = 5, 19 and 30, the DPTexture
-   histograms, the MultiLayer update learning and not; the v3 read-only
-   walk C=3 and C=1, the fused whole step C=3 at t > 0 and t = 0 with the
-   scalar requirement and a random requirement map, and C=1; FGD's table
+   C=3 and C=1, the GMG list update at t = 5, 19 and 30, and on states that
+   keep its invariant but that the clip never reaches (every list full with
+   no match and with the match in slot 63, lists of 63 appending into slot
+   63, all lists empty, a random mix of lengths 0-64; each at t = 5, 19 -
+   the end of training - and 30), the DPTexture histograms, the MultiLayer
+   update learning and not; the v3 read-only walk C=3 and C=1, the fused
+   whole step C=3 and C=1 at t > 0 and t = 0 with the scalar requirement,
+   C=3 also with a random requirement map, and both with a requirement of
+   N, with good samples only in the last slots and at a ragged width with
+   the step's requirement and with N; FGD's table
    phase on inputs of real steps - the noisy and the quiet clip, the first
    frame, f32 statistics - on the quiet step with its tables filled, and on
    random tables with ties; the min-label fixed point on a 180-row shard of
@@ -72,7 +79,8 @@ phase:
    versions: masks, track ids and positions must equal the kernel run's;
 6. timing with CUDA events: each kernel beside its plain version and its
    bound, ms/frame for the SuBSENSE step alone, the full path and each of
-   the four algorithms, v1 / v3 / fused SuBSENSE steps in turns, CC
+   the four algorithms, v1 / v3 / fused SuBSENSE steps and the
+   subsenseShrink fused step in turns, CC
    labelling on FGD's masks (quiet and flooded) beside SuBSENSE's, FGD's
    table kernel on young, full and noisy-clip tables, the FGD step with the
    table kernel against the plain table phase in turns and the FG_0 path,
@@ -80,7 +88,8 @@ phase:
    mode's ms beside the unsharded consensus's, the sharded path's ms/frame
    beside the unsharded path's in turns and its peak memory, the device
    operations a call of the main path's four kernels (``consensus`` at most
-   1, ``flood_reach`` and ``label_components`` at most 3) and of
+   1, ``flood_reach`` and ``label_components`` at most 3), of
+   ``consensus_feedback`` and ``gmg_step`` (at most 1 each) and of
    ``label_fixpoint`` (at most 4), an empty launch's time, and the device's
    busy share and kernels per frame under torch.profiler.
 
@@ -412,6 +421,7 @@ def check_registry_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
     check(int(st["nf"].max()) > 1 and int((p_out[0] > 0).sum()) > 0, f"gmg_step lists up to {int(st['nf'].max())} long, fg at t=30")
     timing_inputs["gmg_step"] = (gmg_args(clone(st)), kw)
     bounds["gmg_step"] = gmg_cost(code, st["nf"], st["colors"].view(torch.int32), st["weights"], p_out[2], p_out[3])
+    check_gmg_adversarial(dev, errs, kw, cfg.initializationFrames)
 
     # K7: DPTexture's histograms, the model after warm start + 3 steps
     tex = get_algorithm("DPTextureBGS")()
@@ -449,6 +459,57 @@ def check_registry_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
     timing_inputs["multilayer_step"] = ((ml.config, clone(st), cf, pat, scal, fidx, True), {})
     state_px = sum(st[leaf][0].numel() // hw for leaf, _ in LEAF_SPEC) * ml.config.max_mode_num * 4 + 8
     bounds["multilayer_step"] = bound(hw * (2 * state_px + 4 * (3 + 6) + 4), 450 * hw)
+
+
+def check_gmg_adversarial(dev, errs, kw, init_frames: int) -> None:
+    """Phase 3: the GMG list update against its plain version, exactly, on
+    720p states that keep GMG's invariant (slots at or past nf hold (-1,
+    +0.0)) but that real lists on the clip never reach: every list full with
+    no match (eviction) and with the match in slot 63, lists of 63 that
+    append into slot 63, all lists empty, and a random mix of lengths 0-64;
+    each in training, at its last frame (the normalisation at its end) and
+    after it."""
+    from tracking_tpu_torch.ops.gmg import gmg_step, gmg_step_ref
+
+    K = 64
+    gen = torch.Generator(device=dev).manual_seed(8)
+    kk = torch.arange(K, device=dev, dtype=torch.int32)[:, None, None]
+
+    def state(nf, where):
+        """Lists of length nf with distinct codes in 0..4095 and weights in
+        [0.001, 1); the frame's code at slot `where` of each list (a map;
+        -1: a code no list holds)."""
+        codes = (kk * 7919 + torch.randint(0, 4096, (H, W), generator=gen, device=dev, dtype=torch.int32)) % 4096
+        live = kk < nf[None]
+        colors = torch.where(live, codes, -1)
+        weights = torch.where(live, torch.rand((K, H, W), generator=gen, device=dev) * 0.999 + 0.001, 0.0)
+        picked = codes.gather(0, where.clamp(min=0).long()[None])[0]
+        code = torch.where(where >= 0, picked, 4096 + torch.randint(0, 100, (H, W), generator=gen, device=dev))
+        return code.to(torch.int32), nf.to(torch.int32), colors.contiguous(), weights.contiguous()
+
+    def full(v):
+        return torch.full((H, W), v, dtype=torch.int32, device=dev)
+
+    mix = torch.randint(0, K + 1, (H, W), generator=gen, device=dev, dtype=torch.int32)
+    mix_where = torch.where(torch.rand((H, W), generator=gen, device=dev) < 0.6,
+                            (torch.rand((H, W), generator=gen, device=dev) * mix).to(torch.int32), -1)
+    mix_where = torch.where(mix > 0, mix_where, -1)
+    cases = (
+        ("every list full, no match (eviction)", full(K), full(-1)),
+        ("every list full, the match in slot 63", full(K), full(K - 1)),
+        ("lists of 63 appending into slot 63", full(K - 1), full(-1)),
+        ("all lists empty", full(0), full(-1)),
+        ("a random mix of lengths 0-64", mix, mix_where),
+    )
+    for what, nf, where in cases:
+        args = state(nf, where)
+        for tt in (5, init_frames - 1, 30):
+            tv = torch.tensor(tt, dtype=torch.int32, device=dev)
+            k_out = gmg_step(*clone(args), tv, **kw)
+            p_out = gmg_step_ref(*clone(args), tv, **kw)
+            e = max(max_err(a, b) for a, b in zip(k_out, p_out))
+            errs["gmg_step"] = max(errs["gmg_step"], e)
+            check(e == 0.0, f"gmg_step {what}, t={tt}: fg, nf1, colours and weights equal (max |err| {e})")
 
 
 @contextlib.contextmanager
@@ -491,8 +552,9 @@ def capture_call(module, name, run):
 def check_variant_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
     """Phase 3 for the consensus variants' two kernels, each against its
     plain version on the inputs a 720p step of its path gives it, exactly:
-    the v3 walk (C=3, C=1) and the fused step (C=3 at t > 0 and t = 0, with
-    the scalar requirement and a random map; C=1)."""
+    the v3 walk (C=3, C=1) and the fused step (C=3 and C=1 at t > 0 and
+    t = 0 with the scalar requirement, C=3 also with a random map, and both
+    on ``adversarial_inputs``)."""
     from tracking_tpu_torch import get_algorithm
     from tracking_tpu_torch.bgs import lbsp_family as LF
     from tracking_tpu_torch.ops.consensus import (
@@ -545,16 +607,16 @@ def check_variant_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
                 st, _, _ = algo.step(st, fr[t])
         with switches({"TRACKING_TPU_FUSED": "1"}):
             args, kw = capture_call(LF, "consensus_feedback", lambda: algo.step(clone(st), fr[4]))
-        cases = [("t>0 scalar requirement", args)]
+        scal0 = args[14][:5] + (torch.zeros_like(args[14][5]),)
+        cases = [("t>0 scalar requirement", args), ("t=0 scalar requirement", args[:14] + (scal0,))]
         if c == 3:
             gen = torch.Generator(device="cpu").manual_seed(3)
             req_map = torch.where(torch.rand((H, W), generator=gen) < 0.3, 7, 2).to(torch.int32).to(dev)
-            scal0 = args[14][:5] + (torch.zeros_like(args[14][5]),)
             cases += [
-                ("t=0 scalar requirement", args[:14] + (scal0,)),
                 ("t>0 random requirement map", args[:8] + (req_map,) + args[9:]),
                 ("t=0 random requirement map", args[:8] + (req_map,) + args[9:14] + (scal0,)),
             ]
+        cases += adversarial_inputs(args)
         names = ("flags", "pend_ctrl", "pend_vals", "f32 maps", "bg_sum", "colors", "descs")
         for what, a in cases:
             k_out = consensus_feedback(*clone(a), **kw)
@@ -579,6 +641,35 @@ def check_variant_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
             )
             print(f"  consensus_feedback C=3: the walk examines {walked} samples ({walked / hw:.3f} per px), "
                   f"{fb_px} B/px of feedback state, bound {bounds['consensus_feedback'][0]:.4f} ms", flush=True)
+
+
+def crop_width(a, wc: int):
+    """``a`` (a tensor or a tuple of them) cut to its first ``wc`` columns;
+    0-d tensors and numbers as they are."""
+    if isinstance(a, tuple):
+        return tuple(crop_width(x, wc) for x in a)
+    return a[..., :wc].contiguous() if isinstance(a, torch.Tensor) and a.dim() >= 2 else a
+
+
+def adversarial_inputs(args):
+    """Adversarial inputs for the consensus and the fused step, built from
+    a 720p step's arguments (planes, colour banks, ..., the requirement at
+    index 8): a requirement of N, so that every sample is walked; banks
+    whose first N - 3 colour slots are far from the frame, so that good
+    samples lie only in the last slots; a ragged width (W - 6 = 1274, no
+    multiple of 4 or 16) with the step's requirement and with N."""
+    planes, colors = args[0], args[1]
+    N = colors[0].shape[0]
+    wr = W - 6
+    full_n = torch.full((H, W), N, dtype=torch.int32, device=planes[0].device)
+    far = tuple(torch.cat([(p[None] ^ 0x80).expand(N - 3, -1, -1), col[N - 3 :]]) for p, col in zip(planes, colors))
+    with_n = args[:8] + (full_n,) + args[9:]
+    return [
+        ("required = N", with_n),
+        ("good samples only in the last 3 slots", (planes, far) + args[2:]),
+        (f"ragged width {H}x{wr}", crop_width(args, wr)),
+        (f"ragged width {H}x{wr}, required = N", crop_width(with_n, wr)),
+    ]
 
 
 def variant_paths(frames, dev, results):
@@ -623,12 +714,14 @@ def variant_paths(frames, dev, results):
 
 
 def time_variants(algo, state0, starts, frames, tag) -> None:
-    """Phase 6 for the consensus variants: v1 / v3 / fused SuBSENSE step
-    ms/frame in turns (v1, v3, fused, fused, v3, v1), then kernels per frame
-    and the busy share of v1, v3 and fused under the profiler."""
-    runs = {"v1": (algo, {}, state0), "v3": starts["SuBSENSE v3"], "fused": starts["SuBSENSE fused"]}
+    """Phase 6 for the consensus variants: v1 / v3 / fused SuBSENSE step and
+    the subsenseShrink fused step ms/frame in turns (v1, v3, fused, shrink,
+    shrink, fused, v3, v1), then kernels per frame and the busy share of
+    each under the profiler."""
+    runs = {"SuBSENSE v1": (algo, {}, state0)}
+    runs.update((k, starts[k]) for k in ("SuBSENSE v3", "SuBSENSE fused", "subsenseShrink fused"))
     ms = {k: [] for k in runs}
-    for k in ("v1", "v3", "fused", "fused", "v3", "v1"):
+    for k in (*runs, *reversed(runs)):
         a, env, start = runs[k]
         with switches(env):
             s = clone(start)
@@ -643,7 +736,7 @@ def time_variants(algo, state0, starts, frames, tag) -> None:
             torch.cuda.synchronize()
             ms[k].append(ev0.elapsed_time(ev1) / TIMED_FRAMES)
     for k, v in ms.items():
-        print(f"  {tag} SuBSENSE {k} step (in turns): {v[0]:.3f} / {v[1]:.3f} ms/frame = {1000 / min(v):.1f} fps "
+        print(f"  {tag} {k} step (in turns): {v[0]:.3f} / {v[1]:.3f} ms/frame = {1000 / min(v):.1f} fps "
               f"({TIMED_FRAMES} frames, {H}x{W}x{C})", flush=True)
     for k, (a, env, start) in runs.items():
         with switches(env):
@@ -654,7 +747,7 @@ def time_variants(algo, state0, starts, frames, tag) -> None:
             def run_frame(t, a=a, box=box):
                 box["s"], _, _ = a.step(box["s"], frames[t])
 
-            profile(run_frame, range(5, 13), tag, f"SuBSENSE {k} step", top=6)
+            profile(run_frame, range(5, 13), tag, f"{k} step", top=6)
 
 
 def registry_path(frames, dev, results):
@@ -1254,38 +1347,21 @@ def check_cc_adversarial(flooded, dev, errs) -> None:
 
 def check_consensus_adversarial(args, kw, dev, errs) -> None:
     """Phase 3: the consensus against its plain version, exactly, on
-    inputs built from a 720p step's (``args``): a requirement of N, so
-    that every sample is walked; banks whose first N - 3 colour slots are
-    far from the frame, so that good samples lie only in the last slots; a
-    ragged width (W - 6 = 1274, no multiple of 4 or 16) with the step's
-    requirement and with N; and the slab mode at the ragged width."""
+    ``adversarial_inputs`` and on the slab mode at the ragged width."""
     from tracking_tpu_torch.ops.consensus import consensus, consensus_ref
     from tracking_tpu_torch.parallel.spatial import HALO
 
     planes, colors, descs, ctrl, vals, lut, R, unst, req = args
-    Cn, N = len(planes), colors[0].shape[0]
+    Cn = len(planes)
     wr = W - 6
-
-    def crop(a, wc):
-        cw = lambda x: x[..., :wc].contiguous()  # noqa: E731
-        return (tuple(map(cw, a[0])), tuple(map(cw, a[1])), tuple(map(cw, a[2])), cw(a[3]), tuple(map(cw, a[4])),
-                a[5], cw(a[6]), cw(a[7]), cw(a[8]))
-
-    far = tuple(torch.cat([(p[None] ^ 0x80).expand(N - 3, -1, -1), col[N - 3 :]]) for p, col in zip(planes, colors))
     rows, r0, h = shard_rows(1)
     rows = rows.to(dev)
     own = lambda x: x[..., r0 : r0 + h, :].contiguous()  # noqa: E731
     slab_rows = lambda ts, lo, hi: tuple(t.index_select(0, rows.clamp(lo, hi)).contiguous() for t in ts)  # noqa: E731
     slab = (slab_rows(planes, 0, H - 1), tuple(map(own, colors)), tuple(map(own, descs)), own(ctrl),
             slab_rows(vals, 2, H - 3), lut, own(R), own(unst), own(req))
-    full_n = torch.full_like(req, N)
-    cases = [
-        ("required = N", args[:8] + (full_n,), 0),
-        ("good samples only in the last 3 slots", (planes, far) + args[2:], 0),
-        (f"ragged width {H}x{wr}", crop(args, wr), 0),
-        (f"ragged width {H}x{wr}, required = N", crop(args[:8] + (full_n,), wr), 0),
-        (f"slab mode at the ragged width (rows {r0}-{r0 + h - 1} + halo {HALO})", crop(slab, wr), HALO),
-    ]
+    cases = [(what, a, 0) for what, a in adversarial_inputs(args)]
+    cases.append((f"slab mode at the ragged width (rows {r0}-{r0 + h - 1} + halo {HALO})", crop_width(slab, wr), HALO))
     for what, a, E in cases:
         k_out = consensus(*clone(a), **kw, row_ext=E)
         p_out = consensus_ref(*clone(a), **kw, row_ext=E)
@@ -1490,6 +1566,9 @@ def main(argv) -> None:
     print("  ptxas (registers, spill stores / loads in bytes, static shared bytes): " + (
         "; ".join(f"{k} {r}, {ss}/{sl}, {sm}" for k, r, ss, sl, sm in table) if table
         else "not printed, the library was built before this run"), flush=True)
+    for k, r, ss, sl, _ in table:
+        if k.startswith("fused_kernel"):
+            check(ss == 0 and sl == 0, f"{k}: {r} registers, no spills")
 
     t0 = time.perf_counter()
     clip = make_clip(1 + MAIN_FRAMES, H, W, C, seed=0)
@@ -1707,6 +1786,12 @@ def main(argv) -> None:
                       ("consensus_feedback", consensus_feedback, consensus_feedback_ref)):
         v_args, v_kw = timing_inputs[k]
         time_pair(k, lambda fk=fk: fk(*v_args, **v_kw), lambda fp=fp: fp(*v_args, **v_kw), 20, 3, results, tag)
+    from tracking_tpu_torch.ops.gmg import gmg_step
+
+    for k, fk in (("consensus_feedback", consensus_feedback), ("gmg_step", gmg_step)):
+        v_args, v_kw = timing_inputs[k]
+        n_ops = device_ops(lambda fk=fk: fk(*v_args, **v_kw), k, tag)
+        check(n_ops <= 1, f"{k} takes {n_ops:.1f} device operations a call (at most 1)")
     time_variants(algo, state0, variant_starts, frames, tag)
     time_fgd(timing_inputs, results, fgd_algo, fgd_start, tracker, quiet, dev, tag)
     print(f"  {elapsed()}", flush=True)

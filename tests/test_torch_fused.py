@@ -68,16 +68,22 @@ def _inputs(rng, h, w, c, n, t, req_map):
             f32_state, scalars)
 
 
-@pytest.mark.parametrize(
-    "c,t,req_map,use3x3",
-    [(3, 0, False, True), (3, 7, True, False), (1, 0, True, True), (1, 7, False, False)],
-    ids=["C3-t0-scalar-3x3", "C3-t7-map-5x5", "C1-t0-map-3x3", "C1-t7-scalar-5x5"],
-)
-def test_consensus_feedback_ref_matches_pallas(c, t, req_map, use3x3):
+def _compare_with_pallas(c, t, req_map, use3x3, variant=None):
+    """consensus_feedback (the plain version on CPU tensors) against the
+    interpret-mode Pallas kernel on ``_inputs``, every output bit for bit;
+    ``variant`` rewrites the inputs first: "required=N" sets a requirement
+    map of N (every sample is walked), "last3" moves the first N - 3 colour
+    slots far from the frame (good samples only in the last 3 slots).
+    Returns the port's outputs."""
     h, w, n = 24, 40, 9
     rng = np.random.default_rng(100 + 10 * c + t)
     (planes, colors, descs, ctrl, vals, R, unstable, required, last_color, last_desc, bits, masks, f32_state,
      scalars) = _inputs(rng, h, w, c, n, t, req_map)
+    if variant == "required=N":
+        required = np.full((h, w), n, np.int32)
+    elif variant == "last3":
+        colors = tuple(np.concatenate([np.broadcast_to(p[None] ^ 0x80, (n - 3, h, w)), col[n - 3 :]])
+                       for p, col in zip(planes, colors))
     kw = dict(rel=REL, div=3.0 if c == 1 else 1.0, hi_const=float(np.rint(255 * REL)), min_cd=MIN_CD,
               desc_off=DESC_OFF, use3x3_global=use3x3)
     J = lambda x: jax.tree.map(jnp.asarray, x)  # noqa: E731
@@ -89,15 +95,43 @@ def test_consensus_feedback_ref_matches_pallas(c, t, req_map, use3x3):
     T = lambda x: torch.tensor(x) if np.ndim(x) == 0 else torch.from_numpy(np.array(x))  # noqa: E731
     got = tc.consensus_feedback(
         to_torch(planes), to_torch(colors), to_torch(descs), T(ctrl), to_torch(vals), torch.tensor(1, dtype=torch.int32),
-        T(R), T(unstable), T(required) if req_map else required, to_torch(last_color), to_torch(last_desc), T(bits),
-        to_torch(masks), to_torch(f32_state), tuple(T(s) for s in scalars), **kw, k=TConsts(**CONSTS),
+        T(R), T(unstable), T(required) if np.ndim(required) else required, to_torch(last_color),
+        to_torch(last_desc), T(bits), to_torch(masks), to_torch(f32_state), tuple(T(s) for s in scalars), **kw,
+        k=TConsts(**CONSTS),
     )
     assert_tree_equal(jax.tree.map(np.asarray, tuple(want)), tuple(got))
+    return got
+
+
+@pytest.mark.parametrize(
+    "c,t,req_map,use3x3",
+    [(3, 0, False, True), (3, 7, True, False), (1, 0, True, True), (1, 7, False, False)],
+    ids=["C3-t0-scalar-3x3", "C3-t7-map-5x5", "C1-t0-map-3x3", "C1-t7-scalar-5x5"],
+)
+def test_consensus_feedback_ref_matches_pallas(c, t, req_map, use3x3):
+    got = _compare_with_pallas(c, t, req_map, use3x3)
     flags, new_ctrl = got[0].numpy(), got[1].numpy()
     assert 0 < (flags & 1).mean() < 1  # foreground and background
     assert ((flags >> 4) & 1).any() and (new_ctrl & 1).any()  # blinks and self updates
     fire_bit = 1 if use3x3 else 2
     assert ((got[2][0].numpy() >> 24) & fire_bit).any()  # spreads of the chosen kind fire
+
+
+@pytest.mark.parametrize(
+    "c,t,variant",
+    [(3, 7, "required=N"), (1, 0, "required=N"), (3, 0, "last3"), (1, 7, "last3")],
+    ids=["C3-t7-required-N", "C1-t0-required-N", "C3-t0-last3", "C1-t7-last3"],
+)
+def test_consensus_feedback_ref_matches_pallas_adversarial(c, t, variant):
+    """The inputs the card's check adds for the tile kernel (chip_smoke.py
+    ``adversarial_inputs``): a requirement of N and good samples only in the
+    last slots, pinned to the reference here."""
+    got = _compare_with_pallas(c, t, False, t == 0, variant)
+    fg = (got[0].numpy() & 1).astype(bool)
+    roi = tc.roi_map(24, 40).numpy()
+    assert fg[roi].any() and not fg[~roi].any()
+    if variant == "last3":  # some pixels found their 2 good samples in the last 3 slots
+        assert (~fg[roi]).any()
 
 
 def test_fused_switch(monkeypatch):

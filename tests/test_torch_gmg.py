@@ -6,6 +6,10 @@
   training frame, the last training frame and a frame after training.
 - The whole algorithm through both packages' ``run_video`` over 28 frames,
   across the end of training (frame 20).
+- The plain step from an empty state on code streams whose lists fill and
+  evict, against the Pallas kernel frame by frame, with the invariant the
+  CUDA kernel relies on (slots at or past nf hold (-1, +0.0)) checked after
+  every step.
 
 Everything is exact, the weights too: the normalisation sum ``total`` is
 a float sum whose order moves its last bits (``pallas_gmg.py:15-19``), and
@@ -77,3 +81,53 @@ def test_gmg_matches_reference():
     assert max(shares[:20]) == 0.0  # training: empty masks
     assert 0.001 < np.mean(shares[20:]) < 0.5, shares
     assert ts["colors"].dtype == torch.uint32 and int(ts["nf"].max()) > 1
+
+
+@pytest.mark.parametrize("p_repeat,frames_n", [(0.0, 72), (0.15, 90)], ids=["new-codes", "repeats"])
+def test_gmg_lists_fill_and_evict(p_repeat, frames_n):
+    """The plain GMG step from an empty state on a code stream whose lists
+    fill and then evict: each pixel walks a palette of 97 codes (consecutive
+    codes differ), and with ``p_repeat`` takes again a code seen 1-60 frames
+    before (a match deep in its list). After every step the slots at or past
+    nf hold exactly (-1, +0.0), the invariant the CUDA kernel relies on to
+    stop at the list's end; fg every frame and the final state equal the
+    interpret-mode Pallas kernel's, bit for bit."""
+    h, w = 4, 6
+    rng = np.random.default_rng(41)
+    cfg = TG.GMGConfig()
+    kw = dict(lr=cfg.learningRate, prior=cfg.backgroundPrior, thr=cfg.decisionThreshold,
+              init_frames=cfg.initializationFrames)
+    offset, stride = rng.integers(0, 97, (h, w)), rng.integers(1, 97, (h, w))
+    stream = [(offset + t * stride) % 97 * 41 for t in range(frames_n)]  # distinct within 97 frames
+    for t in range(frames_n):
+        back = rng.integers(1, 61, (h, w))
+        again = (rng.uniform(size=(h, w)) < p_repeat) & (back <= t)
+        seen = np.stack([stream[max(t - d, 0)] for d in range(61)])
+        picked = np.take_along_axis(seen, np.minimum(back, t)[None], 0)[0]
+        stream[t] = np.where(again, picked, stream[t]).astype(np.int32)
+
+    nf = torch.zeros((h, w), dtype=torch.int32)
+    colors = torch.full((K, h, w), -1, dtype=torch.int32)
+    weights = torch.zeros((K, h, w), dtype=torch.float32)
+    j_nf, j_colors, j_weights = jnp.asarray(nf.numpy()), jnp.asarray(colors.numpy().view(np.uint32)), jnp.asarray(
+        weights.numpy())
+    kidx = torch.arange(K)[:, None, None]
+    evicted = deep = 0
+    for t, code in enumerate(stream):
+        found = (colors == torch.from_numpy(code)[None]) & (kidx < nf[None])
+        evicted += int(((nf == K) & ~found.any(0)).sum())
+        deep += int((found & (kidx >= 32)).sum())
+        fg, nf, colors, weights = gmg_step(torch.from_numpy(code), nf, colors, weights,
+                                           torch.tensor(t, dtype=torch.int32), **kw)
+        past = kidx >= nf[None]
+        assert bool((colors[past.expand(K, h, w)] == -1).all()), f"frame {t}: a colour past nf"
+        assert bool((weights[past.expand(K, h, w)].view(torch.int32) == 0).all()), f"frame {t}: a weight past nf"
+        j_fg, j_nf, j_colors, j_weights = gmg_step_pallas(jnp.asarray(code.view(np.uint32)), j_nf, j_colors, j_weights,
+                                                          jnp.int32(t), **kw, interpret=True)
+        np.testing.assert_array_equal(fg.numpy(), np.asarray(j_fg), err_msg=f"fg, frame {t}")
+    np.testing.assert_array_equal(nf.numpy(), np.asarray(j_nf), err_msg="nf")
+    np.testing.assert_array_equal(colors.numpy().view(np.uint32), np.asarray(j_colors), err_msg="colors")
+    np.testing.assert_array_equal(weights.numpy(), np.asarray(j_weights), err_msg="weights")
+    assert evicted > 0 and int(nf.min()) == K  # every list filled; some evicted
+    if p_repeat:
+        assert deep > 0  # matches past the first run of 32 slots

@@ -21,11 +21,12 @@
 // 414.7 MB (50 x 921,600 px x (1 + 2) bytes x 3 channels); bg_sum reads every
 // colour slot (138 MB) and the walk reads the first few samples of both
 // banks for background pixels and up to all 50 for foreground ones. The
-// banks stay in place (no copy). consensus_kernel (below, "three phases")
-// reads a tile's colour slots once with 16-byte copies, writes back only the
-// 32-byte sectors its replay changes, and walks with byte-SIMD descriptors;
-// the other kernels of the file keep the first design, one thread per pixel
-// on the shared device functions replay_pending, bank_sums and lbsp_walk.
+// banks stay in place (no copy). consensus_kernel and fused_kernel (below,
+// "three phases") read a tile's colour slots once with 16-byte copies, write
+// back only the 32-byte sectors their replay changes, and walk with
+// byte-SIMD descriptors; lobster_kernel and read_walk_kernel keep the first
+// design, one thread per pixel on the device functions replay_pending,
+// bank_sums and lbsp_walk.
 //
 // Thresholds are f32 expressions the reference evaluates without fused
 // multiply-adds and with XLA's reciprocal product for a constant divisor:
@@ -40,9 +41,10 @@
 // clamps. The banks, the maps and the outputs stay owned-size [H, W].
 //
 // The file's other kernels share these steps as device functions:
-// lobster_kernel (LOBSTER's consensus), read_walk_kernel (steps 3-4 on
-// read-only banks, consensus v3) and fused_kernel (steps 1-4 followed by the
-// feedback stage of feedback.cuh and the next frame's pending log).
+// fused_kernel (consensus_kernel's phases ct_replay and ct_walk, then the
+// feedback stage of feedback.cuh and the next frame's pending log),
+// lobster_kernel (LOBSTER's consensus) and read_walk_kernel (steps 3-4 on
+// read-only banks, consensus v3).
 #include "common.cuh"
 #include "feedback.cuh"
 
@@ -87,9 +89,10 @@ __device__ __forceinline__ int src_row(int y, int dy, int H, int E) {
   return E > 0 ? E + y - dy : clampi(y - dy, 2, H - 3);
 }
 
-// Step 1, shared by both kernels: replay frame t-1's pending log into this
-// pixel's slots in place (see the header). LOBSTER's log sets only 3x3 spreads (u5 = 0 with the 5x5 fire bit clear),
-// so the same decode serves it. E > 0: the pending values are a slab (header).
+// Step 1 in one thread, for lobster_kernel: replay frame t-1's pending log
+// into this pixel's slots in place (see the header). LOBSTER's log sets only
+// 3x3 spreads (u5 = 0 with the 5x5 fire bit clear), so the same decode
+// serves it. E > 0: the pending values are a slab (header).
 template <int C>
 __device__ __forceinline__ void replay_pending(const Banks& banks, const int32_t* __restrict__ ctrl_map, int x, int y,
                                                int p, int N, int H, int W, int E = 0) {
@@ -139,7 +142,8 @@ __device__ __forceinline__ void replay_pending(const Banks& banks, const int32_t
   }
 }
 
-// Step 2, shared: bg_sum = the sum of the N colour slots after the replay.
+// Step 2 in one thread, for lobster_kernel: bg_sum = the sum of the N colour
+// slots after the replay.
 template <int C>
 __device__ __forceinline__ void bank_sums(const Banks& banks, int32_t* bg_out, int p, int N, size_t HW) {
 #pragma unroll
@@ -150,24 +154,13 @@ __device__ __forceinline__ void bank_sums(const Banks& banks, int32_t* bg_out, i
   }
 }
 
-// The banks as the walk reads them. No __restrict__: fused_kernel reads
-// slots its own replay has just written.
+// The banks as read_walk_kernel reads them.
 struct ConstBanks {
   const uint8_t* col[3];
   const uint16_t* desc[3];
 };
 
-__device__ __forceinline__ ConstBanks as_const(const Banks& b) {
-  ConstBanks r;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    r.col[c] = b.col[c];
-    r.desc[c] = b.desc[c];
-  }
-  return r;
-}
-
-// Steps 3-4, shared by read_walk_kernel and fused_kernel:
+// Steps 3-4 in one thread, for read_walk_kernel:
 // the intra LBSP descriptors from 16 edge-clamped neighbours, the colour and
 // descriptor thresholds from R and the previous unstable mask, then the walk
 // over the N samples, stopping once `req` good samples are counted. Only the
@@ -244,7 +237,8 @@ __device__ __forceinline__ void lbsp_walk(const uint8_t* __restrict__ planes, co
 
 // ---------------------------------------------------------------------------
 // consensus_kernel: one block of CT_T threads per CT_H x 64 tile of pixels, in
-// three phases that share the block's shared memory (header, steps 1-4):
+// three phases that share the block's shared memory (header, steps 1-4);
+// ct_replay runs phase A, ct_walk phases B and C, and fused_kernel calls both:
 //   A. replay and bg_sum: the tile's N colour slot planes of every channel
 //      are copied into shared memory with 16-byte cp.async copies while each
 //      pixel's thread decodes its pending log (pending_writes) and writes the
@@ -487,36 +481,53 @@ __host__ __device__ constexpr int ct_smem_bytes(int N) {
   return C * N * CT_SLOT + C * CT_PH * CT_PW + 256 * 8 + (C * N * 2 * CT_H + 15) / 16 * 16 + CT_T * 4 + 16;
 }
 
+// The tile's shared memory, as ct_smem_bytes lays it out.
+struct CtShared {
+  uint8_t* col;    // [C][N][CT_SLOT] the colour slots
+  uint8_t* pl;     // [C][CT_PH][CT_PW] the planes with a 2-px halo
+  uint2* lut;      // value -> (K, K7) of its threshold
+  uint8_t* dirty;  // [C][N][rows x 2 sectors]
+  unsigned* q;     // the open walks
+  unsigned* qn;
+};
+
 template <int C>
-__global__ void __launch_bounds__(CT_T) consensus_kernel(ConsArgs a) {
-  extern __shared__ __align__(16) uint8_t smem[];
+__device__ __forceinline__ CtShared ct_shared(uint8_t* smem, int N) {
+  CtShared s;
+  s.col = smem;
+  s.pl = s.col + C * N * CT_SLOT;
+  s.lut = reinterpret_cast<uint2*>(s.pl + C * CT_PH * CT_PW);
+  s.dirty = reinterpret_cast<uint8_t*>(s.lut + 256);
+  s.q = reinterpret_cast<unsigned*>(s.dirty + (C * N * 2 * CT_H + 15) / 16 * 16);
+  s.qn = s.q + CT_T;
+  return s;
+}
+
+// Phase A, shared by consensus_kernel and fused_kernel: the replay of the
+// pending log into the banks (colours through the shared copy, descriptors
+// straight) and bg_sum; also fills the plane tile and the threshold table
+// for the walk. Every thread of the block calls it.
+template <int C>
+__device__ __forceinline__ void ct_replay(const ConsArgs& a, const CtShared& s, int x0, int y0) {
   const int N = a.N, H = a.H, W = a.W, E = a.E;
   const size_t HW = (size_t)H * W;
-  uint8_t* s_col = smem;                                               // [C][N][CT_SLOT]
-  uint8_t* s_pl = s_col + C * N * CT_SLOT;                             // [C][CT_PH][CT_PW]
-  uint2* s_lut = reinterpret_cast<uint2*>(s_pl + C * CT_PH * CT_PW);  // value -> (K, K7) of its threshold
-  uint8_t* s_dirty = reinterpret_cast<uint8_t*>(s_lut + 256);         // [C][N][rows x 2 sectors]
-  unsigned* s_q = reinterpret_cast<unsigned*>(s_dirty + (C * N * 2 * CT_H + 15) / 16 * 16);
-  unsigned* s_qn = s_q + CT_T;
   const int t = threadIdx.x, lane = t & 31;
-  const int x0 = blockIdx.x * CT_W, y0 = blockIdx.y * CT_H;
   const int n_chunks = N * CT_H * 4;  // 16-byte chunks of a channel's slot planes in the tile
 
-  // -- A. this pixel's pending writes; the colour slots into shared memory ----
+  // this pixel's pending writes; the colour slots into shared memory
   const int r = t >> 6, cx = t & 63;
   const int x = x0 + cx, y = y0 + r;
-  const bool in = x < W && y < H;
   const int p = y * W + x;
   PendingWrites<C> pw;
   pw.slot1 = pw.slotn = -1;
-  if (in) pw = pending_writes<C>(a.banks, a.ctrl, x, y, p, N, H, W, E);
+  if (x < W && y < H) pw = pending_writes<C>(a.banks, a.ctrl, x, y, p, N, H, W, E);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     for (int i = t; i < n_chunks; i += CT_T) {
       const int j = i / (CT_H * 4), rr = (i >> 2) % CT_H, k = i & 3;
       const int yy = y0 + rr, xx = x0 + 16 * k;
       if (yy < H && xx < W) {
-        uint8_t* dst = s_col + (c * N + j) * CT_SLOT + rr * 64 + 16 * k;
+        uint8_t* dst = s.col + (c * N + j) * CT_SLOT + rr * 64 + 16 * k;
         const uint8_t* src = a.banks.col[c] + (size_t)j * HW + (size_t)yy * W + xx;
         if (a.vec) {
           cp_async16(dst, src);
@@ -530,14 +541,14 @@ __global__ void __launch_bounds__(CT_T) consensus_kernel(ConsArgs a) {
   for (int i = t; i < C * CT_PH * CT_PW; i += CT_T) {
     const int c = i / (CT_PH * CT_PW), rc = i % (CT_PH * CT_PW);
     const int yy = clampi(y0 + rc / CT_PW - 2 + E, 0, Hp - 1), xx = clampi(x0 + rc % CT_PW - 2, 0, W - 1);
-    s_pl[i] = a.planes[c][(size_t)yy * W + xx];
+    s.pl[i] = a.planes[c][(size_t)yy * W + xx];
   }
   for (int v = t; v < 256; v += CT_T) {
     const uint32_t K = (uint32_t)(255 - lbsp_thr(v, (float)a.lut_delta[0], a.rel, a.inv_div, a.hi)) * 0x01010101u;
-    s_lut[v] = make_uint2(K, K & 0x7f7f7f7fu);
+    s.lut[v] = make_uint2(K, K & 0x7f7f7f7fu);
   }
-  for (int i = t; i < C * N * 2 * CT_H; i += CT_T) s_dirty[i] = 0;
-  if (t == 0) *s_qn = 0;
+  for (int i = t; i < C * N * 2 * CT_H; i += CT_T) s.dirty[i] = 0;
+  if (t == 0) *s.qn = 0;
   // the descriptor writes go straight to the banks
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -551,12 +562,12 @@ __global__ void __launch_bounds__(CT_T) consensus_kernel(ConsArgs a) {
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     if (pw.slot1 >= 0) {
-      s_col[(c * N + pw.slot1) * CT_SLOT + off] = (uint8_t)(pw.own[c] & 0xFF);
-      s_dirty[(c * N + pw.slot1) * 2 * CT_H + sec] = 1;
+      s.col[(c * N + pw.slot1) * CT_SLOT + off] = (uint8_t)(pw.own[c] & 0xFF);
+      s.dirty[(c * N + pw.slot1) * 2 * CT_H + sec] = 1;
     }
     if (pw.slotn >= 0) {  // after the self write: the spread wins a shared slot
-      s_col[(c * N + pw.slotn) * CT_SLOT + off] = (uint8_t)(pw.nb[c] & 0xFF);
-      s_dirty[(c * N + pw.slotn) * 2 * CT_H + sec] = 1;
+      s.col[(c * N + pw.slotn) * CT_SLOT + off] = (uint8_t)(pw.nb[c] & 0xFF);
+      s.dirty[(c * N + pw.slotn) * 2 * CT_H + sec] = 1;
     }
   }
   __syncthreads();
@@ -567,8 +578,8 @@ __global__ void __launch_bounds__(CT_T) consensus_kernel(ConsArgs a) {
     for (int i = t; i < n_chunks; i += CT_T) {
       const int j = i / (CT_H * 4), rr = (i >> 2) % CT_H, k = i & 3;
       const int yy = y0 + rr, xx = x0 + 16 * k;
-      if (s_dirty[(c * N + j) * 2 * CT_H + rr * 2 + (k >> 1)] && yy < H && xx < W) {
-        const uint8_t* src = s_col + (c * N + j) * CT_SLOT + rr * 64 + 16 * k;
+      if (s.dirty[(c * N + j) * 2 * CT_H + rr * 2 + (k >> 1)] && yy < H && xx < W) {
+        const uint8_t* src = s.col + (c * N + j) * CT_SLOT + rr * 64 + 16 * k;
         uint8_t* dst = a.banks.col[c] + (size_t)j * HW + (size_t)yy * W + xx;
         if (a.vec) {
           *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
@@ -579,72 +590,123 @@ __global__ void __launch_bounds__(CT_T) consensus_kernel(ConsArgs a) {
     }
   }
   // bg_sum: lane = (slot group g, quad of 4 pixels); groups joined by shuffles
-  {
-    const int q = (t >> 5) * 8 + (lane & 7), g = lane >> 3;
-    const int qoff = (q >> 4) * 64 + 4 * (q & 15);
-    uint32_t lo[C], hi[C];
+  const int q = (t >> 5) * 8 + (lane & 7), g = lane >> 3;
+  const int qoff = (q >> 4) * 64 + 4 * (q & 15);
+  uint32_t lo[C], hi[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    lo[c] = hi[c] = 0;
+    for (int j = g; j < N; j += 4) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(s.col + (c * N + j) * CT_SLOT + qoff);
+      lo[c] += v & 0x00ff00ffu;
+      hi[c] += (v >> 8) & 0x00ff00ffu;
+    }
+    lo[c] += __shfl_xor_sync(0xffffffffu, lo[c], 8);
+    hi[c] += __shfl_xor_sync(0xffffffffu, hi[c], 8);
+    lo[c] += __shfl_xor_sync(0xffffffffu, lo[c], 16);
+    hi[c] += __shfl_xor_sync(0xffffffffu, hi[c], 16);
+  }
+  const int yq = y0 + (q >> 4), xq = x0 + 4 * (q & 15);
+  if (g == 0 && yq < H) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      lo[c] = hi[c] = 0;
-      for (int j = g; j < N; j += 4) {
-        const uint32_t v = *reinterpret_cast<const uint32_t*>(s_col + (c * N + j) * CT_SLOT + qoff);
-        lo[c] += v & 0x00ff00ffu;
-        hi[c] += (v >> 8) & 0x00ff00ffu;
-      }
-      lo[c] += __shfl_xor_sync(0xffffffffu, lo[c], 8);
-      hi[c] += __shfl_xor_sync(0xffffffffu, hi[c], 8);
-      lo[c] += __shfl_xor_sync(0xffffffffu, lo[c], 16);
-      hi[c] += __shfl_xor_sync(0xffffffffu, hi[c], 16);
-    }
-    const int yq = y0 + (q >> 4), xq = x0 + 4 * (q & 15);
-    if (g == 0 && yq < H) {
+      const int s4[4] = {(int)(lo[c] & 0xffff), (int)(hi[c] & 0xffff), (int)(lo[c] >> 16), (int)(hi[c] >> 16)};
+      int32_t* o = a.bg_sum + (size_t)c * HW + (size_t)yq * W + xq;
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int s4[4] = {(int)(lo[c] & 0xffff), (int)(hi[c] & 0xffff), (int)(lo[c] >> 16), (int)(hi[c] >> 16)};
-        int32_t* o = a.bg_sum + (size_t)c * HW + (size_t)yq * W + xq;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (xq + i < W) o[i] = s4[i];
-      }
+      for (int i = 0; i < 4; ++i)
+        if (xq + i < W) o[i] = s4[i];
     }
   }
+}
+
+// Where the walk's results go. consensus_kernel (FUSED = false) writes the
+// global maps; fused_kernel keeps them in the tile's shared memory for its
+// feedback phase: res[pixel] = count | mind << 8 | mins << 16 and
+// pv[c][pixel] = value | intra << 8 (the next pending log's packing), and
+// walks with the requirement zeroed outside the 2-px ROI.
+struct WalkOut {
+  uint32_t* res;  // [CT_T]
+  uint32_t* pv;   // [C][CT_T]
+};
+
+template <bool FUSED>
+__device__ __forceinline__ int walk_req(const ConsArgs& a, int x, int y, int p) {
+  if (FUSED && !(y >= 2 && y <= a.H - 3 && x >= 2 && x <= a.W - 3)) return 0;
+  return a.required[p];
+}
+
+template <bool FUSED>
+__device__ __forceinline__ void walk_result(const ConsArgs& a, const WalkOut& o, int tp, int p, int count, int mind,
+                                            int mins) {
+  if (FUSED) {
+    o.res[tp] = (uint32_t)count | (uint32_t)mind << 8 | (uint32_t)mins << 16;
+  } else {
+    a.count[p] = count;
+    a.mind[p] = mind;
+    a.mins[p] = mins;
+  }
+}
+
+// Phases B and C, shared: the walk's first CT_BATCH samples one thread per
+// pixel, then the open walks densely from a shared queue. Ends with the
+// block in step after phase B; phase C's results are visible to the block
+// only after the caller's __syncthreads.
+template <int C, bool FUSED>
+__device__ __forceinline__ void ct_walk(const ConsArgs& a, const CtShared& s, const WalkOut& o, int x0, int y0) {
+  const int N = a.N, W = a.W;
+  const size_t HW = (size_t)a.H * W;
+  const int t = threadIdx.x, lane = t & 31;
+  const int r = t >> 6, cx = t & 63;
+  const int x = x0 + cx, y = y0 + r;
+  const bool in = x < W && y < a.H;
+  const int p = y * W + x;
 
   // -- B. the walk's first samples, one thread per pixel ----------------------
   WalkCtx<C> w;
   int count = 0, mind = 16 * C, mins = 255 * C, j = 0;
   if (in) {
-    walk_ctx<C>(w, s_pl, s_lut, r, cx, a.R[p], a.unstable[p], a.required[p], a.min_cd, a.desc_off);
+    walk_ctx<C>(w, s.pl, s.lut, r, cx, a.R[p], a.unstable[p], walk_req<FUSED>(a, x, y, p), a.min_cd, a.desc_off);
 #pragma unroll
-    for (int c = 0; c < C; ++c) a.intra[(size_t)c * HW + p] = w.intra[c];
-    walk_samples<C>(w, s_col, off, a.banks, p, HW, s_lut, N, CT_BATCH, j, count, mind, mins);
+    for (int c = 0; c < C; ++c) {
+      if (FUSED) {
+        o.pv[c * CT_T + t] = (uint32_t)w.px[c] | (uint32_t)w.intra[c] << 8;
+      } else {
+        a.intra[(size_t)c * HW + p] = w.intra[c];
+      }
+    }
+    walk_samples<C>(w, s.col, r * 64 + cx, a.banks, p, HW, s.lut, N, CT_BATCH, j, count, mind, mins);
   }
   const bool open = in && count < w.req && j < N;
-  if (in && !open) {
-    a.count[p] = count;
-    a.mind[p] = mind;
-    a.mins[p] = mins;
-  }
+  if (in && !open) walk_result<FUSED>(a, o, t, p, count, mind, mins);
   const unsigned m = __ballot_sync(0xffffffffu, open);
   unsigned base = 0;
-  if (lane == 0 && m) base = atomicAdd(s_qn, (unsigned)__popc(m));
+  if (lane == 0 && m) base = atomicAdd(s.qn, (unsigned)__popc(m));
   base = __shfl_sync(0xffffffffu, base, 0);
-  if (open) s_q[base + __popc(m & ((1u << lane) - 1u))] = t | count << 10 | mind << 16 | (unsigned)mins << 22;
+  if (open) s.q[base + __popc(m & ((1u << lane) - 1u))] = t | count << 10 | mind << 16 | (unsigned)mins << 22;
   __syncthreads();
 
   // -- C. the rest of the open walks, dense --------------------------------------
-  const int qn = (int)*s_qn;
+  const int qn = (int)*s.qn;
   for (int qi = t; qi < qn; qi += CT_T) {
-    const unsigned e = s_q[qi];  // pixel (10 bits), count and mind (6 each), mins (10)
+    const unsigned e = s.q[qi];  // pixel (10 bits), count and mind (6 each), mins (10)
     const int tp = e & 1023, rq = tp >> 6, cq = tp & 63;
-    const int pq = (y0 + rq) * W + x0 + cq;
+    const int xq = x0 + cq, yq = y0 + rq, pq = yq * W + xq;
     int cnt = (e >> 10) & 63, md = (e >> 16) & 63, ms = e >> 22, jq = CT_BATCH;
     WalkCtx<C> wq;
-    walk_ctx<C>(wq, s_pl, s_lut, rq, cq, a.R[pq], a.unstable[pq], a.required[pq], a.min_cd, a.desc_off);
-    walk_samples<C>(wq, s_col, rq * 64 + cq, a.banks, pq, HW, s_lut, N, N, jq, cnt, md, ms);
-    a.count[pq] = cnt;
-    a.mind[pq] = md;
-    a.mins[pq] = ms;
+    walk_ctx<C>(wq, s.pl, s.lut, rq, cq, a.R[pq], a.unstable[pq], walk_req<FUSED>(a, xq, yq, pq), a.min_cd,
+                a.desc_off);
+    walk_samples<C>(wq, s.col, rq * 64 + cq, a.banks, pq, HW, s.lut, N, N, jq, cnt, md, ms);
+    walk_result<FUSED>(a, o, tp, pq, cnt, md, ms);
   }
+}
+
+template <int C>
+__global__ void __launch_bounds__(CT_T) consensus_kernel(ConsArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const CtShared s = ct_shared<C>(smem, a.N);
+  const int x0 = blockIdx.x * CT_W, y0 = blockIdx.y * CT_H;
+  ct_replay<C>(a, s, x0, y0);
+  ct_walk<C, false>(a, s, WalkOut{nullptr, nullptr}, x0, y0);
 }
 
 template <int C>
@@ -891,48 +953,50 @@ TT_EXPORT int tt_consensus_read(const void* planes, const void* col0, const void
 }
 
 // ---------------------------------------------------------------------------
-// fused_kernel: SuBSENSE's whole per-pixel step in one thread. Replaces
+// fused_kernel: SuBSENSE's whole step, one block of CT_T threads per
+// CT_H x 64 tile as consensus_kernel. Replaces
 // tracking_tpu/ops/pallas_consensus.py:consensus_feedback_pallas
-// (_make_fused_kernel). Per pixel, in order:
-//   1-2. replay_pending and bank_sums, as consensus_kernel (banks in place);
-//   the ROI from the coordinates, and the walk's ROI-zeroed requirement
-//   beside the true one: the walk stops at the ROI-zeroed value, the
-//   feedback divides by the true one (a zero there would make 0/0 on the
-//   border);
-//   3-4. lbsp_walk;
-//   frame 0 adopts this frame's values and descriptors as the last frame's
-//   (t is read on the card);
-//   5. feedback_core (feedback.cuh);
-//   6. the outputs: the flags word (bit 0 is_fg, 1 unstable, 2 nz,
-//   3 curr_blink, 4 blinks_pre), the next frame's pending log, eight f32
-//   maps (mean_last, dmin_lt, dmin_st, raw_lt, raw_st, T, v, R) and bg_sum.
+// (_make_fused_kernel). Phases:
+//   A. ct_replay: the old log into the banks (colours through the tile's
+//      shared copy, written back by changed sector; descriptors straight)
+//      and bg_sum, the same code as consensus_kernel's;
+//   B-C. ct_walk with the ROI-zeroed requirement: the walk stops at it, while
+//      the feedback divides by the true one (a zero there would make 0/0 on
+//      the border). The results stay in shared memory (WalkOut), not in
+//      global maps;
+//   D. after a __syncthreads each pixel's own thread reads its walk results
+//      back, adopts this frame as the last one on frame 0 (t is read on the
+//      card), reads its feedback state (coalesced along the tile's 64
+//      columns), runs feedback_core (feedback.cuh) and writes the flags word
+//      (bit 0 is_fg, 1 unstable, 2 nz, 3 curr_blink, 4 blinks_pre), the next
+//      frame's pending log and eight f32 maps (mean_last, dmin_lt, dmin_st,
+//      raw_lt, raw_st, T, v, R).
 //
-// The pending log is double-buffered: the replay reads the OLD pend_vals of
-// up to 24 neighbours while this kernel writes the NEW log, so the new log
-// goes to separate output maps (written in place it would race with the
-// neighbours' spread picks). Only the banks are updated in place: a thread
-// writes only its own pixel's slots. The TPU kernel aliases only the banks
-// too.
+// The pending log is double-buffered: phase A reads the OLD pend_vals of up
+// to 24 neighbours, some in other blocks, while phase D writes the NEW log,
+// so the new log goes to separate output maps (written in place it would
+// race with the neighbours' spread picks). Only the banks are updated in
+// place: a pixel's writes touch only its own slots. The TPU kernel aliases
+// only the banks too. The sharded path refuses the fused step, so there is
+// no slab mode (E = 0).
 //
-// Bound on the H100: device-memory bytes - consensus_kernel's plus 101 B/px
-// of feedback state (10 f32 maps in, 8 out, 16 B of random bits, five mask
-// bytes, the last frame's colour and descriptors, the flags word and the new
-// log).
+// Bound on the H100: device-memory bytes - consensus_kernel's plus about
+// 100 B/px of feedback state (9 f32 maps in, 8 out, 16 B of random bits,
+// five mask bytes, the last frame's colour and descriptors, the flags word
+// and the new log); chip_smoke.py counts them on its run's data. The
+// earlier design, one thread per pixel on replay_pending, bank_sums and
+// lbsp_walk, paid the partial-sector slot writes and scalar descriptor
+// steps that consensus_kernel's phases remove (0.78 ms against 0.37 on an
+// H100 at 720p colour, PERF.md section 6).
 struct FusedArgs {
-  const uint8_t* planes;
-  Banks banks;
-  const int32_t* ctrl;
-  const float* R;
-  const bool* unstable;
-  const int32_t* required;
-  const int32_t* lut_delta;
+  ConsArgs cons;  // planes, banks, old log, R, unstable, the true requirement, bg_sum
   const uint8_t* last_color[3];
   const uint16_t* last_desc[3];
   const int32_t* bits;
   const uint8_t* masks[5];  // last_final, blinks_old, last_blink_mask, last_raw, last_dil_inv
   const float* f32_in[9];   // mean_last, dmin_lt, dmin_st, raw_lt, raw_st, final_lt, final_st, T, v
-  const float* fscal;       // a_lt, a_st, lr_lower, lr_upper
-  const int32_t* iscal;     // cooldown, t
+  const float* fscal[4];    // a_lt, a_st, lr_lower, lr_upper (0-d)
+  const int32_t* iscal[2];  // cooldown, t (0-d)
   int32_t* out_i;           // flags, pend_ctrl, pend_vals x C, bg_sum x C
   float* out_f;             // mean_last, dmin_lt, dmin_st, raw_lt, raw_st, T, v, R
 };
@@ -941,68 +1005,71 @@ struct FusedArgs {
 __constant__ int8_t kNb3InNb5[8] = {6, 7, 8, 11, 12, 15, 16, 17};
 
 template <int C>
-__global__ void fused_kernel(FusedArgs a, int N, int H, int W, float rel, float inv_div, float hi, int min_cd,
-                             int desc_off, bool use3x3_global, FbConsts k) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+__host__ __device__ constexpr int fused_smem_bytes(int N) {
+  return ct_smem_bytes<C>(N) + CT_T * 4 * (1 + C);  // + WalkOut
+}
+
+template <int C>
+__global__ void __launch_bounds__(CT_T) fused_kernel(FusedArgs a, bool use3x3_global, FbConsts k) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const ConsArgs& ca = a.cons;
+  const CtShared s = ct_shared<C>(smem, ca.N);
+  WalkOut o;
+  o.res = reinterpret_cast<uint32_t*>(smem + ct_smem_bytes<C>(ca.N));
+  o.pv = o.res + CT_T;
+  const int x0 = blockIdx.x * CT_W, y0 = blockIdx.y * CT_H;
+  ct_replay<C>(ca, s, x0, y0);
+  ct_walk<C, true>(ca, s, o, x0, y0);
+  __syncthreads();
+
+  // -- D. the feedback, each pixel on its own thread --------------------------------
+  const int t = threadIdx.x;
+  const int H = ca.H, W = ca.W;
+  const int x = x0 + (t & 63), y = y0 + (t >> 6);
   if (x >= W || y >= H) return;
   const size_t HW = (size_t)H * W;
   const int p = y * W + x;
-
-  // -- 1. replay the old log (banks in place); 2. background sums -------------
-  replay_pending<C>(a.banks, a.ctrl, x, y, p, N, H, W);
-  bank_sums<C>(a.banks, a.out_i + (2 + C) * HW, p, N, HW);
-
-  // -- ROI and the two requirements -------------------------------------------
-  const bool roi = y >= 2 && y <= H - 3 && x >= 2 && x <= W - 3;
-  const int req_true = a.required[p];
-  const int req_eff = roi ? req_true : 0;
-
-  // -- 3-4. the walk ----------------------------------------------------------
-  const float R_old = a.R[p];
-  int px[C], intra[C], count, mind, mins;
-  lbsp_walk<C>(a.planes, as_const(a.banks), x, y, p, N, H, W, (float)a.lut_delta[0], rel, inv_div, hi, R_old,
-               a.unstable[p], req_eff, min_cd, desc_off, px, intra, count, mind, mins);
-
-  // -- frame 0 adopts this frame as the last one ------------------------------
-  const bool first = a.iscal[1] == 0;
-  int lc[C], ld[C];
+  const uint32_t res = o.res[t];
+  const int count = res & 255, mind = (res >> 8) & 255, mins = res >> 16;
+  int px[C], intra[C], lc[C], ld[C];
+  const bool first = *a.iscal[1] == 0;  // frame 0 adopts this frame as the last one
 #pragma unroll
   for (int c = 0; c < C; ++c) {
+    const uint32_t v = o.pv[c * CT_T + t];
+    px[c] = v & 255;
+    intra[c] = v >> 8;
     lc[c] = first ? px[c] : (int)a.last_color[c][p];
     ld[c] = first ? intra[c] : (int)a.last_desc[c][p];
   }
-
-  // -- 5. feedback -------------------------------------------------------------
   int bits[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) bits[i] = a.bits[i * HW + p];
-  FbState s;
-  s.mean_last = a.f32_in[0][p];
-  s.dmin_lt = a.f32_in[1][p];
-  s.dmin_st = a.f32_in[2][p];
-  s.raw_lt = a.f32_in[3][p];
-  s.raw_st = a.f32_in[4][p];
-  s.final_lt = a.f32_in[5][p];
-  s.final_st = a.f32_in[6][p];
-  s.T = a.f32_in[7][p];
-  s.v = a.f32_in[8][p];
-  s.R = R_old;
-  s.last_final = a.masks[0][p] != 0;
-  s.blinks_old = a.masks[1][p] != 0;
-  s.last_blink_mask = a.masks[2][p] != 0;
-  s.last_raw = a.masks[3][p] != 0;
-  s.last_dil_inv = a.masks[4][p] != 0;
+  FbState st;
+  st.mean_last = a.f32_in[0][p];
+  st.dmin_lt = a.f32_in[1][p];
+  st.dmin_st = a.f32_in[2][p];
+  st.raw_lt = a.f32_in[3][p];
+  st.raw_st = a.f32_in[4][p];
+  st.final_lt = a.f32_in[5][p];
+  st.final_st = a.f32_in[6][p];
+  st.T = a.f32_in[7][p];
+  st.v = a.f32_in[8][p];
+  st.R = ca.R[p];
+  st.last_final = a.masks[0][p] != 0;
+  st.blinks_old = a.masks[1][p] != 0;
+  st.last_blink_mask = a.masks[2][p] != 0;
+  st.last_raw = a.masks[3][p] != 0;
+  st.last_dil_inv = a.masks[4][p] != 0;
   FbScalars sc;
-  sc.a_lt = a.fscal[0];
-  sc.a_st = a.fscal[1];
-  sc.lr_lower = a.fscal[2];
-  sc.lr_upper = a.fscal[3];
-  sc.cooldown = a.iscal[0];
-  const FbOut fb = feedback_core<C>(count, mind, mins, req_true, roi, px, intra, lc, ld, bits, s, sc, N,
+  sc.a_lt = *a.fscal[0];
+  sc.a_st = *a.fscal[1];
+  sc.lr_lower = *a.fscal[2];
+  sc.lr_upper = *a.fscal[3];
+  sc.cooldown = *a.iscal[0];
+  const bool roi = y >= 2 && y <= H - 3 && x >= 2 && x <= W - 3;
+  const FbOut fb = feedback_core<C>(count, mind, mins, ca.required[p], roi, px, intra, lc, ld, bits, st, sc, ca.N,
                                     use3x3_global, k);
 
-  // -- 6. packed outputs ------------------------------------------------------
   a.out_i[p] = (int)fb.is_fg | ((int)fb.unstable << 1) | ((int)fb.nz << 2) | ((int)fb.curr_blink << 3) |
                ((int)fb.blinks_pre << 4);
   a.out_i[HW + p] = (int)fb.upd1 | (fb.slot1 << 1) | ((int)kNb3InNb5[fb.o3] << 7) | (fb.o5 << 12) |
@@ -1015,46 +1082,67 @@ __global__ void fused_kernel(FusedArgs a, int N, int H, int W, float rel, float 
   for (int i = 0; i < 8; ++i) a.out_f[i * HW + p] = f32_out[i];
 }
 
-// ptrs: the 40 device pointers in the order of ops/consensus.py:consensus_feedback
-// (planes, col x3, desc x3, pend_ctrl, pend_vals x3, R, unstable, required,
-// lut_delta, last_color x3, last_desc x3, bits, masks x5, f32 state x9, fscal,
-// iscal, int outputs, f32 outputs); kc: the 12 FbConsts in field order.
+template <int C>
+static int launch_fused(const FusedArgs& a, bool use3x3_global, const FbConsts& k, cudaStream_t stream) {
+  // the dynamic shared memory the largest bank (N = 63) needs, set once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fused_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, fused_smem_bytes<C>(63));
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((a.cons.W + CT_W - 1) / CT_W, (a.cons.H + CT_H - 1) / CT_H);
+  fused_kernel<C><<<grid, CT_T, fused_smem_bytes<C>(a.cons.N), stream>>>(a, use3x3_global, k);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: the 46 device pointers in the order of ops/consensus.py:consensus_feedback
+// (planes x3, col x3, desc x3, pend_ctrl, pend_vals x3, R, unstable,
+// required, lut_delta, last_color x3, last_desc x3, bits, masks x5, f32 state
+// x9, a_lt, a_st, lr_lower, lr_upper, cooldown, t, int outputs, f32
+// outputs); kc: the 12 FbConsts in field order.
 TT_EXPORT int tt_consensus_feedback(void* const* ptrs, const float* kc, int C, int N, int H, int W, float rel,
                                     float div, float hi_const, int min_cd, int desc_off, int use3x3_global,
                                     void* stream_) {
+  if (N < 1 || N > 63) return (int)cudaErrorInvalidValue;  // the log's 6-bit slots
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const size_t HW = (size_t)H * W;
   FusedArgs a;
+  ConsArgs& ca = a.cons;
   int i = 0;
-  a.planes = static_cast<const uint8_t*>(ptrs[i++]);
-  for (int c = 0; c < 3; ++c) a.banks.col[c] = static_cast<uint8_t*>(ptrs[i++]);
-  for (int c = 0; c < 3; ++c) a.banks.desc[c] = static_cast<uint16_t*>(ptrs[i++]);
-  a.ctrl = static_cast<const int32_t*>(ptrs[i++]);
-  for (int c = 0; c < 3; ++c) a.banks.vals[c] = static_cast<const int32_t*>(ptrs[i++]);
-  a.R = static_cast<const float*>(ptrs[i++]);
-  a.unstable = static_cast<const bool*>(ptrs[i++]);
-  a.required = static_cast<const int32_t*>(ptrs[i++]);
-  a.lut_delta = static_cast<const int32_t*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) ca.planes[c] = static_cast<const uint8_t*>(ptrs[i++]);
+  bool aligned = W % 16 == 0;
+  for (int c = 0; c < 3; ++c) {
+    ca.banks.col[c] = static_cast<uint8_t*>(ptrs[i++]);
+    if (c < C) aligned = aligned && (uintptr_t)ca.banks.col[c] % 16 == 0;
+  }
+  for (int c = 0; c < 3; ++c) ca.banks.desc[c] = static_cast<uint16_t*>(ptrs[i++]);
+  ca.ctrl = static_cast<const int32_t*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) ca.banks.vals[c] = static_cast<const int32_t*>(ptrs[i++]);
+  ca.R = static_cast<const float*>(ptrs[i++]);
+  ca.unstable = static_cast<const bool*>(ptrs[i++]);
+  ca.required = static_cast<const int32_t*>(ptrs[i++]);
+  ca.lut_delta = static_cast<const int32_t*>(ptrs[i++]);
   for (int c = 0; c < 3; ++c) a.last_color[c] = static_cast<const uint8_t*>(ptrs[i++]);
   for (int c = 0; c < 3; ++c) a.last_desc[c] = static_cast<const uint16_t*>(ptrs[i++]);
   a.bits = static_cast<const int32_t*>(ptrs[i++]);
   for (int m = 0; m < 5; ++m) a.masks[m] = static_cast<const uint8_t*>(ptrs[i++]);
   for (int f = 0; f < 9; ++f) a.f32_in[f] = static_cast<const float*>(ptrs[i++]);
-  a.fscal = static_cast<const float*>(ptrs[i++]);
-  a.iscal = static_cast<const int32_t*>(ptrs[i++]);
+  for (int f = 0; f < 4; ++f) a.fscal[f] = static_cast<const float*>(ptrs[i++]);
+  for (int f = 0; f < 2; ++f) a.iscal[f] = static_cast<const int32_t*>(ptrs[i++]);
   a.out_i = static_cast<int32_t*>(ptrs[i++]);
   a.out_f = static_cast<float*>(ptrs[i++]);
+  ca.count = ca.mind = ca.mins = ca.intra = nullptr;  // the walk's results stay in shared memory
+  ca.bg_sum = a.out_i + (2 + C) * HW;
+  ca.N = N;
+  ca.H = H;
+  ca.W = W;
+  ca.E = 0;
+  ca.rel = rel;
+  ca.inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
+  ca.hi = hi_const;
+  ca.min_cd = min_cd;
+  ca.desc_off = desc_off;
+  ca.vec = aligned ? 1 : 0;
   FbConsts k = {kc[0], kc[1], kc[2], kc[3], kc[4], kc[5], kc[6], kc[7], kc[8], kc[9], kc[10], kc[11]};
-  const float inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
-  dim3 block(32, 8);
-  dim3 grid((W + 31) / 32, (H + 7) / 8);
-  if (C == 1) {
-    fused_kernel<1><<<grid, block, 0, stream>>>(a, N, H, W, rel, inv_div, hi_const, min_cd, desc_off,
-                                                use3x3_global != 0, k);
-  } else if (C == 3) {
-    fused_kernel<3><<<grid, block, 0, stream>>>(a, N, H, W, rel, inv_div, hi_const, min_cd, desc_off,
-                                                use3x3_global != 0, k);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (C == 1) return launch_fused<1>(a, use3x3_global != 0, k, stream);
+  if (C == 3) return launch_fused<3>(a, use3x3_global != 0, k, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
 // SuBSENSE's feedback and update-decision stage for one pixel: the device
 // counterpart of ops/feedback.py (derive_draws and _core), statement by
 // statement, which is itself tracking_tpu/ops/pallas_feedback.py:93-225.
-// The fused whole-step kernel (consensus.cu:fused_kernel) runs it on the
-// walk's results in registers.
+// The fused whole-step kernel (consensus.cu:fused_kernel) runs it in its
+// phase D on the walk's results, one thread per pixel.
 //
 // Float exactness against the plain version (and through it the JAX
 // package): the file builds with -fmad=false and without fast math, so

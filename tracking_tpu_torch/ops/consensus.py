@@ -541,19 +541,19 @@ def consensus_feedback(
         req(m, f"masks[{i}]", m.dtype, (H, W))
     for i, f in enumerate(f32_state):
         req(f, f"f32_state[{i}]", torch.float32, (H, W))
-    a_lt, a_st, lr_lower, lr_upper, cooldown, t = scalars
-    fscal = torch.stack([torch.as_tensor(s, device=dev).to(torch.float32) for s in (a_lt, a_st, lr_lower, lr_upper)])
-    iscal = torch.stack([torch.as_tensor(s, device=dev).to(torch.int32) for s in (cooldown, t)])
-    px = torch.stack(planes).contiguous()
+    # the frame scalars as 0-d tensors on the card, each read by the kernel
+    # where it lies (converted only when the caller's type differs)
+    scal = [torch.as_tensor(s, device=dev).to(dt).contiguous()
+            for s, dt in zip(scalars, [torch.float32] * 4 + [torch.int32] * 2)]
     out_i = torch.empty((2 + 2 * C, H, W), dtype=torch.int32, device=dev)
     out_f = torch.empty((8, H, W), dtype=torch.float32, device=dev)
     per_c = lambda ts: [ts[c].data_ptr() if c < C else None for c in range(3)]  # noqa: E731
     ptrs = (
-        [px.data_ptr()] + per_c(colors) + per_c(descs) + [pend_ctrl.data_ptr()] + per_c(pend_vals)
+        per_c(planes) + per_c(colors) + per_c(descs) + [pend_ctrl.data_ptr()] + per_c(pend_vals)
         + [R.data_ptr(), unstable.data_ptr(), required.data_ptr(), lut_delta.data_ptr()]
         + per_c(last_color) + per_c(last_desc) + [bits.data_ptr()]
         + [m.data_ptr() for m in masks] + [f.data_ptr() for f in f32_state]
-        + [fscal.data_ptr(), iscal.data_ptr(), out_i.data_ptr(), out_f.data_ptr()]
+        + [x.data_ptr() for x in scal] + [out_i.data_ptr(), out_f.data_ptr()]
     )
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_consts = (ctypes.c_float * 12)(*_feedback_consts_f32(k))

@@ -16,9 +16,11 @@ phase:
 1. device: the card's name and power limit; no CUDA device is an error;
 2. build: compiles the twelve CUDA kernels from ``tracking_tpu_torch/csrc``
    (the 13 TPU kernels' counterparts: ``consensus_read`` replaces two), one
-   ``nvcc`` per source in parallel, and prints each kernel's registers,
-   spills and static shared memory (``--ptxas``: nvcc's own output);
-   ``fused_kernel`` must not spill;
+   ``nvcc`` per source in parallel (anew, even where a library of these
+   sources was built before), and prints each kernel's registers, stack
+   frame, spills and static shared memory (``--ptxas``: nvcc's own output);
+   ``fused_kernel`` must not spill, and ``multilayer_kernel<0|1>`` and
+   ``texture_kernel<0|1>`` must have no stack frame and no spills;
 3. each kernel against its plain PyTorch version on the card at its path's
    shapes, exactly (consensus C=3 and C=1, also with a requirement of N,
    with good samples only in its last slots, at a ragged width and in slab
@@ -30,8 +32,13 @@ phase:
    keep its invariant but that the clip never reaches (every list full with
    no match and with the match in slot 63, lists of 63 appending into slot
    63, all lists empty, a random mix of lengths 0-64; each at t = 5, 19 -
-   the end of training - and 30), the DPTexture histograms, the MultiLayer
-   update learning and not; the v3 read-only walk C=3 and C=1, the fused
+   the end of training - and 30), the DPTexture histograms, also on a flat
+   frame with the model all 121, at a ragged width (with LBP codes, and
+   with codes and a model 0-255) and on images smaller than the window
+   (8x9, 1xW, Hx1), the MultiLayer update learning and not, on a real
+   state and on random states on which every branch fires (removal, also
+   emptying a list, match, promotion, displacement, no-match append and
+   overwrite, the empty seed; the pixels of each are printed); the v3 read-only walk C=3 and C=1, the fused
    whole step C=3 and C=1 at t > 0 and t = 0 with the scalar requirement,
    C=3 also with a random requirement map, and both with a requirement of
    N, with good samples only in the last slots and at a ragged width with
@@ -89,7 +96,10 @@ phase:
    beside the unsharded path's in turns and its peak memory, the device
    operations a call of the main path's four kernels (``consensus`` at most
    1, ``flood_reach`` and ``label_components`` at most 3), of
-   ``consensus_feedback`` and ``gmg_step`` (at most 1 each) and of
+   ``consensus_feedback``, ``gmg_step``, ``texture_prox_cur`` and
+   ``multilayer_step`` (at most 1 each; MultiLayer timed on fresh copies of
+   its state, its bound counting only the words the data needs, the whole
+   state's beside it) and of
    ``label_fixpoint`` (at most 4), an empty launch's time, and the device's
    busy share and kernels per frame under torch.profiler.
 
@@ -165,6 +175,9 @@ SPATIAL_PLAIN = 4
 SPATIAL_KERNELS = ("label_fixpoint", "consensus", "flood_reach", "greedy_assign")
 SPATIAL_TIMED = (8, 2)  # ms/frame = (T(8 frames) - T(2 frames)) / 6
 SWITCHES = ("TRACKING_TPU_CONSENSUS", "TRACKING_TPU_FUSED", "TRACKING_TPU_FUSED_INTERP")
+# kernels that must keep their state in registers or shared memory: no
+# stack frame (a local array indexed at run time) and no spills
+NO_STACK = {"multilayer_kernel<0>", "multilayer_kernel<1>", "texture_kernel<0>", "texture_kernel<1>"}
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; the bound of a kernel is the larger of its bytes and its
 # operations over these
@@ -361,7 +374,6 @@ def check_registry_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
         consensus_lobster, consensus_lobster_ref, intra_descriptors, sample_good_lobster_ref, thr_lobster,
     )
     from tracking_tpu_torch.ops.gmg import gmg_step, gmg_step_ref
-    from tracking_tpu_torch.ops.multilayer import LEAF_SPEC, multilayer_step, multilayer_step_ref
     from tracking_tpu_torch.ops.texture import NUM_BINS, texture_prox_cur, texture_prox_cur_ref
 
     hw = H * W
@@ -435,6 +447,7 @@ def check_registry_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
         compare("texture_prox_cur", name, a, b)
     timing_inputs["texture_prox_cur"] = ((codes, st["model"]), {})
     bounds["texture_prox_cur"] = bound(3 * hw + 2 * 3 * NUM_BINS * hw + 4 * hw, 3 * hw * (121 + 3 * NUM_BINS))
+    check_texture_adversarial(dev, errs)
 
     # K8: MultiLayer's update, a state 8 frames in, learning and not
     ml = get_algorithm("MultiLayerBGS")()
@@ -444,9 +457,28 @@ def check_registry_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
     cf, pat = ml.features(frames[9])
     fidx = st["t"] + 1
     scal = ml.rates(fidx)
+    learned = check_multilayer(ml.config, st, cf, pat, scal, fidx, errs, "a state 8 frames in")
+    check(int(learned["n"].max()) > 1, f"multilayer lists up to {int(learned['n'].max())} modes")
+    timing_inputs["multilayer_step"] = ((ml.config, clone(st), cf, pat, scal, fidx, True), {})
+    bounds["multilayer_step"] = multilayer_cost(ml.config, st, cf, pat, scal, learned)
+    # random 720p states on which every branch fires
+    from tracking_tpu_torch.synth import multilayer_adversarial
+
+    adv, cf_a, pat_a = multilayer_adversarial(H, W, seed=11)
+    adv = {k: torch.from_numpy(v).to(dev) for k, v in adv.items()}
+    cf_a, pat_a = torch.from_numpy(cf_a).to(dev), torch.from_numpy(pat_a).to(dev)
+    check_multilayer(ml.config, adv, cf_a, pat_a, scal, fidx, errs, "random states", every_branch=True)
+
+
+def check_multilayer(cfg, st, cf, pat, scal, fidx, errs, what, every_branch=False):
+    """Phase 3: the MultiLayer update against its plain version on ``st``,
+    learning and not, exactly (every leaf and the distance), with the pixels
+    each branch took. Returns the plain version's learning outputs."""
+    from tracking_tpu_torch.ops.multilayer import multilayer_step, multilayer_step_ref, update_branches
+
     for learn in (True, False):
-        k_maps, k_dist = multilayer_step(ml.config, clone(st), cf, pat, scal, fidx, learn)
-        p_maps, p_dist = multilayer_step_ref(ml.config, clone(st), cf, pat, scal, fidx, learn)
+        k_maps, k_dist = multilayer_step(cfg, clone(st), cf, pat, scal, fidx, learn)
+        p_maps, p_dist = multilayer_step_ref(cfg, clone(st), cf, pat, scal, fidx, learn)
         diffs = {k: max_err(k_maps[k], p_maps[k]) for k in p_maps}
         diffs["dist"] = max_err(k_dist, p_dist)
         if any(diffs.values()):
@@ -454,11 +486,85 @@ def check_registry_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
             print(f"  multilayer_step learn={learn} differs: max |err| {diffs}; px differing {n_px}", flush=True)
         e = max(diffs.values())
         errs["multilayer_step"] = max(errs["multilayer_step"], e)
-        check(e == 0.0, f"multilayer_step learn={learn}: every leaf and the distance equal (max |err| {e})")
-    check(int(p_maps["n"].max()) > 1, f"multilayer lists up to {int(p_maps['n'].max())} modes")
-    timing_inputs["multilayer_step"] = ((ml.config, clone(st), cf, pat, scal, fidx, True), {})
-    state_px = sum(st[leaf][0].numel() // hw for leaf, _ in LEAF_SPEC) * ml.config.max_mode_num * 4 + 8
-    bounds["multilayer_step"] = bound(hw * (2 * state_px + 4 * (3 + 6) + 4), 450 * hw)
+        counts = {k: int(v.sum()) for k, v in update_branches(cfg, st, cf, pat, scal, p_maps["n"], learn).items()}
+        check(e == 0.0, f"multilayer_step on {what}, learn={learn}: every leaf and the distance equal (max |err| "
+                        f"{e}); pixels a branch {counts}")
+        if learn:
+            learned = p_maps
+            if every_branch:
+                check(min(counts.values()) > 0, f"multilayer_step on {what}: every branch fired")
+    return learned
+
+
+def multilayer_cost(cfg, st, cf, pat, scal, out):
+    """(bound_ms, bound_by) of a learning MultiLayer update of ``st`` into
+    ``out`` (in place), counting what this run's data needs: read cf, the
+    pattern, n and bg_num, every live mode's words (m < n), a tail mode's
+    words on pixels with a removal (the shift moves them) and its layer word
+    on pixels with a displacement (the renumbering reaches it); write the
+    distance and the words of n, bg_num and the modes that change. The whole
+    state read and written once is printed beside it."""
+    from tracking_tpu_torch.ops.multilayer import LEAF_SPEC, update_branches
+
+    n, M, hw = st["n"], cfg.max_mode_num, H * W
+    words = sum(st[leaf][0].numel() // hw for leaf, _ in LEAF_SPEC)  # a mode's words
+    br = update_branches(cfg, st, cf, pat, scal, out["n"], True)
+    tail = M - n
+    read = words * int(n.sum()) + words * int((tail * br["removal"]).sum()) + int((tail * br["displacement"]).sum())
+    # the same in 32-byte sectors (8 adjacent pixels of a plane), the
+    # device's unit of transfer: a sector moves if one of its words does
+    slot = torch.arange(M, device=n.device)[:, None, None]
+    need = (slot < n) | (br["removal"] & (slot >= n))
+    sectors = lambda mask: int(mask.reshape(-1, 8).any(dim=1).sum())  # noqa: E731
+    sec = (words - 1) * sectors(need) + sectors(need | (br["displacement"] & (slot >= n)))
+    changed = 0
+    for a, b in [(n, out["n"]), (st["bg_num"], out["bg_num"])] + [(st[leaf], out[leaf]) for leaf, _ in LEAF_SPEC]:
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        changed += int((a != b).sum())
+        sec += sectors(a != b)
+    planes = cf.shape[0] + pat.shape[0] + 3  # cf, pattern, n, bg_num, dist
+    n_bytes = 4 * (planes * hw + read + changed)
+    sec_bytes = 4 * planes * hw + 32 * sec
+    whole = 2 * (words * M * 4 + 8) + 4 * (cf.shape[0] + pat.shape[0]) + 4  # per pixel
+    print(f"  multilayer_step bound: mean n {int(n.sum()) / hw:.3f}, {read} mode words read, {changed} words "
+          f"changed, {n_bytes / 1e6:.1f} MB = {bound(n_bytes, 450 * hw)[0]:.4f} ms; in 32-byte sectors "
+          f"{sec_bytes / 1e6:.1f} MB = {bound(sec_bytes, 450 * hw)[0]:.4f} ms; the whole state read and written "
+          f"{whole * hw / 1e6:.1f} MB = {bound(whole * hw, 450 * hw)[0]:.4f} ms", flush=True)
+    return bound(n_bytes, 450 * hw)  # ~450 operations a pixel
+
+
+def check_texture_adversarial(dev, errs) -> None:
+    """Phase 3: DPTexture's histograms against their plain version, exactly,
+    on inputs the clip never gives: a flat frame (every window one bin,
+    counts 121) with the model all 121; a ragged width, with LBP codes and
+    with codes 0-255 (>= 64 count nothing) and a model 0-255; images smaller
+    than the 11x11 window (8x9, 1xW, Hx1)."""
+    from tracking_tpu_torch.ops.texture import NUM_BINS, texture_prox_cur, texture_prox_cur_ref
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def rand(shape, hi):
+        return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(torch.uint8)
+
+    u8 = dict(dtype=torch.uint8, device=dev)
+    cases = (
+        ("a flat frame with the model all 121", torch.full((C, H, W), 37, **u8),
+         torch.full((C, NUM_BINS, H, W), 121, **u8)),
+        (f"a ragged width {H}x{W - 3}", rand((C, H, W - 3), NUM_BINS), rand((C, NUM_BINS, H, W - 3), 122)),
+        (f"a ragged width {H}x{W - 3}, codes and model 0-255", rand((C, H, W - 3), 256),
+         rand((C, NUM_BINS, H, W - 3), 256)),
+        ("8x9", rand((C, 8, 9), NUM_BINS), rand((C, NUM_BINS, 8, 9), 122)),
+        (f"1x{W}", rand((C, 1, W), NUM_BINS), rand((C, NUM_BINS, 1, W), 122)),
+        (f"{H}x1", rand((C, H, 1), NUM_BINS), rand((C, NUM_BINS, H, 1), 122)),
+    )
+    for what, codes, model in cases:
+        k_out = texture_prox_cur(codes, model)
+        p_out = texture_prox_cur_ref(codes, model)
+        e = max(max_err(a, b) for a, b in zip(k_out, p_out))
+        errs["texture_prox_cur"] = max(errs["texture_prox_cur"], e)
+        check(e == 0.0, f"texture_prox_cur on {what}: prox and cur equal (max |err| {e}); counts up to "
+                        f"{int(p_out[1].max())}, prox up to {int(p_out[0].max())}")
 
 
 def check_gmg_adversarial(dev, errs, kw, init_frames: int) -> None:
@@ -799,11 +905,29 @@ def time_registry(timing_inputs, results, starts, frames, tag) -> None:
         "consensus_lobster": (consensus_lobster, consensus_lobster_ref, 20, 3),
         "gmg_step": (gmg_step, gmg_step_ref, 20, 3),
         "texture_prox_cur": (texture_prox_cur, texture_prox_cur_ref, 20, 3),
-        "multilayer_step": (multilayer_step, multilayer_step_ref, 20, 3),
     }
     for k, (fk, fp, rk, rp) in pairs.items():
         args, kw = timing_inputs[k]
         time_pair(k, lambda: fk(*args, **kw), lambda: fp(*args, **kw), rk, rp, results, tag)
+    # the MultiLayer kernel updates its state in place and moves only what
+    # changes: each timed call gets a fresh copy of the phase-3 state (the
+    # data its bound counts); the same frame applied again and again to one
+    # state, which changes less, is printed beside it
+    (cfg, st, *rest), _ = timing_inputs["multilayer_step"]
+    reps = 10
+    fresh = iter([clone(st) for _ in range(2 * (reps + 1))])
+    time_pair("multilayer_step", lambda: multilayer_step(cfg, next(fresh), *rest),
+              lambda: multilayer_step_ref(cfg, st, *rest), reps, 3, results, tag)
+    del fresh
+    again = clone(st)
+    ms = [cuda_ms(lambda: multilayer_step(cfg, again, *rest), 20) for _ in range(2)]
+    results["multilayer_step"]["ms_same_frame_again"] = min(ms)
+    del again
+    print(f"  {tag} multilayer_step, the same frame again on one state: {ms[0]:.4f} / {ms[1]:.4f} ms", flush=True)
+    for k, fk in (("texture_prox_cur", texture_prox_cur), ("multilayer_step", multilayer_step)):
+        args, kw = timing_inputs[k]
+        n_ops = device_ops(lambda: fk(*args, **kw), k, tag)
+        check(n_ops <= 1, f"{k} takes {n_ops:.1f} device operations a call (at most 1)")
     for name, (algo, start) in starts.items():
         ms = []
         for _ in range(2):
@@ -1372,26 +1496,38 @@ def check_consensus_adversarial(args, kw, dev, errs) -> None:
                         f"their requirement")
 
 
-def ptxas_table(text: str) -> list:
-    """(kernel, registers, spill stores, spill loads, shared bytes) from
-    ``nvcc -Xptxas=-v`` output."""
+def kernel_name(sym: str) -> str:
+    """A kernel's name from its mangled symbol: the last component of a
+    (namespaced) name, with a first integral template argument as <n>."""
     import re
 
-    rows, name = [], None
+    pos, name = len(re.match(r"_ZN?", sym).group(0)), sym
+    while pos < len(sym) and sym[pos].isdigit():
+        digits = re.match(r"\d+", sym[pos:]).group(0)
+        pos += len(digits)
+        name = sym[pos : pos + int(digits)]
+        pos += int(digits)
+    t = re.match(r"IL[ib](\d+)E", sym[pos:])
+    return name + (f"<{t.group(1)}>" if t else "")
+
+
+def ptxas_table(text: str) -> list:
+    """(kernel, registers, stack frame, spill stores, spill loads, shared
+    bytes) from ``nvcc -Xptxas=-v`` output."""
+    import re
+
+    rows, name, frame = [], None, (0, 0, 0)
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        m = re.search(r"Compiling entry function '(_Z\w+)'", line)
         if m:
-            n = int(m.group(1))
-            name = m.group(2)[:n]
-            t = re.match(r"IL[ib](\d+)E", m.group(2)[n:])
-            name += f"<{t.group(1)}>" if t else ""
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            name = kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
-            spills = (int(m.group(1)), int(m.group(2)))
+            frame = tuple(int(v) for v in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", line)
-            rows.append((name, int(m.group(1)), *spills, int(smem.group(1)) if smem else 0))
+            rows.append((name, int(m.group(1)), *frame, int(smem.group(1)) if smem else 0))
             name = None
     return rows
 
@@ -1556,19 +1692,21 @@ def main(argv) -> None:
     t0 = time.perf_counter()
     nvcc_out = io.StringIO()
     with contextlib.redirect_stdout(nvcc_out):
-        _native.build(verbose=True)
+        _native.build(verbose=True, force=True)
     _native.library()
     print(f"[2] build {tag}: {time.perf_counter() - t0:.1f} s ({len(_native.sources())} sources, "
           f"nvcc {' '.join(_native.NVCC_FLAGS)})", flush=True)
     if "--ptxas" in argv:
         print(nvcc_out.getvalue(), flush=True)
     table = ptxas_table(nvcc_out.getvalue())
-    print("  ptxas (registers, spill stores / loads in bytes, static shared bytes): " + (
-        "; ".join(f"{k} {r}, {ss}/{sl}, {sm}" for k, r, ss, sl, sm in table) if table
-        else "not printed, the library was built before this run"), flush=True)
-    for k, r, ss, sl, _ in table:
+    print("  ptxas (registers, stack frame, spill stores / loads in bytes, static shared bytes): " + "; ".join(
+        f"{k} {r}, {sf}, {ss}/{sl}, {sm}" for k, r, sf, ss, sl, sm in table), flush=True)
+    for k, r, sf, ss, sl, _ in table:
         if k.startswith("fused_kernel"):
             check(ss == 0 and sl == 0, f"{k}: {r} registers, no spills")
+        if k in NO_STACK:
+            check(sf == 0 and ss == 0 and sl == 0, f"{k}: {r} registers, no stack frame, no spills")
+    check(NO_STACK <= {k for k, *_ in table}, f"ptxas reported {', '.join(sorted(NO_STACK))}")
 
     t0 = time.perf_counter()
     clip = make_clip(1 + MAIN_FRAMES, H, W, C, seed=0)

@@ -94,16 +94,17 @@ def sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into the shared library (once per source hash):
-    one ``nvcc -c`` per source, all started together, then one link."""
+def build(verbose: bool = False, force: bool = False) -> Path:
+    """Compile csrc/*.cu into the shared library (once per source hash,
+    or anew with ``force``): one ``nvcc -c`` per source, all started
+    together, then one link."""
     digest = hashlib.sha256()
     for p in sources():
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"libtracking_tpu_torch_{digest.hexdigest()[:16]}.so"
-    if out.exists():
+    if out.exists() and not force:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -282,6 +282,42 @@ def _kernel_consts(cfg):
     )
 
 
+def update_branches(cfg, state, cf, cur_pat, scal, n_out, learn: bool):
+    """Which branch of the update each pixel of ``state`` took, as boolean
+    [H, W] maps, given the update's new ``n`` (``n_out``): ``removal`` (a
+    faded layered mode dropped; ``removal_empties`` where that emptied the
+    list) and, on the other pixels, ``match`` (with ``promote`` and
+    ``displacement``), ``append`` and ``overwrite`` (no match, n < M and n =
+    M) and ``empty`` (the seed). For tests and on-card checks."""
+    M = cfg.max_mode_num
+    n = state["n"]
+    removal = torch.zeros(n.shape, dtype=torch.bool, device=n.device)
+    if learn:
+        for m in range(M):
+            removal |= (state["bg_layer"][m] > 0) & (state["weight"][m] < cfg.min_bg_layer_weight) & (n > m)
+    A = {short: list(state[leaf].unbind(0)) for leaf, short in LEAF_SPEC}
+    best_d, best = torch.stack(joint_distances(cfg, A, n, cf, cur_pat)).min(dim=0)
+    rest = ~removal & (n > 0)
+    match = rest & (best_d < cfg.bg_prob_updating_threshold) & learn
+    nomatch = rest & ~match & learn
+
+    def at_best(leaf):
+        return state[leaf].gather(0, best[None])[0]
+
+    inc = scal[1] * (1.0 + cfg.weight_updating_constant * at_best("max_weight"))
+    mw = torch.maximum((1.0 - inc) * at_best("weight") + inc, at_best("max_weight"))
+    return {
+        "removal": removal,
+        "removal_empties": removal & (n == 1),
+        "match": match,
+        "promote": match & (at_best("bg_layer") == 0) & (mw > cfg.reliable_bg_mode_weight),
+        "displacement": match & (n_out < n),
+        "append": nomatch & (n < M),
+        "overwrite": nomatch & (n == M),
+        "empty": ~removal & (n == 0),
+    }
+
+
 def multilayer_step_ref(cfg, state, cf, cur_pat, scal, frame_idx, learn: bool):
     """:func:`ml_update_ref` on a MultiLayer state: returns (a dict of the
     new ``n``, ``bg_num`` and mode leaves, out_dist f32 [H, W])."""

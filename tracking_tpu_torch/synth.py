@@ -81,3 +81,74 @@ def crossing_masks(t_len: int, h: int, w: int) -> np.ndarray:
         masks[t, yb : yb + bh, max(xb, 0) : max(xb + bw, 0)] = 255
         masks[t, 4:7, w - 10 : w - 7] = 255
     return masks
+
+
+def multilayer_adversarial(h: int, w: int, seed: int = 0):
+    """A MultiLayer state (5 modes, 3 colours, 6 pattern values) and a
+    frame's features that drive every branch of the update on one call, as
+    numpy arrays: (state with ``n``, ``bg_num`` and the mode leaves; cf f32
+    [3, H, W]; pat f32 [6, H, W]). ``n`` is uniform in 0..5 and the live
+    modes are weight-sorted, as the update keeps them; tail modes (m >= n)
+    hold random words, which the update must keep or move as the reference
+    does. About a fifth of the non-empty pixels have a faded layered last
+    mode (a removal; with n = 1 the list then empties); about half see a
+    frame that matches one live mode exactly in texture and within a level
+    in colour (a match), a third of those on an unlayered mode with a max
+    weight above 0.9 (a promotion); random layers and weight ratios make
+    displacements; the rest see a random colour and pattern (no match:
+    append, or overwrite the tail at n = 5); n = 0 seeds."""
+    rng = np.random.default_rng(seed)
+    M, C, L = 5, 3, 6
+    shape = (h, w)
+    f32, i32 = np.float32, np.int32
+    n = rng.integers(0, M + 1, shape).astype(i32)
+    live = np.arange(M)[:, None, None] < n[None]
+    weight = -np.sort(-rng.uniform(0.001, 1.0, (M, *shape)), axis=0)
+    max_weight = np.minimum(weight / rng.uniform(0.3, 1.0, (M, *shape)), 1.0)
+    layer = rng.integers(0, 4, (M, *shape))
+    bg_int = rng.uniform(0.0, 255.0, (M, C, *shape))
+    min_int = bg_int - rng.uniform(0.0, 30.0, (M, C, *shape)) * (rng.random((M, C, *shape)) < 0.7)
+    max_int = bg_int + rng.uniform(0.0, 30.0, (M, C, *shape)) * (rng.random((M, C, *shape)) < 0.7)
+    bg_pattern = rng.uniform(0.0, 1.0, (M, L, *shape))
+    ii, jj = np.indices(shape)
+
+    # removal: the last live mode faded below min_bg_layer_weight, layered
+    removal = (n > 0) & (rng.random(shape) < 0.2)
+    last = np.maximum(n - 1, 0)
+    weight[last[removal], ii[removal], jj[removal]] = 5e-5
+    layer[last[removal], ii[removal], jj[removal]] = rng.integers(1, 4, int(removal.sum()))
+
+    # match: the frame copies one live mode that the removal keeps
+    n_keep = n - removal
+    match = (n_keep > 0) & (rng.random(shape) < 0.5)
+    target = np.minimum((rng.random(shape) * np.maximum(n_keep, 1)).astype(i32), np.maximum(n_keep - 1, 0))
+    promote = match & (rng.random(shape) < 0.35)
+    t_i, t_j, t_m = ii[promote], jj[promote], target[promote]
+    layer[t_m, t_i, t_j] = 0
+    max_weight[t_m, t_i, t_j] = np.maximum(weight[t_m, t_i, t_j], rng.uniform(0.92, 1.0, t_m.shape))
+    cf = rng.uniform(0.0, 255.0, (C, *shape))
+    pat = (rng.random((L, *shape)) < 0.5).astype(f32)
+    near = np.take_along_axis(bg_int, target[None, None], axis=0)[0] + rng.uniform(-1.0, 1.0, (C, *shape))
+    cf = np.where(match[None], np.clip(near, 0.0, 255.0), cf)
+    pat = np.where(match[None], np.round(np.take_along_axis(bg_pattern, target[None, None], axis=0)[0]), pat)
+
+    def tail(a, junk):
+        keep_live = live.reshape(live.shape[:1] + (1,) * (a.ndim - 3) + live.shape[1:])
+        return np.where(keep_live, a, junk)
+
+    state = {
+        "n": n,
+        "bg_num": (rng.random(shape) * (n + 1)).astype(i32),
+        "weight": tail(weight, rng.uniform(0.0, 1.0, weight.shape)).astype(f32),
+        "max_weight": tail(max_weight, rng.uniform(0.0, 1.0, weight.shape)).astype(f32),
+        "bg_int": tail(bg_int, rng.uniform(0.0, 255.0, bg_int.shape)).astype(f32),
+        "min_int": tail(min_int, rng.uniform(0.0, 255.0, bg_int.shape)).astype(f32),
+        "max_int": tail(max_int, rng.uniform(0.0, 255.0, bg_int.shape)).astype(f32),
+        "bg_pattern": tail(bg_pattern, rng.uniform(0.0, 1.0, bg_pattern.shape)).astype(f32),
+        "bg_layer": tail(layer, rng.integers(0, 4, layer.shape)).astype(i32),
+        "layer_time": rng.integers(-1, 100, (M, *shape)).astype(i32),
+        "first_time": rng.integers(-1, 100, (M, *shape)).astype(i32),
+        "last_time": rng.integers(-1, 100, (M, *shape)).astype(i32),
+        "freq": rng.integers(-1, 100, (M, *shape)).astype(i32),
+    }
+    return state, cf.astype(f32), pat.astype(f32)

@@ -19,8 +19,9 @@ phase:
    ``nvcc`` per source in parallel (anew, even where a library of these
    sources was built before), and prints each kernel's registers, stack
    frame, spills and static shared memory (``--ptxas``: nvcc's own output);
-   ``fused_kernel`` must not spill, and ``multilayer_kernel<0|1>`` and
-   ``texture_kernel<0|1>`` must have no stack frame and no spills;
+   ``fused_kernel`` must not spill, and ``multilayer_kernel<0|1>``,
+   ``texture_kernel<0|1>``, ``read_walk_kernel<1|3>`` and the four
+   ``fgd_tables_kernel`` must have no stack frame and no spills;
 3. each kernel against its plain PyTorch version on the card at its path's
    shapes, exactly (consensus C=3 and C=1, also with a requirement of N,
    with good samples only in its last slots, at a ragged width and in slab
@@ -38,14 +39,18 @@ phase:
    (8x9, 1xW, Hx1), the MultiLayer update learning and not, on a real
    state and on random states on which every branch fires (removal, also
    emptying a list, match, promotion, displacement, no-match append and
-   overwrite, the empty seed; the pixels of each are printed); the v3 read-only walk C=3 and C=1, the fused
+   overwrite, the empty seed; the pixels of each are printed); the v3
+   read-only walk C=3 and C=1, also with a requirement of N, with good
+   samples only in its last slots, at a ragged width and with every walk
+   still open after its first 4 samples; the fused
    whole step C=3 and C=1 at t > 0 and t = 0 with the scalar requirement,
    C=3 also with a random requirement map, and both with a requirement of
    N, with good samples only in the last slots and at a ragged width with
    the step's requirement and with N; FGD's table
    phase on inputs of real steps - the noisy and the quiet clip, the first
-   frame, f32 statistics - on the quiet step with its tables filled, and on
-   random tables with ties; the min-label fixed point on a 180-row shard of
+   frame, f32 statistics - on the quiet step with its tables filled, on
+   random tables with ties, at a ragged width and an odd pixel count, and
+   with f16 subnormal entries; the min-label fixed point on a 180-row shard of
    SuBSENSE's frame-3 mask with its neighbour's boundary row injected, 8- and
    4-connected, on a serpentine crossing the shard cut ten times and on a
    random mask; CC labelling and the fixed point, 8- and 4-connected, on
@@ -89,16 +94,19 @@ phase:
    the four algorithms, v1 / v3 / fused SuBSENSE steps and the
    subsenseShrink fused step in turns, CC
    labelling on FGD's masks (quiet and flooded) beside SuBSENSE's, FGD's
-   table kernel on young, full and noisy-clip tables, the FGD step with the
-   table kernel against the plain table phase in turns and the FG_0 path,
+   table kernel on young, full and noisy-clip tables (also on fresh copies
+   of the state, and with every pixel of the noisy frame in one table), the
+   FGD step with the table kernel against the plain table phase in turns and
+   the FG_0 path,
    each on young and on full tables, the min-label fixed point, the slab
    mode's ms beside the unsharded consensus's, the sharded path's ms/frame
    beside the unsharded path's in turns and its peak memory, the device
    operations a call of the main path's four kernels (``consensus`` at most
    1, ``flood_reach`` and ``label_components`` at most 3), of
-   ``consensus_feedback``, ``gmg_step``, ``texture_prox_cur`` and
-   ``multilayer_step`` (at most 1 each; MultiLayer timed on fresh copies of
-   its state, its bound counting only the words the data needs, the whole
+   ``consensus_read``, ``consensus_feedback``, ``gmg_step``, ``fgd_tables``,
+   ``texture_prox_cur`` and ``multilayer_step`` (at most 1 each; MultiLayer
+   timed on fresh copies of its state, its bound counting only the words the
+   data needs, the whole
    state's beside it) and of
    ``label_fixpoint`` (at most 4), an empty launch's time, and the device's
    busy share and kernels per frame under torch.profiler.
@@ -177,7 +185,11 @@ SPATIAL_TIMED = (8, 2)  # ms/frame = (T(8 frames) - T(2 frames)) / 6
 SWITCHES = ("TRACKING_TPU_CONSENSUS", "TRACKING_TPU_FUSED", "TRACKING_TPU_FUSED_INTERP")
 # kernels that must keep their state in registers or shared memory: no
 # stack frame (a local array indexed at run time) and no spills
-NO_STACK = {"multilayer_kernel<0>", "multilayer_kernel<1>", "texture_kernel<0>", "texture_kernel<1>"}
+NO_STACK = {
+    "multilayer_kernel<0>", "multilayer_kernel<1>", "texture_kernel<0>", "texture_kernel<1>",
+    "read_walk_kernel<1>", "read_walk_kernel<3>",
+    "fgd_tables_kernel<0, 0>", "fgd_tables_kernel<0, 1>", "fgd_tables_kernel<1, 0>", "fgd_tables_kernel<1, 1>",
+}
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; the bound of a kernel is the larger of its bytes and its
 # operations over these
@@ -658,9 +670,11 @@ def capture_call(module, name, run):
 def check_variant_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
     """Phase 3 for the consensus variants' two kernels, each against its
     plain version on the inputs a 720p step of its path gives it, exactly:
-    the v3 walk (C=3, C=1) and the fused step (C=3 and C=1 at t > 0 and
-    t = 0 with the scalar requirement, C=3 also with a random map, and both
-    on ``adversarial_inputs``)."""
+    the v3 walk (C=3, C=1; also on ``adversarial_inputs`` and with its
+    first 4 slots far and a requirement of 6, so that every walk is queued
+    after phase B) and the fused step (C=3 and C=1 at t > 0 and t = 0 with
+    the scalar requirement, C=3 also with a random map, and both on
+    ``adversarial_inputs``)."""
     from tracking_tpu_torch import get_algorithm
     from tracking_tpu_torch.bgs import lbsp_family as LF
     from tracking_tpu_torch.ops.consensus import (
@@ -697,6 +711,16 @@ def check_variant_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
             compare("consensus_read", f"C={c} {name}", a, b)
         planes, colors, descs, lut_delta, R, unstable, req = args
         check(int((p_out[0] < req).sum()) > 0, f"consensus_read C={c} has pixels short of the required samples")
+        far4 = tuple(torch.cat([(p[None] ^ 0x80).expand(4, -1, -1), col[4:]]) for p, col in zip(planes, colors))
+        hard = adversarial_inputs(args, req_at=6)
+        hard.append(("first 4 slots far, required = 6", (planes, far4) + args[2:6] + (torch.full_like(req, 6),)))
+        for what, a in hard:
+            k_h = consensus_read(*clone(a), **kw)
+            p_h = consensus_read_ref(*clone(a), **kw)
+            e = max(max_err(x, y) for x, y in zip(k_h, p_h))
+            errs["consensus_read"] = max(errs["consensus_read"], e)
+            check(e == 0.0, f"consensus_read C={c} {what}: all four outputs equal (max |err| {e}); "
+                            f"{int((p_h[0] < a[6]).sum())} px short of their requirement")
         if c == 3:
             timing_inputs["consensus_read"] = (args, kw)
             _, walked = walked_samples(planes, colors, descs, p_out[3], lut_delta, R, unstable, req, kw)
@@ -757,19 +781,20 @@ def crop_width(a, wc: int):
     return a[..., :wc].contiguous() if isinstance(a, torch.Tensor) and a.dim() >= 2 else a
 
 
-def adversarial_inputs(args):
-    """Adversarial inputs for the consensus and the fused step, built from
-    a 720p step's arguments (planes, colour banks, ..., the requirement at
-    index 8): a requirement of N, so that every sample is walked; banks
-    whose first N - 3 colour slots are far from the frame, so that good
-    samples lie only in the last slots; a ragged width (W - 6 = 1274, no
-    multiple of 4 or 16) with the step's requirement and with N."""
+def adversarial_inputs(args, req_at: int = 8):
+    """Adversarial inputs for the consensus, the fused step and the v3 walk,
+    built from a 720p step's arguments (planes, colour banks, ..., the
+    requirement at index ``req_at``): a requirement of N, so that every
+    sample is walked; banks whose first N - 3 colour slots are far from the
+    frame, so that good samples lie only in the last slots; a ragged width
+    (W - 6 = 1274, no multiple of 4 or 16) with the step's requirement and
+    with N."""
     planes, colors = args[0], args[1]
     N = colors[0].shape[0]
     wr = W - 6
     full_n = torch.full((H, W), N, dtype=torch.int32, device=planes[0].device)
     far = tuple(torch.cat([(p[None] ^ 0x80).expand(N - 3, -1, -1), col[N - 3 :]]) for p, col in zip(planes, colors))
-    with_n = args[:8] + (full_n,) + args[9:]
+    with_n = args[:req_at] + (full_n,) + args[req_at + 1 :]
     return [
         ("required = N", with_n),
         ("good samples only in the last 3 slots", (planes, far) + args[2:]),
@@ -1032,11 +1057,39 @@ def aged(cfg, state, seed: int = 5):
     return st
 
 
+def crop_fgd(args, h: int, w: int):
+    """FGD table-phase arguments cut to their first ``h`` rows and ``w``
+    columns."""
+    cfg, st, *maps, first = args
+    cut = lambda t: t[..., :h, :w].contiguous() if t.dim() >= 2 else t  # noqa: E731
+    return (cfg, {k: cut(v) for k, v in st.items()}, *map(cut, maps), first)
+
+
+def subnormal_entries(args, seed: int = 6):
+    """FGD table-phase arguments (f16 statistics) with every unused entry
+    (P = 0) given an f16 subnormal P = k * 2^-24, k in 1..199, and Pb = P
+    or 0: the decay by 1 - alpha2 rounds k < 100 back to itself."""
+    cfg, st, *rest = args
+    st = clone(st)
+    dev = st["fg_age"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for prefix in ("ct", "cc"):
+        P, Pb = st[f"{prefix}_P"], st[f"{prefix}_Pb"]
+        sub = (torch.randint(1, 200, P.shape, generator=gen, device=dev).to(torch.float32) * 2.0**-24).to(P.dtype)
+        seen_bg = torch.rand(P.shape, generator=gen, device=dev) < 0.5
+        Pb.copy_(torch.where(P == 0, torch.where(seen_bg, sub, torch.zeros_like(sub)), Pb))
+        P.copy_(torch.where(P == 0, sub, P))
+    return (cfg, st, *rest)
+
+
 def check_fgd_kernel(frames, quiet, dev, errs, timing_inputs, bounds) -> None:
     """Phase 3 for FGD's table kernel against its plain version at 720p,
     exactly: on inputs captured from real FGD steps (the noisy and the quiet
     clip, the first frame, f32 statistics), on the quiet step with full
-    tables and on random tables with forced ties; each timed input's bound."""
+    tables, on random tables with forced ties, at a ragged width (720x1277:
+    the kernel's quads still whole) and an odd pixel count (719x1277: its
+    per-pixel path), and with f16 subnormal P in every unused entry (most
+    decay to themselves); each timed input's bound."""
     from tracking_tpu_torch import get_algorithm
     from tracking_tpu_torch.bgs import fgd as BF
     from tracking_tpu_torch.ops.fgd import TABLE_LEAVES, fgd_tables, fgd_tables_ref
@@ -1095,6 +1148,10 @@ def check_fgd_kernel(frames, quiet, dev, errs, timing_inputs, bounds) -> None:
             torch.randint(0, 2, (2 * C, H, W), generator=gen, dtype=torch.uint8).to(dev))
     changed = (torch.rand((H, W), generator=gen) < 0.5).to(dev)
     compare("random tables with ties", (cfg, st, *keys, changed, torch.zeros((), dtype=torch.bool, device=dev)))
+    for what in (FGD_ROW, "noisy clip, frame 64"):
+        compare(f"{what}, ragged width {H}x{W - 3}", crop_fgd(cases[what], H, W - 3))
+        compare(f"{what}, odd pixel count {H - 1}x{W - 3}", crop_fgd(cases[what], H - 1, W - 3))
+    compare("quiet clip, frame 6, f16 subnormal P in every unused entry", subnormal_entries(quiet_args))
 
     timed = {}
     for what, a in cases.items():
@@ -1188,11 +1245,13 @@ def fgd_path(quiet, dev, results, tracker, timing_inputs):
 
 def time_fgd(timing_inputs, results, algo, start, tracker, quiet, dev, tag) -> None:
     """Phase 6 for FGD: the table kernel beside its plain version on young,
-    full and noisy-clip tables; CC labelling on FGD's masks beside
-    SuBSENSE's; on a young model and on the same model with full tables, the
-    step with the table kernel against the step with the plain table phase
-    (all else the same) in turns, and the FG_0 path ms/frame; the FG_0 path
-    under the profiler."""
+    full and noisy-clip tables (also on fresh copies of each state), its
+    device operations a call, and on the noisy clip's frame with every pixel
+    in one table; CC labelling on FGD's masks beside SuBSENSE's; on a young
+    model and on the same model with full tables, the step with the table
+    kernel against the step with the plain table phase (all else the same)
+    in turns, and the FG_0 path ms/frame; the FG_0 path under the
+    profiler."""
     from tracking_tpu_torch.bgs import fgd as BF
     from tracking_tpu_torch.ops.cc import label_components
     from tracking_tpu_torch.ops.fgd import fgd_tables, fgd_tables_ref
@@ -1205,12 +1264,38 @@ def time_fgd(timing_inputs, results, algo, start, tracker, quiet, dev, tag) -> N
               f"{ms[0]:.4f} / {ms[1]:.4f} ms", flush=True)
         device_ops(lambda m=m: label_components(m), f"label_components on {what}", tag)
 
+    def fresh_ms(args, reps: int = 10) -> float:
+        # the kernel updates the tables in place and stores only what
+        # changes: each timed call gets a fresh copy of the state
+        cfg, st, *rest = args
+        pool = iter([clone(st) for _ in range(reps + 1)])
+        return cuda_ms(lambda: fgd_tables(cfg, next(pool), *rest), reps)
+
+    # first on fresh copies: the same call again (below, as earlier PRs
+    # timed it) updates the phase-3 states in place. A quad whose pixels
+    # consult both tables runs both: the noisy frame (the kinds mixed) is
+    # also timed with every pixel in one table, and the two mixed by the
+    # frame's share of changed pixels
+    fresh = {what: [fresh_ms(a[0]) for _ in range(2)] for what, a in timing_inputs["fgd_tables"].items()}
+    args = timing_inputs["fgd_tables"]["noisy clip, frame 64"][0]
+    share = float(args[4].to(torch.float32).mean())
+    one = {label: min(fresh_ms(args[:4] + (torch.full_like(args[4], v),) + args[5:]) for _ in range(2))
+           for label, v in (("co-occurrence", True), ("colour", False))}
+    print(f"  {tag} fgd_tables, noisy clip, frame 64, fresh copies: as it is ({share:.4f} of the pixels changed) "
+          f"{min(fresh['noisy clip, frame 64']):.4f} ms; every pixel in the co-occurrence table "
+          f"{one['co-occurrence']:.4f} ms, in the colour table {one['colour']:.4f} ms; their mix by the share "
+          f"{share * one['co-occurrence'] + (1 - share) * one['colour']:.4f} ms", flush=True)
     for what, (args, b_ms, b_by) in timing_inputs["fgd_tables"].items():
         row = {"bound_ms": b_ms, "bound_by": b_by}
+        print(f"  {tag} fgd_tables, {what}, on fresh copies of the state: {fresh[what][0]:.4f} / "
+              f"{fresh[what][1]:.4f} ms = {b_ms / min(fresh[what]):.1%} of the bound", flush=True)
         time_pair("fgd_tables", lambda args=args: fgd_tables(*args), lambda args=args: fgd_tables_ref(*args), 20, 3,
-                  {"fgd_tables": row}, tag, label=f"fgd_tables, {what}")
+                  {"fgd_tables": row}, tag, label=f"fgd_tables, {what}, the same call again")
         if what == FGD_ROW:
-            results["fgd_tables"].update(ms=row["ms"], plain_ms=row["plain_ms"])
+            results["fgd_tables"].update(ms=row["ms"], plain_ms=row["plain_ms"], ms_fresh_state=min(fresh[what]))
+    args = timing_inputs["fgd_tables"][FGD_ROW][0]
+    n_ops = device_ops(lambda: fgd_tables(*args), "fgd_tables", tag)
+    check(n_ops <= 1, f"fgd_tables takes {n_ops:.1f} device operations a call (at most 1)")
 
     def run(model, with_tracker: bool):
         s, tr = clone(model), tracker.init(device=dev)
@@ -1498,7 +1583,8 @@ def check_consensus_adversarial(args, kw, dev, errs) -> None:
 
 def kernel_name(sym: str) -> str:
     """A kernel's name from its mangled symbol: the last component of a
-    (namespaced) name, with a first integral template argument as <n>."""
+    (namespaced) name, with its leading integral template arguments as
+    <n, ...>."""
     import re
 
     pos, name = len(re.match(r"_ZN?", sym).group(0)), sym
@@ -1507,8 +1593,8 @@ def kernel_name(sym: str) -> str:
         pos += len(digits)
         name = sym[pos : pos + int(digits)]
         pos += int(digits)
-    t = re.match(r"IL[ib](\d+)E", sym[pos:])
-    return name + (f"<{t.group(1)}>" if t else "")
+    t = re.match(r"I((?:L[ib]\d+E)+)", sym[pos:])
+    return name + ("<" + ", ".join(re.findall(r"\d+", t.group(1))) + ">" if t else "")
 
 
 def ptxas_table(text: str) -> list:
@@ -1926,7 +2012,8 @@ def main(argv) -> None:
         time_pair(k, lambda fk=fk: fk(*v_args, **v_kw), lambda fp=fp: fp(*v_args, **v_kw), 20, 3, results, tag)
     from tracking_tpu_torch.ops.gmg import gmg_step
 
-    for k, fk in (("consensus_feedback", consensus_feedback), ("gmg_step", gmg_step)):
+    for k, fk in (("consensus_read", consensus_read), ("consensus_feedback", consensus_feedback),
+                  ("gmg_step", gmg_step)):
         v_args, v_kw = timing_inputs[k]
         n_ops = device_ops(lambda fk=fk: fk(*v_args, **v_kw), k, tag)
         check(n_ops <= 1, f"{k} takes {n_ops:.1f} device operations a call (at most 1)")

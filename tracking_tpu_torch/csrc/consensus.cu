@@ -24,9 +24,9 @@
 // banks stay in place (no copy). consensus_kernel and fused_kernel (below,
 // "three phases") read a tile's colour slots once with 16-byte copies, write
 // back only the 32-byte sectors their replay changes, and walk with
-// byte-SIMD descriptors; lobster_kernel and read_walk_kernel keep the first
-// design, one thread per pixel on the device functions replay_pending,
-// bank_sums and lbsp_walk.
+// byte-SIMD descriptors; read_walk_kernel runs the same walk on const banks;
+// lobster_kernel keeps the first design, one thread per pixel on the device
+// functions replay_pending and bank_sums.
 //
 // Thresholds are f32 expressions the reference evaluates without fused
 // multiply-adds and with XLA's reciprocal product for a constant divisor:
@@ -43,8 +43,8 @@
 // The file's other kernels share these steps as device functions:
 // fused_kernel (consensus_kernel's phases ct_replay and ct_walk, then the
 // feedback stage of feedback.cuh and the next frame's pending log),
-// lobster_kernel (LOBSTER's consensus) and read_walk_kernel (steps 3-4 on
-// read-only banks, consensus v3).
+// read_walk_kernel (ct_stage and ct_walk: steps 3-4 on read-only banks,
+// consensus v3) and lobster_kernel (LOBSTER's consensus).
 #include "common.cuh"
 #include "feedback.cuh"
 
@@ -52,6 +52,12 @@ struct Banks {
   uint8_t* col[3];
   uint16_t* desc[3];
   const int32_t* vals[3];
+};
+
+// The banks as read_walk_kernel reads them.
+struct ConstBanks {
+  const uint8_t* col[3];
+  const uint16_t* desc[3];
 };
 
 // LBSP neighbour offsets (x, y) in bit order (tracking_tpu/ops/lbsp.py OFFSETS)
@@ -154,87 +160,6 @@ __device__ __forceinline__ void bank_sums(const Banks& banks, int32_t* bg_out, i
   }
 }
 
-// The banks as read_walk_kernel reads them.
-struct ConstBanks {
-  const uint8_t* col[3];
-  const uint16_t* desc[3];
-};
-
-// Steps 3-4 in one thread, for read_walk_kernel:
-// the intra LBSP descriptors from 16 edge-clamped neighbours, the colour and
-// descriptor thresholds from R and the previous unstable mask, then the walk
-// over the N samples, stopping once `req` good samples are counted. Only the
-// slots the walk reaches are read. E > 0: the planes are [H + 2E, W] slabs
-// (header); the clamp to the slab's rows then never engages (E >= 2).
-template <int C>
-__device__ __forceinline__ void lbsp_walk(const uint8_t* __restrict__ planes, const ConstBanks& banks, int x, int y,
-                                          int p, int N, int H, int W, float delta, float rel, float inv_div, float hi,
-                                          float R, bool unst, int req, int min_cd, int desc_off, int px[C],
-                                          int intra[C], int& count_out, int& mind_out, int& mins_out, int E = 0) {
-  const size_t HW = (size_t)H * W;
-  const int Hp = H + 2 * E;  // the planes' rows
-  int nbv[C][16];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const uint8_t* pl = planes + (size_t)c * Hp * W;
-    px[c] = pl[(y + E) * W + x];
-    const int thr = lbsp_thr(px[c], delta, rel, inv_div, hi);
-    int d = 0;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      int v = pl[clampi(y + E + kLbspDy[k], 0, Hp - 1) * W + clampi(x + kLbspDx[k], 0, W - 1)];
-      nbv[c][k] = v;
-      d |= (abs(v - px[c]) > thr ? 1 : 0) << k;
-    }
-    intra[c] = d;
-  }
-
-  const float ctf = R * (float)min_cd - (unst ? 0.0f : (float)(min_cd / 5));
-  int ct = (int)ctf;
-  if (C == 1) ct = floordiv2(ct);
-  const int n_exp = (int)floorf(R + 0.5f);
-  const int pow2 = (n_exp >= 0 && n_exp < 32) ? (int)(1u << n_exp) : 0;
-  const int dt = pow2 + desc_off + (unst ? desc_off : 0);
-  const int sc = C == 3 ? floordiv2(ct * 3) : ct;
-
-  int count = 0, mind = 16 * C, mins = 255 * C;
-  for (int j = 0; j < N && count < req; ++j) {
-    int tot_desc = 0, tot_sum = 0;
-    bool good = true;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int s_col = banks.col[c][(size_t)j * HW + p];
-      const int s_desc = banks.desc[c][(size_t)j * HW + p];
-      const int cd = abs(px[c] - s_col);
-      const int sthr = lbsp_thr(s_col, delta, rel, inv_div, hi);
-      int inter = 0;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) inter |= (abs(nbv[c][k] - s_col) > sthr ? 1 : 0) << k;
-      const int dd = (popc16(intra[c] ^ s_desc) + popc16(inter ^ s_desc)) >> 1;
-      if (C == 1) {
-        const int sum_d = min((dd / 4) * 15 + cd, 255);
-        good = (cd <= ct) && (dd <= dt) && (sum_d <= ct);
-        tot_desc = dd;
-        tot_sum = sum_d;
-      } else {
-        const int sum_c = min((dd / 2) * 15 + cd, 255);
-        good = good && (cd <= sc) && (sum_c <= sc);
-        tot_desc += dd;
-        tot_sum += sum_c;
-      }
-    }
-    if (C == 3) good = good && (tot_desc <= dt * 3) && (tot_sum <= ct * 3);
-    if (good) {
-      ++count;
-      mind = min(mind, tot_desc);
-      mins = min(mins, tot_sum);
-    }
-  }
-  count_out = count;
-  mind_out = mind;
-  mins_out = mins;
-}
-
 // ---------------------------------------------------------------------------
 // consensus_kernel: one block of CT_T threads per CT_H x 64 tile of pixels, in
 // three phases that share the block's shared memory (header, steps 1-4);
@@ -242,7 +167,8 @@ __device__ __forceinline__ void lbsp_walk(const uint8_t* __restrict__ planes, co
 //   A. replay and bg_sum: the tile's N colour slot planes of every channel
 //      are copied into shared memory with 16-byte cp.async copies while each
 //      pixel's thread decodes its pending log (pending_writes) and writes the
-//      descriptor slots to the banks. The colour slots are written into the
+//      descriptor slots to the banks; ct_stage fills the walk's plane tile and
+//      threshold table meanwhile. The colour slots are written into the
 //      shared copy, and only the 32-byte sectors that changed go back to the
 //      banks, whole. bg_sum adds the shared copy four pixels a word, u16 sums
 //      in 32-bit lanes (50 x 255 fits in 16 bits; integer sums do not depend
@@ -253,7 +179,8 @@ __device__ __forceinline__ void lbsp_walk(const uint8_t* __restrict__ planes, co
 //      steps (lbsp_bits); the threshold of a value is a shared table; the
 //      descriptors of CT_BATCH samples are loaded before the first is tested,
 //      the stop rule still applies sample by sample, and the colours come
-//      from the shared copy;
+//      from the shared copy (read_walk_kernel: from the banks, loaded with
+//      the descriptors);
 //   C. the pixels whose walk has not stopped are queued in shared memory and
 //      every thread of the block walks the queue densely. A pixel's result
 //      does not depend on which thread computes it.
@@ -272,9 +199,13 @@ __device__ __forceinline__ void lbsp_walk(const uint8_t* __restrict__ planes, co
 #define CT_PW (CT_W + 4)        // the planes' shared tile, 2-px halo
 #define CT_PH (CT_H + 4)
 
-struct ConsArgs {
+// The kernels' arguments, over the banks they write (Banks: consensus_kernel,
+// fused_kernel) or only read (ConstBanks: read_walk_kernel, which leaves
+// ctrl, bg_sum and vec unset and E = 0).
+template <class B>
+struct ConsArgsT {
   const uint8_t* planes[3];
-  Banks banks;
+  B banks;
   const int32_t* ctrl;
   const float* R;
   const bool* unstable;
@@ -290,6 +221,8 @@ struct ConsArgs {
   int min_cd, desc_off;
   int vec;  // W % 16 == 0 and 16-byte aligned colour banks: whole 16-byte copies
 };
+using ConsArgs = ConsArgsT<Banks>;
+using ReadArgs = ConsArgsT<ConstBanks>;
 
 // A pixel's pending writes, decoded as replay_pending decodes them: the slot
 // of the self write and of the spread (-1: none) and their packed values.
@@ -378,7 +311,8 @@ __device__ __forceinline__ int lbsp_bits(const uint32_t nb[4], uint32_t s4, uint
 }
 
 // A pixel's walk context: packed neighbours, values, intra descriptors and
-// thresholds (lbsp_walk's, in the same f32 order).
+// the colour and descriptor thresholds from R and the previous unstable mask
+// (the reference's f32 expressions, in its order).
 template <int C>
 struct WalkCtx {
   uint32_t nb[C][4];
@@ -408,32 +342,49 @@ __device__ __forceinline__ void walk_ctx(WalkCtx<C>& w, const uint8_t* s_pl, con
   w.req = req;
 }
 
+// Where the walk reads a sample's colour: the tile's shared copy that
+// ct_replay filled (consensus_kernel, fused_kernel), or the banks in device
+// memory, CT_BATCH bytes at a time with the descriptors (read_walk_kernel).
+enum class ColSrc { Shared, Banks };
+
 // The walk from sample j until j_end, stopping once w.req good samples are
-// counted (lbsp_walk's rule); colours from the shared copy (byte `off` of a
-// slot plane), descriptors from the banks, CT_BATCH loads at a time.
-template <int C>
-__device__ __forceinline__ void walk_samples(const WalkCtx<C>& w, const uint8_t* s_col, int off, const Banks& banks,
+// counted; descriptors from the banks, CT_BATCH loads at a time, colours
+// from SRC (Shared: byte `off` of a slot plane of s_col). A sample is good
+// where, per channel, the colour distance cd and the descriptor distance dd
+// (the mean of the intra and the inter descriptor's Hamming distances to the
+// sample's) pass the thresholds: C = 1 cd <= ct, dd <= dt and
+// min(dd / 4 * 15 + cd, 255) <= ct; C = 3 per channel cd <= sc and
+// min(dd / 2 * 15 + cd, 255) <= sc, and their sums within 3 dt and 3 ct.
+template <int C, ColSrc SRC, class B>
+__device__ __forceinline__ void walk_samples(const WalkCtx<C>& w, const uint8_t* s_col, int off, const B& banks,
                                              int p, size_t HW, const uint2* lut, int N, int j_end, int& j,
                                              int& count, int& mind, int& mins) {
   while (j < j_end && count < w.req) {
     int sd[CT_BATCH][C];
+    uint32_t sc[C];  // ColSrc::Banks: the batch's colour bytes, byte b of sample j + b
+#pragma unroll
+    for (int c = 0; c < C; ++c) sc[c] = 0;
 #pragma unroll
     for (int b = 0; b < CT_BATCH; ++b)
 #pragma unroll
-      for (int c = 0; c < C; ++c) sd[b][c] = j + b < N ? banks.desc[c][(size_t)(j + b) * HW + p] : 0;
+      for (int c = 0; c < C; ++c) {
+        sd[b][c] = j + b < N ? banks.desc[c][(size_t)(j + b) * HW + p] : 0;
+        if (SRC == ColSrc::Banks && j + b < N) sc[c] |= (uint32_t)banks.col[c][(size_t)(j + b) * HW + p] << (8 * b);
+      }
 #pragma unroll
     for (int b = 0; b < CT_BATCH; ++b) {
       const int jj = j + b;
       if (jj < N && count < w.req) {
-        // lbsp_walk's tests; a channel whose colour distance already fails
-        // makes the sample bad, so the descriptors after it are not computed
-        // (the totals count only for good samples)
+        // a channel whose colour distance already fails makes the sample
+        // bad, so the descriptors after it are not computed (the totals
+        // count only for good samples)
         int tot_desc = 0, tot_sum = 0;
         bool good = true;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           if (!good) break;
-          const int s_col_v = s_col[(c * N + jj) * CT_SLOT + off];
+          const int s_col_v =
+              SRC == ColSrc::Shared ? s_col[(c * N + jj) * CT_SLOT + off] : (int)((sc[c] >> (8 * b)) & 0xFFu);
           const int cd = abs(w.px[c] - s_col_v);
           if (cd > (C == 1 ? w.ct : w.sc)) {
             good = false;
@@ -477,7 +428,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 template <int C>
 __host__ __device__ constexpr int ct_smem_bytes(int N) {
-  // colour copy, plane tile, threshold table, dirty flags (16-aligned), queue, queue length
+  // colour copy, plane tile, threshold table, dirty flags (16-aligned), queue, queue length;
+  // N = 0: no colour copy and no dirty flags (read_walk_kernel)
   return C * N * CT_SLOT + C * CT_PH * CT_PW + 256 * 8 + (C * N * 2 * CT_H + 15) / 16 * 16 + CT_T * 4 + 16;
 }
 
@@ -503,10 +455,29 @@ __device__ __forceinline__ CtShared ct_shared(uint8_t* smem, int N) {
   return s;
 }
 
+// The walk's inputs in shared memory, for ct_replay and read_walk_kernel: the
+// tile's planes with their 2-px halo (edge-clamped; in slab mode the slab's
+// rows) and the threshold table. Every thread t of the block calls it with
+// the frame's H, W and E; the caller empties the queue and synchronises
+// before the walk.
+template <int C, class A>
+__device__ __forceinline__ void ct_stage(const A& a, const CtShared& s, int t, int x0, int y0, int H, int W, int E) {
+  const int Hp = H + 2 * E;
+  for (int i = t; i < C * CT_PH * CT_PW; i += CT_T) {
+    const int c = i / (CT_PH * CT_PW), rc = i % (CT_PH * CT_PW);
+    const int yy = clampi(y0 + rc / CT_PW - 2 + E, 0, Hp - 1), xx = clampi(x0 + rc % CT_PW - 2, 0, W - 1);
+    s.pl[i] = a.planes[c][(size_t)yy * W + xx];
+  }
+  for (int v = t; v < 256; v += CT_T) {
+    const uint32_t K = (uint32_t)(255 - lbsp_thr(v, (float)a.lut_delta[0], a.rel, a.inv_div, a.hi)) * 0x01010101u;
+    s.lut[v] = make_uint2(K, K & 0x7f7f7f7fu);
+  }
+}
+
 // Phase A, shared by consensus_kernel and fused_kernel: the replay of the
 // pending log into the banks (colours through the shared copy, descriptors
-// straight) and bg_sum; also fills the plane tile and the threshold table
-// for the walk. Every thread of the block calls it.
+// straight) and bg_sum; ct_stage fills the walk's inputs meanwhile. Every
+// thread of the block calls it.
 template <int C>
 __device__ __forceinline__ void ct_replay(const ConsArgs& a, const CtShared& s, int x0, int y0) {
   const int N = a.N, H = a.H, W = a.W, E = a.E;
@@ -537,16 +508,7 @@ __device__ __forceinline__ void ct_replay(const ConsArgs& a, const CtShared& s, 
       }
     }
   }
-  const int Hp = H + 2 * E;
-  for (int i = t; i < C * CT_PH * CT_PW; i += CT_T) {
-    const int c = i / (CT_PH * CT_PW), rc = i % (CT_PH * CT_PW);
-    const int yy = clampi(y0 + rc / CT_PW - 2 + E, 0, Hp - 1), xx = clampi(x0 + rc % CT_PW - 2, 0, W - 1);
-    s.pl[i] = a.planes[c][(size_t)yy * W + xx];
-  }
-  for (int v = t; v < 256; v += CT_T) {
-    const uint32_t K = (uint32_t)(255 - lbsp_thr(v, (float)a.lut_delta[0], a.rel, a.inv_div, a.hi)) * 0x01010101u;
-    s.lut[v] = make_uint2(K, K & 0x7f7f7f7fu);
-  }
+  ct_stage<C>(a, s, t, x0, y0, H, W, E);
   for (int i = t; i < C * N * 2 * CT_H; i += CT_T) s.dirty[i] = 0;
   if (t == 0) *s.qn = 0;
   // the descriptor writes go straight to the banks
@@ -629,14 +591,14 @@ struct WalkOut {
   uint32_t* pv;   // [C][CT_T]
 };
 
-template <bool FUSED>
-__device__ __forceinline__ int walk_req(const ConsArgs& a, int x, int y, int p) {
+template <bool FUSED, class A>
+__device__ __forceinline__ int walk_req(const A& a, int x, int y, int p) {
   if (FUSED && !(y >= 2 && y <= a.H - 3 && x >= 2 && x <= a.W - 3)) return 0;
   return a.required[p];
 }
 
-template <bool FUSED>
-__device__ __forceinline__ void walk_result(const ConsArgs& a, const WalkOut& o, int tp, int p, int count, int mind,
+template <bool FUSED, class A>
+__device__ __forceinline__ void walk_result(const A& a, const WalkOut& o, int tp, int p, int count, int mind,
                                             int mins) {
   if (FUSED) {
     o.res[tp] = (uint32_t)count | (uint32_t)mind << 8 | (uint32_t)mins << 16;
@@ -648,11 +610,12 @@ __device__ __forceinline__ void walk_result(const ConsArgs& a, const WalkOut& o,
 }
 
 // Phases B and C, shared: the walk's first CT_BATCH samples one thread per
-// pixel, then the open walks densely from a shared queue. Ends with the
-// block in step after phase B; phase C's results are visible to the block
-// only after the caller's __syncthreads.
-template <int C, bool FUSED>
-__device__ __forceinline__ void ct_walk(const ConsArgs& a, const CtShared& s, const WalkOut& o, int x0, int y0) {
+// pixel, then the open walks densely from a shared queue, with the colours
+// from SRC. Needs ct_stage's inputs in place (after a __syncthreads). Ends
+// with the block in step after phase B; phase C's results are visible to
+// the block only after the caller's __syncthreads.
+template <int C, bool FUSED, ColSrc SRC, class A>
+__device__ __forceinline__ void ct_walk(const A& a, const CtShared& s, const WalkOut& o, int x0, int y0) {
   const int N = a.N, W = a.W;
   const size_t HW = (size_t)a.H * W;
   const int t = threadIdx.x, lane = t & 31;
@@ -674,7 +637,7 @@ __device__ __forceinline__ void ct_walk(const ConsArgs& a, const CtShared& s, co
         a.intra[(size_t)c * HW + p] = w.intra[c];
       }
     }
-    walk_samples<C>(w, s.col, r * 64 + cx, a.banks, p, HW, s.lut, N, CT_BATCH, j, count, mind, mins);
+    walk_samples<C, SRC>(w, s.col, r * 64 + cx, a.banks, p, HW, s.lut, N, CT_BATCH, j, count, mind, mins);
   }
   const bool open = in && count < w.req && j < N;
   if (in && !open) walk_result<FUSED>(a, o, t, p, count, mind, mins);
@@ -695,7 +658,7 @@ __device__ __forceinline__ void ct_walk(const ConsArgs& a, const CtShared& s, co
     WalkCtx<C> wq;
     walk_ctx<C>(wq, s.pl, s.lut, rq, cq, a.R[pq], a.unstable[pq], walk_req<FUSED>(a, xq, yq, pq), a.min_cd,
                 a.desc_off);
-    walk_samples<C>(wq, s.col, rq * 64 + cq, a.banks, pq, HW, s.lut, N, N, jq, cnt, md, ms);
+    walk_samples<C, SRC>(wq, s.col, rq * 64 + cq, a.banks, pq, HW, s.lut, N, N, jq, cnt, md, ms);
     walk_result<FUSED>(a, o, tp, pq, cnt, md, ms);
   }
 }
@@ -706,7 +669,7 @@ __global__ void __launch_bounds__(CT_T) consensus_kernel(ConsArgs a) {
   const CtShared s = ct_shared<C>(smem, a.N);
   const int x0 = blockIdx.x * CT_W, y0 = blockIdx.y * CT_H;
   ct_replay<C>(a, s, x0, y0);
-  ct_walk<C, false>(a, s, WalkOut{nullptr, nullptr}, x0, y0);
+  ct_walk<C, false, ColSrc::Shared>(a, s, WalkOut{nullptr, nullptr}, x0, y0);
 }
 
 template <int C>
@@ -879,73 +842,87 @@ TT_EXPORT int tt_consensus_lobster(const void* planes, void* col0, void* col1, v
 }
 
 // ---------------------------------------------------------------------------
-// read_walk_kernel: consensus v3's read-only walk, one thread per pixel.
-// Replaces tracking_tpu/ops/pallas_consensus.py:consensus_read_pallas
+// read_walk_kernel: consensus v3's read-only walk, one block of CT_T threads
+// per CT_H x 64 tile as consensus_kernel. Replaces
+// tracking_tpu/ops/pallas_consensus.py:consensus_read_pallas
 // (_make_read_kernel) and, with the same inputs and outputs, the retired v2
 // walk attic/pallas_consensus2.py:consensus_walk_pallas. The banks are
 // already current (the step applies its slot writes eagerly, in plain torch,
 // with frame-global slots), so there is no replay, no bg_sum and no write:
 // steps 3-4 of consensus_kernel on const banks. `required` arrives
-// ROI-zeroed. The v2 TPU kernel fetched bank slot groups on demand so that
-// converged tiles skip the rest; a thread that reads a pixel's slots only as
-// its walk reaches them is that design's natural form here, so one kernel
-// stands for both TPU kernels.
+// ROI-zeroed, so walk_req<false> serves as it is. The v2 TPU kernel fetched
+// slot groups on demand so that converged tiles skip the rest; a walk that
+// reads a pixel's slots only as it reaches them does that here, so one
+// kernel stands for both TPU kernels.
 //
 // Bound on the H100: device-memory bytes - the frame, R, unstable and
-// required (10 B/px), the samples each walk examines (3 B per channel), and
-// 4 + C int32 maps written.
+// required (C + 9 B/px), the samples each walk examines (3 B per channel)
+// and the 3 + C int32 maps written: 0.022 ms at 720p colour on
+// chip_smoke.py's clip (4.9 samples a pixel). The first design, one thread
+// per pixel in 32 x 8 blocks, reached 6.5 % of it (0.34 ms on an H100,
+// PERF.md section 6): 16 byte loads of LBSP neighbours a channel from device
+// memory, 16 scalar compares after a float threshold for every descriptor of
+// every sample, and a warp walking all 50 samples beside one foreground
+// pixel. Here ct_stage puts the tile's planes and the threshold table in
+// shared memory and ct_walk runs consensus_kernel's phases B and C: byte-SIMD
+// descriptors, CT_BATCH samples' loads in flight, the open walks packed
+// densely from a shared queue. The colours come from the banks with the
+// descriptors (ColSrc::Banks), a batch's four bytes of a channel packed in
+// one register: the walk examines about 5 of the 50 slots, so staging the
+// tile's colour slots would read 138 MB for 13 MB of need. ptxas (CUDA 12.8,
+// sm_90a): <3> 64 registers, <1> 40, no stack frame, no spills (chip_smoke.py
+// phase 2 fails on either). Phase C walks of 6, 8 or 12 samples a batch took
+// more registers and were slower (timed beside this one, not committed).
 template <int C>
-__global__ void read_walk_kernel(const uint8_t* __restrict__ planes, ConstBanks banks, const float* __restrict__ R_map,
-                                 const bool* __restrict__ unstable_map, const int32_t* __restrict__ required_map,
-                                 const int32_t* __restrict__ lut_delta, int32_t* count_out, int32_t* mind_out,
-                                 int32_t* mins_out, int32_t* intra_out, int N, int H, int W, float rel, float inv_div,
-                                 float hi, int min_cd, int desc_off) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const size_t HW = (size_t)H * W;
-  const int p = y * W + x;
-  int px[C], intra[C], count, mind, mins;
-  lbsp_walk<C>(planes, banks, x, y, p, N, H, W, (float)lut_delta[0], rel, inv_div, hi, R_map[p], unstable_map[p],
-               required_map[p], min_cd, desc_off, px, intra, count, mind, mins);
-#pragma unroll
-  for (int c = 0; c < C; ++c) intra_out[(size_t)c * HW + p] = intra[c];
-  count_out[p] = count;
-  mind_out[p] = mind;
-  mins_out[p] = mins;
+__global__ void __launch_bounds__(CT_T) read_walk_kernel(ReadArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const CtShared s = ct_shared<C>(smem, 0);  // no colour copy
+  const int x0 = blockIdx.x * CT_W, y0 = blockIdx.y * CT_H;
+  ct_stage<C>(a, s, threadIdx.x, x0, y0, a.H, a.W, 0);
+  if (threadIdx.x == 0) *s.qn = 0;
+  __syncthreads();
+  ct_walk<C, false, ColSrc::Banks>(a, s, WalkOut{nullptr, nullptr}, x0, y0);
 }
 
-TT_EXPORT int tt_consensus_read(const void* planes, const void* col0, const void* col1, const void* col2,
-                                const void* desc0, const void* desc1, const void* desc2, const void* R,
-                                const void* unstable, const void* required, const void* lut_delta, void* count,
-                                void* mind, void* mins, void* intra, int C, int N, int H, int W, float rel, float div,
-                                float hi_const, int min_cd, int desc_off, void* stream_) {
+TT_EXPORT int tt_consensus_read(const void* plane0, const void* plane1, const void* plane2, const void* col0,
+                                const void* col1, const void* col2, const void* desc0, const void* desc1,
+                                const void* desc2, const void* R, const void* unstable, const void* required,
+                                const void* lut_delta, void* count, void* mind, void* mins, void* intra, int C, int N,
+                                int H, int W, float rel, float div, float hi_const, int min_cd, int desc_off,
+                                void* stream_) {
+  if (N < 1 || N > 63) return (int)cudaErrorInvalidValue;  // the queue's 6-bit counts
+  ReadArgs a{};
+  const void* planes[3] = {plane0, plane1, plane2};
+  const void* cols[3] = {col0, col1, col2};
+  const void* descs[3] = {desc0, desc1, desc2};
+  for (int c = 0; c < 3; ++c) {
+    a.planes[c] = static_cast<const uint8_t*>(planes[c]);
+    a.banks.col[c] = static_cast<const uint8_t*>(cols[c]);
+    a.banks.desc[c] = static_cast<const uint16_t*>(descs[c]);
+  }
+  a.R = static_cast<const float*>(R);
+  a.unstable = static_cast<const bool*>(unstable);
+  a.required = static_cast<const int32_t*>(required);
+  a.lut_delta = static_cast<const int32_t*>(lut_delta);
+  a.count = static_cast<int32_t*>(count);
+  a.mind = static_cast<int32_t*>(mind);
+  a.mins = static_cast<int32_t*>(mins);
+  a.intra = static_cast<int32_t*>(intra);
+  a.N = N;
+  a.H = H;
+  a.W = W;
+  a.E = 0;
+  a.rel = rel;
+  a.inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
+  a.hi = hi_const;
+  a.min_cd = min_cd;
+  a.desc_off = desc_off;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  ConstBanks b;
-  b.col[0] = static_cast<const uint8_t*>(col0);
-  b.col[1] = static_cast<const uint8_t*>(col1);
-  b.col[2] = static_cast<const uint8_t*>(col2);
-  b.desc[0] = static_cast<const uint16_t*>(desc0);
-  b.desc[1] = static_cast<const uint16_t*>(desc1);
-  b.desc[2] = static_cast<const uint16_t*>(desc2);
-  const float inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
-  dim3 block(32, 8);
-  dim3 grid((W + 31) / 32, (H + 7) / 8);
-  const uint8_t* px = static_cast<const uint8_t*>(planes);
-  const float* Rm = static_cast<const float*>(R);
-  const bool* um = static_cast<const bool*>(unstable);
-  const int32_t* rq = static_cast<const int32_t*>(required);
-  const int32_t* ld = static_cast<const int32_t*>(lut_delta);
-  int32_t* o0 = static_cast<int32_t*>(count);
-  int32_t* o1 = static_cast<int32_t*>(mind);
-  int32_t* o2 = static_cast<int32_t*>(mins);
-  int32_t* o3 = static_cast<int32_t*>(intra);
+  dim3 grid((W + CT_W - 1) / CT_W, (H + CT_H - 1) / CT_H);
   if (C == 1) {
-    read_walk_kernel<1><<<grid, block, 0, stream>>>(px, b, Rm, um, rq, ld, o0, o1, o2, o3, N, H, W, rel, inv_div,
-                                                    hi_const, min_cd, desc_off);
+    read_walk_kernel<1><<<grid, CT_T, ct_smem_bytes<1>(0), stream>>>(a);
   } else if (C == 3) {
-    read_walk_kernel<3><<<grid, block, 0, stream>>>(px, b, Rm, um, rq, ld, o0, o1, o2, o3, N, H, W, rel, inv_div,
-                                                    hi_const, min_cd, desc_off);
+    read_walk_kernel<3><<<grid, CT_T, ct_smem_bytes<3>(0), stream>>>(a);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -985,7 +962,7 @@ TT_EXPORT int tt_consensus_read(const void* planes, const void* col0, const void
 // five mask bytes, the last frame's colour and descriptors, the flags word
 // and the new log); chip_smoke.py counts them on its run's data. The
 // earlier design, one thread per pixel on replay_pending, bank_sums and
-// lbsp_walk, paid the partial-sector slot writes and scalar descriptor
+// the scalar walk, paid the partial-sector slot writes and scalar descriptor
 // steps that consensus_kernel's phases remove (0.78 ms against 0.37 on an
 // H100 at 720p colour, PERF.md section 6).
 struct FusedArgs {
@@ -1019,7 +996,7 @@ __global__ void __launch_bounds__(CT_T) fused_kernel(FusedArgs a, bool use3x3_gl
   o.pv = o.res + CT_T;
   const int x0 = blockIdx.x * CT_W, y0 = blockIdx.y * CT_H;
   ct_replay<C>(ca, s, x0, y0);
-  ct_walk<C, true>(ca, s, o, x0, y0);
+  ct_walk<C, true, ColSrc::Shared>(ca, s, o, x0, y0);
   __syncthreads();
 
   // -- D. the feedback, each pixel on its own thread --------------------------------

@@ -383,6 +383,8 @@ def consensus_read(
     C = len(planes)
     H, W = planes[0].shape
     N = colors[0].shape[0]
+    if N > 63:
+        raise ValueError("the walk's queue holds sample counts in 6 bits: at most 63 samples")
     req = _native.require
     for c in range(C):
         req(planes[c], f"planes[{c}]", torch.uint8, (H, W))
@@ -392,12 +394,11 @@ def consensus_read(
     req(unstable, "unstable", torch.bool, (H, W))
     req(required, "required", torch.int32, (H, W))
     req(lut_delta, "lut_delta", torch.int32, ())
-    px = torch.stack(planes).contiguous()
-    maps = torch.empty((3 + C, H, W), dtype=torch.int32, device=px.device)
+    maps = torch.empty((3 + C, H, W), dtype=torch.int32, device=R.device)
     count, mind, mins, intra = maps[0], maps[1], maps[2], maps[3:]
     ptr = lambda ts, c: ts[c].data_ptr() if c < C else None  # noqa: E731
     rc = _native.library().tt_consensus_read(
-        px.data_ptr(),
+        ptr(planes, 0), ptr(planes, 1), ptr(planes, 2),
         ptr(colors, 0), ptr(colors, 1), ptr(colors, 2),
         ptr(descs, 0), ptr(descs, 1), ptr(descs, 2),
         R.data_ptr(), unstable.data_ptr(), required.data_ptr(), lut_delta.data_ptr(),

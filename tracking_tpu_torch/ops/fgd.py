@@ -32,7 +32,7 @@ import torch
 from tracking_tpu_torch.ops import _native
 
 TABLE_LEAVES = ("ct_key", "ct_P", "ct_Pb", "cc_key", "cc_P", "cc_Pb", "fg_age")
-MAX_KEY_BYTES = 8  # the kernel keeps a pixel's key in registers
+MAX_KEY_BYTES = 8  # the key bytes a pixel that the kernel holds (csrc/fgd.cu kMaxKey)
 
 
 def quant(planes, levels: int):

@@ -20,7 +20,8 @@ phase:
    sources was built before), and prints each kernel's registers, stack
    frame, spills and static shared memory (``--ptxas``: nvcc's own output);
    ``fused_kernel`` must not spill, and ``multilayer_kernel<0|1>``,
-   ``texture_kernel<0|1>``, ``read_walk_kernel<1|3>`` and the four
+   ``texture_kernel<0|1>``, ``read_walk_kernel<1|3>``,
+   ``lobster_kernel<1|3>``, ``greedy_assign_kernel`` and the four
    ``fgd_tables_kernel`` must have no stack frame and no spills;
 3. each kernel against its plain PyTorch version on the card at its path's
    shapes, exactly (consensus C=3 and C=1, also with a requirement of N,
@@ -28,12 +29,17 @@ phase:
    mode there; hole-fill reachability on a real mask and on a serpentine
    through every tile row, a checkerboard, a 33-px comb, all background, all
    foreground, 1xW, Hx1, (H-1)x(W-3) and 1x1, corner and border seeds; CC
-   labelling 8- and 4-connected, greedy assignment; LOBSTER's consensus
-   C=3 and C=1, the GMG list update at t = 5, 19 and 30, and on states that
-   keep its invariant but that the clip never reaches (every list full with
-   no match and with the match in slot 63, lists of 63 appending into slot
-   63, all lists empty, a random mix of lengths 0-64; each at t = 5, 19 -
-   the end of training - and 30), the DPTexture histograms, also on a flat
+   labelling 8- and 4-connected, greedy assignment (also at the edge
+   shapes 64x64, 1x1, 33x7, 1x64, 64x1, 8x5 and 5x9, and on structured
+   matrices: every cell equal, every row's minimum in one column, signed
+   zeros); LOBSTER's consensus C=3 and C=1, also with req = N, with good
+   samples only in its last slots, at a ragged width (with its req and with
+   N) and with a random 3x3 pending log, whole and ragged; the GMG list
+   update at t = 5, 19 and 30, and on states that keep its invariant but
+   that the clip never reaches (every list full with no match and with the
+   match in slot 63, lists of 63 appending into slot 63, all lists empty,
+   a random mix of lengths 0-64; each at t = 5, 19 - the end of training -
+   and 30), the DPTexture histograms, also on a flat
    frame with the model all 121, at a ragged width (with LBP codes, and
    with codes and a model 0-255) and on images smaller than the window
    (8x9, 1xW, Hx1), the MultiLayer update learning and not, on a real
@@ -101,15 +107,17 @@ phase:
    each on young and on full tables, the min-label fixed point, the slab
    mode's ms beside the unsharded consensus's, the sharded path's ms/frame
    beside the unsharded path's in turns and its peak memory, the device
-   operations a call of the main path's four kernels (``consensus`` at most
-   1, ``flood_reach`` and ``label_components`` at most 3), of
-   ``consensus_read``, ``consensus_feedback``, ``gmg_step``, ``fgd_tables``,
+   operations a call of the main path's four kernels (``consensus`` and
+   ``greedy_assign`` at most 1, ``flood_reach`` and ``label_components`` at
+   most 3), of ``consensus_lobster``, ``consensus_read``,
+   ``consensus_feedback``, ``gmg_step``, ``fgd_tables``,
    ``texture_prox_cur`` and ``multilayer_step`` (at most 1 each; MultiLayer
    timed on fresh copies of its state, its bound counting only the words the
    data needs, the whole
    state's beside it) and of
-   ``label_fixpoint`` (at most 4), an empty launch's time, and the device's
-   busy share and kernels per frame under torch.profiler.
+   ``label_fixpoint`` (at most 4), an empty launch's event and device
+   time, and the device's busy share and kernels per frame under
+   torch.profiler.
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -187,7 +195,7 @@ SWITCHES = ("TRACKING_TPU_CONSENSUS", "TRACKING_TPU_FUSED", "TRACKING_TPU_FUSED_
 # stack frame (a local array indexed at run time) and no spills
 NO_STACK = {
     "multilayer_kernel<0>", "multilayer_kernel<1>", "texture_kernel<0>", "texture_kernel<1>",
-    "read_walk_kernel<1>", "read_walk_kernel<3>",
+    "read_walk_kernel<1>", "read_walk_kernel<3>", "lobster_kernel<1>", "lobster_kernel<3>", "greedy_assign_kernel",
     "fgd_tables_kernel<0, 0>", "fgd_tables_kernel<0, 1>", "fgd_tables_kernel<1, 0>", "fgd_tables_kernel<1, 1>",
 }
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
@@ -343,9 +351,10 @@ def profile(run_frame, frame_ids, tag, label, top: int = 14, n_frames=None) -> N
         print(f"    {dev_us(e) / n_frames / 1e3:8.4f} ms/frame  {e.count / n_frames:6.1f}x  {e.key[:90]}", flush=True)
 
 
-def device_ops(fn, label, tag, reps: int = 20) -> float:
-    """Device operations per call of ``fn`` (kernels, copies, memsets) under
-    torch.profiler, each with its device ms per call."""
+def device_ops(fn, label, tag, reps: int = 20):
+    """(device operations, device ms) per call of ``fn`` (kernels, copies,
+    memsets) under torch.profiler; prints each operation's device ms per
+    call."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     for _ in range(3):
@@ -361,7 +370,7 @@ def device_ops(fn, label, tag, reps: int = 20) -> float:
     print(f"  {tag} {label}: {n:.1f} device operations a call, {total:.4f} device ms: " + "; ".join(
         f"{e.key[:60]} {getattr(e, 'self_device_time_total', 0.0) / reps / 1e3:.4f} ms ({e.count / reps:.1f}x)"
         for e in events), flush=True)
-    return n
+    return n, total
 
 
 def profile_full_path(algo, tracker, state0, frames, dev, tag, n_frames: int = 8) -> None:
@@ -414,6 +423,7 @@ def check_registry_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
             compare("consensus_lobster", f"C={c} {name}", a, b)
         n_short = int((p_out[0] < kw["req"]).sum())
         check(0 < n_short < hw, f"consensus_lobster C={c}: {n_short} px short of the required samples")
+        check_lobster_adversarial(lob_args(st), kw, dev, errs)
         if c == 3:
             timing_inputs["consensus_lobster"] = (lob_args(clone(st)), kw)
             thr = lambda v: thr_lobster(v, kw["rel"], kw["offset"], kw["div"])  # noqa: E731
@@ -949,9 +959,10 @@ def time_registry(timing_inputs, results, starts, frames, tag) -> None:
     results["multilayer_step"]["ms_same_frame_again"] = min(ms)
     del again
     print(f"  {tag} multilayer_step, the same frame again on one state: {ms[0]:.4f} / {ms[1]:.4f} ms", flush=True)
-    for k, fk in (("texture_prox_cur", texture_prox_cur), ("multilayer_step", multilayer_step)):
+    for k, fk in (("consensus_lobster", consensus_lobster), ("texture_prox_cur", texture_prox_cur),
+                  ("multilayer_step", multilayer_step)):
         args, kw = timing_inputs[k]
-        n_ops = device_ops(lambda: fk(*args, **kw), k, tag)
+        n_ops, results[k]["device_ms"] = device_ops(lambda: fk(*args, **kw), k, tag)
         check(n_ops <= 1, f"{k} takes {n_ops:.1f} device operations a call (at most 1)")
     for name, (algo, start) in starts.items():
         ms = []
@@ -1294,7 +1305,7 @@ def time_fgd(timing_inputs, results, algo, start, tracker, quiet, dev, tag) -> N
         if what == FGD_ROW:
             results["fgd_tables"].update(ms=row["ms"], plain_ms=row["plain_ms"], ms_fresh_state=min(fresh[what]))
     args = timing_inputs["fgd_tables"][FGD_ROW][0]
-    n_ops = device_ops(lambda: fgd_tables(*args), "fgd_tables", tag)
+    n_ops, _ = device_ops(lambda: fgd_tables(*args), "fgd_tables", tag)
     check(n_ops <= 1, f"fgd_tables takes {n_ops:.1f} device operations a call (at most 1)")
 
     def run(model, with_tracker: bool):
@@ -1581,6 +1592,73 @@ def check_consensus_adversarial(args, kw, dev, errs) -> None:
                         f"their requirement")
 
 
+def check_lobster_adversarial(args, kw, dev, errs) -> None:
+    """Phase 3: LOBSTER's consensus against its plain version, exactly, on
+    adversarial 720p inputs built from a step's arguments (planes, colour
+    banks, descriptor banks, pending log, pending values): ``req`` = N, so
+    that every sample is walked; the first N - 3 colour slots far from the
+    frame, so that good samples lie only in the last slots; the ragged width
+    W - 6 = 1274 (no multiple of 4 or 16: the byte path of the colour copy),
+    with the step's ``req`` and with N; a random 3x3-only pending log (the
+    self write and the spread on random slots, the spread's fire bit on half
+    the pixels), whole and at the ragged width."""
+    from tracking_tpu_torch.ops.consensus import NB3_IN_NB5, consensus_lobster, consensus_lobster_ref
+
+    planes, colors = args[0], args[1]
+    Cn, N, wr = len(planes), colors[0].shape[0], W - 6
+    gen = torch.Generator(device="cpu").manual_seed(7 + Cn)
+    rnd = lambda hi: torch.randint(0, hi, (H, W), generator=gen)  # noqa: E731
+    u3 = torch.tensor(NB3_IN_NB5)[rnd(8)]
+    ctrl = (rnd(2) | rnd(N) << 1 | u3 << 7 | rnd(N) << 17).to(torch.int32).to(dev)
+    vals = tuple((rnd(256) | rnd(65536) << 8 | (rnd(2) << 24 if c == 0 else 0)).to(torch.int32).to(dev)
+                 for c in range(Cn))
+    far = tuple(torch.cat([(p[None] ^ 0x80).expand(N - 3, -1, -1), col[N - 3 :]]) for p, col in zip(planes, colors))
+    kw_n = dict(kw, req=N)
+    log = args[:3] + (ctrl, vals)
+    cases = [
+        ("req = N", args, kw_n),
+        ("good samples only in the last 3 slots", (planes, far) + args[2:], kw),
+        (f"ragged width {H}x{wr}", crop_width(args, wr), kw),
+        (f"ragged width {H}x{wr}, req = N", crop_width(args, wr), kw_n),
+        ("a random 3x3 log", log, kw),
+        (f"a random 3x3 log at the ragged width {H}x{wr}", crop_width(log, wr), kw),
+    ]
+    for what, a, k in cases:
+        k_out = consensus_lobster(*clone(a), **k)
+        p_out = consensus_lobster_ref(*clone(a), **k)
+        e = max(max_err(x, y) for x, y in zip(k_out, p_out))
+        errs["consensus_lobster"] = max(errs["consensus_lobster"], e)
+        check(e == 0.0, f"consensus_lobster C={Cn} {what}: all five outputs equal (max |err| {e}); "
+                        f"{int((p_out[0] < k['req']).sum())} px short of req = {k['req']}")
+
+
+def greedy_cases(gen):
+    """Phase 3's assignment inputs beside the tracker's own: 20 random gated
+    32x64 matrices with many ties and whole rows gated; as the CPU tests
+    build them, random gated matrices with ties and gated rows at the edge
+    shapes (MAX_CELLS = 64x64, two rows a lane; 1x1, 33x7, 1x64, 64x1, 8x5,
+    5x9) and structured ones - every cell equal, every row's minimum in the
+    lowest open column (every open row rescanned after each pair), -0 and +0
+    at random - at 32x64, 64x64, 1x1, 33x7, 1x64 and 64x1."""
+    for i in range(20):
+        q = torch.randint(0, 9, (32, 64), generator=gen).to(torch.float32) * 0.25
+        gated = torch.rand((32, 64), generator=gen) < 0.5
+        gated[torch.randint(0, 32, (4,), generator=gen)] = True
+        yield f"random 32x64 #{i}", torch.where(gated, torch.tensor(1e9), q)
+    for K, B in ((64, 64), (1, 1), (33, 7), (1, 64), (64, 1), (8, 5), (5, 9)):
+        for i in range(3):
+            q = torch.randint(0, 9, (K, B), generator=gen).to(torch.float32) * 0.25
+            gated = torch.rand((K, B), generator=gen) < 0.4
+            if i:
+                gated[torch.randint(0, K, (2,), generator=gen)] = True
+            yield f"random {K}x{B} #{i}", torch.where(gated, torch.tensor(1e9), q)
+    for K, B in ((32, 64), (64, 64), (1, 1), (33, 7), (1, 64), (64, 1)):
+        yield f"every cell equal {K}x{B}", torch.full((K, B), 0.5)
+        off = torch.randint(0, 4, (K, 1), generator=gen).to(torch.float32) * 0.25
+        yield f"row minima in one column {K}x{B}", torch.arange(B, dtype=torch.float32)[None] + off
+        yield f"signed zeros {K}x{B}", torch.where(torch.rand((K, B), generator=gen) < 0.5, -0.0, 0.0)
+
+
 def kernel_name(sym: str) -> str:
     """A kernel's name from its mangled symbol: the last component of a
     (namespaced) name, with its leading integral template arguments as
@@ -1693,7 +1771,7 @@ def time_spatial(algo, tracker, state0, frames, dev, timing_inputs, results, tag
     _, r0, h = shard_rows(rank)
     time_pair("label_fixpoint", lambda: label_fixpoint(fg, lab0, big), lambda: label_fixpoint_ref(fg, lab0, big),
               50, 5, results, tag, label=f"label_fixpoint (rows {r0}-{r0 + h - 1} of the frame-3 mask)")
-    n_ops = device_ops(lambda: label_fixpoint(fg, lab0, big), "label_fixpoint", tag)
+    n_ops, _ = device_ops(lambda: label_fixpoint(fg, lab0, big), "label_fixpoint", tag)
     check(n_ops <= 4, f"label_fixpoint takes {n_ops:.1f} device operations a call (at most 4)")
     _, r0, h = shard_rows(1)
     args, kw = timing_inputs["consensus_slab"]
@@ -1887,18 +1965,17 @@ def main(argv) -> None:
     check(True, "label_components (8, 4) and flood_reach equal on random masks of density 0 to 1")
 
     gen.manual_seed(1)
-    for i in range(20):
-        K, B = 32, 64
-        q = torch.randint(0, 9, (K, B), generator=gen).to(torch.float32) * 0.25  # many ties
-        gated = torch.rand((K, B), generator=gen) < 0.5
-        gated[torch.randint(0, K, (4,), generator=gen)] = True  # whole rows gated
-        cost = torch.where(gated, torch.tensor(1e9), q).to(dev).contiguous()
+    n_cases = 0
+    for what, cost in greedy_cases(gen):
+        cost = cost.to(dev).contiguous()
         a, b = greedy_assign(cost), greedy_assign_ref(cost)
         e = max(max_err(a[0], b[0]), max_err(a[1], b[1]))
         errs["greedy_assign"] = max(errs["greedy_assign"], e)
         if e != 0.0:
-            raise AssertionError(f"greedy_assign differs on random matrix {i}")
-    check(True, "greedy_assign equal on 20 random gated 32x64 matrices with ties")
+            raise AssertionError(f"greedy_assign differs on {what}")
+        n_cases += 1
+    check(True, f"greedy_assign equal on {n_cases} matrices: 20 random gated 32x64 with ties, the edge shapes, "
+                f"structured ones")
     bounds["flood_reach"] = bound(3 * hw, 10 * hw)  # bg + seeds read, reach written (bool)
     bounds["label_components"] = bound(5 * hw, 20 * hw)  # mask read (u8), labels written (int32)
     check_registry_kernels(frames, dev, errs, timing_inputs, bounds)
@@ -1991,16 +2068,18 @@ def main(argv) -> None:
         time_pair(k, fk, fp, rk, rp, results, tag)
     # device operations a call and their device time (at the launch floor the
     # CUDA-event times above follow the host's pace, the profiler's do not)
-    for k, most in (("consensus", 1), ("flood_reach", 3), ("label_components", 3), ("greedy_assign", None)):
-        n_ops = device_ops(plain_fns[k][0], k, tag)
-        if most is not None:
-            check(n_ops <= most, f"{k} takes {n_ops:.1f} device operations a call (at most {most})")
+    for k, most in (("consensus", 1), ("flood_reach", 3), ("label_components", 3), ("greedy_assign", 1)):
+        n_ops, results[k]["device_ms"] = device_ops(plain_fns[k][0], k, tag)
+        check(n_ops <= most, f"{k} takes {n_ops:.1f} device operations a call (at most {most})")
     # the launch floor: an empty launch's time (a 1-element fill, back to
-    # back, CUDA events) times a call's launches
+    # back, CUDA events) times a call's launches, and its device time
     one = torch.zeros(1, device=dev)
     empty_ms = cuda_ms(one.zero_, 500, 10)
-    print(f"  {tag} an empty launch: {empty_ms:.4f} ms; launch floor of label_components and flood_reach (3 "
-          f"launches) {3 * empty_ms:.4f} ms, of label_fixpoint (4) {4 * empty_ms:.4f} ms", flush=True)
+    _, empty_dev = device_ops(one.zero_, "an empty launch", tag, reps=200)
+    results["greedy_assign"]["floor_device_ms"] = empty_dev
+    print(f"  {tag} an empty launch: {empty_ms:.4f} ms of events, {empty_dev:.4f} device ms; launch floor of "
+          f"label_components and flood_reach (3 launches) {3 * empty_ms:.4f} ms, of label_fixpoint (4) "
+          f"{4 * empty_ms:.4f} ms; greedy_assign's device floor (1 launch) {empty_dev:.4f} ms", flush=True)
     time_registry(timing_inputs, results, starts, frames, tag)
     from tracking_tpu_torch.ops.consensus import (
         consensus_feedback, consensus_feedback_ref, consensus_read, consensus_read_ref,
@@ -2015,7 +2094,7 @@ def main(argv) -> None:
     for k, fk in (("consensus_read", consensus_read), ("consensus_feedback", consensus_feedback),
                   ("gmg_step", gmg_step)):
         v_args, v_kw = timing_inputs[k]
-        n_ops = device_ops(lambda fk=fk: fk(*v_args, **v_kw), k, tag)
+        n_ops, results[k]["device_ms"] = device_ops(lambda fk=fk: fk(*v_args, **v_kw), k, tag)
         check(n_ops <= 1, f"{k} takes {n_ops:.1f} device operations a call (at most 1)")
     time_variants(algo, state0, variant_starts, frames, tag)
     time_fgd(timing_inputs, results, fgd_algo, fgd_start, tracker, quiet, dev, tag)

@@ -145,7 +145,7 @@ def test_extract_blobs_with_tied_areas():
                       tcc.extract_blobs(torch.from_numpy(m), max_blobs=64)._asdict())
 
 
-@pytest.mark.parametrize("k,b", [(32, 64), (8, 5), (5, 9)])
+@pytest.mark.parametrize("k,b", [(32, 64), (8, 5), (5, 9), (64, 64), (1, 1), (33, 7), (1, 64), (64, 1)])
 def test_greedy_assign(k, b):
     rng = np.random.default_rng(k * b)
     for trial in range(6):
@@ -159,3 +159,24 @@ def test_greedy_assign(k, b):
         np.testing.assert_array_equal(a_t.numpy(), np.asarray(a_j))
         np.testing.assert_array_equal(t_t.numpy(), np.asarray(t_j))
         assert a_t.dtype == torch.int32 and t_t.dtype == torch.bool
+
+
+def _structured_cost(kind, k, b, rng):
+    if kind == "every cell equal":
+        return np.full((k, b), 0.5, np.float32)
+    if kind == "signed zeros":  # -0 and +0 compare equal: the flat index decides
+        return np.where(rng.uniform(size=(k, b)) < 0.5, -0.0, 0.0).astype(np.float32)
+    # every row's minimum in the lowest open column, so that each pair taken
+    # moves every open row's minimum (the card's kernel rescans them all)
+    return (np.arange(b)[None, :] + rng.integers(0, 4, (k, 1)) * 0.25).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["every cell equal", "row minima in one column", "signed zeros"])
+@pytest.mark.parametrize("k,b", [(32, 64), (64, 64), (1, 1), (33, 7), (1, 64), (64, 1)])
+def test_greedy_assign_structured(kind, k, b):
+    cost = _structured_cost(kind, k, b, np.random.default_rng(k + b))
+    a_j, t_j = greedy_assign_pallas(jnp.asarray(cost), interpret=True)
+    a_t, t_t = tassoc.greedy_assign(torch.from_numpy(cost))
+    np.testing.assert_array_equal(a_t.numpy(), np.asarray(a_j))
+    np.testing.assert_array_equal(t_t.numpy(), np.asarray(t_j))
+    assert int((a_t >= 0).sum()) == min(k, b)  # nothing is gated: min(K, B) pairs

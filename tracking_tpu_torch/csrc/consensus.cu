@@ -1,5 +1,5 @@
-// consensus: SuBSENSE's sample consensus with deferred bank writes,
-// channels (C = 1 or 3) in a loop.
+// consensus: SuBSENSE's and LOBSTER's sample consensus with deferred bank
+// writes, channels (C = 1 or 3) in a loop.
 //
 // Replaces tracking_tpu/ops/pallas_consensus.py:consensus_pallas (its
 // kernel _make_kernel with _apply_pending_stage and _consensus_values). Per
@@ -21,12 +21,11 @@
 // 414.7 MB (50 x 921,600 px x (1 + 2) bytes x 3 channels); bg_sum reads every
 // colour slot (138 MB) and the walk reads the first few samples of both
 // banks for background pixels and up to all 50 for foreground ones. The
-// banks stay in place (no copy). consensus_kernel and fused_kernel (below,
-// "three phases") read a tile's colour slots once with 16-byte copies, write
-// back only the 32-byte sectors their replay changes, and walk with
-// byte-SIMD descriptors; read_walk_kernel runs the same walk on const banks;
-// lobster_kernel keeps the first design, one thread per pixel on the device
-// functions replay_pending and bank_sums.
+// banks stay in place (no copy). Every kernel of this file runs the phases
+// below ("three phases"): a tile's colour slots read once with 16-byte
+// copies, only the 32-byte sectors the replay changes written back, and a
+// walk with byte-SIMD descriptors; read_walk_kernel runs the walk alone on
+// const banks.
 //
 // Thresholds are f32 expressions the reference evaluates without fused
 // multiply-adds and with XLA's reciprocal product for a constant divisor:
@@ -44,7 +43,9 @@
 // fused_kernel (consensus_kernel's phases ct_replay and ct_walk, then the
 // feedback stage of feedback.cuh and the next frame's pending log),
 // read_walk_kernel (ct_stage and ct_walk: steps 3-4 on read-only banks,
-// consensus v3) and lobster_kernel (LOBSTER's consensus).
+// consensus v3) and lobster_kernel (ct_replay and ct_walk with LOBSTER's
+// threshold function and sample test, chosen at compile time by the
+// Consensus template argument).
 #include "common.cuh"
 #include "feedback.cuh"
 
@@ -60,13 +61,7 @@ struct ConstBanks {
   const uint16_t* desc[3];
 };
 
-// LBSP neighbour offsets (x, y) in bit order (tracking_tpu/ops/lbsp.py OFFSETS)
-__constant__ int8_t kLbspDx[16] = {-2, 2, 0, 0, -2, 2, 2, -2, 0, -1, 0, 1, -1, 1, 1, -1};
-__constant__ int8_t kLbspDy[16] = {0, 0, -2, 2, 2, -2, 2, -2, 1, 0, -1, 0, -1, 1, -1, 1};
-
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
-
-__device__ __forceinline__ int popc16(int v) { return __popc(v & 0xFFFF); }
 
 __device__ __forceinline__ int floordiv2(int v) { return v >= 0 ? v / 2 : -((1 - v) / 2); }
 
@@ -88,76 +83,17 @@ __device__ __forceinline__ int lbsp_thr(int v, float delta, float rel, float inv
   return (int)fminf(fmaxf(base + delta, lower), upper);
 }
 
+// LOBSTER's LBSP threshold of a u8 value (lbsp_family.LOBSTER._thr_fn):
+// clip(rint((v*rel + offset) * (1/div)), 0, 255)
+__device__ __forceinline__ int lobster_thr(int v, float rel, float offset, float inv_div) {
+  return (int)fminf(fmaxf(rintf(((float)v * rel + offset) * inv_div), 0.0f), 255.0f);
+}
+
 // The pending values' row of a spread source at global offset -dy from row
 // y: clamped into the ROI interior, or, in slab mode, the slab row that holds
 // that clamp already.
 __device__ __forceinline__ int src_row(int y, int dy, int H, int E) {
   return E > 0 ? E + y - dy : clampi(y - dy, 2, H - 3);
-}
-
-// Step 1 in one thread, for lobster_kernel: replay frame t-1's pending log
-// into this pixel's slots in place (see the header). LOBSTER's log sets only
-// 3x3 spreads (u5 = 0 with the 5x5 fire bit clear), so the same decode
-// serves it. E > 0: the pending values are a slab (header).
-template <int C>
-__device__ __forceinline__ void replay_pending(const Banks& banks, const int32_t* __restrict__ ctrl_map, int x, int y,
-                                               int p, int N, int H, int W, int E = 0) {
-  const size_t HW = (size_t)H * W;
-  const int ctrl = ctrl_map[p];
-  const bool upd1 = (ctrl & 1) != 0;
-  const int slot1 = (ctrl >> 1) & 63;
-  const int u3 = (ctrl >> 7) & 31;
-  const int u5 = (ctrl >> 12) & 31;
-  const int slot3 = (ctrl >> 17) & 63;
-  const int slot5 = (ctrl >> 23) & 63;
-  int dx, dy;
-  bool ok3 = false, ok5 = false;
-  if (u3 < 24) {
-    nb5_offset(u3, dx, dy);
-    if (dx >= -1 && dx <= 1 && dy >= -1 && dy <= 1) {
-      int q = src_row(y, dy, H, E) * W + clampi(x - dx, 2, W - 3);
-      ok3 = ((banks.vals[0][q] >> 24) & 1) != 0;
-    }
-  }
-  if (u5 < 24) {
-    nb5_offset(u5, dx, dy);
-    int q = src_row(y, dy, H, E) * W + clampi(x - dx, 2, W - 3);
-    ok5 = ((banks.vals[0][q] >> 24) & 2) != 0;
-  }
-  const bool okn = ok3 || ok5;
-  const int u = ok3 ? u3 : u5;
-  const int slotn = ok3 ? slot3 : slot5;
-  int q_nb = -1;
-  if (u < 24) {
-    nb5_offset(u, dx, dy);
-    q_nb = src_row(y, dy, H, E) * W + clampi(x - dx, 2, W - 3);
-  }
-  const int pv = (y + E) * W + x;  // this pixel in the pending values
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int own = banks.vals[c][pv];
-    const int nb = q_nb >= 0 ? banks.vals[c][q_nb] : 0;
-    if (upd1 && slot1 < N) {
-      banks.col[c][(size_t)slot1 * HW + p] = (uint8_t)(own & 0xFF);
-      banks.desc[c][(size_t)slot1 * HW + p] = (uint16_t)((own >> 8) & 0xFFFF);
-    }
-    if (okn && slotn < N) {
-      banks.col[c][(size_t)slotn * HW + p] = (uint8_t)(nb & 0xFF);
-      banks.desc[c][(size_t)slotn * HW + p] = (uint16_t)((nb >> 8) & 0xFFFF);
-    }
-  }
-}
-
-// Step 2 in one thread, for lobster_kernel: bg_sum = the sum of the N colour
-// slots after the replay.
-template <int C>
-__device__ __forceinline__ void bank_sums(const Banks& banks, int32_t* bg_out, int p, int N, size_t HW) {
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    int s = 0;
-    for (int j = 0; j < N; ++j) s += banks.col[c][(size_t)j * HW + p];
-    bg_out[(size_t)c * HW + p] = s;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -199,9 +135,9 @@ __device__ __forceinline__ void bank_sums(const Banks& banks, int32_t* bg_out, i
 #define CT_PW (CT_W + 4)        // the planes' shared tile, 2-px halo
 #define CT_PH (CT_H + 4)
 
-// The kernels' arguments, over the banks they write (Banks: consensus_kernel,
-// fused_kernel) or only read (ConstBanks: read_walk_kernel, which leaves
-// ctrl, bg_sum and vec unset and E = 0).
+// SuBSENSE's kernels' arguments, over the banks they write (Banks:
+// consensus_kernel, fused_kernel) or only read (ConstBanks: read_walk_kernel,
+// which leaves ctrl, bg_sum and vec unset and E = 0).
 template <class B>
 struct ConsArgsT {
   const uint8_t* planes[3];
@@ -224,8 +160,34 @@ struct ConsArgsT {
 using ConsArgs = ConsArgsT<Banks>;
 using ReadArgs = ConsArgsT<ConstBanks>;
 
-// A pixel's pending writes, decoded as replay_pending decodes them: the slot
-// of the self write and of the spread (-1: none) and their packed values.
+// lobster_kernel's arguments: ConsArgs's fields for the replay and the walk,
+// and LOBSTER's fixed thresholds in place of R, unstable and required. E = 0:
+// LOBSTER has no slab mode yet; ct_replay reads it as consensus_kernel's.
+struct LobsterArgs {
+  const uint8_t* planes[3];
+  Banks banks;
+  const int32_t* ctrl;
+  int32_t* count;
+  int32_t* intra;
+  int32_t* bg_sum;
+  int N, H, W, E;
+  float rel, offset, inv_div;
+  int c_sc, d_sc, c_tot, d_tot, req;
+  int vec;
+};
+
+// Which consensus a phase computes, a compile-time policy of ct_stage,
+// ct_replay, walk_ctx, walk_samples and ct_walk: SuBSENSE's threshold table
+// (lbsp_thr with lut_delta) and sample test (thresholds from R and unstable,
+// the descriptor distance the mean of the intra and inter distances, the
+// requirement map), or LOBSTER's (lobster_thr; fixed thresholds, the inter
+// distance alone, a scalar requirement, only the count written).
+enum class Consensus { SuBSENSE, LOBSTER };
+
+// A pixel's pending writes, decoded from its control word (header, step 1):
+// the slot of the self write and of the spread (-1: none) and their packed
+// values. LOBSTER's log sets only 3x3 spreads (u5 = 0 with the 5x5 fire bit
+// clear), so the same decode serves it.
 template <int C>
 struct PendingWrites {
   int slot1, slotn;
@@ -280,7 +242,8 @@ __device__ __forceinline__ PendingWrites<C> pending_writes(const Banks& banks, c
 // with a 2-px halo, packed four to a word: neighbour k = 4i + b sits in
 // byte i of word 3 - b, the order lbsp_bits reads.
 __device__ __forceinline__ void lbsp_pack(const uint8_t* pl, int r, int cx, uint32_t nb[4]) {
-  constexpr int dx[16] = {-2, 2, 0, 0, -2, 2, 2, -2, 0, -1, 0, 1, -1, 1, 1, -1};  // kLbspDx, kLbspDy folded
+  // the offsets (x, y) in bit order (tracking_tpu/ops/lbsp.py OFFSETS)
+  constexpr int dx[16] = {-2, 2, 0, 0, -2, 2, 2, -2, 0, -1, 0, 1, -1, 1, 1, -1};
   constexpr int dy[16] = {0, 0, -2, 2, 2, -2, 2, -2, 1, 0, -1, 0, -1, 1, -1, 1};
   nb[0] = nb[1] = nb[2] = nb[3] = 0;
 #pragma unroll
@@ -310,9 +273,10 @@ __device__ __forceinline__ int lbsp_bits(const uint32_t nb[4], uint32_t s4, uint
   return (int)__byte_perm(y | (y >> 4), 0, 0x4420);
 }
 
-// A pixel's walk context: packed neighbours, values, intra descriptors and
-// the colour and descriptor thresholds from R and the previous unstable mask
-// (the reference's f32 expressions, in its order).
+// A pixel's walk context: packed neighbours, values, intra descriptors, the
+// requirement and, for SuBSENSE, the colour and descriptor thresholds from R
+// and the previous unstable mask (the reference's f32 expressions, in its
+// order). LOBSTER's thresholds are the arguments' constants.
 template <int C>
 struct WalkCtx {
   uint32_t nb[C][4];
@@ -320,9 +284,26 @@ struct WalkCtx {
   int ct, dt, sc, req;
 };
 
-template <int C>
-__device__ __forceinline__ void walk_ctx(WalkCtx<C>& w, const uint8_t* s_pl, const uint2* lut, int r, int cx, float R,
-                                         bool unst, int req, int min_cd, int desc_off) {
+// SuBSENSE's requirement at pixel p: the map's, zeroed outside the 2-px ROI
+// for the fused step (FUSED).
+template <bool FUSED, class A>
+__device__ __forceinline__ int walk_req(const A& a, int x, int y, int p) {
+  if (FUSED && !(y >= 2 && y <= a.H - 3 && x >= 2 && x <= a.W - 3)) return 0;
+  return a.required[p];
+}
+
+template <int C, Consensus K, bool FUSED, class A>
+__device__ __forceinline__ void walk_ctx(WalkCtx<C>& w, const A& a, const uint8_t* s_pl, const uint2* lut, int r,
+                                         int cx, int x, int y, int p) {
+  float R = 0.0f;
+  bool unst = false;
+  if constexpr (K == Consensus::LOBSTER) {
+    w.req = a.req;
+  } else {
+    R = a.R[p];
+    unst = a.unstable[p];
+    w.req = walk_req<FUSED>(a, x, y, p);
+  }
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const uint8_t* pl = s_pl + c * CT_PH * CT_PW;
@@ -331,15 +312,17 @@ __device__ __forceinline__ void walk_ctx(WalkCtx<C>& w, const uint8_t* s_pl, con
     const uint2 L = lut[w.px[c]];
     w.intra[c] = lbsp_bits(w.nb[c], (uint32_t)w.px[c] * 0x01010101u, L.x, L.y);
   }
-  const float ctf = R * (float)min_cd - (unst ? 0.0f : (float)(min_cd / 5));
-  int ct = (int)ctf;
-  if (C == 1) ct = floordiv2(ct);
-  const int n_exp = (int)floorf(R + 0.5f);
-  const int pow2 = (n_exp >= 0 && n_exp < 32) ? (int)(1u << n_exp) : 0;
-  w.ct = ct;
-  w.dt = pow2 + desc_off + (unst ? desc_off : 0);
-  w.sc = C == 3 ? floordiv2(ct * 3) : ct;
-  w.req = req;
+  if constexpr (K == Consensus::SuBSENSE) {
+    const int min_cd = a.min_cd, desc_off = a.desc_off;
+    const float ctf = R * (float)min_cd - (unst ? 0.0f : (float)(min_cd / 5));
+    int ct = (int)ctf;
+    if (C == 1) ct = floordiv2(ct);
+    const int n_exp = (int)floorf(R + 0.5f);
+    const int pow2 = (n_exp >= 0 && n_exp < 32) ? (int)(1u << n_exp) : 0;
+    w.ct = ct;
+    w.dt = pow2 + desc_off + (unst ? desc_off : 0);
+    w.sc = C == 3 ? floordiv2(ct * 3) : ct;
+  }
 }
 
 // Where the walk reads a sample's colour: the tile's shared copy that
@@ -349,16 +332,21 @@ enum class ColSrc { Shared, Banks };
 
 // The walk from sample j until j_end, stopping once w.req good samples are
 // counted; descriptors from the banks, CT_BATCH loads at a time, colours
-// from SRC (Shared: byte `off` of a slot plane of s_col). A sample is good
-// where, per channel, the colour distance cd and the descriptor distance dd
-// (the mean of the intra and the inter descriptor's Hamming distances to the
-// sample's) pass the thresholds: C = 1 cd <= ct, dd <= dt and
-// min(dd / 4 * 15 + cd, 255) <= ct; C = 3 per channel cd <= sc and
+// from SRC (Shared: byte `off` of a slot plane of s_col). SuBSENSE: a sample
+// is good where, per channel, the colour distance cd and the descriptor
+// distance dd (the mean of the intra and the inter descriptor's Hamming
+// distances to the sample's) pass the thresholds: C = 1 cd <= ct, dd <= dt
+// and min(dd / 4 * 15 + cd, 255) <= ct; C = 3 per channel cd <= sc and
 // min(dd / 2 * 15 + cd, 255) <= sc, and their sums within 3 dt and 3 ct.
-template <int C, ColSrc SRC, class B>
-__device__ __forceinline__ void walk_samples(const WalkCtx<C>& w, const uint8_t* s_col, int off, const B& banks,
-                                             int p, size_t HW, const uint2* lut, int N, int j_end, int& j,
-                                             int& count, int& mind, int& mins) {
+// LOBSTER: dd is the inter descriptor's Hamming distance alone; per channel
+// cd <= c_sc and dd <= d_sc, and for C = 3 the sums of cd and dd within c_tot
+// and d_tot; mind and mins are left as they are.
+template <int C, ColSrc SRC, Consensus K, class A>
+__device__ __forceinline__ void walk_samples(const WalkCtx<C>& w, const A& a, const uint8_t* s_col, int off, int p,
+                                             size_t HW, const uint2* lut, int j_end, int& j, int& count, int& mind,
+                                             int& mins) {
+  const int N = a.N;
+  const auto& banks = a.banks;
   while (j < j_end && count < w.req) {
     int sd[CT_BATCH][C];
     uint32_t sc[C];  // ColSrc::Banks: the batch's colour bytes, byte b of sample j + b
@@ -386,30 +374,47 @@ __device__ __forceinline__ void walk_samples(const WalkCtx<C>& w, const uint8_t*
           const int s_col_v =
               SRC == ColSrc::Shared ? s_col[(c * N + jj) * CT_SLOT + off] : (int)((sc[c] >> (8 * b)) & 0xFFu);
           const int cd = abs(w.px[c] - s_col_v);
-          if (cd > (C == 1 ? w.ct : w.sc)) {
-            good = false;
-            break;
-          }
-          const uint2 L = lut[s_col_v];
-          const int inter = lbsp_bits(w.nb[c], (uint32_t)s_col_v * 0x01010101u, L.x, L.y);
-          const int dd = (__popc(w.intra[c] ^ sd[b][c]) + __popc(inter ^ sd[b][c])) >> 1;
-          if (C == 1) {
-            const int sum_d = min((dd / 4) * 15 + cd, 255);
-            good = (dd <= w.dt) && (sum_d <= w.ct);
-            tot_desc = dd;
-            tot_sum = sum_d;
-          } else {
-            const int sum_c = min((dd / 2) * 15 + cd, 255);
-            good = sum_c <= w.sc;
+          if constexpr (K == Consensus::LOBSTER) {
+            if (cd > a.c_sc) {
+              good = false;
+              break;
+            }
+            const uint2 L = lut[s_col_v];
+            const int dd = __popc(lbsp_bits(w.nb[c], (uint32_t)s_col_v * 0x01010101u, L.x, L.y) ^ sd[b][c]);
+            good = dd <= a.d_sc;
             tot_desc += dd;
-            tot_sum += sum_c;
+            tot_sum += cd;
+          } else {
+            if (cd > (C == 1 ? w.ct : w.sc)) {
+              good = false;
+              break;
+            }
+            const uint2 L = lut[s_col_v];
+            const int inter = lbsp_bits(w.nb[c], (uint32_t)s_col_v * 0x01010101u, L.x, L.y);
+            const int dd = (__popc(w.intra[c] ^ sd[b][c]) + __popc(inter ^ sd[b][c])) >> 1;
+            if (C == 1) {
+              const int sum_d = min((dd / 4) * 15 + cd, 255);
+              good = (dd <= w.dt) && (sum_d <= w.ct);
+              tot_desc = dd;
+              tot_sum = sum_d;
+            } else {
+              const int sum_c = min((dd / 2) * 15 + cd, 255);
+              good = sum_c <= w.sc;
+              tot_desc += dd;
+              tot_sum += sum_c;
+            }
           }
         }
-        if (C == 3) good = good && (tot_desc <= w.dt * 3) && (tot_sum <= w.ct * 3);
-        if (good) {
-          ++count;
-          mind = min(mind, tot_desc);
-          mins = min(mins, tot_sum);
+        if constexpr (K == Consensus::LOBSTER) {
+          if (C == 3) good = good && (tot_desc <= a.d_tot) && (tot_sum <= a.c_tot);
+          count += good;
+        } else {
+          if (C == 3) good = good && (tot_desc <= w.dt * 3) && (tot_sum <= w.ct * 3);
+          if (good) {
+            ++count;
+            mind = min(mind, tot_desc);
+            mins = min(mins, tot_sum);
+          }
         }
       }
     }
@@ -457,10 +462,11 @@ __device__ __forceinline__ CtShared ct_shared(uint8_t* smem, int N) {
 
 // The walk's inputs in shared memory, for ct_replay and read_walk_kernel: the
 // tile's planes with their 2-px halo (edge-clamped; in slab mode the slab's
-// rows) and the threshold table. Every thread t of the block calls it with
+// rows) and the threshold table of consensus K (the same table serves the
+// intra and the inter descriptors). Every thread t of the block calls it with
 // the frame's H, W and E; the caller empties the queue and synchronises
 // before the walk.
-template <int C, class A>
+template <int C, Consensus K, class A>
 __device__ __forceinline__ void ct_stage(const A& a, const CtShared& s, int t, int x0, int y0, int H, int W, int E) {
   const int Hp = H + 2 * E;
   for (int i = t; i < C * CT_PH * CT_PW; i += CT_T) {
@@ -469,17 +475,23 @@ __device__ __forceinline__ void ct_stage(const A& a, const CtShared& s, int t, i
     s.pl[i] = a.planes[c][(size_t)yy * W + xx];
   }
   for (int v = t; v < 256; v += CT_T) {
-    const uint32_t K = (uint32_t)(255 - lbsp_thr(v, (float)a.lut_delta[0], a.rel, a.inv_div, a.hi)) * 0x01010101u;
-    s.lut[v] = make_uint2(K, K & 0x7f7f7f7fu);
+    int thr;
+    if constexpr (K == Consensus::LOBSTER) {
+      thr = lobster_thr(v, a.rel, a.offset, a.inv_div);
+    } else {
+      thr = lbsp_thr(v, (float)a.lut_delta[0], a.rel, a.inv_div, a.hi);
+    }
+    const uint32_t k4 = (uint32_t)(255 - thr) * 0x01010101u;
+    s.lut[v] = make_uint2(k4, k4 & 0x7f7f7f7fu);
   }
 }
 
-// Phase A, shared by consensus_kernel and fused_kernel: the replay of the
-// pending log into the banks (colours through the shared copy, descriptors
-// straight) and bg_sum; ct_stage fills the walk's inputs meanwhile. Every
-// thread of the block calls it.
-template <int C>
-__device__ __forceinline__ void ct_replay(const ConsArgs& a, const CtShared& s, int x0, int y0) {
+// Phase A, shared by consensus_kernel, fused_kernel and lobster_kernel: the
+// replay of the pending log into the banks (colours through the shared copy,
+// descriptors straight) and bg_sum; ct_stage fills the walk's inputs for
+// consensus K meanwhile. Every thread of the block calls it.
+template <int C, Consensus K, class A>
+__device__ __forceinline__ void ct_replay(const A& a, const CtShared& s, int x0, int y0) {
   const int N = a.N, H = a.H, W = a.W, E = a.E;
   const size_t HW = (size_t)H * W;
   const int t = threadIdx.x, lane = t & 31;
@@ -508,7 +520,7 @@ __device__ __forceinline__ void ct_replay(const ConsArgs& a, const CtShared& s, 
       }
     }
   }
-  ct_stage<C>(a, s, t, x0, y0, H, W, E);
+  ct_stage<C, K>(a, s, t, x0, y0, H, W, E);
   for (int i = t; i < C * N * 2 * CT_H; i += CT_T) s.dirty[i] = 0;
   if (t == 0) *s.qn = 0;
   // the descriptor writes go straight to the banks
@@ -591,16 +603,12 @@ struct WalkOut {
   uint32_t* pv;   // [C][CT_T]
 };
 
-template <bool FUSED, class A>
-__device__ __forceinline__ int walk_req(const A& a, int x, int y, int p) {
-  if (FUSED && !(y >= 2 && y <= a.H - 3 && x >= 2 && x <= a.W - 3)) return 0;
-  return a.required[p];
-}
-
-template <bool FUSED, class A>
+template <bool FUSED, Consensus K, class A>
 __device__ __forceinline__ void walk_result(const A& a, const WalkOut& o, int tp, int p, int count, int mind,
                                             int mins) {
-  if (FUSED) {
+  if constexpr (K == Consensus::LOBSTER) {
+    a.count[p] = count;
+  } else if (FUSED) {
     o.res[tp] = (uint32_t)count | (uint32_t)mind << 8 | (uint32_t)mins << 16;
   } else {
     a.count[p] = count;
@@ -611,10 +619,11 @@ __device__ __forceinline__ void walk_result(const A& a, const WalkOut& o, int tp
 
 // Phases B and C, shared: the walk's first CT_BATCH samples one thread per
 // pixel, then the open walks densely from a shared queue, with the colours
-// from SRC. Needs ct_stage's inputs in place (after a __syncthreads). Ends
-// with the block in step after phase B; phase C's results are visible to
-// the block only after the caller's __syncthreads.
-template <int C, bool FUSED, ColSrc SRC, class A>
+// from SRC and consensus K's sample test. Needs ct_stage's inputs in place
+// (after a __syncthreads). Ends with the block in step after phase B; phase
+// C's results are visible to the block only after the caller's
+// __syncthreads.
+template <int C, bool FUSED, ColSrc SRC, Consensus K, class A>
 __device__ __forceinline__ void ct_walk(const A& a, const CtShared& s, const WalkOut& o, int x0, int y0) {
   const int N = a.N, W = a.W;
   const size_t HW = (size_t)a.H * W;
@@ -628,7 +637,7 @@ __device__ __forceinline__ void ct_walk(const A& a, const CtShared& s, const Wal
   WalkCtx<C> w;
   int count = 0, mind = 16 * C, mins = 255 * C, j = 0;
   if (in) {
-    walk_ctx<C>(w, s.pl, s.lut, r, cx, a.R[p], a.unstable[p], walk_req<FUSED>(a, x, y, p), a.min_cd, a.desc_off);
+    walk_ctx<C, K, FUSED>(w, a, s.pl, s.lut, r, cx, x, y, p);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       if (FUSED) {
@@ -637,10 +646,10 @@ __device__ __forceinline__ void ct_walk(const A& a, const CtShared& s, const Wal
         a.intra[(size_t)c * HW + p] = w.intra[c];
       }
     }
-    walk_samples<C, SRC>(w, s.col, r * 64 + cx, a.banks, p, HW, s.lut, N, CT_BATCH, j, count, mind, mins);
+    walk_samples<C, SRC, K>(w, a, s.col, r * 64 + cx, p, HW, s.lut, CT_BATCH, j, count, mind, mins);
   }
   const bool open = in && count < w.req && j < N;
-  if (in && !open) walk_result<FUSED>(a, o, t, p, count, mind, mins);
+  if (in && !open) walk_result<FUSED, K>(a, o, t, p, count, mind, mins);
   const unsigned m = __ballot_sync(0xffffffffu, open);
   unsigned base = 0;
   if (lane == 0 && m) base = atomicAdd(s.qn, (unsigned)__popc(m));
@@ -656,10 +665,9 @@ __device__ __forceinline__ void ct_walk(const A& a, const CtShared& s, const Wal
     const int xq = x0 + cq, yq = y0 + rq, pq = yq * W + xq;
     int cnt = (e >> 10) & 63, md = (e >> 16) & 63, ms = e >> 22, jq = CT_BATCH;
     WalkCtx<C> wq;
-    walk_ctx<C>(wq, s.pl, s.lut, rq, cq, a.R[pq], a.unstable[pq], walk_req<FUSED>(a, xq, yq, pq), a.min_cd,
-                a.desc_off);
-    walk_samples<C, SRC>(wq, s.col, rq * 64 + cq, a.banks, pq, HW, s.lut, N, N, jq, cnt, md, ms);
-    walk_result<FUSED>(a, o, tp, pq, cnt, md, ms);
+    walk_ctx<C, K, FUSED>(wq, a, s.pl, s.lut, rq, cq, xq, yq, pq);
+    walk_samples<C, SRC, K>(wq, a, s.col, rq * 64 + cq, pq, HW, s.lut, N, jq, cnt, md, ms);
+    walk_result<FUSED, K>(a, o, tp, pq, cnt, md, ms);
   }
 }
 
@@ -668,8 +676,8 @@ __global__ void __launch_bounds__(CT_T) consensus_kernel(ConsArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
   const CtShared s = ct_shared<C>(smem, a.N);
   const int x0 = blockIdx.x * CT_W, y0 = blockIdx.y * CT_H;
-  ct_replay<C>(a, s, x0, y0);
-  ct_walk<C, false, ColSrc::Shared>(a, s, WalkOut{nullptr, nullptr}, x0, y0);
+  ct_replay<C, Consensus::SuBSENSE>(a, s, x0, y0);
+  ct_walk<C, false, ColSrc::Shared, Consensus::SuBSENSE>(a, s, WalkOut{nullptr, nullptr}, x0, y0);
 }
 
 template <int C>
@@ -732,113 +740,97 @@ TT_EXPORT int tt_consensus(const void* plane0, const void* plane1, const void* p
 }
 
 // ---------------------------------------------------------------------------
-// consensus_lobster: LOBSTER's consensus, one thread per pixel. Replaces
+// lobster_kernel: LOBSTER's consensus, one block of CT_T threads per
+// CT_H x 64 tile as consensus_kernel. Replaces
 // tracking_tpu/ops/pallas_consensus.py:consensus_lobster_pallas
-// (_make_lobster_kernel). Steps 1-2 are the shared replay and bg_sum above;
-// then the intra descriptor with LOBSTER's threshold
-// thr(v) = clip(rint((v*rel + offset) * (1/div)), 0, 255) on edge-clamped
-// neighbours, and the walk with fixed thresholds: per channel cd <= c_sc and
-// dd <= d_sc, where dd is the popcount of (inter-frame descriptor XOR the
-// sample's descriptor); for C = 3 also sum(cd) <= c_tot and sum(dd) <= d_tot.
-// The walk stops once `req` good samples are counted.
+// (_make_lobster_kernel). Steps 1-4 of the header with LOBSTER's threshold
+// thr(v) = clip(rint((v*rel + offset) * (1/div)), 0, 255), for the intra and
+// the inter descriptors alike, and its fixed sample test (walk_samples): per
+// channel cd <= c_sc and dd <= d_sc, where dd is the popcount of (inter-frame
+// descriptor XOR the sample's descriptor); for C = 3 also sum(cd) <= c_tot
+// and sum(dd) <= d_tot. The walk stops once `req` good samples are counted.
+// LOBSTER's pending log is the 3x3-only case of SuBSENSE's, so ct_replay
+// replays it as it stands; the kernel writes count, intra and bg_sum.
 //
 // Bound on the H100: device-memory bytes. At 720p colour bg_sum alone reads
 // every colour slot, 96.8 MB (35 x 921,600 px x 3 channels x 1 B): 0.029 ms
 // at 3.35 TB/s; with the descriptors of the samples the walk examines, the
 // pending log and the output maps, chip_smoke.py counts 0.048 ms on its
-// clip. The design is consensus_kernel's: banks in place, coalesced slot
-// planes, each pixel's bytes touched once.
-__device__ __forceinline__ int lobster_thr(int v, float rel, float offset, float inv_div) {
-  return (int)fminf(fmaxf(rintf(((float)v * rel + offset) * inv_div), 0.0f), 255.0f);
+// clip. The first design, one thread per pixel in 32 x 8 blocks, reached
+// 24.5 % of it (0.196 ms on an H100, PERF.md section 6): its replay wrote
+// each colour byte and descriptor word straight to the banks (a partial
+// 32-byte sector each), bg_sum read the 35 x C colour bytes back one byte
+// load at a time, the 16 LBSP neighbours a channel came as scalar bytes from
+// device memory with 2-D clamps, every sample cost a float threshold and 16
+// scalar compares a channel with its loads issued after the previous
+// sample's test, and a warp walked all 35 samples beside one foreground
+// pixel. Here ct_replay stages the tile's colour slots in shared memory by
+// cp.async, writes back only the changed sectors and sums bg_sum four pixels
+// a word; ct_stage puts the plane tile and LOBSTER's threshold table in
+// shared memory; ct_walk takes byte-SIMD descriptors, CT_BATCH samples'
+// descriptors in flight and the open walks densely from a shared queue, the
+// colours from the shared copy. No R, unstable or requirement map is read,
+// and no mind / mins written.
+template <int C>
+__global__ void __launch_bounds__(CT_T) lobster_kernel(LobsterArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const CtShared s = ct_shared<C>(smem, a.N);
+  const int x0 = blockIdx.x * CT_W, y0 = blockIdx.y * CT_H;
+  ct_replay<C, Consensus::LOBSTER>(a, s, x0, y0);
+  ct_walk<C, false, ColSrc::Shared, Consensus::LOBSTER>(a, s, WalkOut{nullptr, nullptr}, x0, y0);
 }
 
 template <int C>
-__global__ void lobster_kernel(const uint8_t* __restrict__ planes, Banks banks, const int32_t* __restrict__ ctrl_map,
-                               int32_t* count_out, int32_t* intra_out, int32_t* bg_out, int N, int H, int W,
-                               float rel, float offset, float inv_div, int c_sc, int d_sc, int c_tot, int d_tot,
-                               int req) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const int HW = H * W;
-  const int p = y * W + x;
-  replay_pending<C>(banks, ctrl_map, x, y, p, N, H, W);
-  bank_sums<C>(banks, bg_out, p, N, HW);
-
-  int px[C], nbv[C][16];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const uint8_t* pl = planes + (size_t)c * HW;
-    px[c] = pl[p];
-    const int thr = lobster_thr(px[c], rel, offset, inv_div);
-    int d = 0;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      int v = pl[clampi(y + kLbspDy[k], 0, H - 1) * W + clampi(x + kLbspDx[k], 0, W - 1)];
-      nbv[c][k] = v;
-      d |= (abs(v - px[c]) > thr ? 1 : 0) << k;
-    }
-    intra_out[(size_t)c * HW + p] = d;
-  }
-
-  int count = 0;
-  for (int j = 0; j < N && count < req; ++j) {
-    int sum_cd = 0, sum_dd = 0;
-    bool good = true;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int s_col = banks.col[c][(size_t)j * HW + p];
-      const int s_desc = banks.desc[c][(size_t)j * HW + p];
-      const int cd = abs(px[c] - s_col);
-      const int sthr = lobster_thr(s_col, rel, offset, inv_div);
-      int inter = 0;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) inter |= (abs(nbv[c][k] - s_col) > sthr ? 1 : 0) << k;
-      const int dd = popc16(inter ^ s_desc);
-      good = good && (cd <= c_sc) && (dd <= d_sc);
-      sum_cd += cd;
-      sum_dd += dd;
-    }
-    if (C > 1) good = good && (sum_cd <= c_tot) && (sum_dd <= d_tot);
-    if (good) ++count;
-  }
-  count_out[p] = count;
+static int launch_lobster(const LobsterArgs& a, cudaStream_t stream) {
+  // the dynamic shared memory the largest bank (N = 63) needs, set once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      lobster_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, ct_smem_bytes<C>(63));
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((a.W + CT_W - 1) / CT_W, (a.H + CT_H - 1) / CT_H);
+  lobster_kernel<C><<<grid, CT_T, ct_smem_bytes<C>(a.N), stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
-TT_EXPORT int tt_consensus_lobster(const void* planes, void* col0, void* col1, void* col2, void* desc0, void* desc1,
-                                   void* desc2, const void* ctrl, const void* val0, const void* val1,
-                                   const void* val2, void* count, void* intra, void* bg_sum, int C, int N, int H,
-                                   int W, float rel, float offset, float div, int c_sc, int d_sc, int c_tot,
-                                   int d_tot, int req, void* stream_) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  Banks b;
-  b.col[0] = static_cast<uint8_t*>(col0);
-  b.col[1] = static_cast<uint8_t*>(col1);
-  b.col[2] = static_cast<uint8_t*>(col2);
-  b.desc[0] = static_cast<uint16_t*>(desc0);
-  b.desc[1] = static_cast<uint16_t*>(desc1);
-  b.desc[2] = static_cast<uint16_t*>(desc2);
-  b.vals[0] = static_cast<const int32_t*>(val0);
-  b.vals[1] = static_cast<const int32_t*>(val1);
-  b.vals[2] = static_cast<const int32_t*>(val2);
-  const float inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
-  dim3 block(32, 8);
-  dim3 grid((W + 31) / 32, (H + 7) / 8);
-  const uint8_t* px = static_cast<const uint8_t*>(planes);
-  const int32_t* cm = static_cast<const int32_t*>(ctrl);
-  int32_t* o0 = static_cast<int32_t*>(count);
-  int32_t* o1 = static_cast<int32_t*>(intra);
-  int32_t* o2 = static_cast<int32_t*>(bg_sum);
-  if (C == 1) {
-    lobster_kernel<1><<<grid, block, 0, stream>>>(px, b, cm, o0, o1, o2, N, H, W, rel, offset, inv_div, c_sc, d_sc,
-                                                  c_tot, d_tot, req);
-  } else if (C == 3) {
-    lobster_kernel<3><<<grid, block, 0, stream>>>(px, b, cm, o0, o1, o2, N, H, W, rel, offset, inv_div, c_sc, d_sc,
-                                                  c_tot, d_tot, req);
-  } else {
-    return (int)cudaErrorInvalidValue;
+TT_EXPORT int tt_consensus_lobster(const void* plane0, const void* plane1, const void* plane2, void* col0, void* col1,
+                                   void* col2, void* desc0, void* desc1, void* desc2, const void* ctrl,
+                                   const void* val0, const void* val1, const void* val2, void* count, void* intra,
+                                   void* bg_sum, int C, int N, int H, int W, float rel, float offset, float div,
+                                   int c_sc, int d_sc, int c_tot, int d_tot, int req, void* stream_) {
+  if (N < 1 || N > 63) return (int)cudaErrorInvalidValue;  // the log's 6-bit slots
+  LobsterArgs a;
+  const void* planes[3] = {plane0, plane1, plane2};
+  void* cols[3] = {col0, col1, col2};
+  void* descs[3] = {desc0, desc1, desc2};
+  const void* vals[3] = {val0, val1, val2};
+  bool aligned = W % 16 == 0;
+  for (int c = 0; c < 3; ++c) {
+    a.planes[c] = static_cast<const uint8_t*>(planes[c]);
+    a.banks.col[c] = static_cast<uint8_t*>(cols[c]);
+    a.banks.desc[c] = static_cast<uint16_t*>(descs[c]);
+    a.banks.vals[c] = static_cast<const int32_t*>(vals[c]);
+    if (c < C) aligned = aligned && (uintptr_t)cols[c] % 16 == 0;
   }
-  return (int)cudaGetLastError();
+  a.ctrl = static_cast<const int32_t*>(ctrl);
+  a.count = static_cast<int32_t*>(count);
+  a.intra = static_cast<int32_t*>(intra);
+  a.bg_sum = static_cast<int32_t*>(bg_sum);
+  a.N = N;
+  a.H = H;
+  a.W = W;
+  a.E = 0;
+  a.rel = rel;
+  a.offset = offset;
+  a.inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
+  a.c_sc = c_sc;
+  a.d_sc = d_sc;
+  a.c_tot = c_tot;
+  a.d_tot = d_tot;
+  a.req = req;
+  a.vec = aligned ? 1 : 0;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (C == 1) return launch_lobster<1>(a, stream);
+  if (C == 3) return launch_lobster<3>(a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -878,10 +870,10 @@ __global__ void __launch_bounds__(CT_T) read_walk_kernel(ReadArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
   const CtShared s = ct_shared<C>(smem, 0);  // no colour copy
   const int x0 = blockIdx.x * CT_W, y0 = blockIdx.y * CT_H;
-  ct_stage<C>(a, s, threadIdx.x, x0, y0, a.H, a.W, 0);
+  ct_stage<C, Consensus::SuBSENSE>(a, s, threadIdx.x, x0, y0, a.H, a.W, 0);
   if (threadIdx.x == 0) *s.qn = 0;
   __syncthreads();
-  ct_walk<C, false, ColSrc::Banks>(a, s, WalkOut{nullptr, nullptr}, x0, y0);
+  ct_walk<C, false, ColSrc::Banks, Consensus::SuBSENSE>(a, s, WalkOut{nullptr, nullptr}, x0, y0);
 }
 
 TT_EXPORT int tt_consensus_read(const void* plane0, const void* plane1, const void* plane2, const void* col0,
@@ -961,9 +953,9 @@ TT_EXPORT int tt_consensus_read(const void* plane0, const void* plane1, const vo
 // 100 B/px of feedback state (9 f32 maps in, 8 out, 16 B of random bits,
 // five mask bytes, the last frame's colour and descriptors, the flags word
 // and the new log); chip_smoke.py counts them on its run's data. The
-// earlier design, one thread per pixel on replay_pending, bank_sums and
-// the scalar walk, paid the partial-sector slot writes and scalar descriptor
-// steps that consensus_kernel's phases remove (0.78 ms against 0.37 on an
+// earlier design, one thread per pixel with the slot writes straight to the
+// banks, a byte-at-a-time bg_sum and the scalar walk, paid the partial-sector
+// slot writes and scalar descriptor steps that consensus_kernel's phases remove (0.78 ms against 0.37 on an
 // H100 at 720p colour, PERF.md section 6).
 struct FusedArgs {
   ConsArgs cons;  // planes, banks, old log, R, unstable, the true requirement, bg_sum
@@ -995,8 +987,8 @@ __global__ void __launch_bounds__(CT_T) fused_kernel(FusedArgs a, bool use3x3_gl
   o.res = reinterpret_cast<uint32_t*>(smem + ct_smem_bytes<C>(ca.N));
   o.pv = o.res + CT_T;
   const int x0 = blockIdx.x * CT_W, y0 = blockIdx.y * CT_H;
-  ct_replay<C>(ca, s, x0, y0);
-  ct_walk<C, true, ColSrc::Shared>(ca, s, o, x0, y0);
+  ct_replay<C, Consensus::SuBSENSE>(ca, s, x0, y0);
+  ct_walk<C, true, ColSrc::Shared, Consensus::SuBSENSE>(ca, s, o, x0, y0);
   __syncthreads();
 
   // -- D. the feedback, each pixel on its own thread --------------------------------

@@ -646,12 +646,11 @@ def consensus_lobster(
         req_(descs[c], f"descs[{c}]", torch.uint16, (N, H, W))
         req_(pend_vals[c], f"pend_vals[{c}]", torch.int32, (H, W))
     req_(pend_ctrl, "pend_ctrl", torch.int32, (H, W))
-    px = torch.stack(planes).contiguous()
     maps = torch.empty((1 + 2 * C, H, W), dtype=torch.int32, device=planes[0].device)
     count, intra, bg_sum = maps[0], maps[1 : 1 + C], maps[1 + C :]
     ptr = lambda ts, c: ts[c].data_ptr() if c < C else None  # noqa: E731
     rc = _native.library().tt_consensus_lobster(
-        px.data_ptr(),
+        ptr(planes, 0), ptr(planes, 1), ptr(planes, 2),
         ptr(colors, 0), ptr(colors, 1), ptr(colors, 2),
         ptr(descs, 0), ptr(descs, 1), ptr(descs, 2),
         pend_ctrl.data_ptr(),

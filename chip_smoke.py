@@ -10,7 +10,8 @@ SuBSENSE followed by the default CCMSPF blob tracker; LOBSTER, GMG,
 DPTexture and MultiLayer through the registry; SuBSENSE's consensus v3 and
 fused step and subsenseShrink; FGD (FG_0) followed by the tracker, and
 FGDSimple (FG_0S); the row-sharded SuBSENSE + CCMSPF pipeline in 4 shards
-on the one card - and fails (non-zero exit, no result line) on any broken
+on the one card; the tracking app's frame loop with its MOG1 detector and
+MS-family trackers - and fails (non-zero exit, no result line) on any broken
 phase:
 
 1. device: the card's name and power limit; no CUDA device is an error;
@@ -93,11 +94,29 @@ phase:
    the first 4 frames again through the plain versions; the most
    components a frame had (the sharded blob table follows the unsharded one
    up to 128);
+4f. the tracking app (``runner/cli.run_tracking``, the frame loop of
+   ``tracking-run``) on the clip's frames in chunks of 16: the default app
+   (SuBSENSE, BD_CC, CCMSPF, HistPVS, Kalman) for 32 frames writes a
+   RawTracks CSV and a ``bta_data`` npz, launches the four main kernels and
+   ends with an active track; 16 frames, ``--savestate``, a fresh app with
+   ``--loadstate``, 16 more equal the 32-frame run (the CSV byte for byte,
+   the BGS and tracker states leaf by leaf); ``FGTrainFrames=8`` records no
+   track before frame 8; ``--fg FG_1`` (MOG1) + CCMSPF for 16 frames equals
+   its plain path (masks, tracks, states); MS, MSFG and MSPF after SuBSENSE
+   for 16 frames equal a CPU run on the same masks and frames (the table and
+   templates exactly, Kalman leaves to a relative 1e-5) and their colour
+   sums equal the CPU's on the card's inputs of every 4th frame;
+   MultiLayer's ``saveModel`` then
+   ``bg_model_preload`` equals an unbroken run; GMG's u32 and FGD's f16
+   leaves round-trip a checkpoint; where cv2 imports, ``tracking_run`` on an
+   FFV1 AVI of the clip's first 16 frames gives the same CSV (else it says
+   so);
 5. the first 16 SuBSENSE + tracker frames again through the plain
    versions: masks, track ids and positions must equal the kernel run's;
 6. timing with CUDA events: each kernel beside its plain version and its
    bound, ms/frame for the SuBSENSE step alone, the full path and each of
-   the four algorithms, v1 / v3 / fused SuBSENSE steps and the
+   the four algorithms, the tracking app's ms/frame in turns with the full
+   path, v1 / v3 / fused SuBSENSE steps and the
    subsenseShrink fused step in turns, CC
    labelling on FGD's masks (quiet and flooded) beside SuBSENSE's, FGD's
    table kernel on young, full and noisy-clip tables (also on fresh copies
@@ -117,7 +136,7 @@ phase:
    state's beside it) and of
    ``label_fixpoint`` (at most 4), an empty launch's event and device
    time, and the device's busy share and kernels per frame under
-   torch.profiler.
+   torch.profiler (the full path, and the app over a chunk).
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -190,6 +209,15 @@ SPATIAL_PIPELINED = 8
 SPATIAL_PLAIN = 4
 SPATIAL_KERNELS = ("label_fixpoint", "consensus", "flood_reach", "greedy_assign")
 SPATIAL_TIMED = (8, 2)  # ms/frame = (T(8 frames) - T(2 frames)) / 6
+APP_FRAMES = 32  # phase 4f: the tracking app
+APP_CHUNK = 16
+APP_TRAIN = 8  # FGTrainFrames
+APP_ML = 4  # MultiLayer frames before and after its model checkpoint
+APP_DIR = "build/app_smoke"  # the app's output files (git-ignored)
+# the card's batched 4x4 inverse and matrix products sum in another order
+# than the CPU's, so Kalman leaves of a card run and a CPU run agree to this
+# relative tolerance (the CPU tests' own Kalman tolerance)
+KALMAN_TOL = 1e-5
 SWITCHES = ("TRACKING_TPU_CONSENSUS", "TRACKING_TPU_FUSED", "TRACKING_TPU_FUSED_INTERP")
 # kernels that must keep their state in registers or shared memory: no
 # stack frame (a local array indexed at run time) and no spills
@@ -338,6 +366,12 @@ def profile(run_frame, frame_ids, tag, label, top: int = 14, n_frames=None) -> N
             run_frame(t)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, n_frames, tag, label, top)
+
+
+def report_profile(prof, wall_us: float, n_frames: int, tag, label, top: int = 14) -> None:
+    """Device time by kernel, busy share and kernels per frame of a
+    finished torch.profiler run over ``n_frames`` frames."""
     events = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
     dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
     busy = sum(dev_us(e) for e in events)
@@ -1703,6 +1737,248 @@ def count_components(mask) -> int:
     return int((lab == torch.arange(H * W, device=mask.device, dtype=torch.int32).reshape(H, W)).sum())
 
 
+def app_args(cli, *extra):
+    """The app's arguments as ``tracking-run`` parses them (the video name
+    is unused: the chunks come from the caller)."""
+    args, _ = cli.parse_tracking_args(["synthetic-clip", "--quiet", "--chunk", str(APP_CHUNK)] + [str(e) for e in extra])
+    return args
+
+
+def app_chunks(clip, a: int, b: int):
+    return [clip[s : min(s + APP_CHUNK, b)] for s in range(a, b, APP_CHUNK)]
+
+
+def app_masks(store):
+    """``on_frame`` that keeps each frame's mask (on the card)."""
+    return lambda idx, frame, fg, tracks, scores, ana: store.append(fg)
+
+
+def check_ms_functions(frame_k, fg_k, hist_k, pred_k, key_k, centres_k, K: int):
+    """The MS family's float sums on the card against the CPU on the same
+    inputs, exactly: each track's colour mean-shift (MS, MSFG), MSPF's
+    particle refinement and the templates at the frame's blob centres."""
+    from tracking_tpu_torch.ops import rng
+    from tracking_tpu_torch.track.meanshift import meanshift_color_refine, particle_color_refine, window_color_hist
+
+    cpu = lambda *ts: [t.cpu() for t in ts]  # noqa: E731
+    frame_c, fg_c, hist_c, pred_c, key_c, centres_c = cpu(frame_k, fg_k, hist_k, pred_k, key_k, centres_k)
+    e = 0.0
+    for use_fg in (False, True):
+        e = max(e, max_err(meanshift_color_refine(frame_k, fg_k, hist_k, pred_k[:, 1], pred_k[:, 0], use_fg),
+                           [t.to(frame_k.device) for t in meanshift_color_refine(
+                               frame_c, fg_c, hist_c, pred_c[:, 1], pred_c[:, 0], use_fg)]))
+    e = max(e, max_err(particle_color_refine(frame_k, fg_k, hist_k, rng.split(key_k, K), pred_k[:, 1], pred_k[:, 0],
+                                             True),
+                       [t.to(frame_k.device) for t in particle_color_refine(
+                           frame_c, fg_c, hist_c, rng.split(key_c, K), pred_c[:, 1], pred_c[:, 0], True)]))
+    e = max(e, max_err(window_color_hist(frame_k, fg_k, centres_k[:, 1], centres_k[:, 0]),
+                       window_color_hist(frame_c, fg_c, centres_c[:, 1], centres_c[:, 0]).to(frame_k.device)))
+    return e
+
+
+def app_path(clip, frames, dev, results, out) -> None:
+    """Phase 4f: the tracking app (``runner/cli.run_tracking``, the loop of
+    ``tracking-run``) on synthetic chunks at 720p, and ``tracking_run`` on
+    an FFV1 file where cv2 imports."""
+    import shutil
+
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.core.checkpoint import load_state, save_state
+    from tracking_tpu_torch.ops import _native
+    from tracking_tpu_torch.runner import cli
+    from tracking_tpu_torch.track.kalman import default_params, kalman_predict
+    from tracking_tpu_torch.track.tracker import BlobTracker, _blob_xywh
+    from tracking_tpu_torch.ops.cc import extract_blobs
+
+    print(f"[4f] the tracking app: SuBSENSE + BD_CC + CCMSPF + HistPVS + Kalman, {APP_FRAMES} frames in chunks of "
+          f"{APP_CHUNK} at {H}x{W}x{C} {elapsed()}", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    _native.reset_launches()
+    full = cli.run_tracking(app_chunks(clip, 0, APP_FRAMES), app_args(
+        cli, "--track", f"{out}/tracks.csv", "--btgen", "RawTracks", "--bta_data", f"{out}/bta.npz"))
+    torch.cuda.synchronize()
+    launches = dict(_native.LAUNCHES)
+    print(f"  launches: {launches}", flush=True)
+    for k in MAIN_KERNELS:
+        check(launches[k] > 0, f"{k} launched {launches[k]} times by the app")
+        results[k]["app_launches"] = launches[k]
+    n_active = int(full.trk_state["active"].sum())
+    check(n_active >= 1, f"{n_active} tracks active at the end of the app's run")
+    whole = open(f"{out}/tracks.csv").read()
+    with open(f"{out}/bta.npz", "rb") as fh:
+        n_npz = len(fh.read())
+    check(whole.count("\n") > 1 and n_npz > 0, f"RawTracks CSV of {whole.count(chr(10)) - 1} rows and a bta_data "
+                                                f"npz of {n_npz} bytes written")
+
+    # resume: 16 frames, save, a fresh app state, load, 16 more
+    cli.run_tracking(app_chunks(clip, 0, APP_CHUNK), app_args(
+        cli, "--track", f"{out}/a.csv", "--btgen", "RawTracks", "--savestate", f"{out}/state.ckpt"))
+    second = cli.run_tracking(app_chunks(clip, APP_CHUNK, APP_FRAMES), app_args(
+        cli, "--track", f"{out}/b.csv", "--btgen", "RawTracks", "--loadstate", f"{out}/state.ckpt"), start=APP_CHUNK)
+    joined = open(f"{out}/a.csv").read() + open(f"{out}/b.csv").read().split("\n", 1)[1]
+    check(joined == whole, "the resumed run's track CSV equals the unbroken run's byte for byte")
+    e = max(max_err(full.bgs_state, second.bgs_state), max_err(full.trk_state, second.trk_state))
+    check(e == 0.0, f"the resumed run's BGS and tracker states equal the unbroken run's leaf by leaf (max |err| {e})")
+
+    print(f"  {elapsed()}", flush=True)
+
+    # FGTrainFrames: the tracker waits
+    trained = cli.run_tracking(app_chunks(clip, 0, APP_CHUNK), app_args(cli, "--FGTrainFrames", APP_TRAIN))
+    first = min((r[0] for r in trained.recorder.rows), default=None)
+    check(first is None or first >= APP_TRAIN, f"FGTrainFrames={APP_TRAIN}: no track before frame {APP_TRAIN} "
+                                               f"(first track row at frame {first})")
+
+    # --fg FG_1: MOG1 + CCMSPF, the kernel path against the plain path
+    mk, mp = [], []
+    fk = cli.run_tracking(app_chunks(clip, 0, APP_CHUNK), app_args(cli, "--fg", "FG_1"), on_frame=app_masks(mk))
+    fp = cli.run_tracking(app_chunks(clip, 0, APP_CHUNK), app_args(cli, "--fg", "FG_1"), use_kernels=False,
+                          on_frame=app_masks(mp))
+    e = max(max_err(mk, mp), max_err(fk.bgs_state, fp.bgs_state), max_err(fk.trk_state, fp.trk_state))
+    share = float(torch.stack(mk[1:]).gt(0).to(torch.float32).mean())
+    check(e == 0.0 and fk.recorder.rows == fp.recorder.rows,
+          f"FG_1 (MOG1) + CCMSPF: masks, tracks ({len(fk.recorder.rows)} rows) and states of the kernel path equal "
+          f"the plain path's over {APP_CHUNK} frames (foreground share after frame 0 {share:.4f})")
+    check(0.001 < share < 0.5, f"FG_1 foreground share {share:.4f} in (0.001, 0.5)")
+
+    print(f"  {elapsed()}", flush=True)
+
+    # MS, MSFG, MSPF after SuBSENSE: the card against the CPU
+    algo = get_algorithm(36)()
+    st = algo.warm_start(algo.init(H, W, C, device=dev), frames[0])
+    masks = []
+    for t in range(1, 1 + APP_CHUNK):
+        st, fg, _ = algo.step(st, frames[t])
+        masks.append(fg)
+    del st
+    # the CPU run's blob tables, extracted once from the same masks on the
+    # CPU and shared by the three trackers (its CC labelling is most of a
+    # CPU step at 720p)
+    cpu_blobs = [extract_blobs(m.cpu(), max_blobs=BlobTracker().config.maxBlobs) for m in masks]
+    kp = default_params(device=dev)
+    for ttype in ("MS", "MSFG", "MSPF"):
+        tr = BlobTracker(trackerType=ttype)
+        sk, sc = tr.init(device=dev), tr.init(device="cpu")
+        e_tab, e_kal, e_fn, n_on = 0.0, 0.0, 0.0, 0
+        for i in range(APP_CHUNK):
+            t = i + 1
+            pred = kalman_predict(sk["kx"], sk["kP"], kp)[0][:, :4]
+            blobs = extract_blobs(masks[i], max_blobs=tr.config.maxBlobs)
+            if i % 4 == 3:  # every 4th frame: the functions alone, on the card's inputs
+                e_fn = max(e_fn, check_ms_functions(frames[t], (masks[i] > 0).to(torch.float32), sk["hist"], pred,
+                                                    sk["key"], _blob_xywh(blobs), tr.config.maxTracks))
+            sk, ok_ = tr.step(sk, masks[i], frames[t])
+            sc, oc = tr.step(sc, masks[i].cpu(), frames[t].cpu(), blobs=cpu_blobs[i])
+            exact = ("active", "ids", "age", "lost", "cand_pos", "cand_age", "next_id", "hist", "key", "cand_vel")
+            e_tab = max(e_tab, max_err({k: sk[k].cpu() for k in exact}, {k: sc[k] for k in exact}),
+                        max_err([ok_.active.cpu(), ok_.ids.cpu()], [oc.active, oc.ids]))
+            e_kal = max(e_kal, max_err([sk["kx"].cpu(), sk["kP"].cpu()] + [getattr(ok_, f).cpu() for f in ok_._fields[2:]],
+                                       [sc["kx"], sc["kP"]] + [getattr(oc, f) for f in oc._fields[2:]]))
+            n_on += int(ok_.active.sum())
+        check(e_fn == 0.0, f"{ttype}: the colour mean-shift, MSPF's particles and the templates equal the CPU's on "
+                           f"the card's inputs of every 4th frame")
+        check(e_tab == 0.0 and n_on > 0, f"{ttype}: the tracker table (templates, key, ids, ages, candidates) equals "
+                                          f"the CPU run's after every frame ({n_on} active track-frames)")
+        check(e_kal <= KALMAN_TOL * (1.0 + float(sc["kx"].abs().max())),
+              f"{ttype}: Kalman states and positions within {KALMAN_TOL:g} (relative) of the CPU run's "
+              f"(max |err| {e_kal}: the card's batched 4x4 inverse and products sum in another order)")
+
+    print(f"  {elapsed()}", flush=True)
+
+    # MultiLayer: saveModel, then bg_model_preload
+    path = f"{out}/multilayer.ckpt"
+    ml_args = app_args(cli, "--bgs_type", 23)
+    learn, trk = cli.build_modules(ml_args, ["fg:saveModel=1", f"fg:bg_model_preload={path}"])
+    cli.run_tracking(app_chunks(clip, 0, APP_ML), ml_args, learn, trk)
+    detect, _ = cli.build_modules(ml_args, [f"fg:bg_model_preload={path}"])
+    resumed = cli.run_tracking(app_chunks(clip, APP_ML, 2 * APP_ML), ml_args, detect, trk, start=APP_ML)
+    unbroken = cli.run_tracking(app_chunks(clip, 0, 2 * APP_ML), ml_args, get_algorithm(23)(), trk)
+    e = max_err(unbroken.bgs_state, resumed.bgs_state)
+    check(e == 0.0, f"MultiLayer saveModel -> bg_model_preload: {APP_ML} + {APP_ML} frames equal {2 * APP_ML} unbroken "
+                    f"frames ({os.path.getsize(path) / 2**20:.0f} MiB model)")
+    del learn, detect, resumed, unbroken
+
+    print(f"  {elapsed()}", flush=True)
+
+    # u32 and f16 leaves through a checkpoint on this torch
+    hs, ws = min(72, H), min(128, W)
+    crop = frames[:4, :hs, :ws].contiguous()
+    trees = {}
+    for name in ("GMG", "FGD"):
+        a = get_algorithm(name)()
+        s = a.warm_start(a.init(hs, ws, C, device=dev), crop[0])
+        for t in range(1, 4):
+            s, _, _ = a.step(s, crop[t])
+        trees[name] = s
+    save_state(f"{out}/leaves.ckpt", trees)
+    back = load_state(f"{out}/leaves.ckpt", like=trees)
+    check(max_err(trees, back) == 0.0 and back["GMG"]["colors"].dtype == torch.uint32
+          and back["FGD"]["ct_P"].dtype == torch.float16,
+          f"GMG's u32 colour codes and FGD's f16 planes round-trip a checkpoint on torch {torch.__version__}")
+
+    # the app on a video file, where cv2 imports
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is None:
+        print("  cv2 does not import here: the synthetic-chunk runs above are the app's run (no video file)",
+              flush=True)
+        return
+    avi = f"{out}/clip.avi"
+    vw = cv2.VideoWriter(avi, cv2.VideoWriter_fourcc(*"FFV1"), 30.0, (W, H))
+    for f in clip[:APP_CHUNK]:
+        vw.write(f)
+    vw.release()
+    cli.tracking_run([avi, "--quiet", "--chunk", str(APP_CHUNK), "--track", f"{out}/avi.csv", "--btgen", "RawTracks"])
+    check(open(f"{out}/avi.csv").read() == open(f"{out}/a.csv").read(),
+          f"cv2 {cv2.__version__} imports: tracking_run on an FFV1 AVI of the clip's first {APP_CHUNK} frames gives "
+          f"the synthetic run's track CSV")
+
+
+def time_app(clip, out, n_chunks: int = 3):
+    """ms/frame of the app's second chunk (frames 16-31): the interval
+    between the loop's requests for chunks 2 and 3, which covers the chunk's
+    device work (the per-chunk copy waits for it), its copy and the
+    recorder and analysis."""
+    from tracking_tpu_torch.runner import cli
+
+    marks = []
+
+    def gen():
+        for i in range(n_chunks):
+            marks.append(time.perf_counter())
+            yield clip[i * APP_CHUNK : (i + 1) * APP_CHUNK]
+        marks.append(time.perf_counter())
+
+    cli.run_tracking(gen(), app_args(cli, "--track", f"{out}/timed.csv", "--btgen", "RawTracks"))
+    return (marks[2] - marks[1]) / APP_CHUNK * 1e3
+
+
+def profile_app(clip, tag, out) -> None:
+    """torch.profiler over the app's second chunk."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from tracking_tpu_torch.runner import cli
+
+    prof = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    box = {}
+
+    def gen():
+        for i in range(3):
+            if i == 1:
+                torch.cuda.synchronize()
+                prof.start()
+                box["t0"] = time.perf_counter()
+            if i == 2:
+                box["wall"] = (time.perf_counter() - box["t0"]) * 1e6
+                prof.stop()
+            yield clip[i * APP_CHUNK : (i + 1) * APP_CHUNK]
+
+    cli.run_tracking(gen(), app_args(cli, "--track", f"{out}/profiled.csv", "--btgen", "RawTracks"))
+    report_profile(prof, box["wall"], APP_CHUNK, tag, "tracking app (chunk 2)")
+
+
 def spatial_path(algo, tracker, state0, frames, dev, results) -> None:
     """Phase 4e: the row-sharded SuBSENSE + CCMSPF pipeline in 4 shards,
     lockstep and pipelined, against the unsharded kernel path on the same
@@ -2039,6 +2315,10 @@ def main(argv) -> None:
     # -- 4e. the row-sharded path ------------------------------------------
     spatial_path(algo, tracker, state0, frames, dev, results)
 
+    # -- 4f. the tracking app ----------------------------------------------
+    app_out = os.path.join(os.path.dirname(os.path.abspath(__file__)), APP_DIR)
+    app_path(clip, frames, dev, results, app_out)
+
     # -- 5. path against path ----------------------------------------------
     print(f"[5] the first {PATH_FRAMES} frames through the plain versions {elapsed()}", flush=True)
     st_p = clone(state0)
@@ -2125,13 +2405,20 @@ def main(argv) -> None:
     torch.cuda.reset_peak_memory_stats()
     span = range(17, 17 + TIMED_FRAMES)
     bgs_ms = [run(span, False), run(span, False)]
-    full_ms = [run(span, True), run(span, True)]
+    full_ms, app_ms = [], []
+    for _ in range(2):  # in turns: the path's own loop, then the app's
+        full_ms.append(run(span, True))
+        app_ms.append(time_app(clip, app_out))
     for name, v in (("BGS step", bgs_ms), ("full path (BGS + tracking)", full_ms)):
         print(f"  {tag} {name}: {v[0]:.3f} / {v[1]:.3f} ms/frame = {1000 / min(v):.1f} fps "
               f"({TIMED_FRAMES} frames, {H}x{W}x{C})", flush=True)
+    print(f"  {tag} tracking app (run_tracking, chunk of {APP_CHUNK}: the steps, the per-chunk copy, recorder and "
+          f"HistPVS analysis), in turns with the full path: {app_ms[0]:.3f} / {app_ms[1]:.3f} ms/frame = "
+          f"{1000 / min(app_ms):.1f} fps", flush=True)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  {tag} peak device memory of the SuBSENSE + tracker runs {peak:.2f} GiB", flush=True)
     profile_full_path(algo, tracker, state0, frames, dev, tag)
+    profile_app(clip, tag, app_out)
 
     print(json.dumps({"kernels": [results[k] for k in SOURCES]}))
     print(card_line())

@@ -17,6 +17,7 @@ import torch
 from torch_parity import assert_tree_equal
 from tracking_tpu.bgs import fgd as JF
 from tracking_tpu.bgs import gmg as JG
+from tracking_tpu.bgs import gmm as JGM
 from tracking_tpu.bgs import lbsp_family as JLF
 from tracking_tpu.bgs import multilayer as JM
 from tracking_tpu.bgs import subsense_shrink as JS
@@ -26,11 +27,13 @@ from tracking_tpu.track import tracker as JTR
 from tracking_tpu_torch import convert, get_algorithm, list_algorithms
 from tracking_tpu_torch.bgs import fgd as TF
 from tracking_tpu_torch.bgs import gmg as TG
+from tracking_tpu_torch.bgs import gmm as TGM
 from tracking_tpu_torch.bgs import lbsp_family as TLF
 from tracking_tpu_torch.bgs import multilayer as TM
 from tracking_tpu_torch.bgs import subsense_shrink as TS
 from tracking_tpu_torch.bgs import texture as TT
 from tracking_tpu_torch.ops import _native, assoc, cc, consensus, fgd, fill, gmg, multilayer, texture
+from tracking_tpu_torch.synth import make_clip
 from tracking_tpu_torch.track import tracker as TTR
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -80,7 +83,7 @@ def test_no_jax_or_reference_imports():
         (JLF.LOBSTERConfig, TLF.LOBSTERConfig), (JG.GMGConfig, TG.GMGConfig),
         (JT.DPTextureConfig, TT.DPTextureConfig), (JM.MultiLayerConfig, TM.MultiLayerConfig),
         (JS.SuBSENSEShrinkConfig, TS.SuBSENSEShrinkConfig), (JF.FGDConfig, TF.FGDConfig),
-        (JF.FGDSimple.Config, TF.FGDSimple.Config),
+        (JF.FGDSimple.Config, TF.FGDSimple.Config), (JGM.MOG1Config, TGM.MOG1Config),
     ],
 )
 def test_config_fields_and_defaults_match(ref, port):
@@ -102,6 +105,7 @@ def test_config_fields_and_defaults_match(ref, port):
         ("subsenseShrink", None, ("subsense-shrink", "yzbx"), TS.SuBSENSEShrink),
         ("FGD", None, ("FG_0", "fgd"), TF.FGD),
         ("FGDSimple", None, ("FG_0S", "fgd-simple"), TF.FGDSimple),
+        ("MixtureOfGaussianV1BGS", 4, ("mog1", "mog"), TGM.MixtureOfGaussianV1),
     ],
 )
 def test_registry(name, type_id, aliases, cls):
@@ -178,8 +182,10 @@ def test_slice3_states_mirror_reference(monkeypatch, ref, port, c, mode):
         lambda: TT.DPTextureBGS().init(8, 8, 3), lambda: TM.MultiLayerBGS().init(8, 8, 3),
         lambda: TTR.BlobTracker().init(), lambda: convert.state_from_numpy({"t": np.zeros((), np.int32)}),
         lambda: TS.SuBSENSEShrink().init(8, 8, 3), lambda: TF.FGD().init(8, 8, 3),
+        lambda: TGM.MixtureOfGaussianV1().init(8, 8, 3),
     ],
-    ids=["subsense", "lobster", "gmg", "dptexture", "multilayer", "tracker", "convert", "subsense-shrink", "fgd"],
+    ids=["subsense", "lobster", "gmg", "dptexture", "multilayer", "tracker", "convert", "subsense-shrink", "fgd",
+         "mog1"],
 )
 def test_entry_points_default_to_the_card(make):
     """With no device given, states are made on the card: on a host without
@@ -267,11 +273,56 @@ def test_fgd_states_mirror_reference(monkeypatch, ref, port, dtype):
     assert back["ct_Pb"].dtype == getattr(torch, dtype)
 
 
-def test_multilayer_checkpoints_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TM.MultiLayerBGS(saveModel=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TM.MultiLayerBGS(bg_model_preload="models/x")
+def test_multilayer_checkpoints_not_ported(tmp_path, capsys):
+    """MultiLayer's model persistence (once refused here) through the app's
+    frame loop: a LEARN run with ``saveModel`` writes its final state to
+    ``bg_model_preload``; a second run with that preload starts from it in
+    place of the warm start. 6 + 6 frames equal 12 frames of a run that
+    never saved (masks' foreground and the state, leaf by leaf)."""
+    from tracking_tpu_torch.runner import cli
+
+    frames = make_clip(12, 24, 40, 3, seed=4)
+    args, _ = cli.parse_tracking_args(["clip", "--quiet", "--bta", "None", "--device", "cpu"])
+    path = str(tmp_path / "models" / "ml.ckpt")
+    tracker = TTR.BlobTracker()
+    first = cli.run_tracking([frames[:6]], args, TM.MultiLayerBGS(saveModel=True, bg_model_preload=path), tracker)
+    second = cli.run_tracking([frames[6:]], args, TM.MultiLayerBGS(bg_model_preload=path), tracker, start=6)
+    whole = cli.run_tracking([frames[:3], frames[3:]], args, TM.MultiLayerBGS(), tracker)
+    out = capsys.readouterr().out
+    assert f"bg model: saved MultiLayerBGS model to {path}" in out
+    assert f"bg model: loaded MultiLayerBGS model from {path}" in out
+    assert int(first.bgs_state["t"]) == 6 and int(second.bgs_state["t"]) == 12
+    assert_tree_equal(whole.bgs_state, second.bgs_state)
+    assert float(whole.bgs_state["weight"].max()) > 0.0
+
+
+def test_imports_without_cv2():
+    """cv2 is imported only by the functions that read or write video or
+    YML: every module of the port imports without it."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['cv2'] = None\n"
+        "import tracking_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'tracking_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "print(len(names))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_app_refuses_a_missing_card():
+    """The app runs on the card unless ``--device cpu`` asks for the CPU; it
+    never falls back to the CPU by itself."""
+    from tracking_tpu_torch.runner import cli
+
+    args, _ = cli.parse_tracking_args(["clip", "--quiet"])
+    assert args.device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="--device cpu"):
+            cli.run_tracking([make_clip(2, 24, 40, 3)], args)
+    assert cli.main(["bgs-run"]) == 2
 
 
 def test_tracker_state_mirrors_reference():

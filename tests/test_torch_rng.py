@@ -74,3 +74,41 @@ def test_field_bits_and_randint(lo, hi):
         np.testing.assert_array_equal(
             rng.field_randint(kt, shape, lo, hi).numpy(), np.asarray(jrng.field_randint(k, shape, lo, hi))
         )
+
+
+def _ulps(a, b):
+    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+
+
+def test_normal_and_uniform_over_many_keys():
+    """``rng.normal`` / ``rng.uniform`` for a batch of 2,000 keys (MSPF draws
+    per-track normals from a batch of keys) against ``jax.random.normal`` /
+    ``uniform``: bit for bit. The residue is printed (0 ulp)."""
+    keys = np.asarray(jax.vmap(jax.random.PRNGKey)(jnp.arange(2000)))
+    tk = torch.from_numpy(keys.copy())
+    want = np.asarray(jax.jit(jax.vmap(lambda k: jax.random.normal(k, (128,))))(keys))
+    got = rng.normal(tk, (128,)).numpy()
+    print(f"normal: {int((_ulps(want, got) > 0).sum())} of {want.size} draws differ, max {_ulps(want, got).max()} ulp")
+    np.testing.assert_array_equal(got, want)
+    want_u = np.asarray(jax.jit(jax.vmap(lambda k: jax.random.uniform(k, (64,), minval=-2.0, maxval=3.0)))(keys))
+    np.testing.assert_array_equal(rng.uniform(tk, (64,), -2.0, 3.0).numpy(), want_u)
+    np.testing.assert_array_equal(rng.split(tk, 3).numpy(), np.asarray(jax.vmap(lambda k: jax.random.split(k, 3))(keys)))
+    for seed in SEEDS:  # one key, as the tracker's state holds it
+        np.testing.assert_array_equal(rng.normal(rng.prng_key(seed), (16,)).numpy(),
+                                      np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (16,))))
+
+
+def test_xla_math_on_dense_grids():
+    """``ops/xla_math``: ``log1p`` on 1e6 f32 arguments in [-1, 3] and on
+    both sides of its branch point, ``erf_inv`` on a 2e6-point grid of
+    [-1, 1] (its two branches and +-1), ``sqrt`` on [0, 1e6]: bit for bit
+    XLA:CPU's (torch's own ``log1p`` and CPU ``sqrt`` are not)."""
+    from tracking_tpu_torch.ops import xla_math
+
+    g = np.random.default_rng(0)
+    x = np.concatenate([g.uniform(-1, 3, 1_000_000), np.linspace(-0.4143, 0.4143, 10_001)]).astype(np.float32)
+    np.testing.assert_array_equal(xla_math.log1p(torch.from_numpy(x)).numpy(), np.asarray(jax.jit(jnp.log1p)(x)))
+    u = np.linspace(-1, 1, 2_000_001, dtype=np.float32)
+    np.testing.assert_array_equal(xla_math.erf_inv(torch.from_numpy(u)).numpy(), np.asarray(jax.jit(jax.lax.erf_inv)(u)))
+    s = g.uniform(0, 1e6, 1_000_000).astype(np.float32)
+    np.testing.assert_array_equal(xla_math.sqrt(torch.from_numpy(s)).numpy(), np.asarray(jax.jit(jnp.sqrt)(s)))

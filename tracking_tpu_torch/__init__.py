@@ -9,8 +9,10 @@ and never JAX or ``tracking_tpu``. Module names mirror the reference's:
   fused step) and LOBSTER (37); ``bgs/subsense_shrink.py``:
   subsenseShrink; ``bgs/gmg.py``: GMG (8); ``bgs/texture.py``: DPTexture
   (16); ``bgs/multilayer.py``: MultiLayer (23); ``bgs/fgd.py``: FGD and
-  FGDSimple (FG_0, FG_0S);
-- ``ops/rng.py``: JAX's threefry key chain and the counter-hash field;
+  FGDSimple (FG_0, FG_0S); ``bgs/gmm.py``: MOG1 (4, FG_1);
+- ``ops/rng.py``: JAX's threefry key chain, its uniform and normal draws,
+  and the counter-hash field; ``ops/xla_math.py``: XLA:CPU's ``sqrt``,
+  ``log1p`` and ``erf_inv``;
 - ``ops/lbsp.py``, ``ops/morphology.py``, ``ops/filters.py``,
   ``ops/color.py``, ``ops/sort.py``, ``ops/feedback.py``
   (``pallas_feedback.py``): plain torch;
@@ -21,7 +23,10 @@ and never JAX or ``tracking_tpu``. Module names mirror the reference's:
   ``pallas_texture``, ``pallas_multilayer``, ``pallas_fgd``) beside their
   plain versions; CPU tensors take the plain version, CUDA tensors the
   kernel;
-- ``track/``: Kalman filters, mean-shift and the CC / CCMSPF blob tracker;
+- ``track/``: Kalman filters, mean-shift, the blob tracker (CC, CCMSPF, MS,
+  MSFG, MSPF) and the trajectory files and analyses;
+- ``runner/cli.py``: the tracking app (``tracking-run``), with
+  ``io/video.py`` (cv2) and ``core/checkpoint.py`` (``torch.save``);
 - ``parallel/``: row sharding of one stream (``spatial.py``) over the
   thread ranks of ``mesh.ShardGroup`` on one device; ``ops/cc.py``'s
   ``label_fixpoint`` (replacing ``pallas_cc.label_fixpoint_pallas``) is its

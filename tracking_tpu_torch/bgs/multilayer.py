@@ -11,8 +11,11 @@ map Gaussian-smoothed (9×9, σ = 3) and thresholded at 0.2. The first frame's
 mask is empty. The wrapper's status machine is kept: LEARN or DETECT rates,
 and ``detectAfter`` flipping LEARN to DETECT at that frame.
 
-Left out: loading a saved model (``bg_model_preload``) and saving one
-(``saveModel``); both raise ``NotImplementedError``.
+The model's persistence is the tracking app's, as in the reference
+(``runner/cli.py``): with ``bg_model_preload`` set to an existing file the
+app loads the state from it in place of the warm start, and in LEARN mode
+with ``saveModel`` it writes the final state there
+(``MultiLayerBGS.cpp:36-48,94-98``; ``core/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -86,11 +89,6 @@ class MultiLayerBGS(BGSAlgorithm):
     def __init__(self, config=None, **overrides):
         super().__init__(config, **overrides)
         cfg = self.config
-        if cfg.bg_model_preload or cfg.saveModel:
-            raise NotImplementedError(
-                "MultiLayerBGS model checkpoints (bg_model_preload, saveModel) are not ported yet "
-                "(ROADMAP Queue 1 item 8, checkpoints)"
-            )
         if cfg.detectAfter > 0 and not self._detect() and cfg.disableLearning:
             raise ValueError(
                 "disableLearning applies in DETECT mode; combined with detectAfter set "

@@ -24,6 +24,8 @@ import math
 
 import torch
 
+from tracking_tpu_torch.ops.xla_math import erf_inv
+
 _M32 = 0xFFFFFFFF
 
 
@@ -79,25 +81,30 @@ def _iota(shape, device) -> torch.Tensor:
     return torch.arange(math.prod(shape), dtype=torch.int64, device=device).reshape(shape)
 
 
+def _batched(k: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A key word of shape B (B = the keys' batch shape) as B + (1,) * ndim,
+    to broadcast against a counter of ``ndim`` axes."""
+    return k.reshape(tuple(k.shape) + (1,) * ndim)
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)`` -> uint32 [num, 2]."""
+    """``jax.random.split(key, num)`` -> uint32 [..., num, 2]; ``key`` is
+    one key [2] or a batch of keys [..., 2] (each split as JAX would)."""
     k1, k2 = _words(key)
-    hi = torch.zeros(num, dtype=torch.int64, device=key.device)
-    b1, b2 = threefry2x32(k1, k2, hi, _iota((num,), key.device))
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(_batched(k1, 1), _batched(k2, 1), torch.zeros_like(lo), lo)
     return torch.stack([b1, b2], dim=-1).to(torch.uint32)
 
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """32-bit random words of ``shape`` (int64 holding u32 values)."""
+    """32-bit random words of ``shape`` (int64 holding u32 values), for one
+    key [2] or for each of a batch of keys [..., 2] (-> [...] + shape)."""
     shape = tuple(shape)
     k1, k2 = _words(key)
-    if len(shape) == 0:
-        z = torch.zeros((), dtype=torch.int64, device=key.device)
-        b1, b2 = threefry2x32(k1, k2, z, z)
-    else:
-        # the counter is a 64-bit iota; its high word is 0 below 2**32 elements
-        lo = _iota(shape, key.device)
-        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    k1, k2 = _batched(k1, len(shape)), _batched(k2, len(shape))
+    # the counter is a 64-bit iota; its high word is 0 below 2**32 elements
+    lo = _iota(shape, key.device)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
     return b1 ^ b2
 
 
@@ -154,3 +161,33 @@ def field_randint(key: torch.Tensor, shape, lo: int, hi: int) -> torch.Tensor:
 def as_i32(bits: torch.Tensor) -> torch.Tensor:
     """u32 words (int64) reinterpreted as int32 (``bitcast_convert_type``)."""
     return (bits - ((bits >> 31) << 32)).to(torch.int32)
+
+
+# -- floats -------------------------------------------------------------------
+
+
+def _c(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
+    23 bits of a word as a float in [1, 2), minus 1, scaled and shifted in
+    f32, floored at ``minval``. ``key`` may be a batch of keys."""
+    bits = (random_bits(key, shape) >> 9) | 0x3F800000
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = _c(minval, floats), _c(maxval, floats)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+_NEXT_BELOW_MINUS_ONE = -1.0 + 2.0**-24  # nextafter(-1, 0) in f32
+_SQRT2 = 1.4142135381698608  # f32(sqrt(2))
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (f32), bit for bit: sqrt(2) *
+    erf_inv(u), u uniform in (nextafter(-1, 0), 1), with XLA:CPU's
+    ``erf_inv`` (``ops/xla_math.py``). ``key`` may be a batch of keys
+    [..., 2] (-> [...] + shape)."""
+    u = uniform(key, shape, _NEXT_BELOW_MINUS_ONE, 1.0)
+    return _SQRT2 * erf_inv(u)

@@ -1,0 +1,130 @@
+"""f32 math as XLA:CPU computes it, for the ports of JAX code that
+draws random normals or takes square roots.
+
+The reference's numbers are XLA:CPU's. XLA lowers ``sqrt`` to a correctly
+rounded square root and expands ``erf_inv`` into f32 multiplies, adds, a
+square root and ``log1p``; XLA:CPU computes ``log1p`` with its own
+approximation (the Cephes polynomials), not the C library's, and its
+compiled code contracts the multiply-adds inside it into FMAs. torch's CPU
+``log1p`` differs from it by up to 2 ulp on 8 % of the arguments and
+torch's CPU ``sqrt`` is not correctly rounded. The functions below write
+out XLA's operations one by one, with the constants XLA's code holds, so
+they are bit for bit XLA:CPU's on the CPU and on the card alike: each HLO op
+rounds once (with fusion off XLA runs each in its own kernel), and each
+fused multiply-add rounds once (:func:`fma`).
+"""
+
+from __future__ import annotations
+
+import struct
+
+import torch
+
+_F32 = torch.float32
+
+
+def _c(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), x, dtype=_F32, device=like.device)
+
+
+def _hx(bits: int) -> float:
+    """An f32 constant given as the bits of the double that holds it (the
+    form LLVM IR prints f32 constants in)."""
+    return struct.unpack(">d", bits.to_bytes(8, "big"))[0]
+
+
+# XLA's log(y) for f32, y = 2**e * m: the Cephes polynomial in m - 1
+_LOG_Y1 = tuple(_hx(h) for h in (0x3FB2043760000000, 0xBFBD7A3700000000, 0x3FBDE4A340000000))
+_LOG_Y2 = tuple(_hx(h) for h in (0xBFBFCBA9E0000000, 0x3FC23D37E0000000, 0xBFC555CA00000000))
+_LOG_Y3 = tuple(_hx(h) for h in (0x3FC999D580000000, 0xBFCFFFFF80000000, 0x3FD5555540000000))
+_LOG_Q1, _LOG_Q2 = _hx(0xBF2BD01060000000), _hx(0x3FE6300000000000)  # -2.12194440e-4, 0.693359375
+_SQRTHF = _hx(0x3FE6A09E60000000)
+_MIN_NORMAL = _hx(0x3810000000000000)
+# log1p(x) for |x| < sqrt(2) - 1: x - x^2 / 2 + x^3 P(x) / Q(x)
+_L1P_SMALL = _hx(0x3FDA8279A0000000)
+_L1P_P = tuple(_hx(h) for h in (0x3F07BC0960000000, 0x3FDFE818A0000000, 0x401A509F40000000, 0x403DE97380000000,
+                                0x404E798EC0000000, 0x404C8E75A0000000, 0x40340A2020000000))
+_L1P_Q = tuple(_hx(h) for h in (0x402E2035A0000000, 0x4054C30B60000000, 0x406BB865A0000000, 0x4073519460000000,
+                                0x406B0DB140000000, 0x404E0F3040000000))
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root, as XLA's (torch's CPU ``sqrt``
+    is not: it differs in the last bit on ~0.7 % of f32 arguments in
+    [5, 20]). The f64 root rounded to f32 is correctly rounded."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """f32 a * b + c rounded once (the FMA XLA:CPU's compiled ``log1p``
+    uses). In f64 the product is exact; the sum's rounding error (TwoSum)
+    makes it round to odd, after which rounding to f32 is exact."""
+    ref = next(t for t in (a, b, c) if isinstance(t, torch.Tensor))
+    a, b, c = (t.to(torch.float64) if isinstance(t, torch.Tensor) else torch.tensor(t, dtype=torch.float64, device=ref.device)
+               for t in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    inexact = err != 0
+    bits = s.view(torch.int64)
+    bits = bits - (inexact & ((err < 0) != (s < 0))).to(torch.int64)  # s truncated toward zero
+    return (bits | inexact.to(torch.int64)).view(torch.float64).to(_F32)
+
+
+def _log(y: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``log`` (its polynomial, special values included)."""
+    yc = torch.where(y > _MIN_NORMAL, y, _c(_MIN_NORMAL, y))
+    bits = yc.view(torch.int32)
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(_F32)  # mantissa in [0.5, 1)
+    e = ((bits >> 23) - 127).to(_F32) + 1.0
+    small = m < _SQRTHF
+    e = torch.where(small, e + -1.0, e)
+    x = (m + -1.0) + torch.where(small, m, _c(0.0, y))
+    z = x * x
+    z3 = z * x
+    y1 = fma(fma(x, _LOG_Y1[0], _LOG_Y1[1]), x, _LOG_Y1[2])
+    y2 = fma(fma(x, _LOG_Y2[0], _LOG_Y2[1]), x, _LOG_Y2[2])
+    y3 = fma(fma(x, _LOG_Y3[0], _LOG_Y3[1]), x, _LOG_Y3[2])
+    t = fma(z3, fma(z3, fma(z3, y1, y2), y3), e * _LOG_Q1)
+    r = fma(e, _LOG_Q2, fma(z, -0.5, x) + t)
+    r = torch.where((y <= 0) | torch.isnan(y), _c(float("nan"), y), r)
+    r = torch.where(y == 0, _c(float("-inf"), y), r)
+    return torch.where(y == float("inf"), _c(float("inf"), y), r)
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``log1p``: for |x| < sqrt(2) - 1 the rational
+    x - x^2 / 2 + x^3 P(x) / Q(x), else its ``log(1 + x)``; multiply-adds
+    as the compiled code contracts them."""
+    q = x + _L1P_Q[0]
+    for c in _L1P_Q[1:]:
+        q = fma(q, x, c)
+    pn = _c(_L1P_P[0], x)
+    for c in _L1P_P[1:]:
+        pn = fma(pn, x, c)
+    x2 = x * x
+    small = x + fma(x2, -0.5, (x2 * x) * (pn / q))
+    return torch.where(x.abs() < _L1P_SMALL, small, _log(x + 1.0))
+
+
+# erf_inv (XLA's ErfInv32, Giles' approximation): coefficient pairs for
+# w < 5 and w >= 5, highest degree first
+_ERFINV = (
+    (2.81022636e-08, -0.000200214257), (3.43273939e-07, 0.000100950558), (-3.5233877e-06, 0.00134934322),
+    (-4.39150654e-06, -0.00367342844), (0.00021858087, 0.00573950773), (-0.00125372503, -0.0076224613),
+    (-0.00417768164, 0.00943887047), (0.246640727, 1.00167406), (1.50140941, 2.83297682),
+)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.erf_inv`` for f32, op for op as XLA expands it."""
+    w = -log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w + -2.5, sqrt(w) + -3.0)
+    p = torch.where(lt, _c(_ERFINV[0][0], x), _c(_ERFINV[0][1], x))
+    for lo, hi in _ERFINV[1:]:
+        p = torch.where(lt, _c(lo, x), _c(hi, x)) + p * w
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+

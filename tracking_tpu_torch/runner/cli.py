@@ -1,0 +1,412 @@
+"""The tracking app, counterpart of ``tracking_tpu/runner/cli.py``'s
+``tracking-run`` (the reference's ``ustc_src/trackingMain.cpp:382-773``):
+BGS (default SuBSENSE, type 36) -> blob detection -> tracking -> trajectory
+files -> online trajectory analysis, with annotated fg / track videos and a
+line per frame of track positions.
+
+    tracking-run-torch video.avi --track tracks.csv            # on the card
+    python -m tracking_tpu_torch.runner.cli tracking-run video.avi --device cpu
+
+It takes every flag of the JAX app, and the reference's ``name=value`` and
+``prefix:Param=value`` tokens, plus ``--device`` (default ``cuda``; the app
+runs on the CPU only when asked to). Video is read through cv2
+(``io/video.py``); checkpoints (``--savestate`` / ``--loadstate``, and
+MultiLayer's ``bg_model_preload`` / ``saveModel``) are ``torch.save`` files
+(``core/checkpoint.py``), not the JAX package's orbax directories.
+
+The frame loop (:func:`run_tracking`) takes any iterator of [T, H, W, 3] u8
+chunks. Each frame runs the BGS step and the tracker step on the device;
+each chunk's tracks stay there and come to the host in one copy, where the
+recorder, the analysis, the writers and the printed lines take them frame
+by frame (the JAX app fetches a chunk's outputs once too). ``FGTrainFrames``
+is a host branch on the frame's index: no device value is read for it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+
+def _writer(path, fps, size):
+    """MJPG / AVI writer through cv2 (the container and codec of the
+    reference's fgavi / btavi outputs)."""
+    import cv2
+
+    return cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), fps, size)
+
+
+_REF_TOKENS = (
+    "fg", "fgavi", "btavi", "bd", "bt", "bt_corr", "btpp", "bta",
+    "bta_data", "btgen", "track", "FGTrainFrames", "log",
+    "savestate", "loadstate",
+)
+
+
+def _convert_ref_tokens(argv):
+    """Reference-style arguments (``trackingMain.cpp:461-496``): ``name=value``
+    tokens (``btavi=btout.avi fgavi=fgout.avi video.avi``) become ``--name
+    value``; ``prefix:Param=value`` module-parameter tokens (``set_params``,
+    ``trackingMain.cpp:308-345``) are returned apart for
+    :func:`_apply_module_params`."""
+    out, params = [], []
+    for a in argv:
+        name = a.split("=", 1)[0]
+        if "=" in a and ":" in name:
+            params.append(a)
+        elif "=" in a and name in _REF_TOKENS:
+            out.extend([f"--{name}", a.split("=", 1)[1]])
+        else:
+            out.append(a)
+    return out, params
+
+
+def _apply_module_params(tokens, modules):
+    """Each ``prefix:Param=value`` token sets the case-insensitively matching
+    config field of the module registered under ``prefix`` and prints the
+    reference's confirmation line (``set_params``,
+    ``trackingMain.cpp:308-345``). Returns {prefix: {field: value}}."""
+    applied = {}
+    for tok in tokens:
+        prefix, rest = tok.split(":", 1)
+        if "=" not in rest:
+            continue
+        pname, value = rest.split("=", 1)
+        mod = modules.get(prefix)
+        if mod is None:
+            continue
+        nickname, cfg = mod
+        for f in dataclasses.fields(cfg):
+            if f.name.lower() != pname.lower():
+                continue
+            typ = type(getattr(cfg, f.name))
+            if typ is bool:
+                val = value.lower() in ("1", "true", "yes")
+            elif typ is int:
+                val = int(float(value))
+            elif typ is float:
+                val = float(value)
+            else:
+                val = value
+            applied.setdefault(prefix, {})[f.name] = val
+            try:
+                shown = float(val)
+            except (TypeError, ValueError):
+                shown = val
+            print(f"{nickname}:{f.name} param set to {shown}")
+    return applied
+
+
+def tracking_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="blob tracking pipeline (tracking parity), PyTorch / CUDA")
+    p.add_argument("video")
+    p.add_argument("--fgavi", default=None, help="fg mask video out")
+    p.add_argument("--btavi", default=None, help="annotated tracking video out")
+    p.add_argument("--track", default=None, help="track file out (.csv or .yml)")
+    p.add_argument("--bgs_type", type=int, default=36, help="ustc type id (default SuBSENSE)")
+    p.add_argument(
+        "--fg", default=None, choices=["FG_0", "FG_0S", "FG_1"],
+        help="stock FGDetector module instead of the USTC_BGS override "
+             "(trackingMain.cpp:37-41): FG_0=FGD, FG_0S=FGD simple, FG_1=MOG",
+    )
+    p.add_argument("--chunk", type=int, default=32)
+    p.add_argument("--max_frames", type=int, default=0)
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--savestate", default=None,
+                   help="checkpoint BGS+tracker state at end (trackingMain.cpp:685-713)")
+    p.add_argument("--loadstate", default=None,
+                   help="resume BGS+tracker state from a checkpoint (trackingMain.cpp:740-758)")
+    p.add_argument("--bd", default="BD_CC", choices=["BD_CC", "BD_Simple"],
+                   help="blob detector module (trackingMain.cpp:43-47)")
+    p.add_argument("--bt", default="CCMSPF", choices=["CC", "CCMSPF", "MS", "MSFG", "MSPF"],
+                   help="blob tracker module (trackingMain.cpp:49-68)")
+    p.add_argument("--bta", default="HistPVS",
+                   help="trajectory analysis module: HistPVS|HistP|HistPV|HistSS|TrackDist|IOR|None "
+                        "(trackingMain.cpp:110-121)")
+    p.add_argument("--btpp", default="Kalman", choices=["Kalman", "None"],
+                   help="track post-processing: Kalman-filtered states (default) or raw blob measurements "
+                        "(trackingMain.cpp:104-108)")
+    p.add_argument("--btgen", default=None, choices=["YML", "RawTracks"],
+                   help="trajectory generator for track= (trackingMain.cpp:505-516): YML (default) writes "
+                        "OpenCV-FileStorage YAML, RawTracks a frame,id,x,y,w,h CSV")
+    p.add_argument("--bt_corr", default="none",
+                   help="tracker correction by post-processing (trackingMain.cpp:517-527): none | PostProcRes | "
+                        "<postproc name>; the Kalman post-processor is the tracker's own predictor, so a PP name "
+                        "(e.g. Kalman) selects that post-processor")
+    p.add_argument("--FGTrainFrames", type=int, default=0,
+                   help="train the FG detector alone for N frames before tracking starts (trackingMain.cpp:611)")
+    p.add_argument("--bta_data", default=None,
+                   help="trajectory-analysis database (trackingMain.cpp:545-556): loaded at start if present, "
+                        "saved at end (.npz)")
+    p.add_argument("--log", default=None,
+                   help="append module parameter dump to a file (print_params, trackingMain.cpp:348-380)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the app runs on (default the card; 'cpu' only when asked)")
+    return p
+
+
+def parse_tracking_args(argv=None):
+    """Parse the app's arguments (reference tokens included). Returns
+    (args, module-parameter tokens)."""
+    argv2, mod_params = _convert_ref_tokens(list(sys.argv[1:] if argv is None else argv))
+    args = tracking_parser().parse_args(argv2)
+    # bt_corr=<PP name> selects that post-processor + correction
+    if args.bt_corr.lower() not in ("none", "postprocres"):
+        args.btpp = args.bt_corr
+        args.bt_corr = "PostProcRes"
+    return args, mod_params
+
+
+def build_modules(args, mod_params=()):
+    """The app's BGS algorithm and tracker from its arguments, with the
+    ``prefix:Param=value`` updates applied (``trackingMain.cpp:624-676``)."""
+    from tracking_tpu_torch.core.registry import get_algorithm
+    from tracking_tpu_torch.track.tracker import BlobTracker, TrackerConfig
+
+    if args.fg:
+        algo = get_algorithm({"FG_0": "FGD", "FG_0S": "FGDSimple", "FG_1": "MixtureOfGaussianV1BGS"}[args.fg])()
+    else:
+        algo = get_algorithm(args.bgs_type)()
+    trk_cfg = TrackerConfig()
+    upd = _apply_module_params(
+        mod_params,
+        {
+            "fg": (args.fg or type(algo).__name__, algo.config),
+            "bd": (args.bd, trk_cfg),
+            "bt": (args.bt, trk_cfg),
+            "btpp": (args.btpp, trk_cfg),
+            "bta": (args.bta, trk_cfg),
+        },
+    )
+    if "fg" in upd:
+        algo = type(algo)(algo.config.replace(**upd["fg"]))
+    for pfx in ("bd", "bt", "btpp", "bta"):
+        if pfx in upd:
+            trk_cfg = trk_cfg.replace(**upd[pfx])
+    if args.log:
+        with open(args.log, "a") as fh:
+            fh.write(f"video={args.video} bgs_type={args.bgs_type}\n")
+            fh.write(f"module: {type(algo).__name__}\n")
+            for f in dataclasses.fields(algo.config):
+                fh.write(f"  {f.name}={getattr(algo.config, f.name)}\n")
+    return algo, BlobTracker(trk_cfg.replace(trackerType=args.bt, blobDetector=args.bd))
+
+
+def _device(name) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("tracking-run: no CUDA device; pass --device cpu to run on the CPU")
+    return dev
+
+
+_TRACK_FIELDS = ("x", "y", "w", "h", "rx", "ry", "rw", "rh")
+
+
+def _to_host(tracks_seq):
+    """A chunk's per-frame ``Tracks`` (on the device) -> one list of
+    ``Tracks`` with numpy fields, in one device-to-host copy: active, ids and
+    the f32 fields (as their int32 bits) stacked into [T, 10, K] int32."""
+    from tracking_tpu_torch.track.tracker import Tracks
+
+    packed = torch.stack([
+        torch.stack([t.active.to(torch.int32), t.ids] + [getattr(t, f).view(torch.int32) for f in _TRACK_FIELDS])
+        for t in tracks_seq
+    ]).cpu().numpy()
+    floats = packed[:, 2:].view(np.float32)
+    return [
+        Tracks(active=p[0].astype(bool), ids=p[1], **{f: floats[i, j] for j, f in enumerate(_TRACK_FIELDS)})
+        for i, p in enumerate(packed)
+    ]
+
+
+def run_tracking(chunks, args, algo=None, tracker=None, *, start: int = 0, use_kernels: bool = True,
+                 on_frame=None):
+    """The app's frame loop and end-of-run outputs over ``chunks``, any
+    iterator of [T, H, W, 3] u8 numpy chunks; ``args`` are the app's
+    (:func:`parse_tracking_args`), ``algo`` / ``tracker`` default to theirs
+    (:func:`build_modules`).
+
+    At the first chunk: the analysis (``--bta``, its ``--bta_data`` loaded
+    if the file exists) and the BGS state, then ``--loadstate``, a model
+    preload (``bg_model_preload``) or the warm start. Per frame: the BGS
+    step and, from ``FGTrainFrames`` on, the tracker step (on the frame);
+    per chunk one copy of its tracks to the host, then per frame the
+    recorder, the analysis, ``on_frame(frame_index, frame, fg, tracks,
+    scores, ana)`` (the video writers; ``fg`` on the device) and the printed
+    line. At the end: ``--savestate``, MultiLayer's ``saveModel``, the
+    track file, the analysis summary and ``--bta_data``, and the timing
+    line. ``start`` numbers the first frame (a resumed stream's count);
+    ``use_kernels=False`` takes the plain versions of the kernels. Returns
+    the states, the recorder, the analysis, the frame count and the
+    seconds."""
+    from tracking_tpu_torch.core.checkpoint import load_state, save_state
+    from tracking_tpu_torch.track.trajectory import TrackRecorder, make_analysis
+
+    dev = _device(args.device)
+    if algo is None or tracker is None:
+        algo, tracker = build_modules(args)
+    raw = args.btpp == "None"
+    fg_train = int(args.FGTrainFrames)
+    bgs_state = None
+    trk_state = tracker.init(device=dev)
+    recorder = TrackRecorder()
+    ana = None
+    empty = tracker.empty_tracks(device=dev)
+    n = 0
+    t0 = time.perf_counter()
+    for chunk in chunks:
+        frames = torch.from_numpy(np.ascontiguousarray(chunk)).to(dev)
+        if bgs_state is None:
+            h, w = chunk.shape[1:3]
+            # online per-frame trajectory analysis (trackingMain.cpp:219-297);
+            # bta_data= persists the learned database across runs
+            ana = make_analysis(args.bta, w, h)
+            if ana is not None and args.bta_data and os.path.exists(args.bta_data):
+                ana.load_data(args.bta_data)
+                print(f"bta_data: loaded analysis database from {args.bta_data}")
+            bgs_state = algo.init(h, w, chunk.shape[3] if chunk.ndim == 4 else 1, device=dev)
+            # MLBGS-style model preload (MultiLayerBGS.cpp:94-98 BGS->Load)
+            preload = getattr(algo.config, "bg_model_preload", "")
+            if args.loadstate:
+                restored = load_state(args.loadstate, like={"bgs": bgs_state, "trk": trk_state})
+                bgs_state, trk_state = restored["bgs"], restored["trk"]
+            elif preload and os.path.exists(preload):
+                bgs_state = load_state(preload, like=bgs_state)
+                print(f"bg model: loaded {type(algo).__name__} model from {preload}")
+            else:
+                bgs_state = algo.warm_start(bgs_state, frames[0])
+        fgs, tracks_seq = [], []
+        for i in range(frames.shape[0]):
+            bgs_state, fg, _ = algo.step(bgs_state, frames[i], use_kernels=use_kernels)
+            if start + n + i >= fg_train:
+                trk_state, tracks = tracker.step(trk_state, fg, frames[i], use_kernels=use_kernels)
+            else:  # FGTrainFrames: the FG detector trains alone (trackingMain.cpp:611)
+                tracks = empty
+            fgs.append(fg)
+            tracks_seq.append(tracks)
+        for i, frame_tracks in enumerate(_to_host(tracks_seq)):
+            idx = start + n + i
+            recorder.record(idx, frame_tracks, raw=raw)
+            scores = {}
+            if ana is not None:
+                ana.add_frame(idx, frame_tracks, raw=raw)
+                scores = ana.frame_scores()
+            if on_frame is not None:
+                on_frame(idx, chunk[i], fgs[i], frame_tracks, scores, ana)
+            if not args.quiet:
+                blobs = []
+                for k in np.nonzero(frame_tracks.active)[0]:
+                    tid = int(frame_tracks.ids[k])
+                    mark = "!" if ana is not None and ana.is_abnormal(scores.get(tid, 0.0)) else ""
+                    blobs.append(f"id={tid}{mark} ({frame_tracks.x[k]:.0f},{frame_tracks.y[k]:.0f})")
+                if blobs:
+                    print(f"frame {idx}: " + " ".join(blobs))
+        n += frames.shape[0]
+    dt = time.perf_counter() - t0
+    if args.savestate and bgs_state is not None:
+        save_state(args.savestate, {"bgs": bgs_state, "trk": trk_state})
+    # MLBGS finish(): in LEARN mode with saveModel the model goes to
+    # bg_model_preload (default models/MultiLayerBGSModel) for a later
+    # DETECT-mode preload (MultiLayerBGS.cpp:36-48)
+    if (
+        bgs_state is not None
+        and getattr(algo.config, "saveModel", False)
+        and getattr(algo.config, "status", "MLBGS_LEARN").upper().endswith("LEARN")
+    ):
+        path = getattr(algo.config, "bg_model_preload", "") or "models/MultiLayerBGSModel"
+        save_state(path, bgs_state)
+        print(f"bg model: saved {type(algo).__name__} model to {path}")
+    if args.track:
+        # btgen= (trackingMain.cpp:505-516); default YML, the extension as a fallback
+        gen = args.btgen or ("RawTracks" if args.track.endswith(".csv") else "YML")
+        if gen == "YML":
+            recorder.save_yml(args.track)
+        else:
+            recorder.save_csv(args.track)
+    if ana is not None:
+        # fold still-live tracks, then score every track against the final model
+        ana.finish()
+        for tid, s in sorted(ana.abnormality(recorder).items()):
+            mark = " ABNORMAL" if ana.is_abnormal(s) else ""
+            print(f"track {tid}: abnormality={s:.2f} ({args.bta}){mark}")
+        if args.bta_data:
+            ana.save_data(args.bta_data)
+            print(f"bta_data: saved analysis database to {args.bta_data}")
+    print(f"tracking: {n} frames in {dt:.2f}s ({n / max(dt, 1e-9):.1f} fps)")
+    return SimpleNamespace(bgs_state=bgs_state, trk_state=trk_state, recorder=recorder, ana=ana, frames=n,
+                           seconds=dt, algo=algo, tracker=tracker)
+
+
+def _video_writers(args):
+    """``on_frame`` for ``--fgavi`` / ``--btavi`` (None without them) and a
+    function that closes the writers."""
+    if not (args.fgavi or args.btavi):
+        return None, lambda: None
+    import cv2
+
+    outs = {}
+
+    def on_frame(idx, frame, fg, tracks, scores, ana):
+        if args.fgavi:
+            m = fg.cpu().numpy()
+            if "fg" not in outs:
+                outs["fg"] = _writer(args.fgavi, 30.0, (m.shape[1], m.shape[0]))
+            outs["fg"].write(cv2.cvtColor(m, cv2.COLOR_GRAY2BGR))
+        if args.btavi:
+            img = frame.copy()
+            for k in np.nonzero(tracks.active)[0]:
+                tid = int(tracks.ids[k])
+                x, y = tracks.x[k], tracks.y[k]
+                w2, h2 = tracks.w[k] / 2, tracks.h[k] / 2
+                # legacy draw: abnormal tracks turn red (trackingMain.cpp:219-297)
+                abn = ana is not None and ana.is_abnormal(scores.get(tid, 0.0))
+                color = (0, 0, 255) if abn else (0, 255, 0)
+                cv2.rectangle(img, (int(x - w2), int(y - h2)), (int(x + w2), int(y + h2)), color, 1)
+                cv2.putText(img, str(tid), (int(x), int(y)), cv2.FONT_HERSHEY_PLAIN, 1.0, (0, 0, 255))
+            if "bt" not in outs:
+                outs["bt"] = _writer(args.btavi, 30.0, (img.shape[1], img.shape[0]))
+            outs["bt"].write(img)
+
+    def close():
+        for o in outs.values():
+            o.release()
+
+    return on_frame, close
+
+
+def tracking_run(argv=None):
+    """``tracking-run``: parse the arguments, read the video through cv2 and
+    run :func:`run_tracking` on its chunks."""
+    from tracking_tpu_torch.io.video import VideoSource
+
+    args, mod_params = parse_tracking_args(argv)
+    _device(args.device)
+    algo, tracker = build_modules(args, mod_params)
+    on_frame, close = _video_writers(args)
+    src = VideoSource(input_file=args.video)
+    try:
+        run_tracking(src.chunks(args.chunk, max_frames=args.max_frames), args, algo, tracker, on_frame=on_frame)
+    finally:
+        close()
+    return 0
+
+
+def main(argv=None):
+    """Dispatch: ``python -m tracking_tpu_torch.runner.cli tracking-run ...``
+    (the other apps of the JAX package are not ported yet)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in ("tracking-run", "tracking"):
+        return tracking_run(argv[1:])
+    print("usage: python -m tracking_tpu_torch.runner.cli tracking-run <video> [options]")
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,11 +1,14 @@
 """Multi-object blob tracker with fixed-capacity track tables, counterpart of
-``tracking_tpu/track/tracker.py`` for the CC and CCMSPF trackers with the
-BD_CC and BD_Simple detectors.
+``tracking_tpu/track/tracker.py``: the CC, CCMSPF, MS, MSFG and MSPF
+trackers with the BD_CC and BD_Simple detectors.
 
-Per step: CC blob extraction of the foreground mask, Kalman predict, greedy
-track↔blob association (the ``greedy_assign`` kernel on the card), the
-CCMSPF mean-shift refinement of colliding tracks, Kalman update, candidate
-confirmation (BD_CC's uniform-motion rule) and births. The step is written
+Per step: CC blob extraction of the foreground mask, Kalman predict, then
+either greedy track↔blob association (CC / CCMSPF; the ``greedy_assign``
+kernel on the card) with CCMSPF's mean-shift refinement of colliding
+tracks, or (the MS family) each track's mean-shift over its colour
+template's back-projection, with detections used only for births; then the
+Kalman update, candidate confirmation (BD_CC's uniform-motion rule) and
+births, which capture an MS track's colour template. The step is written
 as tensor ops with no data-dependent host branch, line by line with the
 reference. The state is a dict with the fields of the reference's
 ``TrackTable``.
@@ -23,7 +26,11 @@ from tracking_tpu_torch.ops import rng
 from tracking_tpu_torch.ops.assoc import BIG, greedy_assign, greedy_assign_ref
 from tracking_tpu_torch.ops.cc import Blobs, extract_blobs
 from tracking_tpu_torch.track import kalman
-from tracking_tpu_torch.track.meanshift import meanshift_refine_batch, meanshift_refine_batch_sharded
+from tracking_tpu_torch.ops.xla_math import sqrt
+from tracking_tpu_torch.track.meanshift import (
+    meanshift_color_refine, meanshift_refine_batch, meanshift_refine_batch_sharded, particle_color_refine,
+    window_color_hist,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +43,11 @@ class TrackerConfig(BGSConfig):
     gateDistance: float = 2.0
     candidateGate: float = 1.5
     useMeanShiftCollision: bool = True
-    trackerType: str = "CCMSPF"  # CC | CCMSPF (MS | MSFG | MSPF not ported)
+    # CC and CCMSPF associate detections (CCMSPF adds the mean-shift
+    # collision resolver); the MS family tracks by mean-shift over each
+    # track's colour back-projection (MS: colour only; MSFG: x FG mask;
+    # MSPF: particle jitter, then mean-shift), detections feeding births only
+    trackerType: str = "CCMSPF"  # CC | CCMSPF | MS | MSFG | MSPF
     minTrackMass: float = 4.0
     blobDetector: str = "BD_CC"  # BD_CC | BD_Simple
     uniformMotionTol: float = 0.7
@@ -66,9 +77,9 @@ def _blob_xywh(blobs: Blobs) -> torch.Tensor:
 
 def _dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """|a − b| over the last axis of 2-vectors, as ``jnp.linalg.norm``
-    computes it: sqrt(dx² + dy²)."""
+    computes it: sqrt(dx² + dy²), correctly rounded."""
     d = a - b
-    return torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+    return sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
 
 
 def _mean2(a: torch.Tensor) -> torch.Tensor:
@@ -89,6 +100,9 @@ def _scatter_max(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return out.scatter_reduce_(0, idx.long(), vals.to(torch.int32), reduce="amax", include_self=True)
 
 
+MS_FAMILY = ("MS", "MSFG", "MSPF")
+
+
 class BlobTracker:
     """``state = init(device)``, ``state, tracks = step(state, mask)``."""
 
@@ -96,17 +110,20 @@ class BlobTracker:
         cfg = config or TrackerConfig()
         if kw:
             cfg = cfg.replace(**kw)
-        ttype = cfg.trackerType.upper()
-        if ttype in ("MS", "MSFG", "MSPF"):
-            raise NotImplementedError(
-                f"trackerType {cfg.trackerType!r}: the MS-family trackers are not ported yet "
-                "(ROADMAP Queue 1 item 7)"
-            )
-        if ttype not in ("CC", "CCMSPF"):
+        if cfg.trackerType.upper() not in ("CC", "CCMSPF") + MS_FAMILY:
             raise ValueError(f"unknown trackerType {cfg.trackerType!r}")
         if cfg.blobDetector.upper() not in ("BD_CC", "BD_SIMPLE"):
             raise ValueError(f"unknown blobDetector {cfg.blobDetector!r}")
         self.config = cfg
+
+    def empty_tracks(self, device="cuda") -> Tracks:
+        """All-inactive output with the step's shapes and dtypes (what the
+        app records while the FG detector trains alone, ``FGTrainFrames``)."""
+        K = self.config.maxTracks
+        z = torch.zeros(K, dtype=torch.float32, device=device)
+        return Tracks(active=torch.zeros(K, dtype=torch.bool, device=device),
+                      ids=torch.full((K,), -1, dtype=torch.int32, device=device),
+                      x=z, y=z, w=z, h=z, rx=z, ry=z, rw=z, rh=z)
 
     def init(self, device="cuda") -> dict:
         K = self.config.maxTracks
@@ -143,10 +160,15 @@ class BlobTracker:
         return torch.where(cost <= cfg.gateDistance, cost, big).contiguous()
 
     def step(
-        self, state: dict, fg_mask: torch.Tensor, use_kernels: bool = True, blobs: Blobs | None = None, ctx=None
+        self, state: dict, fg_mask: torch.Tensor, frame: torch.Tensor | None = None, use_kernels: bool = True,
+        blobs: Blobs | None = None, ctx=None,
     ) -> Tuple[dict, Tracks]:
         """One step on a foreground mask [H, W] (u8 or bool). On CUDA tensors
         the CC and assignment kernels run unless ``use_kernels=False``.
+
+        ``frame``: the [H, W, 3] (or grey [H, W]) u8 frame, which the MS
+        family tracks on; without it their templates are all ones and the
+        weight is the FG mask.
 
         ``blobs``: a precomputed blob table (the row-sharded pipeline's
         ``sharded_extract_blobs``). ``ctx``: a ``parallel.spatial.SpatialCtx``
@@ -162,42 +184,77 @@ class BlobTracker:
         blob_pos = _blob_xywh(blobs)
         four = torch.full((), 4.0, dtype=torch.float32, device=dev)
 
+        ttype = cfg.trackerType.upper()
+        ms_family = ttype in MS_FAMILY
+        fg_f = None
+        if ms_family or (cfg.useMeanShiftCollision and ttype == "CCMSPF"):
+            fg_f = (fg_mask > 0).to(torch.float32)
+        if frame is not None and frame.ndim == 2:
+            frame = frame[..., None].expand(-1, -1, 3)
+
         # 1) Kalman predict
         kx, kP = kalman.kalman_predict(state["kx"], state["kP"], kp)
         pred_pos = kx[:, :4]
+        new_key = state["key"]
 
-        # 2) associate active tracks with blobs
-        cost = self.cost_matrix(pred_pos, state["active"], blob_pos, blob_ok)
-        assign, taken = (greedy_assign if use_kernels else greedy_assign_ref)(cost)
-        matched = assign >= 0
-        z = blob_pos[torch.clamp(assign, 0, cfg.maxBlobs - 1).long()]
+        if not ms_family:
+            # 2) associate active tracks with blobs
+            cost = self.cost_matrix(pred_pos, state["active"], blob_pos, blob_ok)
+            assign, taken = (greedy_assign if use_kernels else greedy_assign_ref)(cost)
+            matched = assign >= 0
+            z = blob_pos[torch.clamp(assign, 0, cfg.maxBlobs - 1).long()]
 
-        # CCMSPF collision resolution: tracks whose predicted boxes overlap
-        # take the mean-shift centre over the FG mask as their measurement
-        if cfg.useMeanShiftCollision and cfg.trackerType.upper() == "CCMSPF":
-            fg_f = (fg_mask > 0).to(torch.float32)
-            px, py = pred_pos[:, 0], pred_pos[:, 1]
-            pw = torch.maximum(pred_pos[:, 2], four)
-            ph = torch.maximum(pred_pos[:, 3], four)
-            dx = (px[:, None] - px[None, :]).abs()
-            dy = (py[:, None] - py[None, :]).abs()
-            eye = torch.eye(K, dtype=torch.bool, device=dev)
-            overlap = (
-                (dx < (pw[:, None] + pw[None, :]) / 2)
-                & (dy < (ph[:, None] + ph[None, :]) / 2)
-                & state["active"][:, None]
-                & state["active"][None, :]
-                & ~eye
-            )
-            colliding = overlap.any(dim=1) & matched
-            if ctx is None:
-                ms_y, ms_x, ms_mass = meanshift_refine_batch(fg_f, py, px)
+            # CCMSPF collision resolution: tracks whose predicted boxes overlap
+            # take the mean-shift centre over the FG mask as their measurement
+            if cfg.useMeanShiftCollision and ttype == "CCMSPF":
+                px, py = pred_pos[:, 0], pred_pos[:, 1]
+                pw = torch.maximum(pred_pos[:, 2], four)
+                ph = torch.maximum(pred_pos[:, 3], four)
+                dx = (px[:, None] - px[None, :]).abs()
+                dy = (py[:, None] - py[None, :]).abs()
+                eye = torch.eye(K, dtype=torch.bool, device=dev)
+                overlap = (
+                    (dx < (pw[:, None] + pw[None, :]) / 2)
+                    & (dy < (ph[:, None] + ph[None, :]) / 2)
+                    & state["active"][:, None]
+                    & state["active"][None, :]
+                    & ~eye
+                )
+                colliding = overlap.any(dim=1) & matched
+                if ctx is None:
+                    ms_y, ms_x, ms_mass = meanshift_refine_batch(fg_f, py, px)
+                else:
+                    ms_y, ms_x, ms_mass = meanshift_refine_batch_sharded(ctx, fg_f, py, px)
+                ms_ok = colliding & (ms_mass > 0)
+                z = torch.stack(
+                    [torch.where(ms_ok, ms_x, z[:, 0]), torch.where(ms_ok, ms_y, z[:, 1]), z[:, 2], z[:, 3]], dim=1
+                )
+        else:
+            # 2') MS family: each track's mean-shift over its colour
+            # template's back-projection (without a frame the template is all
+            # ones and the weight the FG mask); detections only feed births
+            frame_u8 = frame if frame is not None else torch.zeros(fg_mask.shape + (3,), dtype=torch.uint8, device=dev)
+            use_fg = ttype in ("MSFG", "MSPF") or frame is None
+            if ttype == "MSPF":
+                new_key, sub = rng.split(state["key"])
+                ms_y, ms_x, mass = particle_color_refine(
+                    frame_u8, fg_f, state["hist"], rng.split(sub, K), pred_pos[:, 1], pred_pos[:, 0], use_fg
+                )
             else:
-                ms_y, ms_x, ms_mass = meanshift_refine_batch_sharded(ctx, fg_f, py, px)
-            ms_ok = colliding & (ms_mass > 0)
-            z = torch.stack(
-                [torch.where(ms_ok, ms_x, z[:, 0]), torch.where(ms_ok, ms_y, z[:, 1]), z[:, 2], z[:, 3]], dim=1
+                ms_y, ms_x, mass = meanshift_color_refine(
+                    frame_u8, fg_f, state["hist"], pred_pos[:, 1], pred_pos[:, 0], use_fg
+                )
+            matched = state["active"] & (mass >= cfg.minTrackMass)
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            z = torch.stack([ms_x, ms_y, torch.maximum(pred_pos[:, 2], zero), torch.maximum(pred_pos[:, 3], zero)],
+                            dim=1)
+            # suppress detections covering tracked objects (entries only)
+            one = torch.ones((), dtype=torch.float32, device=dev)
+            d = _dist(z[:, None, :2], blob_pos[None, :, :2])
+            scale = 0.5 * (
+                torch.maximum(_mean2(z[:, None, 2:4]), one) + torch.maximum(_mean2(blob_pos[None, :, 2:4]), one)
             )
+            taken = ((d / scale <= cfg.gateDistance) & matched[:, None]).any(dim=0)
 
         kx, kP = kalman.kalman_update(kx, kP, z, matched, kp)
 
@@ -260,6 +317,15 @@ class BlobTracker:
         birth = free_track & (slot_cand >= 0) & (track_rank < _count(promote_c))
         birth_pos = cand_pos[torch.clamp(slot_cand, 0, K - 1).long()]
         kx, kP = kalman.kalman_reset_slot(kx, kP, birth, birth_pos, kp)
+
+        # MS family: capture the colour template at birth
+        hist = state["hist"]
+        if ms_family:
+            if frame is not None:
+                bh = window_color_hist(frame, fg_f, birth_pos[:, 1], birth_pos[:, 0])
+            else:  # all ones: the weight is the FG mask (mass in FG pixels)
+                bh = torch.ones((K, hist.shape[1]), dtype=torch.float32, device=dev)
+            hist = torch.where(birth[:, None], bh, hist)
         birth_order = _cumsum(birth) - 1
         ids = torch.where(birth, state["next_id"] + birth_order, state["ids"]).to(torch.int32)
         next_id = state["next_id"] + _count(birth)
@@ -279,8 +345,8 @@ class BlobTracker:
             "cand_pos": cand_pos,
             "cand_age": cand_age,
             "next_id": next_id,
-            "hist": state["hist"],
-            "key": state["key"],
+            "hist": hist,
+            "key": new_key,
             "cand_vel": cand_vel,
         }
         zero = torch.zeros((), dtype=torch.float32, device=dev)

@@ -11,8 +11,9 @@ DPTexture and MultiLayer through the registry; SuBSENSE's consensus v3 and
 fused step and subsenseShrink; FGD (FG_0) followed by the tracker, and
 FGDSimple (FG_0S); the row-sharded SuBSENSE + CCMSPF pipeline in 4 shards
 on the one card; the tracking app's frame loop with its MOG1 detector and
-MS-family trackers - and fails (non-zero exit, no result line) on any broken
-phase:
+MS-family trackers; the BGS apps (``bgs-run``'s loop with its XML fan-out,
+``cdnet-run`` with shrinkBGS and subsenseShrink) - and fails (non-zero
+exit, no result line) on any broken phase:
 
 1. device: the card's name and power limit; no CUDA device is an error;
 2. build: compiles the twelve CUDA kernels from ``tracking_tpu_torch/csrc``
@@ -111,6 +112,25 @@ phase:
    leaves round-trip a checkpoint; where cv2 imports, ``tracking_run`` on an
    FFV1 AVI of the clip's first 16 frames gives the same CSV (else it says
    so);
+4g. the BGS apps (``runner/cli.run_bgs``, the loop of ``bgs-run``, on the
+   clip's frames in chunks of 8; ``cdnet_run`` on JPEGs of the clip):
+   the default config directory (its 3 XMLs written; FrameDifference
+   behind the PreProcessor) for 16 frames equals a CPU run; a fan-out of
+   FrameDifference, StaticFrameDifference, WeightedMovingMean,
+   WeightedMovingVariance, MOG1, AdaptiveBackgroundLearning, GMG,
+   DPTexture, MultiLayer, SuBSENSE and LOBSTER with the PreProcessor's
+   blur for 16 frames, SigmaDelta enabled by an XML edit between the
+   chunks: the launch counts of ``consensus``, ``flood_reach``,
+   ``consensus_lobster``, ``gmg_step``, ``texture_prox_cur`` and
+   ``multilayer_step`` > 0, each algorithm's masks equal its own
+   ``run_video`` on the blurred frames (SigmaDelta warm-started as the
+   reload does), the first 4 frames equal the plain versions, the blur
+   and the float simple algorithms (and AdaptiveSelective through ``-a``)
+   equal a CPU run; ``cdnet-run`` shrinkBGS on 24 JPEGs (ROI 8-23,
+   bootstrap 8) writes its 16 PNGs, its first 4 masks on the frames'
+   top-left 360x640 equal a CPU run's,
+   and ``--bgs subsenseShrink`` launches ``consensus`` and
+   ``flood_reach``; outputs under ``build/bgs_smoke/``;
 5. the first 16 SuBSENSE + tracker frames again through the plain
    versions: masks, track ids and positions must equal the kernel run's;
 6. timing with CUDA events: each kernel beside its plain version and its
@@ -136,7 +156,10 @@ phase:
    state's beside it) and of
    ``label_fixpoint`` (at most 4), an empty launch's event and device
    time, and the device's busy share and kernels per frame under
-   torch.profiler (the full path, and the app over a chunk).
+   torch.profiler (the full path, and the app over a chunk); ``bgs-run``'s
+   ms/frame with the default config directory and with the 12-algorithm
+   fan-out, in turns, the fan-out's tictoc (``FrameProcessor.profile``) and
+   profile, and shrinkBGS's step (CUDA events and its profile).
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -214,6 +237,27 @@ APP_CHUNK = 16
 APP_TRAIN = 8  # FGTrainFrames
 APP_ML = 4  # MultiLayer frames before and after its model checkpoint
 APP_DIR = "build/app_smoke"  # the app's output files (git-ignored)
+# phase 4g: the BGS apps. The fan-out enables every ported algorithm that
+# has a FrameProcessor flag but SigmaDelta, which an XML edit between the
+# two chunks adds; AdaptiveSelective has no flag and runs through -a
+BGS_FRAMES = 16
+BGS_CHUNK = 8
+FANOUT = ("FrameDifferenceBGS", "StaticFrameDifferenceBGS", "WeightedMovingMeanBGS", "WeightedMovingVarianceBGS",
+          "MixtureOfGaussianV1BGS", "AdaptiveBackgroundLearning", "GMG", "DPTextureBGS", "MultiLayerBGS",
+          "SuBSENSEBGS", "LOBSTERBGS")
+FANOUT_ADDED = "SigmaDeltaBGS"
+FANOUT_KERNELS = ("consensus", "flood_reach", "consensus_lobster", "gmg_step", "texture_prox_cur", "multilayer_step")
+FLOAT_SIMPLE = ("WeightedMovingMeanBGS", "WeightedMovingVarianceBGS", "AdaptiveBackgroundLearning")
+FANOUT_PLAIN = 4  # fan-out frames replayed through the plain versions
+CDNET_FRAMES = 24  # cdnet-run: in%06d.jpg frames, the ROI and the bootstrap
+CDNET_ROI = (8, 23)
+CDNET_BOOT = 8
+# its first frames on the card and on the CPU, on a cut of the frames:
+# shrinkBGS's int64 threefry draws take ~5 s a 720p frame on the card
+# machine's CPU
+CDNET_CPU = 4
+CDNET_CUT = (360, 640)
+BGS_DIR = "build/bgs_smoke"  # the BGS apps' files (git-ignored)
 # the card's batched 4x4 inverse and matrix products sum in another order
 # than the CPU's, so Kalman leaves of a card run and a CPU run agree to this
 # relative tolerance (the CPU tests' own Kalman tolerance)
@@ -1936,6 +1980,224 @@ def app_path(clip, frames, dev, results, out) -> None:
           f"the synthetic run's track CSV")
 
 
+def bgs_args(cli, *extra):
+    """``bgs-run``'s arguments as its parser makes them (the frames come
+    from the caller)."""
+    return cli.bgs_parser().parse_args(["--chunk", str(BGS_CHUNK)] + [str(e) for e in extra])
+
+
+def bgs_chunks(clip, a: int, b: int, chunk: int = BGS_CHUNK):
+    return [clip[s : min(s + chunk, b)] for s in range(a, b, chunk)]
+
+
+def collect_masks(store):
+    """``on_masks`` of ``run_bgs`` that keeps each algorithm's mask chunks."""
+    def on_masks(first, masks):
+        for name, m in masks.items():
+            store.setdefault(name, []).append(m)
+    return on_masks
+
+
+def joined(store, dev):
+    return {name: torch.cat(ms).to(dev) for name, ms in store.items()}
+
+
+def bgs_app_path(clip, frames, dev, results, out) -> None:
+    """Phase 4g: ``bgs-run``'s loop (``runner/cli.run_bgs``) with the default
+    config directory and with a fan-out of 12 algorithms edited between
+    chunks, and ``cdnet_run`` (shrinkBGS, subsenseShrink) on JPEGs of the
+    clip, at 720p."""
+    import shutil
+
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.core.config import config_to_xml
+    from tracking_tpu_torch.ops import _native
+    from tracking_tpu_torch.runner import cli
+    from tracking_tpu_torch.runner.pipeline import (
+        _ENABLE_FLAGS, FrameProcessor, FrameProcessorConfig, PreProcessor, PreProcessorConfig,
+    )
+    from tracking_tpu_torch.runner.scan import run_video
+
+    print(f"[4g] the BGS apps: bgs-run with the default config directory and with a fan-out of {len(FANOUT) + 1} "
+          f"algorithms, {BGS_FRAMES} frames in chunks of {BGS_CHUNK}, and cdnet-run, at {H}x{W}x{C} {elapsed()}",
+          flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+
+    # the default config directory: FrameDifference behind the PreProcessor
+    k, c = {}, {}
+    cli.run_bgs(bgs_chunks(clip, 0, BGS_FRAMES), bgs_args(cli, "--config_dir", f"{out}/default"),
+                on_masks=collect_masks(k))
+    cli.run_bgs(bgs_chunks(clip, 0, BGS_FRAMES), bgs_args(cli, "--config_dir", f"{out}/default", "--device", "cpu"),
+                on_masks=collect_masks(c))
+    k, c = joined(k, dev), joined(c, dev)
+    share = float(k["FrameDifferenceBGS"][1:].gt(0).to(torch.float32).mean())
+    check(sorted(os.listdir(f"{out}/default")) == ["FrameDifferenceBGS.xml", "FrameProcessor.xml", "PreProcessor.xml"]
+          and list(k) == ["FrameDifferenceBGS"] and max_err(k, c) == 0.0,
+          f"bgs-run's default config directory (written: 3 XMLs): FrameDifference's {BGS_FRAMES} masks on the card "
+          f"equal the CPU run's (foreground share after frame 0 {share:.4f})")
+    check(0.001 < share < 0.5, f"FrameDifference foreground share {share:.4f} in (0.001, 0.5)")
+
+    # the fan-out, SigmaDelta enabled by an edit of the XML between the chunks
+    fan = f"{out}/fanout"
+    flag = {name: f for f, name in _ENABLE_FLAGS}
+    pre_cfg = PreProcessorConfig(gaussianBlur=True)
+    config_to_xml(FrameProcessorConfig(**{flag[n]: True for n in FANOUT}), f"{fan}/FrameProcessor.xml")
+    config_to_xml(pre_cfg, f"{fan}/PreProcessor.xml")
+
+    def edited():
+        yield clip[:BGS_CHUNK]
+        # the loop stages a chunk ahead: the edit is on disk before the
+        # first chunk runs, and the reload after it reads the edit
+        path = f"{fan}/FrameProcessor.xml"
+        text = open(path).read()
+        open(path, "w").write(text.replace(f"<{flag[FANOUT_ADDED]}>0<", f"<{flag[FANOUT_ADDED]}>1<"))
+        yield clip[BGS_CHUNK:BGS_FRAMES]
+
+    fk = {}
+    _native.reset_launches()
+    run = cli.run_bgs(edited(), bgs_args(cli, "--config_dir", fan), on_masks=collect_masks(fk))
+    torch.cuda.synchronize()
+    launches = dict(_native.LAUNCHES)
+    print(f"  launches: {launches}", flush=True)
+    for name in FANOUT_KERNELS:
+        check(launches[name] > 0, f"{name} launched {launches[name]} times by the fan-out")
+        results[name]["bgs_app_launches"] = launches[name]
+    fk = joined(fk, dev)
+    check(set(run.fp.algorithms) == set(FANOUT) | {FANOUT_ADDED} and len(fk[FANOUT_ADDED]) == BGS_FRAMES - BGS_CHUNK,
+          f"the XML edit added {FANOUT_ADDED} after chunk 1: {len(run.fp.algorithms)} algorithms in chunk 2")
+
+    pre = PreProcessor(pre_cfg)
+    prepped = torch.stack([pre.process(f) for f in frames[:BGS_FRAMES]])
+    e, shares = 0.0, {}
+    for name in FANOUT:
+        _, alone = run_video(get_algorithm(name)(), prepped)
+        e = max(e, max_err(alone, fk[name]))
+        shares[name] = round(float(fk[name].gt(0).to(torch.float32).mean()), 4)
+    a = get_algorithm(FANOUT_ADDED)()
+    st = a.warm_start(a.init(H, W, C, device=dev), prepped[BGS_CHUNK - 1])
+    _, alone = run_video(a, prepped[BGS_CHUNK:], st)
+    e = max(e, max_err(alone, fk[FANOUT_ADDED]))
+    shares[FANOUT_ADDED] = round(float(fk[FANOUT_ADDED].gt(0).to(torch.float32).mean()), 4)
+    check(e == 0.0, f"each algorithm's fan-out masks equal its own run_video on the prepped frames ({FANOUT_ADDED} "
+                    f"warm-started on frame {BGS_CHUNK - 1}, as the reload does); foreground shares {shares}")
+    check(0.001 < shares["SuBSENSEBGS"] < 0.5, f"SuBSENSE's foreground share in the fan-out {shares['SuBSENSEBGS']} "
+                                               f"in (0.001, 0.5)")
+
+    fp_plain = FrameProcessor({n: get_algorithm(n)() for n in FANOUT}, pre_cfg)
+    _, plain = fp_plain.run(frames[:FANOUT_PLAIN], use_kernels=False)
+    e = max(max_err(plain[n], fk[n][:FANOUT_PLAIN]) for n in FANOUT)
+    check(e == 0.0, f"the fan-out's first {FANOUT_PLAIN} frames through the plain versions equal the kernel run's")
+
+    prepped_cpu = torch.stack([pre.process(torch.from_numpy(f)) for f in clip[:BGS_FRAMES]])
+    e = max_err(prepped, prepped_cpu.to(dev))
+    for name in FLOAT_SIMPLE:
+        _, m = run_video(get_algorithm(name)(), prepped_cpu)
+        e = max(e, max_err(m.to(dev), fk[name]))
+    ak, ac = {}, {}
+    sel = "AdaptiveSelectiveBackgroundLearning"
+    cli.run_bgs(bgs_chunks(clip, 0, BGS_FRAMES), bgs_args(cli, "-a", sel), on_masks=collect_masks(ak))
+    cli.run_bgs(bgs_chunks(clip, 0, BGS_FRAMES), bgs_args(cli, "-a", sel, "--device", "cpu"),
+                on_masks=collect_masks(ac))
+    e = max(e, max_err(joined(ak, dev), joined(ac, dev)))
+    check(e == 0.0, f"the blur and the float algorithms ({', '.join(FLOAT_SIMPLE)}; {sel} through -a) on the card "
+                    f"equal the CPU run's over {BGS_FRAMES} frames")
+    del fk, prepped, prepped_cpu, plain, fp_plain
+
+    print(f"  {elapsed()}", flush=True)
+    try:
+        import cv2
+    except ImportError:
+        print("  cv2 does not import here: cdnet-run (JPEG in, PNG out) is not run", flush=True)
+        return
+    src = f"{out}/cdnet_in"
+    os.makedirs(src)
+    for i in range(CDNET_FRAMES):
+        cv2.imwrite(f"{src}/in{i:06d}.jpg", clip[i])
+    lo, hi = CDNET_ROI
+    roi = ["--roi", str(lo), str(hi), "--bootstrap", str(CDNET_BOOT), "--chunk", str(BGS_CHUNK)]
+    with switches({}):
+        cli.cdnet_run([src, "--out", f"{out}/shrink"] + roi)
+        names = sorted(os.listdir(f"{out}/shrink"))
+        bins = [cv2.imread(f"{out}/shrink/{n}", cv2.IMREAD_UNCHANGED) for n in names]
+        share = float(sum((b > 0).mean() for b in bins[1:]) / (len(bins) - 1))
+        check(names == [f"bin{i:06d}.png" for i in range(lo, hi + 1)] and 0.001 < share < 0.5,
+              f"cdnet-run shrinkBGS wrote bin{lo:06d}-bin{hi:06d}.png (foreground share {share:.4f})")
+        cut = f"{out}/cdnet_cut"
+        os.makedirs(cut)
+        for i in range(CDNET_CPU):
+            cv2.imwrite(f"{cut}/in{i:06d}.jpg", clip[i, : CDNET_CUT[0], : CDNET_CUT[1]])
+        first = ["--roi", "0", str(CDNET_CPU - 1), "--bootstrap", "0"]
+        cli.cdnet_run([cut, "--out", f"{out}/first_card"] + first)
+        cli.cdnet_run([cut, "--out", f"{out}/first_cpu", "--device", "cpu"] + first)
+        firsts = [[cv2.imread(f"{out}/first_{d}/bin{i:06d}.png", cv2.IMREAD_UNCHANGED) for i in range(CDNET_CPU)]
+                  for d in ("card", "cpu")]
+        check(all((a == b).all() for a, b in zip(*firsts)) and max((a > 0).mean() for a in firsts[0]) > 0.001,
+              f"cdnet-run shrinkBGS: the first {CDNET_CPU} masks of the frames' top-left {CDNET_CUT[0]}x{CDNET_CUT[1]} "
+              f"on the card equal the CPU run's")
+        _native.reset_launches()
+        cli.cdnet_run([src, "--out", f"{out}/subsenseShrink", "--bgs", "subsenseShrink"] + roi)
+        torch.cuda.synchronize()
+        launches = dict(_native.LAUNCHES)
+    print(f"  launches: {launches}", flush=True)
+    for name in ("consensus", "flood_reach"):
+        check(launches[name] > 0, f"{name} launched {launches[name]} times by cdnet-run --bgs subsenseShrink")
+        results[name]["cdnet_launches"] = launches[name]
+
+
+def time_bgs_apps(clip, frames, dev, out, tag) -> None:
+    """ms/frame of ``bgs-run``'s loop with the default config directory and
+    with the fan-out (after its edit: 12 algorithms), in turns, as (T(3
+    chunks) − T(1 chunk)) / 2 chunks: ``run_bgs``'s seconds end with a
+    synchronize, and the difference cancels the set-up (XMLs, states, warm
+    starts); the fan-out's tictoc and its profile; then shrinkBGS's step
+    (CUDA events) and its profile."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.runner import cli
+    from tracking_tpu_torch.runner.pipeline import FrameProcessor
+
+    cases = (("bgs-run, default config (FrameDifference + PreProcessor)", f"{out}/default", 16),
+             (f"bgs-run, fan-out of {len(FANOUT) + 1} with the blur", f"{out}/fanout", BGS_CHUNK))
+    ms = {label: [] for label, _, _ in cases}
+    for _ in range(2):
+        for label, cfg, chunk in cases:
+            args = bgs_args(cli, "--config_dir", cfg, "--chunk", chunk)
+            with contextlib.redirect_stdout(io.StringIO()):
+                t1 = cli.run_bgs(bgs_chunks(clip, 0, chunk, chunk), args).seconds
+                t3 = cli.run_bgs(bgs_chunks(clip, 0, 3 * chunk, chunk), args).seconds
+            ms[label].append((t3 - t1) / (2 * chunk) * 1e3)
+    for label, v in ms.items():
+        print(f"  {tag} {label}, in turns: {v[0]:.3f} / {v[1]:.3f} ms/frame = {1000 / min(v):.1f} fps", flush=True)
+    # the fan-out's tictoc: each algorithm alone over a chunk from a fresh
+    # state (init and warm start included), CUDA events
+    fp = FrameProcessor.from_config_dir(f"{out}/fanout")
+    secs = fp.profile(frames[1 : 1 + BGS_CHUNK], repeats=2)
+    print(f"  {tag} fan-out tictoc (FrameProcessor.profile, {BGS_CHUNK} frames from a fresh state each), ms/frame: "
+          + ", ".join(f"{k} {v / BGS_CHUNK * 1e3:.3f}" for k, v in secs.items()), flush=True)
+    fan = {"s": fp.warm_start(fp.init(H, W, C, device=dev), frames[0])}
+
+    def fan_frame(t):
+        fan["s"], _ = fp.step(fan["s"], frames[t])
+
+    for t in range(1, 9):
+        fan_frame(t)
+    profile(fan_frame, range(9, 13), tag, "bgs-run fan-out step")
+    del fan, fp
+
+    algo = get_algorithm("shrinkBGS")()
+    box = {"s": algo.warm_start(algo.init(H, W, C, device=dev), frames[0])}
+
+    def run_frame(t):
+        box["s"], _, _ = algo.step(box["s"], frames[t])
+
+    for t in range(1, 9):
+        run_frame(t)
+    st = box["s"]
+    step_ms = cuda_ms(lambda: algo.step(st, frames[9]), 10)
+    print(f"  {tag} shrinkBGS step: {step_ms:.3f} ms/frame (CUDA events, frame 9 on a state 8 frames in)", flush=True)
+    profile(run_frame, range(9, 13), tag, "shrinkBGS step")
+
+
 def time_app(clip, out, n_chunks: int = 3):
     """ms/frame of the app's second chunk (frames 16-31): the interval
     between the loop's requests for chunks 2 and 3, which covers the chunk's
@@ -2319,6 +2581,10 @@ def main(argv) -> None:
     app_out = os.path.join(os.path.dirname(os.path.abspath(__file__)), APP_DIR)
     app_path(clip, frames, dev, results, app_out)
 
+    # -- 4g. the BGS apps --------------------------------------------------
+    bgs_out = os.path.join(os.path.dirname(os.path.abspath(__file__)), BGS_DIR)
+    bgs_app_path(clip, frames, dev, results, bgs_out)
+
     # -- 5. path against path ----------------------------------------------
     print(f"[5] the first {PATH_FRAMES} frames through the plain versions {elapsed()}", flush=True)
     st_p = clone(state0)
@@ -2419,6 +2685,7 @@ def main(argv) -> None:
     print(f"  {tag} peak device memory of the SuBSENSE + tracker runs {peak:.2f} GiB", flush=True)
     profile_full_path(algo, tracker, state0, frames, dev, tag)
     profile_app(clip, tag, app_out)
+    time_bgs_apps(clip, frames, dev, bgs_out, tag)
 
     print(json.dumps({"kernels": [results[k] for k in SOURCES]}))
     print(card_line())

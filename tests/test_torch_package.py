@@ -322,7 +322,10 @@ def test_app_refuses_a_missing_card():
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="--device cpu"):
             cli.run_tracking([make_clip(2, 24, 40, 3)], args)
-    assert cli.main(["bgs-run"]) == 2
+        for app in (["bgs-run", "-a", "FrameDifferenceBGS"], ["cdnet-run", "in", "--out", "out", "--roi", "1", "2"]):
+            with pytest.raises(SystemExit, match=f"{app[0]}: no CUDA device; pass --device cpu"):
+                cli.main(app)
+    assert cli.main(["no-such-app"]) == 2
 
 
 def test_tracker_state_mirrors_reference():

@@ -10,6 +10,8 @@ and never JAX or ``tracking_tpu``. Module names mirror the reference's:
   subsenseShrink; ``bgs/gmg.py``: GMG (8); ``bgs/texture.py``: DPTexture
   (16); ``bgs/multilayer.py``: MultiLayer (23); ``bgs/fgd.py``: FGD and
   FGDSimple (FG_0, FG_0S); ``bgs/gmm.py``: MOG1 (4, FG_1);
+  ``bgs/simple.py``: types 0-3, 6 and 7; ``bgs/sigma_delta.py``:
+  SigmaDelta (35); ``bgs/shrink.py``: shrinkBGS and MyBGS (plain torch);
 - ``ops/rng.py``: JAX's threefry key chain, its uniform and normal draws,
   and the counter-hash field; ``ops/xla_math.py``: XLA:CPU's ``sqrt``,
   ``log1p`` and ``erf_inv``;
@@ -25,8 +27,11 @@ and never JAX or ``tracking_tpu``. Module names mirror the reference's:
   kernel;
 - ``track/``: Kalman filters, mean-shift, the blob tracker (CC, CCMSPF, MS,
   MSFG, MSPF) and the trajectory files and analyses;
-- ``runner/cli.py``: the tracking app (``tracking-run``), with
-  ``io/video.py`` (cv2) and ``core/checkpoint.py`` (``torch.save``);
+- ``runner/cli.py``: the apps ``bgs-run`` (with ``runner/pipeline.py``'s
+  PreProcessor and XML FrameProcessor fan-out, ``core/config.py``),
+  ``tracking-run`` and ``cdnet-run``, with ``io/video.py`` (cv2) and
+  ``core/checkpoint.py`` (``torch.save``); ``analysis/``: the mask
+  metrics and the FET scorer;
 - ``parallel/``: row sharding of one stream (``spatial.py``) over the
   thread ranks of ``mesh.ShardGroup`` on one device; ``ops/cc.py``'s
   ``label_fixpoint`` (replacing ``pallas_cc.label_fixpoint_pallas``) is its

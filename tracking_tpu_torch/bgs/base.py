@@ -52,5 +52,12 @@ class BGSAlgorithm:
         stay valid. A caller that needs the old state keeps a clone."""
         raise NotImplementedError
 
+    @staticmethod
+    def _first_frame_select(t: torch.Tensor, stored: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
+        """On frame 0 adopt ``frame`` as the stored model image (the
+        reference's ``if (img.empty()) input.copyTo(img)``); ``t`` stays on
+        the device."""
+        return torch.where(t == 0, frame, stored)
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.config})"

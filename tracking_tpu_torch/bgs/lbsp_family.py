@@ -57,6 +57,7 @@ from tracking_tpu_torch.bgs.base import BGSAlgorithm, State, StepResult
 from tracking_tpu_torch.core.config import BGSConfig
 from tracking_tpu_torch.core.registry import register
 from tracking_tpu_torch.ops import rng
+from tracking_tpu_torch.ops.consensus import _NB3  # noqa: F401  (shrinkBGS's spread offsets)
 from tracking_tpu_torch.ops.consensus import (
     apply_pending_ref,
     consensus,
@@ -174,6 +175,20 @@ def _refresh_samples(key, n_samples, n_refresh, start, last_color, last_desc, ok
         for c in range(len(descs))
     )
     return new_colors, new_descs
+
+
+def _pick_neighbor(o_idx: torch.Tensor, offsets, arrays):
+    """For each pixel p with drawn offset index ``o_idx[p]``, each array's
+    value at p − offsets[o_idx[p]] clamped into the ROI interior
+    (``lbsp_family.py:237-252``, a select over the K shifted copies there;
+    one gather per array here). ``offsets`` are (x, y) pairs."""
+    h, w = o_idx.shape
+    dev = o_idx.device
+    off = torch.as_tensor(offsets, dtype=torch.int64, device=dev)[o_idx.long()]
+    rows = (torch.arange(h, device=dev)[:, None] - off[..., 1]).clamp(BORDER, h - BORDER - 1)
+    cols = (torch.arange(w, device=dev)[None, :] - off[..., 0]).clamp(BORDER, w - BORDER - 1)
+    src = rows * w + cols
+    return tuple(a.reshape(-1)[src] for a in arrays)
 
 
 def _use_v2() -> bool:

@@ -1,4 +1,4 @@
-"""Binary median and Gaussian filters, counterpart of
+"""Median, Gaussian and box filters, counterpart of
 ``tracking_tpu/ops/filters.py``."""
 
 from __future__ import annotations
@@ -71,3 +71,30 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 1.5) -> torc
     if is_u8:
         return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
     return x
+
+
+def _window_stack(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    """The k×k neighbourhood of each pixel of [..., H, W] over a replicated
+    border, stacked along a new leading axis in row-major window order."""
+    r = ksize // 2
+    H, W = img.shape[-2], img.shape[-1]
+    x = edge_pad(img, r, r, r, r)
+    return torch.stack([x[..., dy : dy + H, dx : dx + W] for dy in range(ksize) for dx in range(ksize)], dim=0)
+
+
+def median_blur(img: torch.Tensor, ksize: int = 3) -> torch.Tensor:
+    """Median filter over [..., H, W] with a replicated border
+    (``cv::medianBlur``)."""
+    win = _window_stack(img, ksize)
+    return torch.sort(win, dim=0).values[(ksize * ksize) // 2].to(img.dtype)
+
+
+def box_filter(img: torch.Tensor, ksize: int, normalize: bool = True) -> torch.Tensor:
+    """Box filter (mean or sum over the k×k window) of [..., H, W] with a
+    reflect-101 border, in f32: rows, then columns, each term a product
+    by f32(1/k) (or 1) summed in index order."""
+    ones = np.ones(ksize, dtype=np.float32)
+    if normalize:
+        ones /= ksize
+    x = _conv1d_axis(img.to(torch.float32), ones, img.ndim - 2)
+    return _conv1d_axis(x, ones, img.ndim - 1)

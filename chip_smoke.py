@@ -12,8 +12,9 @@ fused step and subsenseShrink; FGD (FG_0) followed by the tracker, and
 FGDSimple (FG_0S); the row-sharded SuBSENSE + CCMSPF pipeline in 4 shards
 on the one card; the tracking app's frame loop with its MOG1 detector and
 MS-family trackers; the BGS apps (``bgs-run``'s loop with its XML fan-out,
-``cdnet-run`` with shrinkBGS and subsenseShrink) - and fails (non-zero
-exit, no result line) on any broken phase:
+``cdnet-run`` with shrinkBGS and subsenseShrink); the Gaussian-mixture,
+dp, Prati, VuMeter and lb algorithms alone and in a fan-out with SuBSENSE
+- and fails (non-zero exit, no result line) on any broken phase:
 
 1. device: the card's name and power limit; no CUDA device is an error;
 2. build: compiles the twelve CUDA kernels from ``tracking_tpu_torch/csrc``
@@ -131,6 +132,17 @@ exit, no result line) on any broken phase:
    top-left 360x640 equal a CPU run's,
    and ``--bgs subsenseShrink`` launches ``consensus`` and
    ``flood_reach``; outputs under ``build/bgs_smoke/``;
+4h. the 13 algorithms that the JAX package runs with XLA ops only (MOG2,
+   DPAdaptiveMedian, Grimson, Zivkovic, DPMean, DPWrenGA, DPPratiMediod,
+   the five lb models, VuMeter; plain torch): each alone through
+   ``run_video``, 4 frames then 16 timed with CUDA events (0/255 masks, a
+   finite state); the first 6 frames of the clip's top-left 360x640 on the
+   card equal a CPU run bit for bit (masks, background, state; Prati with
+   historySize 4 and samplingRate 1, the SOMs with trainingSteps 3, so
+   that the ring replaces slots and calibration ends); a ``run_bgs``
+   fan-out from an XML directory enabling the 13 and SuBSENSE, 2 chunks of
+   8: ``consensus`` and ``flood_reach`` launch 16 times each and every
+   fan-out mask equals its own ``run_video``; the fan-out's tictoc;
 5. the first 16 SuBSENSE + tracker frames again through the plain
    versions: masks, track ids and positions must equal the kernel run's;
 6. timing with CUDA events: each kernel beside its plain version and its
@@ -157,9 +169,10 @@ exit, no result line) on any broken phase:
    ``label_fixpoint`` (at most 4), an empty launch's event and device
    time, and the device's busy share and kernels per frame under
    torch.profiler (the full path, and the app over a chunk); ``bgs-run``'s
-   ms/frame with the default config directory and with the 12-algorithm
-   fan-out, in turns, the fan-out's tictoc (``FrameProcessor.profile``) and
-   profile, and shrinkBGS's step (CUDA events and its profile).
+   ms/frame with the default config directory, the 12-algorithm fan-out and
+   phase 4h's 14-algorithm fan-out, in turns, the 12-algorithm fan-out's
+   tictoc (``FrameProcessor.profile``), both fan-outs' profiles, and
+   shrinkBGS's step (CUDA events and its profile).
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -258,6 +271,21 @@ CDNET_BOOT = 8
 CDNET_CPU = 4
 CDNET_CUT = (360, 640)
 BGS_DIR = "build/bgs_smoke"  # the BGS apps' files (git-ignored)
+# phase 4h: the Gaussian-mixture, dp, Prati, VuMeter and lb algorithms, in
+# the flags' order (plain torch: the JAX package has no Pallas code for
+# them); each alone, warm-up and timed frames; the first frames of the crop
+# on the card and on the CPU, with configs that reach the branches a short
+# clip misses; then a fan-out of all 13 beside SuBSENSE, whose kernels are
+# the phase's CUDA kernels
+NEW_ALGOS = ("MixtureOfGaussianV2BGS", "DPAdaptiveMedianBGS", "DPGrimsonGMMBGS", "DPZivkovicAGMMBGS", "DPMeanBGS",
+             "DPWrenGABGS", "DPPratiMediodBGS", "LBSimpleGaussian", "LBFuzzyGaussian", "LBMixtureOfGaussians",
+             "LBAdaptiveSOM", "LBFuzzyAdaptiveSOM", "VuMeter")
+NEW_WARM, NEW_TIMED = 4, 16
+NEW_CPU = 6
+NEW_CUT = (360, 640)
+NEW_CUT_CFG = {"DPPratiMediodBGS": {"historySize": 4, "samplingRate": 1}, "LBAdaptiveSOM": {"trainingSteps": 3},
+               "LBFuzzyAdaptiveSOM": {"trainingSteps": 3}}
+NEW_KERNELS = ("consensus", "flood_reach")
 # the card's batched 4x4 inverse and matrix products sum in another order
 # than the CPU's, so Kalman leaves of a card run and a CPU run agree to this
 # relative tolerance (the CPU tests' own Kalman tolerance)
@@ -2145,19 +2173,118 @@ def bgs_app_path(clip, frames, dev, results, out) -> None:
         results[name]["cdnet_launches"] = launches[name]
 
 
+def same_bits(a, b) -> bool:
+    """Trees of tensors equal bit for bit (f32 through its int32 view: a
+    signed zero or a NaN payload counts), ``b`` moved to ``a``'s device."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    b = b.to(a.device)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def new_algorithms_path(clip, frames, dev, results, out, tag) -> None:
+    """Phase 4h: the 13 algorithms of ``bgs/gmm.py`` (MOG2, Grimson,
+    Zivkovic), ``bgs/dp.py``, ``bgs/prati_mediod.py``, ``bgs/lb.py`` and
+    ``bgs/vumeter.py``, each alone through ``run_video`` at 720p (CUDA
+    events), the first frames of the top-left crop on the card against the
+    CPU bit for bit (masks, background and state), and a ``run_bgs``
+    fan-out from an XML directory of all 13 beside SuBSENSE: the launch
+    counts of SuBSENSE's kernels, each fan-out mask against its own run,
+    and the fan-out's tictoc."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.core.config import config_to_xml
+    from tracking_tpu_torch.ops import _native
+    from tracking_tpu_torch.runner import cli
+    from tracking_tpu_torch.runner.pipeline import _ENABLE_FLAGS, FrameProcessorConfig
+    from tracking_tpu_torch.runner.scan import run_video
+
+    t_phase = time.perf_counter()
+    print(f"[4h] {len(NEW_ALGOS)} algorithms in plain torch: each alone ({NEW_WARM} + {NEW_TIMED} frames), the first "
+          f"{NEW_CPU} frames of the top-left {NEW_CUT[0]}x{NEW_CUT[1]} against the CPU, and a bgs-run fan-out of "
+          f"them with SuBSENSE, {BGS_FRAMES} frames in chunks of {BGS_CHUNK}, at {H}x{W}x{C} {elapsed()}", flush=True)
+    ms, shares = {}, {}
+    for name in NEW_ALGOS:
+        algo = get_algorithm(name)()
+        st, _ = run_video(algo, frames[:NEW_WARM])
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        st, masks = run_video(algo, frames[NEW_WARM : NEW_WARM + NEW_TIMED], st)
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(end) / NEW_TIMED
+        shares[name] = round(float(masks.gt(0).to(torch.float32).mean()), 4)
+        leaves = [v for v in st.values() if isinstance(v, torch.Tensor)] + [
+            x for v in st.values() if isinstance(v, tuple) for x in v]
+        check(masks.shape == (NEW_TIMED, H, W) and masks.dtype == torch.uint8
+              and set(masks.unique().tolist()) <= {0, 255}
+              and all(bool(torch.isfinite(x).all()) for x in leaves if x.is_floating_point()),
+              f"{name}: {NEW_TIMED} u8 0/255 masks, a finite state, foreground share {shares[name]}")
+        del st, masks
+    print(f"  {tag} each alone, ms/frame (CUDA events, {NEW_TIMED} frames after {NEW_WARM}): "
+          + ", ".join(f"{n} {v:.3f}" for n, v in ms.items()), flush=True)
+
+    cut = torch.from_numpy(clip[:NEW_CPU, : NEW_CUT[0], : NEW_CUT[1]].copy())
+    t0 = time.perf_counter()
+    for name in NEW_ALGOS:
+        cfg = NEW_CUT_CFG.get(name, {})
+        sk, (mk, bk) = run_video(get_algorithm(name)(**cfg), cut.to(dev), with_background=True)
+        sc, (mc, bc) = run_video(get_algorithm(name)(**cfg), cut, with_background=True)
+        check(same_bits((mk, bk, sk), (mc, bc, sc)),
+              f"{name}{cfg or ''}: masks, background and state of the card equal the CPU's bit for bit over "
+              f"{NEW_CPU} frames (foreground share {float(mc.gt(0).to(torch.float32).mean()):.4f})")
+    print(f"  card against CPU on the crop: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    fan = f"{out}/fanout_new"
+    flag = {name: f for f, name in _ENABLE_FLAGS}
+    names = NEW_ALGOS + ("SuBSENSEBGS",)
+    config_to_xml(FrameProcessorConfig(enableFrameDifferenceBGS=False, **{flag[n]: True for n in names}),
+                  f"{fan}/FrameProcessor.xml")
+    fk = {}
+    _native.reset_launches()
+    run = cli.run_bgs(bgs_chunks(clip, 0, BGS_FRAMES), bgs_args(cli, "--config_dir", fan), on_masks=collect_masks(fk))
+    torch.cuda.synchronize()
+    launches = dict(_native.LAUNCHES)
+    print(f"  launches: {launches}", flush=True)
+    for k in NEW_KERNELS:
+        check(launches[k] == BGS_FRAMES, f"{k} launched {launches[k]} times by the fan-out of {len(names)}")
+        results[k]["bgs_new_launches"] = launches[k]
+    check(list(run.fp.algorithms) == [n for _, n in _ENABLE_FLAGS if n in names],
+          f"the XML directory enabled {len(run.fp.algorithms)} algorithms, in the flags' order")
+    fk = joined(fk, dev)
+    prepped = torch.stack([run.fp.pre.process(f) for f in frames[:BGS_FRAMES]])
+    e = 0.0
+    for name in names:
+        _, alone = run_video(get_algorithm(name)(), prepped)
+        e = max(e, max_err(alone, fk[name]))
+    check(e == 0.0, f"each algorithm's fan-out masks equal its own run_video over {BGS_FRAMES} frames")
+    secs = run.fp.profile(frames[1 : 1 + BGS_CHUNK], repeats=2)
+    print(f"  {tag} fan-out tictoc (FrameProcessor.profile, {BGS_CHUNK} frames from a fresh state each), ms/frame: "
+          + ", ".join(f"{k} {v / BGS_CHUNK * 1e3:.3f}" for k, v in secs.items()), flush=True)
+    print(f"  phase 4h: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def time_bgs_apps(clip, frames, dev, out, tag) -> None:
-    """ms/frame of ``bgs-run``'s loop with the default config directory and
-    with the fan-out (after its edit: 12 algorithms), in turns, as (T(3
-    chunks) − T(1 chunk)) / 2 chunks: ``run_bgs``'s seconds end with a
-    synchronize, and the difference cancels the set-up (XMLs, states, warm
-    starts); the fan-out's tictoc and its profile; then shrinkBGS's step
-    (CUDA events) and its profile."""
+    """ms/frame of ``bgs-run``'s loop with the default config directory, with
+    the fan-out (after its edit: 12 algorithms) and with phase 4h's fan-out
+    (14), in turns, as (T(3 chunks) − T(1 chunk)) / 2 chunks: ``run_bgs``'s
+    seconds end with a synchronize, and the difference cancels the set-up
+    (XMLs, states, warm starts); the first fan-out's tictoc, both fan-outs'
+    profiles; then shrinkBGS's step (CUDA events) and its profile."""
     from tracking_tpu_torch import get_algorithm
     from tracking_tpu_torch.runner import cli
     from tracking_tpu_torch.runner.pipeline import FrameProcessor
 
     cases = (("bgs-run, default config (FrameDifference + PreProcessor)", f"{out}/default", 16),
-             (f"bgs-run, fan-out of {len(FANOUT) + 1} with the blur", f"{out}/fanout", BGS_CHUNK))
+             (f"bgs-run, fan-out of {len(FANOUT) + 1} with the blur", f"{out}/fanout", BGS_CHUNK),
+             (f"bgs-run, fan-out of the {len(NEW_ALGOS)} plain-torch algorithms of phase 4h and SuBSENSE",
+              f"{out}/fanout_new", BGS_CHUNK))
     ms = {label: [] for label, _, _ in cases}
     for _ in range(2):
         for label, cfg, chunk in cases:
@@ -2182,6 +2309,11 @@ def time_bgs_apps(clip, frames, dev, out, tag) -> None:
     for t in range(1, 9):
         fan_frame(t)
     profile(fan_frame, range(9, 13), tag, "bgs-run fan-out step")
+    fp = FrameProcessor.from_config_dir(f"{out}/fanout_new")
+    fan["s"] = fp.warm_start(fp.init(H, W, C, device=dev), frames[0])
+    for t in range(1, 9):
+        fan_frame(t)
+    profile(fan_frame, range(9, 13), tag, f"bgs-run fan-out of {len(fp.algorithms)} (phase 4h) step")
     del fan, fp
 
     algo = get_algorithm("shrinkBGS")()
@@ -2584,6 +2716,9 @@ def main(argv) -> None:
     # -- 4g. the BGS apps --------------------------------------------------
     bgs_out = os.path.join(os.path.dirname(os.path.abspath(__file__)), BGS_DIR)
     bgs_app_path(clip, frames, dev, results, bgs_out)
+
+    # -- 4h. the Gaussian-mixture, dp, Prati, VuMeter and lb algorithms ----
+    new_algorithms_path(clip, frames, dev, results, bgs_out, tag)
 
     # -- 5. path against path ----------------------------------------------
     print(f"[5] the first {PATH_FRAMES} frames through the plain versions {elapsed()}", flush=True)

@@ -9,9 +9,13 @@ packages decode them with cv2) and CDnet JPEG directories:
 - ``_reload_fanout``: an unchanged tree keeps the fan-out and its states, a
   new algorithm is warm-started and the others keep their states;
 - an enabled algorithm the port lacks raises an error naming its flag;
-- ``cdnet_run``: the same ``bin%06d.png`` names and pixels;
+- ``cdnet_run``: the same ``bin%06d.png`` names and pixels, with shrinkBGS
+  and with MOG2;
 - ``FrameProcessor`` with SuBSENSE and GMG in the fan-out: masks and states
-  bit for bit after each chunk.
+  bit for bit after each chunk;
+- the Gaussian-mixture, dp, lb and VuMeter algorithms: ``-a`` runs, and a
+  fan-out of MOG2, DPWrenGA, LBSimpleGaussian and VuMeter (XMLs, stdout,
+  masks and states).
 """
 
 import contextlib
@@ -179,9 +183,10 @@ def test_unported_flag_raises(tmp_path):
         FrameProcessor.from_config_dir(str(tmp_path / "config"))
 
 
-def test_cdnet(monkeypatch, tmp_path):
-    """``cdnet_run`` (shrinkBGS) on JPEGs 0-13 with ROI 5-13 and a bootstrap
-    of 4: the same bin%06d.png files, pixel for pixel, and the same line."""
+def cdnet_both(tmp_path, bgs=None):
+    """``cdnet_run`` of both packages (``--bgs bgs``, or its default) on
+    JPEGs 0-13 with ROI 5-13 and a bootstrap of 4: the same bin%06d.png
+    files, pixel for pixel, and the same line."""
     import cv2
 
     from tracking_tpu.runner import cli as jcli
@@ -196,7 +201,7 @@ def test_cdnet(monkeypatch, tmp_path):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             assert run([str(src), "--out", str(tmp_path / name), "--roi", "5", "13", "--bootstrap", "4",
-                        "--chunk", "4"] + extra) == 0
+                        "--chunk", "4"] + (["--bgs", bgs] if bgs else []) + extra) == 0
         lines[name] = buf.getvalue().split(" in ")[0].replace(str(tmp_path / name), "OUT")
     assert lines["torch"] == lines["jax"] == "cdnet: 13 frames (9 masks written to OUT)"
     names = sorted(os.listdir(tmp_path / "jax"))
@@ -208,6 +213,16 @@ def test_cdnet(monkeypatch, tmp_path):
         np.testing.assert_array_equal(b, a, err_msg=n)
         shares.append((a > 0).mean())
     assert 0.0 < max(shares) < 0.5
+
+
+def test_cdnet(monkeypatch, tmp_path):
+    """``cdnet_run`` with its default, shrinkBGS."""
+    cdnet_both(tmp_path)
+
+
+def test_cdnet_mog2(tmp_path):
+    """``cdnet_run --bgs mog2``."""
+    cdnet_both(tmp_path, "mog2")
 
 
 def test_fanout_with_kernel_algorithms(tmp_path):
@@ -257,3 +272,50 @@ def test_fanout_on_grey_frames():
     assert_tree_equal(jax.device_get(jmasks), masks)
     assert_tree_equal(jax.device_get(jst), st)
     assert float((masks["SigmaDeltaBGS"] > 0).float().mean()) > 0.0
+
+
+@pytest.mark.parametrize("name", ["MixtureOfGaussianV2BGS", "DPPratiMediodBGS", "LBFuzzyAdaptiveSOM"])
+def test_one_new_algorithm(monkeypatch, tmp_path, frames_dir, name):
+    """``-a`` with algorithms of the Gaussian-mixture, dp and lb families:
+    stdout (the similarity at ``--stopAt`` included) line for line."""
+    d, _ = frames_dir
+    out = run_bgs_apps(monkeypatch, tmp_path, ["-a", name, "--frames_dir", str(d), "--chunk", "5", "--compare",
+                                                "--imgref", str(d / "ref.png"), "--stopAt", "8"])
+    assert out[0].startswith(f"{name} frame 8: similarity = ") and out[-1].startswith(f"{name}: {T} frames in ")
+
+
+def test_fanout_new_algorithms(monkeypatch, tmp_path, frames_dir):
+    """A fan-out of MOG2, DPWrenGA, LBSimpleGaussian and VuMeter with the
+    blur on: the apps' XMLs byte for byte and stdout line for line (each
+    algorithm scored at ``--stopAt``); then the fan-out that those XMLs
+    build, in both packages, in chunks of 5: masks and states bit for bit
+    after each chunk."""
+    import jax
+    import jax.numpy as jnp
+
+    from tracking_tpu.runner.pipeline import FrameProcessor as JFP
+    from tracking_tpu_torch.runner.pipeline import FrameProcessor
+
+    d, frames = frames_dir
+    names = ["MixtureOfGaussianV2BGS", "DPWrenGABGS", "LBSimpleGaussian", "VuMeter"]
+    flags = ("enableMixtureOfGaussianV2BGS", "enableDPWrenGABGS", "enableLBSimpleGaussian", "enableVuMeter")
+    out = run_bgs_apps(
+        monkeypatch, tmp_path,
+        ["--frames_dir", str(d), "--chunk", "5", "--compare", "--imgref", str(d / "ref.png"), "--stopAt", "9"],
+        setup=lambda p: _fanout_config(p, flags, tictoc="VuMeter"),
+        files=[f"config/{n}.xml" for n in ["FrameProcessor", "PreProcessor"] + names],
+    )
+    assert out[0].startswith("tictoc: VuMeter = ")
+    assert [line.split(" frame ")[0] for line in out[1:5]] == sorted(names)
+    assert out[-1].startswith("+".join(names) + f": {T} frames in ")  # the flags' order
+
+    cfgdir = str(tmp_path / "torch" / "config")
+    fp, jfp = FrameProcessor.from_config_dir(cfgdir), JFP.from_config_dir(cfgdir)
+    assert list(fp.algorithms) == list(jfp.algorithms) == names
+    st = jst = None
+    for a, b in ((0, 5), (5, 10), (10, T)):
+        st, masks = fp.run(torch.from_numpy(frames[a:b]), st)
+        jst, jmasks = jfp.run(jnp.asarray(frames[a:b]), jst)
+        assert_tree_equal(jax.device_get(jmasks), masks, f"masks {a}-{b}")
+        assert_tree_equal(jax.device_get(jst), st, f"states {a}-{b}")
+    assert all(float((masks[n] > 0).float().mean()) > 0.0 for n in names)

@@ -15,23 +15,31 @@ import pytest
 import torch
 
 from torch_parity import assert_tree_equal
+from tracking_tpu.bgs import dp as JDP
 from tracking_tpu.bgs import fgd as JF
 from tracking_tpu.bgs import gmg as JG
 from tracking_tpu.bgs import gmm as JGM
+from tracking_tpu.bgs import lb as JLB
 from tracking_tpu.bgs import lbsp_family as JLF
 from tracking_tpu.bgs import multilayer as JM
+from tracking_tpu.bgs import prati_mediod as JPM
 from tracking_tpu.bgs import subsense_shrink as JS
 from tracking_tpu.bgs import texture as JT
+from tracking_tpu.bgs import vumeter as JVU
 from tracking_tpu.core.registry import list_algorithms as j_list_algorithms
 from tracking_tpu.track import tracker as JTR
 from tracking_tpu_torch import convert, get_algorithm, list_algorithms
+from tracking_tpu_torch.bgs import dp as TDP
 from tracking_tpu_torch.bgs import fgd as TF
 from tracking_tpu_torch.bgs import gmg as TG
 from tracking_tpu_torch.bgs import gmm as TGM
+from tracking_tpu_torch.bgs import lb as TLB
 from tracking_tpu_torch.bgs import lbsp_family as TLF
 from tracking_tpu_torch.bgs import multilayer as TM
+from tracking_tpu_torch.bgs import prati_mediod as TPM
 from tracking_tpu_torch.bgs import subsense_shrink as TS
 from tracking_tpu_torch.bgs import texture as TT
+from tracking_tpu_torch.bgs import vumeter as TVU
 from tracking_tpu_torch.ops import _native, assoc, cc, consensus, fgd, fill, gmg, multilayer, texture
 from tracking_tpu_torch.synth import make_clip
 from tracking_tpu_torch.track import tracker as TTR
@@ -84,6 +92,15 @@ def test_no_jax_or_reference_imports():
         (JT.DPTextureConfig, TT.DPTextureConfig), (JM.MultiLayerConfig, TM.MultiLayerConfig),
         (JS.SuBSENSEShrinkConfig, TS.SuBSENSEShrinkConfig), (JF.FGDConfig, TF.FGDConfig),
         (JF.FGDSimple.Config, TF.FGDSimple.Config), (JGM.MOG1Config, TGM.MOG1Config),
+        (JGM.MOG2Config, TGM.MOG2Config), (JGM.GrimsonGMMConfig, TGM.GrimsonGMMConfig),
+        (JGM.ZivkovicAGMMConfig, TGM.ZivkovicAGMMConfig), (JDP.DPAdaptiveMedianConfig, TDP.DPAdaptiveMedianConfig),
+        (JDP.DPMeanConfig, TDP.DPMeanConfig), (JDP.DPWrenGAConfig, TDP.DPWrenGAConfig),
+        (JPM.PratiMediodConfig, TPM.PratiMediodConfig), (JVU.VuMeterConfig, TVU.VuMeterConfig),
+        (JLB.LBSimpleGaussianConfig, TLB.LBSimpleGaussianConfig),
+        (JLB.LBFuzzyGaussianConfig, TLB.LBFuzzyGaussianConfig),
+        (JLB.LBMixtureOfGaussiansConfig, TLB.LBMixtureOfGaussiansConfig),
+        (JLB.LBAdaptiveSOMConfig, TLB.LBAdaptiveSOMConfig),
+        (JLB.LBFuzzyAdaptiveSOMConfig, TLB.LBFuzzyAdaptiveSOMConfig),
     ],
 )
 def test_config_fields_and_defaults_match(ref, port):
@@ -106,6 +123,19 @@ def test_config_fields_and_defaults_match(ref, port):
         ("FGD", None, ("FG_0", "fgd"), TF.FGD),
         ("FGDSimple", None, ("FG_0S", "fgd-simple"), TF.FGDSimple),
         ("MixtureOfGaussianV1BGS", 4, ("mog1", "mog"), TGM.MixtureOfGaussianV1),
+        ("MixtureOfGaussianV2BGS", 5, ("mog2",), TGM.MixtureOfGaussianV2),
+        ("DPAdaptiveMedianBGS", 9, ("adaptive-median",), TDP.DPAdaptiveMedian),
+        ("DPGrimsonGMMBGS", 10, ("grimson-gmm",), TGM.DPGrimsonGMM),
+        ("DPZivkovicAGMMBGS", 11, ("zivkovic-agmm",), TGM.DPZivkovicAGMM),
+        ("DPMeanBGS", 12, ("dp-mean",), TDP.DPMean),
+        ("DPWrenGABGS", 13, ("wren-ga",), TDP.DPWrenGA),
+        ("DPPratiMediodBGS", 14, ("prati-mediod",), TPM.DPPratiMediod),
+        ("LBSimpleGaussian", 25, ("lb-gauss",), TLB.LBSimpleGaussian),
+        ("LBFuzzyGaussian", 26, ("lb-fuzzy-gauss",), TLB.LBFuzzyGaussian),
+        ("LBMixtureOfGaussians", 27, ("lb-mog",), TLB.LBMixtureOfGaussians),
+        ("LBAdaptiveSOM", 28, ("lb-som",), TLB.LBAdaptiveSOM),
+        ("LBFuzzyAdaptiveSOM", 29, ("lb-fuzzy-som",), TLB.LBFuzzyAdaptiveSOM),
+        ("VuMeter", 31, ("vumeter",), TVU.VuMeter),
     ],
 )
 def test_registry(name, type_id, aliases, cls):
@@ -113,9 +143,9 @@ def test_registry(name, type_id, aliases, cls):
     assert type_id is None or get_algorithm(type_id) is cls
     assert all(get_algorithm(a) is cls for a in aliases)
     assert cls.name == name and cls.type_id == type_id
-    assert set(list_algorithms()) <= set(j_list_algorithms())
+    assert set(list_algorithms()) <= set(j_list_algorithms()) and len(list_algorithms()) == 31
     with pytest.raises(KeyError):
-        get_algorithm("MOG2")  # registered in the reference, not ported
+        get_algorithm("KDE")  # registered in the reference, not ported
 
 
 @pytest.mark.parametrize("c", [1, 3])
@@ -182,10 +212,12 @@ def test_slice3_states_mirror_reference(monkeypatch, ref, port, c, mode):
         lambda: TT.DPTextureBGS().init(8, 8, 3), lambda: TM.MultiLayerBGS().init(8, 8, 3),
         lambda: TTR.BlobTracker().init(), lambda: convert.state_from_numpy({"t": np.zeros((), np.int32)}),
         lambda: TS.SuBSENSEShrink().init(8, 8, 3), lambda: TF.FGD().init(8, 8, 3),
-        lambda: TGM.MixtureOfGaussianV1().init(8, 8, 3),
+        lambda: TGM.MixtureOfGaussianV1().init(8, 8, 3), lambda: TGM.MixtureOfGaussianV2().init(8, 8, 3),
+        lambda: TDP.DPWrenGA().init(8, 8, 3), lambda: TPM.DPPratiMediod().init(8, 8, 3),
+        lambda: TVU.VuMeter().init(8, 8, 3), lambda: TLB.LBAdaptiveSOM().init(8, 8, 3),
     ],
     ids=["subsense", "lobster", "gmg", "dptexture", "multilayer", "tracker", "convert", "subsense-shrink", "fgd",
-         "mog1"],
+         "mog1", "mog2", "wren-ga", "prati", "vumeter", "lb-som"],
 )
 def test_entry_points_default_to_the_card(make):
     """With no device given, states are made on the card: on a host without

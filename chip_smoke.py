@@ -13,8 +13,9 @@ FGDSimple (FG_0S); the row-sharded SuBSENSE + CCMSPF pipeline in 4 shards
 on the one card; the tracking app's frame loop with its MOG1 detector and
 MS-family trackers; the BGS apps (``bgs-run``'s loop with its XML fan-out,
 ``cdnet-run`` with shrinkBGS and subsenseShrink); the Gaussian-mixture,
-dp, Prati, VuMeter and lb algorithms alone and in a fan-out with SuBSENSE
-- and fails (non-zero exit, no result line) on any broken phase:
+dp, Prati, VuMeter and lb algorithms alone and in a fan-out with SuBSENSE;
+the fuzzy-integral, type-2 fuzzy GMM / MRF, KDE, IMBS and Eigenbackground
+algorithms alone and in a fan-out with SuBSENSE - and fails (non-zero exit, no result line) on any broken phase:
 
 1. device: the card's name and power limit; no CUDA device is an error;
 2. build: compiles the twelve CUDA kernels from ``tracking_tpu_torch/csrc``
@@ -143,6 +144,23 @@ dp, Prati, VuMeter and lb algorithms alone and in a fan-out with SuBSENSE
    fan-out from an XML directory enabling the 13 and SuBSENSE, 2 chunks of
    8: ``consensus`` and ``flood_reach`` launch 16 times each and every
    fan-out mask equals its own ``run_video``; the fan-out's tictoc;
+4i. the nine algorithms of the fuzzy-integral (Sugeno, Choquet), type-2
+   fuzzy GMM / MRF (T2FGMM_UM/UV, T2FMRF_UM/UV), KDE, IMBS and
+   Eigenbackground modules, with 4 learning frames, a sample every frame
+   and a 4-sample IMBS model and a 4-frame Eigenbackground history: each
+   alone through ``run_video``, 6 frames then 16 timed with CUDA events
+   (masks in the algorithm's labels, IMBS's {0, 80, 180, 255}; a finite
+   state; IMBS's ``label_components`` launched once per frame, nothing
+   else launched); the first 7 frames of the clip's top-left 360x640 on
+   the card equal a CPU run bit for bit (Eigenbackground: t, history and
+   mean exactly, its basis's projector on seeded random vectors to a
+   relative 1e-4, the background to 1 level on 0.1 % of its values, the
+   mask on all but 0.5 % of its pixels); a ``run_bgs`` fan-out from an
+   XML directory enabling the nine (those configs in their XMLs) and
+   SuBSENSE, 2 chunks of 8: ``consensus`` and ``flood_reach`` launch 16
+   times each, ``label_components`` once per IMBS frame that starts with a
+   model, and every fan-out mask equals its own ``run_video``; the
+   fan-out's tictoc;
 5. the first 16 SuBSENSE + tracker frames again through the plain
    versions: masks, track ids and positions must equal the kernel run's;
 6. timing with CUDA events: each kernel beside its plain version and its
@@ -169,10 +187,11 @@ dp, Prati, VuMeter and lb algorithms alone and in a fan-out with SuBSENSE
    ``label_fixpoint`` (at most 4), an empty launch's event and device
    time, and the device's busy share and kernels per frame under
    torch.profiler (the full path, and the app over a chunk); ``bgs-run``'s
-   ms/frame with the default config directory, the 12-algorithm fan-out and
-   phase 4h's 14-algorithm fan-out, in turns, the 12-algorithm fan-out's
-   tictoc (``FrameProcessor.profile``), both fan-outs' profiles, and
-   shrinkBGS's step (CUDA events and its profile).
+   ms/frame with the default config directory, the 12-algorithm fan-out,
+   phase 4h's 14-algorithm fan-out and phase 4i's 10-algorithm fan-out, in
+   turns, the 12-algorithm fan-out's tictoc (``FrameProcessor.profile``),
+   the three fan-outs' profiles, and shrinkBGS's step (CUDA events and its
+   profile).
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -286,6 +305,29 @@ NEW_CUT = (360, 640)
 NEW_CUT_CFG = {"DPPratiMediodBGS": {"historySize": 4, "samplingRate": 1}, "LBAdaptiveSOM": {"trainingSteps": 3},
                "LBFuzzyAdaptiveSOM": {"trainingSteps": 3}}
 NEW_KERNELS = ("consensus", "flood_reach")
+# phase 4i: the fuzzy-integral, type-2 fuzzy GMM / MRF, KDE, IMBS and
+# Eigenbackground algorithms, in the flags' order (plain torch but IMBS's
+# component labelling, the CC kernel); configs that reach detection inside
+# the phase (4 learning frames, a sample every frame and a 4-sample IMBS
+# model, a 4-frame Eigenbackground history), also written into the
+# fan-out's XMLs; each alone, the first frames of the crop on the card and
+# on the CPU, then a fan-out of the nine beside SuBSENSE
+S15_ALGOS = ("DPEigenbackgroundBGS", "T2FGMM_UM", "T2FGMM_UV", "T2FMRF_UM", "T2FMRF_UV", "FuzzySugenoIntegral",
+             "FuzzyChoquetIntegral", "KDE", "IndependentMultimodalBGS")
+S15_CFG = {"DPEigenbackgroundBGS": {"historySize": 4, "embeddedDim": 3}, "FuzzySugenoIntegral": {"framesToLearn": 4},
+           "FuzzyChoquetIntegral": {"framesToLearn": 4}, "KDE": {"framesToLearn": 4},
+           "IndependentMultimodalBGS": {"fps": 2.0, "numSamples": 4}}
+S15_LABELS = {"IndependentMultimodalBGS": {0, 80, 180, 255}}
+S15_WARM, S15_TIMED = 6, 16
+S15_CPU = 7  # crop frames on the card and on the CPU: two past every algorithm's learning
+S15_KERNELS = ("consensus", "flood_reach", "label_components")
+# Eigenbackground's basis comes from cuSOLVER on the card and LAPACK on the
+# CPU: its projector applied to seeded random vectors agrees to this
+# relative tolerance, the background image to 1 level on at most this
+# share of its values, the mask on all but this share of its pixels
+EIGEN_PROJ_RTOL = 1e-4
+EIGEN_BG_SHARE = 1e-3
+EIGEN_MASK_SHARE = 5e-3
 # the card's batched 4x4 inverse and matrix products sum in another order
 # than the CPU's, so Kalman leaves of a card run and a CPU run agree to this
 # relative tolerance (the CPU tests' own Kalman tolerance)
@@ -2270,12 +2312,146 @@ def new_algorithms_path(clip, frames, dev, results, out, tag) -> None:
     print(f"  phase 4h: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def eigen_residue(a, b, gen) -> dict:
+    """Eigenbackground's card run ``a`` = (masks, bg, state) against the CPU
+    run ``b``: exact leaves, and the basis, background and masks' residue
+    (see EIGEN_PROJ_RTOL)."""
+    (ma, ba, sa), (mb, bb, sb) = a, b
+    mb, bb, sb = mb.to(ma.device), bb.to(ma.device), {k: v.to(ma.device) for k, v in sb.items()}
+    exact = all(same_bits(sa[k], sb[k]) for k in ("t", "history", "mean"))
+    v = torch.randn((4, sa["basis"].shape[1]), generator=gen).to(ma.device)
+    pa, pb = (s["basis"].T @ (s["basis"] @ v.T) for s in (sa, sb))
+    proj = float((pa - pb).abs().max() / pb.abs().max())
+    bg_diff = (ba.to(torch.int32) - bb.to(torch.int32)).abs()
+    return {"exact": exact, "proj": proj, "bg_max": int(bg_diff.max()),
+            "bg_share": float(bg_diff.gt(0).to(torch.float32).mean()),
+            "mask_share": float((ma != mb).to(torch.float32).mean())}
+
+
+def slice15_path(clip, frames, dev, results, out, tag) -> None:
+    """Phase 4i: the nine algorithms of ``bgs/fuzzy.py``, ``bgs/t2f.py``,
+    ``bgs/kde.py``, ``bgs/imbs.py`` and ``bgs/eigenbackground.py``, each
+    alone through ``run_video`` at 720p (CUDA events; IMBS's
+    ``label_components`` launches once per frame that starts with a model),
+    the first frames of the top-left crop on the card against the CPU
+    (bit for bit; Eigenbackground to its tolerance), and a ``run_bgs``
+    fan-out from an XML directory of the nine beside SuBSENSE: the launch
+    counts of SuBSENSE's and IMBS's kernels, each fan-out mask against its
+    own run."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.core.config import config_to_xml
+    from tracking_tpu_torch.ops import _native
+    from tracking_tpu_torch.runner import cli
+    from tracking_tpu_torch.runner.pipeline import _ENABLE_FLAGS, FrameProcessorConfig
+    from tracking_tpu_torch.runner.scan import run_video
+
+    t_phase = time.perf_counter()
+    print(f"[4i] {len(S15_ALGOS)} algorithms (plain torch; IMBS's components by the CC kernel): each alone "
+          f"({S15_WARM} + {S15_TIMED} frames), the first {S15_CPU} frames of the top-left {NEW_CUT[0]}x{NEW_CUT[1]} "
+          f"against the CPU, and a bgs-run fan-out of them with SuBSENSE, {BGS_FRAMES} frames in chunks of "
+          f"{BGS_CHUNK}, at {H}x{W}x{C} {elapsed()}", flush=True)
+    ms, shares = {}, {}
+    for name in S15_ALGOS:
+        algo = get_algorithm(name)(**S15_CFG.get(name, {}))
+        st, _ = run_video(algo, frames[:S15_WARM])
+        ready = bool(st["model_ready"]) if "model_ready" in st else True
+        torch.cuda.synchronize()
+        _native.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        st, masks = run_video(algo, frames[S15_WARM : S15_WARM + S15_TIMED], st)
+        end.record()
+        torch.cuda.synchronize()
+        launches = dict(_native.LAUNCHES)
+        ms[name] = start.elapsed_time(end) / S15_TIMED
+        shares[name] = round(float(masks.gt(0).to(torch.float32).mean()), 4)
+        leaves = [v for v in st.values() if isinstance(v, torch.Tensor)] + [
+            x for v in st.values() if isinstance(v, tuple) for x in v]
+        labels = S15_LABELS.get(name, {0, 255})
+        check(masks.shape == (S15_TIMED, H, W) and masks.dtype == torch.uint8
+              and set(masks.unique().tolist()) <= labels
+              and all(bool(torch.isfinite(x).all()) for x in leaves if x.is_floating_point()),
+              f"{name}: {S15_TIMED} u8 masks in {sorted(labels)}, a finite state, foreground share {shares[name]}")
+        want = S15_TIMED if name == "IndependentMultimodalBGS" else 0
+        check(ready and launches["label_components"] == want and sum(launches.values()) == want,
+              f"{name}: label_components launched {launches['label_components']} times in {S15_TIMED} frames "
+              f"that start with a model (kernels launched in all: {sum(launches.values())})")
+        if want:
+            results["label_components"]["imbs_launches"] = launches["label_components"]
+        del st, masks
+    print(f"  {tag} each alone, ms/frame (CUDA events, {S15_TIMED} frames after {S15_WARM}): "
+          + ", ".join(f"{n} {v:.3f}" for n, v in ms.items()), flush=True)
+
+    cut = torch.from_numpy(clip[:S15_CPU, : NEW_CUT[0], : NEW_CUT[1]].copy())
+    gen = torch.Generator().manual_seed(15)
+    t0 = time.perf_counter()
+    for name in S15_ALGOS:
+        cfg = S15_CFG.get(name, {})
+        sk, (mk, bk) = run_video(get_algorithm(name)(**cfg), cut.to(dev), with_background=True)
+        sc, (mc, bc) = run_video(get_algorithm(name)(**cfg), cut, with_background=True)
+        share = float(mc.gt(0).to(torch.float32).mean())
+        if name == "DPEigenbackgroundBGS":
+            r = eigen_residue((mk, bk, sk), (mc, bc, sc), gen)
+            check(r["exact"] and r["proj"] <= EIGEN_PROJ_RTOL and r["bg_max"] <= 1
+                  and r["bg_share"] <= EIGEN_BG_SHARE and r["mask_share"] <= EIGEN_MASK_SHARE,
+                  f"{name}{cfg}: t, history and mean of the card equal the CPU's; residue (cuSOLVER against "
+                  f"LAPACK) {r} within projector {EIGEN_PROJ_RTOL}, background 1 level on {EIGEN_BG_SHARE}, mask "
+                  f"{EIGEN_MASK_SHARE} over {S15_CPU} frames (foreground share {share:.4f})")
+            continue
+        check(same_bits((mk, bk, sk), (mc, bc, sc)),
+              f"{name}{cfg or ''}: masks, background and state of the card equal the CPU's bit for bit over "
+              f"{S15_CPU} frames (foreground share {share:.4f})")
+    print(f"  card against CPU on the crop: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    fan = f"{out}/fanout_15"
+    flag = {name: f for f, name in _ENABLE_FLAGS}
+    names = S15_ALGOS + ("SuBSENSEBGS",)
+    config_to_xml(FrameProcessorConfig(enableFrameDifferenceBGS=False, **{flag[n]: True for n in names}),
+                  f"{fan}/FrameProcessor.xml")
+    for name, cfg in S15_CFG.items():
+        algo = get_algorithm(name)
+        config_to_xml(algo.Config(**cfg), f"{fan}/{algo.name}.xml")
+    fk = {}
+    _native.reset_launches()
+    run = cli.run_bgs(bgs_chunks(clip, 0, BGS_FRAMES), bgs_args(cli, "--config_dir", fan), on_masks=collect_masks(fk))
+    torch.cuda.synchronize()
+    launches = dict(_native.LAUNCHES)
+    print(f"  launches: {launches}", flush=True)
+    check(list(run.fp.algorithms) == [n for _, n in _ENABLE_FLAGS if n in names],
+          f"the XML directory enabled {len(run.fp.algorithms)} algorithms, in the flags' order")
+    fk = joined(fk, dev)
+    prepped = torch.stack([run.fp.pre.process(f) for f in frames[:BGS_FRAMES]])
+    e, with_model = 0.0, 0
+    for name in names:
+        algo = get_algorithm(name)(**S15_CFG.get(name, {}))
+        if name == "IndependentMultimodalBGS":  # frame by frame: the frames that start with a model
+            st = algo.warm_start(algo.init(H, W, C, device=dev), prepped[0])
+            alone = []
+            for f in prepped:
+                with_model += int(st["model_ready"])
+                st, m, _ = algo.step(st, f)
+                alone.append(m)
+            alone = torch.stack(alone)
+        else:
+            _, alone = run_video(algo, prepped)
+        e = max(e, max_err(alone, fk[name]))
+    check(e == 0.0, f"each algorithm's fan-out masks equal its own run_video over {BGS_FRAMES} frames")
+    for k, want in (("consensus", BGS_FRAMES), ("flood_reach", BGS_FRAMES), ("label_components", with_model)):
+        check(launches[k] == want and want > 0, f"{k} launched {launches[k]} times by the fan-out of {len(names)} "
+                                                f"(expected {want})")
+        results[k]["bgs15_launches"] = launches[k]
+    secs = run.fp.profile(frames[1 : 1 + BGS_CHUNK], repeats=2)
+    print(f"  {tag} fan-out tictoc (FrameProcessor.profile, {BGS_CHUNK} frames from a fresh state each), ms/frame: "
+          + ", ".join(f"{k} {v / BGS_CHUNK * 1e3:.3f}" for k, v in secs.items()), flush=True)
+    print(f"  phase 4i: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def time_bgs_apps(clip, frames, dev, out, tag) -> None:
     """ms/frame of ``bgs-run``'s loop with the default config directory, with
-    the fan-out (after its edit: 12 algorithms) and with phase 4h's fan-out
-    (14), in turns, as (T(3 chunks) − T(1 chunk)) / 2 chunks: ``run_bgs``'s
+    the fan-out (after its edit: 12 algorithms), with phase 4h's fan-out
+    (14) and with phase 4i's (10), in turns, as (T(3 chunks) − T(1 chunk)) / 2 chunks: ``run_bgs``'s
     seconds end with a synchronize, and the difference cancels the set-up
-    (XMLs, states, warm starts); the first fan-out's tictoc, both fan-outs'
+    (XMLs, states, warm starts); the first fan-out's tictoc, the three fan-outs'
     profiles; then shrinkBGS's step (CUDA events) and its profile."""
     from tracking_tpu_torch import get_algorithm
     from tracking_tpu_torch.runner import cli
@@ -2284,7 +2460,9 @@ def time_bgs_apps(clip, frames, dev, out, tag) -> None:
     cases = (("bgs-run, default config (FrameDifference + PreProcessor)", f"{out}/default", 16),
              (f"bgs-run, fan-out of {len(FANOUT) + 1} with the blur", f"{out}/fanout", BGS_CHUNK),
              (f"bgs-run, fan-out of the {len(NEW_ALGOS)} plain-torch algorithms of phase 4h and SuBSENSE",
-              f"{out}/fanout_new", BGS_CHUNK))
+              f"{out}/fanout_new", BGS_CHUNK),
+             (f"bgs-run, fan-out of the {len(S15_ALGOS)} algorithms of phase 4i and SuBSENSE", f"{out}/fanout_15",
+              BGS_CHUNK))
     ms = {label: [] for label, _, _ in cases}
     for _ in range(2):
         for label, cfg, chunk in cases:
@@ -2314,6 +2492,11 @@ def time_bgs_apps(clip, frames, dev, out, tag) -> None:
     for t in range(1, 9):
         fan_frame(t)
     profile(fan_frame, range(9, 13), tag, f"bgs-run fan-out of {len(fp.algorithms)} (phase 4h) step")
+    fp = FrameProcessor.from_config_dir(f"{out}/fanout_15")
+    fan["s"] = fp.warm_start(fp.init(H, W, C, device=dev), frames[0])
+    for t in range(1, 9):
+        fan_frame(t)
+    profile(fan_frame, range(9, 13), tag, f"bgs-run fan-out of {len(fp.algorithms)} (phase 4i) step", top=20)
     del fan, fp
 
     algo = get_algorithm("shrinkBGS")()
@@ -2719,6 +2902,9 @@ def main(argv) -> None:
 
     # -- 4h. the Gaussian-mixture, dp, Prati, VuMeter and lb algorithms ----
     new_algorithms_path(clip, frames, dev, results, bgs_out, tag)
+
+    # -- 4i. the fuzzy, T2F, KDE, IMBS and Eigenbackground algorithms ----
+    slice15_path(clip, frames, dev, results, bgs_out, tag)
 
     # -- 5. path against path ----------------------------------------------
     print(f"[5] the first {PATH_FRAMES} frames through the plain versions {elapsed()}", flush=True)

@@ -15,7 +15,10 @@ packages decode them with cv2) and CDnet JPEG directories:
   bit for bit after each chunk;
 - the Gaussian-mixture, dp, lb and VuMeter algorithms: ``-a`` runs, and a
   fan-out of MOG2, DPWrenGA, LBSimpleGaussian and VuMeter (XMLs, stdout,
-  masks and states).
+  masks and states);
+- a fan-out of FuzzyChoquetIntegral, T2FGMM_UV, KDE, IMBS and
+  Eigenbackground, three of them from edited XMLs that detect inside the
+  clip (XMLs, stdout, masks and states).
 """
 
 import contextlib
@@ -178,8 +181,8 @@ def test_reload_fanout(tmp_path):
 def test_unported_flag_raises(tmp_path):
     from tracking_tpu_torch.runner.pipeline import FrameProcessor
 
-    _fanout_config(str(tmp_path), ("enableFrameDifferenceBGS", "enableKDE"))
-    with pytest.raises(NotImplementedError, match="enableKDE enables KDE"):
+    _fanout_config(str(tmp_path), ("enableFrameDifferenceBGS", "enableMultiCueBGS"))
+    with pytest.raises(NotImplementedError, match="enableMultiCueBGS enables SJN_MultiCueBGS"):
         FrameProcessor.from_config_dir(str(tmp_path / "config"))
 
 
@@ -319,3 +322,64 @@ def test_fanout_new_algorithms(monkeypatch, tmp_path, frames_dir):
         assert_tree_equal(jax.device_get(jmasks), masks, f"masks {a}-{b}")
         assert_tree_equal(jax.device_get(jst), st, f"states {a}-{b}")
     assert all(float((masks[n] > 0).float().mean()) > 0.0 for n in names)
+
+
+def test_fanout_slice15_algorithms(monkeypatch, tmp_path, frames_dir):
+    """A fan-out of FuzzyChoquetIntegral (its XML edited to 4 learning
+    frames), T2FGMM_UV, KDE, IMBS (a sample every frame and a 4-sample
+    model) and Eigenbackground (a 6-frame history) with the blur on: the
+    apps' XMLs byte for byte, stdout line for line (each algorithm scored at
+    ``--stopAt``); then the fan-out that those XMLs build, in both
+    packages, in chunks of 6 (one compiled shape in the JAX package):
+    masks and states bit for bit after each chunk (Eigenbackground's basis
+    through its projector, to the tolerance of ``test_torch_eigen.py``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from test_torch_eigen import PROJ_TOL
+    from tracking_tpu.runner.pipeline import FrameProcessor as JFP
+    from tracking_tpu_torch.bgs.eigenbackground import EigenbackgroundConfig
+    from tracking_tpu_torch.bgs.fuzzy import FuzzyIntegralConfig
+    from tracking_tpu_torch.bgs.imbs import IMBSConfig
+    from tracking_tpu_torch.core.config import config_to_xml
+    from tracking_tpu_torch.runner.pipeline import FrameProcessor
+
+    d, frames = frames_dir
+    names = ["DPEigenbackgroundBGS", "T2FGMM_UV", "FuzzyChoquetIntegral", "KDE", "IndependentMultimodalBGS"]
+    flags = ("enableDPEigenbackgroundBGS", "enableT2FGMM_UV", "enableFuzzyChoquetIntegral", "enableKDE",
+             "enableIMBS")
+
+    def setup(p):
+        _fanout_config(p, flags, tictoc="KDE")
+        config_to_xml(IMBSConfig(fps=2.0, numSamples=4), os.path.join(p, "config", "IndependentMultimodalBGS.xml"))
+        config_to_xml(FuzzyIntegralConfig(framesToLearn=4), os.path.join(p, "config", "FuzzyChoquetIntegral.xml"))
+        config_to_xml(EigenbackgroundConfig(historySize=6, embeddedDim=3),
+                      os.path.join(p, "config", "DPEigenbackgroundBGS.xml"))
+
+    out = run_bgs_apps(
+        monkeypatch, tmp_path,
+        ["--frames_dir", str(d), "--chunk", "6", "--compare", "--imgref", str(d / "ref.png"), "--stopAt", "11"],
+        setup=setup, files=[f"config/{n}.xml" for n in ["FrameProcessor", "PreProcessor"] + names],
+    )
+    assert out[0].startswith("tictoc: KDE = ")
+    assert [line.split(" frame ")[0] for line in out[1:6]] == sorted(names)
+    assert out[-1].startswith("+".join(names) + f": {T} frames in ")  # the flags' order
+
+    cfgdir = str(tmp_path / "torch" / "config")
+    fp, jfp = FrameProcessor.from_config_dir(cfgdir), JFP.from_config_dir(cfgdir)
+    assert list(fp.algorithms) == list(jfp.algorithms) == names
+    st = jst = None
+    fired = set()
+    for a, b in ((0, 6), (6, T)):
+        st, masks = fp.run(torch.from_numpy(frames[a:b]), st)
+        jst, jmasks = jfp.run(jnp.asarray(frames[a:b]), jst)
+        fired |= {n for n in names if bool((masks[n] > 0).any())}
+        jst_np = jax.device_get(jst)
+        eig, jeig = st.pop("DPEigenbackgroundBGS"), jst_np.pop("DPEigenbackgroundBGS")
+        assert_tree_equal({k: jeig[k] for k in ("t", "history", "mean")}, {k: eig[k] for k in ("t", "history", "mean")})
+        jB, tB = jeig["basis"], eig["basis"].numpy()
+        assert np.abs(jB.T @ jB - tB.T @ tB).max() <= PROJ_TOL
+        assert_tree_equal(jax.device_get(jmasks), masks, f"masks {a}-{b}")
+        assert_tree_equal(jst_np, st, f"states {a}-{b}")
+        st["DPEigenbackgroundBGS"], jst = eig, dict(jst_np, DPEigenbackgroundBGS=jeig)
+    assert fired == set(names), sorted(set(names) - fired)

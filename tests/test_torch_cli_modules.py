@@ -1,11 +1,14 @@
 """The tracking app's module choices in the port against the JAX
 package's (``test_torch_cli.py`` holds the default app): ``--fg FG_1``
 (MOG1) and ``--fg FG_0`` (FGD, on a quiet clip: FGD's change test floods at
-the default sensor noise), ``--bgs_type 5`` (MOG2) and ``26``
-(LBFuzzyGaussian), and the MS, MSFG and MSPF trackers, each on a
-12-frame FFV1 clip at 64x96; stdout but the timing line, the track CSV and
-the ``--bta_data`` arrays bit for bit. MSPF's particle jitter draws JAX's
-normals bit for bit (``ops/xla_math.py``)."""
+the default sensor noise), ``--bgs_type 5`` (MOG2), ``26``
+(LBFuzzyGaussian) and ``33`` (IMBS, given a sample every frame and a
+2-sample model by ``fg:`` module parameters so that it detects inside the
+clip; its components come from the CC kernel's plain version here), and
+the MS, MSFG and MSPF trackers, each on a 12-frame FFV1 clip at 64x96;
+stdout but the timing line, the track CSV and the ``--bta_data`` arrays
+bit for bit. MSPF's particle jitter draws JAX's normals bit for bit
+(``ops/xla_math.py``)."""
 
 import pytest
 
@@ -34,7 +37,8 @@ def clips(tmp_path_factory):
     (["--bt", "MSPF", "--bd", "BD_Simple"], "main"),
     (["--bgs_type", "5"], "main"),
     (["--bgs_type", "26"], "main"),
-], ids=["fg1", "fg0", "ms", "msfg", "mspf", "mog2", "lb-fuzzy-gauss"])
+    (["--bgs_type", "33", "fg:fps=2", "fg:numSamples=2"], "main"),
+], ids=["fg1", "fg0", "ms", "msfg", "mspf", "mog2", "lb-fuzzy-gauss", "imbs"])
 def test_app_modules(monkeypatch, tmp_path, clips, argv, clip):
     out = run_apps(monkeypatch, tmp_path, clips[clip], argv + ["--track", "tracks.csv", "--bta_data", "bta.npz"],
                    files=("tracks.csv", "bta.npz"))

@@ -16,28 +16,38 @@ import torch
 
 from torch_parity import assert_tree_equal
 from tracking_tpu.bgs import dp as JDP
+from tracking_tpu.bgs import eigenbackground as JEB
 from tracking_tpu.bgs import fgd as JF
+from tracking_tpu.bgs import fuzzy as JFZ
 from tracking_tpu.bgs import gmg as JG
 from tracking_tpu.bgs import gmm as JGM
+from tracking_tpu.bgs import imbs as JIM
+from tracking_tpu.bgs import kde as JKD
 from tracking_tpu.bgs import lb as JLB
 from tracking_tpu.bgs import lbsp_family as JLF
 from tracking_tpu.bgs import multilayer as JM
 from tracking_tpu.bgs import prati_mediod as JPM
 from tracking_tpu.bgs import subsense_shrink as JS
+from tracking_tpu.bgs import t2f as JT2
 from tracking_tpu.bgs import texture as JT
 from tracking_tpu.bgs import vumeter as JVU
 from tracking_tpu.core.registry import list_algorithms as j_list_algorithms
 from tracking_tpu.track import tracker as JTR
 from tracking_tpu_torch import convert, get_algorithm, list_algorithms
 from tracking_tpu_torch.bgs import dp as TDP
+from tracking_tpu_torch.bgs import eigenbackground as TEB
 from tracking_tpu_torch.bgs import fgd as TF
+from tracking_tpu_torch.bgs import fuzzy as TFZ
 from tracking_tpu_torch.bgs import gmg as TG
 from tracking_tpu_torch.bgs import gmm as TGM
+from tracking_tpu_torch.bgs import imbs as TIM
+from tracking_tpu_torch.bgs import kde as TKD
 from tracking_tpu_torch.bgs import lb as TLB
 from tracking_tpu_torch.bgs import lbsp_family as TLF
 from tracking_tpu_torch.bgs import multilayer as TM
 from tracking_tpu_torch.bgs import prati_mediod as TPM
 from tracking_tpu_torch.bgs import subsense_shrink as TS
+from tracking_tpu_torch.bgs import t2f as TT2
 from tracking_tpu_torch.bgs import texture as TT
 from tracking_tpu_torch.bgs import vumeter as TVU
 from tracking_tpu_torch.ops import _native, assoc, cc, consensus, fgd, fill, gmg, multilayer, texture
@@ -101,6 +111,9 @@ def test_no_jax_or_reference_imports():
         (JLB.LBMixtureOfGaussiansConfig, TLB.LBMixtureOfGaussiansConfig),
         (JLB.LBAdaptiveSOMConfig, TLB.LBAdaptiveSOMConfig),
         (JLB.LBFuzzyAdaptiveSOMConfig, TLB.LBFuzzyAdaptiveSOMConfig),
+        (JFZ.FuzzyIntegralConfig, TFZ.FuzzyIntegralConfig), (JT2.T2FGMMConfig, TT2.T2FGMMConfig),
+        (JT2.T2FMRFConfig, TT2.T2FMRFConfig), (JKD.KDEConfig, TKD.KDEConfig), (JIM.IMBSConfig, TIM.IMBSConfig),
+        (JEB.EigenbackgroundConfig, TEB.EigenbackgroundConfig),
     ],
 )
 def test_config_fields_and_defaults_match(ref, port):
@@ -136,6 +149,15 @@ def test_config_fields_and_defaults_match(ref, port):
         ("LBAdaptiveSOM", 28, ("lb-som",), TLB.LBAdaptiveSOM),
         ("LBFuzzyAdaptiveSOM", 29, ("lb-fuzzy-som",), TLB.LBFuzzyAdaptiveSOM),
         ("VuMeter", 31, ("vumeter",), TVU.VuMeter),
+        ("DPEigenbackgroundBGS", 15, ("eigenbackground",), TEB.DPEigenbackground),
+        ("T2FGMM_UM", 17, ("t2fgmm-um",), TT2.T2FGMM_UM),
+        ("T2FGMM_UV", 18, ("t2fgmm-uv",), TT2.T2FGMM_UV),
+        ("T2FMRF_UM", 19, ("t2fmrf-um",), TT2.T2FMRF_UM),
+        ("T2FMRF_UV", 20, ("t2fmrf-uv",), TT2.T2FMRF_UV),
+        ("FuzzySugenoIntegral", 21, ("fuzzy-sugeno",), TFZ.FuzzySugenoIntegral),
+        ("FuzzyChoquetIntegral", 22, ("fuzzy-choquet",), TFZ.FuzzyChoquetIntegral),
+        ("KDE", 32, ("kde",), TKD.KDE),
+        ("IndependentMultimodalBGS", 33, ("imbs",), TIM.IMBS),
     ],
 )
 def test_registry(name, type_id, aliases, cls):
@@ -143,9 +165,11 @@ def test_registry(name, type_id, aliases, cls):
     assert type_id is None or get_algorithm(type_id) is cls
     assert all(get_algorithm(a) is cls for a in aliases)
     assert cls.name == name and cls.type_id == type_id
-    assert set(list_algorithms()) <= set(j_list_algorithms()) and len(list_algorithms()) == 31
+    ref = j_list_algorithms()[name]
+    assert (ref.type_id, ref.Config.__name__) == (type_id, cls.Config.__name__)
+    assert set(list_algorithms()) <= set(j_list_algorithms()) and len(list_algorithms()) == 40
     with pytest.raises(KeyError):
-        get_algorithm("KDE")  # registered in the reference, not ported
+        get_algorithm("SJN_MultiCueBGS")  # registered in the reference, not ported
 
 
 @pytest.mark.parametrize("c", [1, 3])
@@ -158,6 +182,27 @@ def test_init_state_mirrors_reference(c):
     assert_tree_equal(want, got)
     assert_tree_equal(want, convert.state_from_numpy(want, device="cpu"))
     assert_tree_equal(got, convert.state_from_numpy(convert.state_to_numpy(got), device="cpu"))
+
+
+@pytest.mark.parametrize(
+    "ref,port,c",
+    [(JFZ.FuzzySugenoIntegral, TFZ.FuzzySugenoIntegral, 1), (JT2.T2FGMM_UV, TT2.T2FGMM_UV, 3),
+     (JT2.T2FMRF_UM, TT2.T2FMRF_UM, 1), (JKD.KDE, TKD.KDE, 3), (JKD.KDE, TKD.KDE, 1), (JIM.IMBS, TIM.IMBS, 3),
+     (JEB.DPEigenbackground, TEB.DPEigenbackground, 3)],
+    ids=["fuzzy", "t2fgmm", "t2fmrf", "kde", "kde-grey", "imbs", "eigen"],
+)
+def test_slice15_init_states_mirror_reference(ref, port, c):
+    """The fuzzy, T2F, KDE, IMBS and Eigenbackground init states: the JAX
+    pytree's leaves (KDE's per-channel tuples included), through
+    ``convert`` both ways unchanged."""
+    h, w = 24, 40
+    want = jax.device_get(ref().init(h, w, c))
+    got = port().init(h, w, c, device="cpu")
+    assert_tree_equal(want, got)
+    assert_tree_equal(want, convert.state_from_numpy(want, device="cpu"))
+    assert_tree_equal(got, convert.state_from_numpy(convert.state_to_numpy(got), device="cpu"))
+    if port is TKD.KDE:
+        assert all(isinstance(got[k], tuple) and len(got[k]) == c for k in ("seq", "hist", "c1n_px", "c2_px", "tb"))
 
 
 @pytest.mark.parametrize(
@@ -215,9 +260,12 @@ def test_slice3_states_mirror_reference(monkeypatch, ref, port, c, mode):
         lambda: TGM.MixtureOfGaussianV1().init(8, 8, 3), lambda: TGM.MixtureOfGaussianV2().init(8, 8, 3),
         lambda: TDP.DPWrenGA().init(8, 8, 3), lambda: TPM.DPPratiMediod().init(8, 8, 3),
         lambda: TVU.VuMeter().init(8, 8, 3), lambda: TLB.LBAdaptiveSOM().init(8, 8, 3),
+        lambda: TFZ.FuzzyChoquetIntegral().init(8, 8, 3), lambda: TT2.T2FMRF_UV().init(8, 8, 3),
+        lambda: TKD.KDE().init(8, 8, 3), lambda: TIM.IMBS().init(8, 8, 3),
+        lambda: TEB.DPEigenbackground().init(8, 8, 3),
     ],
     ids=["subsense", "lobster", "gmg", "dptexture", "multilayer", "tracker", "convert", "subsense-shrink", "fgd",
-         "mog1", "mog2", "wren-ga", "prati", "vumeter", "lb-som"],
+         "mog1", "mog2", "wren-ga", "prati", "vumeter", "lb-som", "fuzzy", "t2fmrf", "kde", "imbs", "eigen"],
 )
 def test_entry_points_default_to_the_card(make):
     """With no device given, states are made on the card: on a host without
@@ -238,13 +286,19 @@ def _leaves(tree):
     return [tree]
 
 
+# IMBS builds its model inside the clip (its promotion and association
+# write the bins in place)
+CONSUMING_CFG = {"IndependentMultimodalBGS": {"fps": 2.0, "numSamples": 6}}
+
+
 @pytest.mark.parametrize(
     "name,env",
     [("SuBSENSEBGS", {}), ("LOBSTERBGS", {}), ("GMG", {}), ("DPTextureBGS", {}), ("MultiLayerBGS", {}),
      ("subsenseShrink", {}), ("SuBSENSEBGS", {"TRACKING_TPU_CONSENSUS": "v3"}),
-     ("SuBSENSEBGS", {"TRACKING_TPU_FUSED": "1"}), ("FGD", {}), ("FGDSimple", {})],
+     ("SuBSENSEBGS", {"TRACKING_TPU_FUSED": "1"}), ("FGD", {}), ("FGDSimple", {}), ("KDE", {}),
+     ("IndependentMultimodalBGS", {}), ("DPEigenbackgroundBGS", {})],
     ids=["SuBSENSEBGS", "LOBSTERBGS", "GMG", "DPTextureBGS", "MultiLayerBGS", "subsenseShrink", "SuBSENSE-v3",
-         "SuBSENSE-fused", "FGD", "FGDSimple"],
+         "SuBSENSE-fused", "FGD", "FGDSimple", "KDE", "IMBS", "Eigenbackground"],
 )
 def test_run_video_uses_only_the_returned_state(monkeypatch, name, env):
     """``step`` consumes its state (kernels may update it in place), while
@@ -270,8 +324,9 @@ def test_run_video_uses_only_the_returned_state(monkeypatch, name, env):
             return out
 
     frames = torch.from_numpy(make_clip(24, 16, 24, 3, seed=3))
-    want_state, want = run_video(cls(), frames)
-    got_state, got = run_video(Consuming(), frames)
+    cfg = CONSUMING_CFG.get(name, {})
+    want_state, want = run_video(cls(**cfg), frames)
+    got_state, got = run_video(Consuming(**cfg), frames)
     assert torch.equal(got, want)
     assert_tree_equal(want_state, got_state)
 

@@ -1,0 +1,92 @@
+"""DPEigenbackgroundBGS (ustc type 15, Oliver et al.'s PCA eigenbackground),
+counterpart of ``tracking_tpu/bgs/eigenbackground.py`` (``dp/Eigenbackground
+.cpp:51-190``, wrapper defaults threshold 225, historySize 20,
+embeddedDim 10).
+
+The first historySize frames fill a history matrix (empty masks); at t ==
+historySize the PCA basis is built once from it by the Gram trick (the
+eigenvectors of the [S, S] matrix Xc Xc^T lifted by Xc and normalised);
+every later frame is projected onto the top embeddedDim components and
+reconstructed, and a pixel is FG where a channel's squared
+reconstruction error exceeds 2 x threshold.
+
+The mean over the history is exact (a sum of u8 values, times f32(1/S),
+as XLA:CPU computes ``jnp.mean``). The eigensolver (``torch.linalg.eigh``
+for ``jnp.linalg.eigh``: LAPACK on the CPU, cuSOLVER on the card) and the
+[S, D] products are plain library calls outside any kernel of the JAX
+package, and their libraries round differently, so the basis, the
+reconstruction and the mask agree with the JAX package's to a tolerance,
+not bit for bit (the reconstruction does not depend on each
+eigenvector's sign). The JAX package builds the basis under ``lax.cond``;
+the port reads ``t`` on the host (one synchronisation a frame) and builds
+it only at t == historySize. The history updates in place (``step``
+consumes its state).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tracking_tpu_torch.bgs.base import BGSAlgorithm, State, StepResult
+from tracking_tpu_torch.core.config import BGSConfig
+from tracking_tpu_torch.core.registry import register
+from tracking_tpu_torch.ops import xla_math
+from tracking_tpu_torch.ops.consensus import recip
+
+
+@dataclasses.dataclass(frozen=True)
+class EigenbackgroundConfig(BGSConfig):
+    threshold: int = 225
+    historySize: int = 20
+    embeddedDim: int = 10
+    showOutput: bool = True
+
+
+def build_pca(history: torch.Tensor, embedded_dim: int):
+    """(mean [D], basis [E, D]) of a [S, D] u8 history: the top E
+    principal directions by the Gram trick, descending by eigenvalue."""
+    X = history.to(torch.float32)
+    mean = X.sum(dim=0) * recip(X.shape[0])
+    Xc = X - mean[None]
+    evals, evecs = torch.linalg.eigh(Xc @ Xc.T)  # ascending
+    evecs = evecs[:, torch.argsort(-evals, stable=True)]
+    comps = evecs.T @ Xc
+    norms = xla_math.sqrt((comps * comps).sum(dim=1, keepdim=True))
+    comps = comps / torch.clamp(norms, min=1e-12)
+    return mean, comps[:embedded_dim]
+
+
+@register("DPEigenbackgroundBGS", type_id=15, aliases=("eigenbackground",))
+class DPEigenbackground(BGSAlgorithm):
+    Config = EigenbackgroundConfig
+
+    def init(self, h: int, w: int, c: int = 3, device="cuda") -> State:
+        S, D = self.config.historySize, h * w * max(c, 1)
+        return {
+            "t": torch.zeros((), dtype=torch.int32, device=device),
+            "history": torch.zeros((S, D), dtype=torch.uint8, device=device),
+            "mean": torch.zeros((D,), dtype=torch.float32, device=device),
+            "basis": torch.zeros((self.config.embeddedDim, D), dtype=torch.float32, device=device),
+        }
+
+    def step(self, state: State, frame: torch.Tensor, use_kernels: bool = True) -> StepResult:
+        """One frame (``use_kernels``: the common step signature; no kernel)."""
+        cfg = self.config
+        S = cfg.historySize
+        t = int(state["t"])  # the branch's scalar, one synchronisation
+        history, mean, basis = state["history"], state["mean"], state["basis"]
+        if t == S:
+            mean, basis = build_pca(history, cfg.embeddedDim)
+        flat = frame.reshape(-1).to(torch.float32)
+        recon = mean + basis.T @ (basis @ (flat - mean))
+        err2 = (flat - recon).square().reshape(frame.shape)
+        if frame.ndim == 2:
+            err2 = err2[..., None]
+        fg_any = (err2 > 2.0 * cfg.threshold).any(dim=-1)
+        fg = torch.where(fg_any & (t >= S), 255, 0).to(torch.uint8)
+        if t < S:
+            history[t] = frame.reshape(-1)
+        bg = torch.clamp(recon + 0.5, 0, 255).to(torch.uint8).reshape(frame.shape)
+        return {"t": state["t"] + 1, "history": history, "mean": mean, "basis": basis}, fg, bg

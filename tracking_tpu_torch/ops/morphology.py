@@ -72,6 +72,10 @@ def dilate(img: torch.Tensor, ksize: int = 3, se=None) -> torch.Tensor:
     return _morph(img, ksize, se, torch.maximum, 0, "dilate")
 
 
+def morph_open(img: torch.Tensor, ksize: int = 3, se=None) -> torch.Tensor:
+    return dilate(erode(img, ksize, se), ksize, se)
+
+
 def morph_close(img: torch.Tensor, ksize: int = 3, se=None) -> torch.Tensor:
     return erode(dilate(img, ksize, se), ksize, se)
 

@@ -15,7 +15,9 @@ MS-family trackers; the BGS apps (``bgs-run``'s loop with its XML fan-out,
 ``cdnet-run`` with shrinkBGS and subsenseShrink); the Gaussian-mixture,
 dp, Prati, VuMeter and lb algorithms alone and in a fan-out with SuBSENSE;
 the fuzzy-integral, type-2 fuzzy GMM / MRF, KDE, IMBS and Eigenbackground
-algorithms alone and in a fan-out with SuBSENSE - and fails (non-zero exit, no result line) on any broken phase:
+algorithms alone and in a fan-out with SuBSENSE; MultiCue and LbpMrf alone
+and in a fan-out with SuBSENSE - and fails (non-zero exit, no result line)
+on any broken phase:
 
 1. device: the card's name and power limit; no CUDA device is an error;
 2. build: compiles the twelve CUDA kernels from ``tracking_tpu_torch/csrc``
@@ -161,6 +163,24 @@ algorithms alone and in a fan-out with SuBSENSE - and fails (non-zero exit, no r
    times each, ``label_components`` once per IMBS frame that starts with a
    model, and every fan-out mask equals its own ``run_video``; the
    fan-out's tictoc;
+4j. MultiCue (type 34) at its defaults: 21 training frames with empty
+   masks, then 8 detection frames that launch ``label_components`` 24
+   times, 8 4-connected (its boxes) and 16 8-connected (Canny's
+   hysteresis on the frame and on the candidate map), and nothing else;
+   LbpMrf (type 30) on 6 frames: ``flood_reach`` once a frame (its corner
+   fill) and nothing else, the first mask empty, the min cut's drain
+   rounds, distance sweeps and host reads a frame; both on the clip's
+   top-left 360x640 against a CPU run bit for bit (MultiCue with a 60x80
+   reduced map, enlarged 6x and 8x as at 720p, over 25 frames; LbpMrf over
+   5, its 24x32 scene-cut grid, a cuBLAS product, to 1e-3); a ``run_bgs``
+   fan-out from an XML directory enabling both (MultiCue with 4 training
+   frames) and SuBSENSE, 2 chunks of 8: ``consensus`` 16 launches,
+   ``flood_reach`` 32, ``label_components`` 33 (MultiCue's 11 detection
+   frames), every fan-out mask equal to its own ``run_video``; the apps:
+   ``bgs-run -a LbpMrf`` (8 frames, masks equal ``run_video``'s),
+   ``tracking-run --bgs_type 34`` (32 frames: 11 past MultiCue's training)
+   and ``30`` (8 frames) with their kernels' launch counts, and
+   ``cdnet-run --bgs lbp-mrf`` on 8 JPEGs;
 5. the first 16 SuBSENSE + tracker frames again through the plain
    versions: masks, track ids and positions must equal the kernel run's;
 6. timing with CUDA events: each kernel beside its plain version and its
@@ -188,10 +208,14 @@ algorithms alone and in a fan-out with SuBSENSE - and fails (non-zero exit, no r
    time, and the device's busy share and kernels per frame under
    torch.profiler (the full path, and the app over a chunk); ``bgs-run``'s
    ms/frame with the default config directory, the 12-algorithm fan-out,
-   phase 4h's 14-algorithm fan-out and phase 4i's 10-algorithm fan-out, in
-   turns, the 12-algorithm fan-out's tictoc (``FrameProcessor.profile``),
-   the three fan-outs' profiles, and shrinkBGS's step (CUDA events and its
-   profile).
+   phase 4h's 14-algorithm fan-out, phase 4i's 10-algorithm fan-out and
+   phase 4j's 3-algorithm fan-out, in turns, the 12-algorithm fan-out's
+   tictoc (``FrameProcessor.profile``), the three fan-outs' profiles, and
+   shrinkBGS's step (CUDA events and its profile); MultiCue's detection
+   step and LbpMrf's step in turns and their profiles, and LbpMrf's
+   per-stage table (Luv, resize, LBP, histograms, both model updates, the
+   min cut with its drain rounds, sweeps and host reads, assembly, fill,
+   erode; CUDA events at the stage marks).
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -321,6 +345,22 @@ S15_LABELS = {"IndependentMultimodalBGS": {0, 80, 180, 255}}
 S15_WARM, S15_TIMED = 6, 16
 S15_CPU = 7  # crop frames on the card and on the CPU: two past every algorithm's learning
 S15_KERNELS = ("consensus", "flood_reach", "label_components")
+# phase 4j: MultiCue (type 34) and LbpMrf (type 30), plain torch on the CC
+# kernel (MultiCue's boxes 4-connected, Canny's hysteresis 8-connected) and
+# the hole-fill kernel (LbpMrf's corner fill): each alone at 720p (MultiCue
+# at its defaults past its 21 training frames, LbpMrf on a few frames), the
+# top-left crop on the card against a CPU run (MultiCue with a 60x80 reduced
+# map: enlarged 6x and 8x as at 720p), then a fan-out of both with SuBSENSE
+S16_ALGOS = ("LbpMrf", "SJN_MultiCueBGS")
+S16_TRAIN = 21  # MultiCue's training frames at its defaults (t = 0..20)
+S16_DETECT = 8  # MultiCue's detection frames alone
+S16_LBP = 6  # LbpMrf's frames alone
+S16_CPU = {"SJN_MultiCueBGS": 25, "LbpMrf": 5}  # crop frames on the card and on the CPU
+S16_CUT_CFG = {"SJN_MultiCueBGS": {"reducedHeight": 60, "reducedWidth": 80}}
+S16_FAN_CFG = {"SJN_MultiCueBGS": {"trainingPeriod": 4}}  # detects inside the fan-out's frames
+# LbpMrf's 24x32 scene-cut grid is a product of matrices (cuBLAS on the card,
+# the CPU's BLAS there): its values agree to this absolute tolerance
+PREV_BLUE_ATOL = 1e-3
 # Eigenbackground's basis comes from cuSOLVER on the card and LAPACK on the
 # CPU: its projector applied to seeded random vectors agrees to this
 # relative tolerance, the background image to 1 level on at most this
@@ -2446,10 +2486,331 @@ def slice15_path(clip, frames, dev, results, out, tag) -> None:
     print(f"  phase 4i: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def count_by_connectivity():
+    """Wrap ``label_components`` where MultiCue reaches it (``ops/cc`` for
+    the boxes, ``ops/canny`` for the hysteresis) to count calls by
+    connectivity; returns (the counts, a function that restores both)."""
+    from tracking_tpu_torch.ops import canny, cc
+
+    counts = {4: 0, 8: 0}
+    orig = cc.label_components
+
+    def counted(mask, connectivity=8):
+        counts[connectivity] += 1
+        return orig(mask, connectivity)
+
+    cc.label_components = canny.label_components = counted
+
+    def restore():
+        cc.label_components = canny.label_components = orig
+
+    return counts, restore
+
+
+def finite(st) -> bool:
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, torch.Tensor) and t.is_floating_point():
+            leaves.append(t)
+
+    walk(st)
+    return all(bool(torch.isfinite(x).all()) for x in leaves)
+
+
+def same_as_plain(algo, state0, frames, span, masks, state, what) -> None:
+    """Run ``algo`` over ``span`` from ``state0`` with the plain versions
+    of its kernels and require its masks and its whole state to equal the
+    kernel run's (``masks``, ``state``) bit for bit."""
+    st, plain = clone(state0), []
+    for t in span:
+        st, m, _ = algo.step(st, frames[t], use_kernels=False)
+        plain.append(m)
+    check(same_bits((masks, state), (torch.stack(plain), st)),
+          f"{what}: masks and every state leaf equal a run with the plain versions bit for bit")
+
+
+def slice16_path(clip, frames, dev, results, out) -> dict:
+    """Phase 4j: MultiCue (``bgs/multicue.py``) and LbpMrf
+    (``bgs/lbp_mrf.py``), each alone at 720p (MultiCue at its defaults:
+    21 training frames, then detection frames each launching
+    ``label_components`` once 4-connected and twice 8-connected; LbpMrf:
+    ``flood_reach`` once a frame, the min cut's drain rounds, sweeps and
+    host reads a frame), the top-left crop on the card against a CPU run,
+    and a ``run_bgs`` fan-out of both beside SuBSENSE: the launch counts,
+    each fan-out mask against its own run. Returns the states for the
+    timing phase."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.core.config import config_to_xml
+    from tracking_tpu_torch.ops import _native, mincut
+    from tracking_tpu_torch.runner import cli
+    from tracking_tpu_torch.runner.pipeline import _ENABLE_FLAGS, FrameProcessorConfig
+    from tracking_tpu_torch.runner.scan import run_video
+
+    t_phase = time.perf_counter()
+    print(f"[4j] MultiCue and LbpMrf (plain torch on the CC and hole-fill kernels): MultiCue alone ({S16_TRAIN} "
+          f"training + {S16_DETECT} detection frames), LbpMrf alone ({S16_LBP} frames), the top-left "
+          f"{NEW_CUT[0]}x{NEW_CUT[1]} against the CPU, and a bgs-run fan-out of both with SuBSENSE, {BGS_FRAMES} "
+          f"frames in chunks of {BGS_CHUNK}, at {H}x{W}x{C} {elapsed()}", flush=True)
+    keep = {}
+
+    # MultiCue alone at its defaults
+    mc = get_algorithm("SJN_MultiCueBGS")()
+    st = mc.warm_start(mc.init(H, W, C, device=dev), frames[0])
+    for t in range(1, S16_TRAIN + 1):
+        st, m, _ = mc.step(st, frames[t])
+    check(int(st["t"]) == S16_TRAIN + 1 and not bool(m.any()),
+          f"MultiCue: {S16_TRAIN} training frames with empty masks, t = {int(st['t'])} (the end of training's extra "
+          f"count)")
+    keep["SJN_MultiCueBGS"] = (mc, clone(st), S16_TRAIN + 1)
+    counts, restore = count_by_connectivity()
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    masks = []
+    try:
+        for t in range(S16_TRAIN + 1, S16_TRAIN + 1 + S16_DETECT):
+            st, m, _ = mc.step(st, frames[t])
+            masks.append(m)
+    finally:
+        torch.cuda.synchronize()
+        restore()
+    launches = dict(_native.LAUNCHES)
+    masks = torch.stack(masks)
+    share = float(masks.gt(0).to(torch.float32).mean())
+    check(masks.shape == (S16_DETECT, H, W) and masks.dtype == torch.uint8 and 0.0 < share < 0.5 and finite(st),
+          f"MultiCue: {S16_DETECT} u8 detection masks (soft enlarged edges), foreground share {share:.4f}, a finite "
+          f"state")
+    check(launches["label_components"] == 3 * S16_DETECT and counts == {4: S16_DETECT, 8: 2 * S16_DETECT}
+          and sum(launches.values()) == 3 * S16_DETECT,
+          f"MultiCue: label_components launched {launches['label_components']} times in {S16_DETECT} detection "
+          f"frames, {counts[4]} 4-connected (the boxes) and {counts[8]} 8-connected (Canny on the frame and on the "
+          f"candidate map), nothing else")
+    results["label_components"]["multicue_launches"] = launches["label_components"]
+    same_as_plain(mc, keep["SJN_MultiCueBGS"][1], frames, range(S16_TRAIN + 1, S16_TRAIN + 1 + S16_DETECT), masks, st,
+                  f"MultiCue: its {S16_DETECT} detection frames (the CC kernel on the "
+                  f"{mc.config.reducedHeight}x{mc.config.reducedWidth} reduced map, 4- and 8-connected)")
+
+    # LbpMrf alone
+    lb = get_algorithm("LbpMrf")()
+    st = lb.warm_start(lb.init(H, W, C, device=dev), frames[0])
+    keep["LbpMrf"] = (lb, clone(st), 1)
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    stats, masks = [], []
+    for t in range(1, 1 + S16_LBP):
+        mincut.reset_stats()
+        st, m, _ = lb.step(st, frames[t])
+        stats.append(dict(mincut.STATS))
+        masks.append(m)
+    torch.cuda.synchronize()
+    launches = dict(_native.LAUNCHES)
+    masks = torch.stack(masks)
+    shares = [round(float(x.gt(0).to(torch.float32).mean()), 4) for x in masks]
+    check(masks.dtype == torch.uint8 and set(masks.unique().tolist()) <= {0, 255} and shares[0] == 0.0
+          and max(shares[1:]) > 0.0 and finite(st),
+          f"LbpMrf: {S16_LBP} 0/255 masks (the first empty), foreground shares {shares}, a finite state")
+    check(launches["flood_reach"] == S16_LBP and sum(launches.values()) == S16_LBP,
+          f"LbpMrf: flood_reach launched {launches['flood_reach']} times in {S16_LBP} frames (the corner fill), "
+          f"nothing else")
+    results["flood_reach"]["lbp_mrf_launches"] = launches["flood_reach"]
+    print(f"  LbpMrf's min cut per frame (drain rounds, distance sweeps, host reads): "
+          + "; ".join(f"{s['drain_rounds']}, {s['sweeps']}, {s['host_reads']}" for s in stats), flush=True)
+    same_as_plain(lb, keep["LbpMrf"][1], frames, range(1, 1 + S16_LBP), masks, st,
+                  f"LbpMrf: its {S16_LBP} frames (the hole-fill kernel on its {H}x{W} masks)")
+
+    # the crop on the card against the CPU
+    t0 = time.perf_counter()
+    for name in S16_ALGOS:
+        cfg = S16_CUT_CFG.get(name, {})
+        cut = torch.from_numpy(clip[: S16_CPU[name], : NEW_CUT[0], : NEW_CUT[1]].copy())
+        sk, (mk, bk) = run_video(get_algorithm(name)(**cfg), cut.to(dev), with_background=True)
+        sc, (mc_, bc) = run_video(get_algorithm(name)(**cfg), cut, with_background=True)
+        share = float(mc_.gt(0).to(torch.float32).mean())
+        if name == "LbpMrf":
+            e = max_err(sk["prev_blue"].cpu(), sc["prev_blue"])
+            rest = [k for k in sc if k != "prev_blue"]
+            check(same_bits((mk, bk, {k: sk[k] for k in rest}), (mc_, bc, {k: sc[k] for k in rest}))
+                  and e <= PREV_BLUE_ATOL,
+                  f"{name}: masks, background and state of the card equal the CPU's bit for bit over "
+                  f"{S16_CPU[name]} frames (foreground share {share:.4f}), the scene-cut grid to {e:.3g} "
+                  f"(<= {PREV_BLUE_ATOL})")
+        else:
+            check(same_bits((mk, bk, sk), (mc_, bc, sc)) and share > 0.0,
+                  f"{name}{cfg}: masks, background and state of the card equal the CPU's bit for bit over "
+                  f"{S16_CPU[name]} frames ({S16_TRAIN} training; foreground share {share:.4f})")
+    print(f"  card against CPU on the crop: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the fan-out with SuBSENSE
+    fan = f"{out}/fanout_16"
+    flag = {name: f for f, name in _ENABLE_FLAGS}
+    names = S16_ALGOS + ("SuBSENSEBGS",)
+    config_to_xml(FrameProcessorConfig(enableFrameDifferenceBGS=False, **{flag[n]: True for n in names}),
+                  f"{fan}/FrameProcessor.xml")
+    for name, cfg in S16_FAN_CFG.items():
+        algo = get_algorithm(name)
+        config_to_xml(algo.Config(**cfg), f"{fan}/{algo.name}.xml")
+    fk = {}
+    _native.reset_launches()
+    run = cli.run_bgs(bgs_chunks(clip, 0, BGS_FRAMES), bgs_args(cli, "--config_dir", fan), on_masks=collect_masks(fk))
+    torch.cuda.synchronize()
+    launches = dict(_native.LAUNCHES)
+    print(f"  launches: {launches}", flush=True)
+    check(list(run.fp.algorithms) == [n for _, n in _ENABLE_FLAGS if n in names],
+          f"the XML directory enabled {len(run.fp.algorithms)} algorithms, in the flags' order")
+    fk = joined(fk, dev)
+    prepped = torch.stack([run.fp.pre.process(f) for f in frames[:BGS_FRAMES]])
+    e = 0.0
+    for name in names:
+        cfg = S16_FAN_CFG.get(name, {})
+        _, alone = run_video(get_algorithm(name)(**cfg), prepped)
+        e = max(e, max_err(alone, fk[name]))
+    check(e == 0.0, f"each algorithm's fan-out masks equal its own run_video over {BGS_FRAMES} frames")
+    detect = BGS_FRAMES - (S16_FAN_CFG["SJN_MultiCueBGS"]["trainingPeriod"] + 1)  # the steps past training
+    for k, want in (("consensus", BGS_FRAMES), ("flood_reach", 2 * BGS_FRAMES), ("label_components", 3 * detect)):
+        check(launches[k] == want, f"{k} launched {launches[k]} times by the fan-out of {len(names)} (expected "
+                                   f"{want})")
+        results[k]["bgs16_launches"] = launches[k]
+    slice16_apps(clip, frames, dev, out)
+    print(f"  phase 4j: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return keep
+
+
+def slice16_apps(clip, frames, dev, out) -> None:
+    """Phase 4j's apps at 720p: ``bgs-run -a LbpMrf`` (its masks against
+    ``run_video``), ``tracking-run --bgs_type 34`` past MultiCue's training
+    and ``--bgs_type 30`` (the launches of each detector's kernels and of
+    the tracker's), ``cdnet-run --bgs lbp-mrf`` on JPEGs of the clip."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.ops import _native
+    from tracking_tpu_torch.runner import cli
+    from tracking_tpu_torch.runner.scan import run_video
+
+    ak = {}
+    _native.reset_launches()
+    cli.run_bgs(bgs_chunks(clip, 0, BGS_CHUNK), bgs_args(cli, "-a", "LbpMrf"), on_masks=collect_masks(ak))
+    torch.cuda.synchronize()
+    launches = dict(_native.LAUNCHES)
+    _, alone = run_video(get_algorithm("LbpMrf")(), frames[:BGS_CHUNK])
+    check(launches["flood_reach"] == BGS_CHUNK and sum(launches.values()) == BGS_CHUNK
+          and max_err(joined(ak, dev)["LbpMrf"], alone) == 0.0,
+          f"bgs-run -a LbpMrf: {BGS_CHUNK} frames, flood_reach launched {launches['flood_reach']} times, the masks "
+          f"equal run_video's")
+    # the tracker (BD_CC + CCMSPF) labels each frame once and assigns once
+    for bgs_type, n, detect in ((34, APP_FRAMES, APP_FRAMES - S16_TRAIN), (30, BGS_CHUNK, 0)):
+        _native.reset_launches()
+        run = cli.run_tracking(app_chunks(clip, 0, n), app_args(cli, "--bgs_type", bgs_type))
+        torch.cuda.synchronize()
+        launches = dict(_native.LAUNCHES)
+        want = {"label_components": n + 3 * detect, "greedy_assign": n, "flood_reach": n if bgs_type == 30 else 0}
+        check(run.frames == n and {k: launches[k] for k in want} == want
+              and sum(launches.values()) == sum(want.values()) and bool(torch.isfinite(run.trk_state["kx"]).all()),
+              f"tracking-run --bgs_type {bgs_type}: {n} frames, launches {want} ({detect} MultiCue detection frames "
+              f"with 3 labellings each)")
+    try:
+        import cv2
+    except ImportError:
+        print("  cv2 does not import here: cdnet-run --bgs lbp-mrf is not run", flush=True)
+        return
+    src = f"{out}/cdnet16_in"
+    os.makedirs(src, exist_ok=True)
+    for i in range(BGS_CHUNK):
+        cv2.imwrite(f"{src}/in{i:06d}.jpg", clip[i])
+    _native.reset_launches()
+    cli.cdnet_run([src, "--out", f"{out}/lbp_mrf", "--bgs", "lbp-mrf", "--roi", "2", str(BGS_CHUNK - 1),
+                   "--bootstrap", "2", "--chunk", str(BGS_CHUNK)])
+    torch.cuda.synchronize()
+    names = sorted(os.listdir(f"{out}/lbp_mrf"))
+    bins = [cv2.imread(f"{out}/lbp_mrf/{n}", cv2.IMREAD_UNCHANGED) for n in names]
+    check(names == [f"bin{i:06d}.png" for i in range(2, BGS_CHUNK)] and max((b > 0).mean() for b in bins) > 0.0
+          and _native.LAUNCHES["flood_reach"] == BGS_CHUNK,
+          f"cdnet-run --bgs lbp-mrf wrote bin000002-bin{BGS_CHUNK - 1:06d}.png, flood_reach launched "
+          f"{_native.LAUNCHES['flood_reach']} times")
+
+
+def time_slice16(keep, frames, dev, tag) -> None:
+    """Phase 6 for MultiCue and LbpMrf: each step's ms/frame (CUDA events,
+    in turns) and its profile, and LbpMrf's per-stage table (CUDA events
+    at the stage marks of ``bgs/lbp_mrf.py``, with the min cut's drain
+    rounds, distance sweeps and host reads)."""
+    from tracking_tpu_torch.bgs import lbp_mrf
+    from tracking_tpu_torch.ops import mincut
+
+    t_phase = time.perf_counter()
+    mc, mc_st, mc_t = keep["SJN_MultiCueBGS"]
+    lb, lb_st, _ = keep["LbpMrf"]
+    box = {}
+
+    def mc_frame(t):
+        box["mc"], _, _ = mc.step(box["mc"], frames[t])
+
+    def lb_frame(t):
+        box["lb"], _, _ = lb.step(box["lb"], frames[t])
+
+    spans = {"MultiCue detection step": (mc_frame, "mc", mc_st, range(mc_t, mc_t + 8)),
+             "LbpMrf step": (lb_frame, "lb", lb_st, range(1, 7))}
+    ms = {k: [] for k in spans}
+    for _ in range(2):
+        for label, (fn, key, st0, span) in spans.items():
+            box[key] = clone(st0)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for t in span:
+                fn(t)
+            end.record()
+            torch.cuda.synchronize()
+            ms[label].append(start.elapsed_time(end) / len(span))
+    for label, v in ms.items():
+        print(f"  {tag} {label}, in turns: {v[0]:.3f} / {v[1]:.3f} ms/frame", flush=True)
+
+    # LbpMrf's stages, frames 1-6 from the first
+    marks = []
+
+    def hook(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    box["lb"] = clone(lb_st)
+    table = {}
+    lbp_mrf.stage_hook = hook
+    try:
+        for t in range(1, 7):
+            marks.clear()
+            mincut.reset_stats()
+            hook("start")
+            lb_frame(t)
+            torch.cuda.synchronize()
+            row = {name: a.elapsed_time(b) for (_, a), (name, b) in zip(marks, marks[1:])}
+            row.update(mincut.STATS)
+            table[t] = row
+    finally:
+        lbp_mrf.stage_hook = None
+    stages = [k for k in table[1] if k not in mincut.STATS]
+    print(f"  {tag} LbpMrf stages, ms (CUDA events at the stage marks), frames 1-6: " + ", ".join(stages)
+          + "; min cut drain rounds, sweeps, host reads", flush=True)
+    for t, row in table.items():
+        print(f"    frame {t}: " + " ".join(f"{row[k]:.3f}" for k in stages) + f" | total "
+              f"{sum(row[k] for k in stages):.3f} ms | {row['drain_rounds']} {row['sweeps']} {row['host_reads']}",
+              flush=True)
+    box["mc"] = clone(mc_st)
+    for t in range(mc_t, mc_t + 4):
+        mc_frame(t)
+    profile(mc_frame, range(mc_t + 4, mc_t + 8), tag, "MultiCue detection step")
+    box["lb"] = clone(lb_st)
+    for t in range(1, 3):
+        lb_frame(t)
+    profile(lb_frame, range(3, 7), tag, "LbpMrf step")
+    print(f"  phase 6, MultiCue and LbpMrf: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def time_bgs_apps(clip, frames, dev, out, tag) -> None:
     """ms/frame of ``bgs-run``'s loop with the default config directory, with
     the fan-out (after its edit: 12 algorithms), with phase 4h's fan-out
-    (14) and with phase 4i's (10), in turns, as (T(3 chunks) − T(1 chunk)) / 2 chunks: ``run_bgs``'s
+    (14), with phase 4i's (10) and with phase 4j's (3), in turns, as (T(3 chunks) − T(1 chunk)) / 2 chunks: ``run_bgs``'s
     seconds end with a synchronize, and the difference cancels the set-up
     (XMLs, states, warm starts); the first fan-out's tictoc, the three fan-outs'
     profiles; then shrinkBGS's step (CUDA events) and its profile."""
@@ -2462,7 +2823,8 @@ def time_bgs_apps(clip, frames, dev, out, tag) -> None:
              (f"bgs-run, fan-out of the {len(NEW_ALGOS)} plain-torch algorithms of phase 4h and SuBSENSE",
               f"{out}/fanout_new", BGS_CHUNK),
              (f"bgs-run, fan-out of the {len(S15_ALGOS)} algorithms of phase 4i and SuBSENSE", f"{out}/fanout_15",
-              BGS_CHUNK))
+              BGS_CHUNK),
+             ("bgs-run, fan-out of LbpMrf, MultiCue and SuBSENSE (phase 4j)", f"{out}/fanout_16", BGS_CHUNK // 2))
     ms = {label: [] for label, _, _ in cases}
     for _ in range(2):
         for label, cfg, chunk in cases:
@@ -2906,6 +3268,9 @@ def main(argv) -> None:
     # -- 4i. the fuzzy, T2F, KDE, IMBS and Eigenbackground algorithms ----
     slice15_path(clip, frames, dev, results, bgs_out, tag)
 
+    # -- 4j. MultiCue and LbpMrf --------------------------------------------
+    s16 = slice16_path(clip, frames, dev, results, bgs_out)
+
     # -- 5. path against path ----------------------------------------------
     print(f"[5] the first {PATH_FRAMES} frames through the plain versions {elapsed()}", flush=True)
     st_p = clone(state0)
@@ -3007,6 +3372,7 @@ def main(argv) -> None:
     profile_full_path(algo, tracker, state0, frames, dev, tag)
     profile_app(clip, tag, app_out)
     time_bgs_apps(clip, frames, dev, bgs_out, tag)
+    time_slice16(s16, frames, dev, tag)
 
     print(json.dumps({"kernels": [results[k] for k in SOURCES]}))
     print(card_line())

@@ -8,7 +8,7 @@ packages decode them with cv2) and CDnet JPEG directories:
   line but the timing line and the tictoc seconds;
 - ``_reload_fanout``: an unchanged tree keeps the fan-out and its states, a
   new algorithm is warm-started and the others keep their states;
-- an enabled algorithm the port lacks raises an error naming its flag;
+- an enabled algorithm the registry lacks raises an error naming its flag;
 - ``cdnet_run``: the same ``bin%06d.png`` names and pixels, with shrinkBGS
   and with MOG2;
 - ``FrameProcessor`` with SuBSENSE and GMG in the fan-out: masks and states
@@ -18,7 +18,10 @@ packages decode them with cv2) and CDnet JPEG directories:
   masks and states);
 - a fan-out of FuzzyChoquetIntegral, T2FGMM_UV, KDE, IMBS and
   Eigenbackground, three of them from edited XMLs that detect inside the
-  clip (XMLs, stdout, masks and states).
+  clip (XMLs, stdout, masks and states);
+- every FrameProcessor flag builds its algorithm.
+
+LbpMrf and MultiCue's app cases are in ``test_torch_bgs_app_s16.py``.
 """
 
 import contextlib
@@ -29,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_tree_equal
+from torch_parity import assert_tree_equal, run_jax_child
 from test_torch_cli import jax_video_reader_ready
 from tracking_tpu_torch.synth import make_clip
 
@@ -62,11 +65,35 @@ def _timing_free(lines):
     return out
 
 
-def run_bgs_apps(monkeypatch, tmp_path, argv, setup=None, files=()):
+# a JAX app run in a process of its own (``torch_parity.run_jax_child``):
+# the JAX package's exact LbpMrf step may be compiled only once a process
+JAX_APP = """
+import contextlib, io, os
+from tracking_tpu.runner import cli
+os.chdir(str(inp["cwd"]))
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = getattr(cli, str(inp["app"]))([str(a) for a in inp["argv"]])
+out["rc"], out["stdout"] = np.array(rc), np.array(buf.getvalue())
+"""
+
+
+def jax_app_in_child(tmp_path, app: str, argv, cwd) -> str:
+    """stdout of the JAX package's ``cli.<app>(argv)`` run in ``cwd`` by a
+    child process (it must return 0)."""
+    d = tmp_path / f"child_{app}"
+    d.mkdir(exist_ok=True)
+    res = run_jax_child(JAX_APP, d, app=np.array(app), argv=np.array([str(a) for a in argv]), cwd=np.array(str(cwd)))
+    assert int(res["rc"]) == 0
+    return str(res["stdout"])
+
+
+def run_bgs_apps(monkeypatch, tmp_path, argv, setup=None, files=(), jax_child=False):
     """Run the JAX ``bgs_run`` and the port's (``--device cpu``) with
     ``argv``, each in its own directory (``setup(dir)`` prepares it), and
     compare stdout but the timing numbers, and each file of ``files`` byte
-    for byte. Returns the port's stdout lines."""
+    for byte. ``jax_child`` runs the JAX app in a process of its own.
+    Returns the port's stdout lines."""
     from tracking_tpu.runner import cli as jcli
     from tracking_tpu_torch.runner import cli as tcli
 
@@ -76,6 +103,9 @@ def run_bgs_apps(monkeypatch, tmp_path, argv, setup=None, files=()):
         d.mkdir(exist_ok=True)
         if setup is not None:
             setup(d)
+        if name == "jax" and jax_child:
+            outs[name] = jax_app_in_child(tmp_path, "bgs_run", argv, d).splitlines()
+            continue
         monkeypatch.chdir(d)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -178,18 +208,33 @@ def test_reload_fanout(tmp_path):
     assert_tree_equal(jax.device_get(jmasks), masks)
 
 
-def test_unported_flag_raises(tmp_path):
+def _flags():
+    from tracking_tpu_torch.runner.pipeline import _ENABLE_FLAGS
+
+    return _ENABLE_FLAGS
+
+
+@pytest.mark.parametrize("flag,name", _flags(), ids=[f for f, _ in _flags()])
+def test_every_flag_builds(tmp_path, flag, name):
+    """Each FrameProcessor flag alone builds its algorithm, as the JAX
+    package's fan-out does, and writes its default XML."""
+    from tracking_tpu.runner.pipeline import FrameProcessor as JFP
+    from tracking_tpu_torch import get_algorithm
     from tracking_tpu_torch.runner.pipeline import FrameProcessor
 
-    _fanout_config(str(tmp_path), ("enableFrameDifferenceBGS", "enableMultiCueBGS"))
-    with pytest.raises(NotImplementedError, match="enableMultiCueBGS enables SJN_MultiCueBGS"):
-        FrameProcessor.from_config_dir(str(tmp_path / "config"))
+    _fanout_config(str(tmp_path), (flag,))
+    cfgdir = str(tmp_path / "config")
+    fp = FrameProcessor.from_config_dir(cfgdir)
+    assert list(fp.algorithms) == list(JFP.from_config_dir(cfgdir).algorithms) == [name]
+    assert type(fp.algorithms[name]) is get_algorithm(name)
+    assert os.path.exists(os.path.join(cfgdir, f"{name}.xml"))
 
 
-def cdnet_both(tmp_path, bgs=None):
+def cdnet_both(tmp_path, bgs=None, jax_child=False, max_share=0.5):
     """``cdnet_run`` of both packages (``--bgs bgs``, or its default) on
     JPEGs 0-13 with ROI 5-13 and a bootstrap of 4: the same bin%06d.png
-    files, pixel for pixel, and the same line."""
+    files, pixel for pixel, and the same line, and some foreground below
+    ``max_share``. ``jax_child`` runs the JAX app in a process of its own."""
     import cv2
 
     from tracking_tpu.runner import cli as jcli
@@ -201,11 +246,16 @@ def cdnet_both(tmp_path, bgs=None):
         cv2.imwrite(str(src / f"in{i:06d}.jpg"), f)
     lines = {}
     for name, run, extra in (("jax", jcli.cdnet_run, []), ("torch", tcli.cdnet_run, ["--device", "cpu"])):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            assert run([str(src), "--out", str(tmp_path / name), "--roi", "5", "13", "--bootstrap", "4",
-                        "--chunk", "4"] + (["--bgs", bgs] if bgs else []) + extra) == 0
-        lines[name] = buf.getvalue().split(" in ")[0].replace(str(tmp_path / name), "OUT")
+        argv = [str(src), "--out", str(tmp_path / name), "--roi", "5", "13", "--bootstrap", "4", "--chunk",
+                "4"] + (["--bgs", bgs] if bgs else []) + extra
+        if name == "jax" and jax_child:
+            text = jax_app_in_child(tmp_path, "cdnet_run", argv, tmp_path)
+        else:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert run(argv) == 0
+            text = buf.getvalue()
+        lines[name] = text.split(" in ")[0].replace(str(tmp_path / name), "OUT")
     assert lines["torch"] == lines["jax"] == "cdnet: 13 frames (9 masks written to OUT)"
     names = sorted(os.listdir(tmp_path / "jax"))
     assert names == sorted(os.listdir(tmp_path / "torch")) == [f"bin{i:06d}.png" for i in range(5, 14)]
@@ -215,7 +265,7 @@ def cdnet_both(tmp_path, bgs=None):
         b = cv2.imread(str(tmp_path / "torch" / n), cv2.IMREAD_UNCHANGED)
         np.testing.assert_array_equal(b, a, err_msg=n)
         shares.append((a > 0).mean())
-    assert 0.0 < max(shares) < 0.5
+    assert 0.0 < max(shares) < max_share
 
 
 def test_cdnet(monkeypatch, tmp_path):

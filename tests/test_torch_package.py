@@ -24,7 +24,9 @@ from tracking_tpu.bgs import gmm as JGM
 from tracking_tpu.bgs import imbs as JIM
 from tracking_tpu.bgs import kde as JKD
 from tracking_tpu.bgs import lb as JLB
+from tracking_tpu.bgs import lbp_mrf as JLM
 from tracking_tpu.bgs import lbsp_family as JLF
+from tracking_tpu.bgs import multicue as JMC
 from tracking_tpu.bgs import multilayer as JM
 from tracking_tpu.bgs import prati_mediod as JPM
 from tracking_tpu.bgs import subsense_shrink as JS
@@ -43,7 +45,9 @@ from tracking_tpu_torch.bgs import gmm as TGM
 from tracking_tpu_torch.bgs import imbs as TIM
 from tracking_tpu_torch.bgs import kde as TKD
 from tracking_tpu_torch.bgs import lb as TLB
+from tracking_tpu_torch.bgs import lbp_mrf as TLM
 from tracking_tpu_torch.bgs import lbsp_family as TLF
+from tracking_tpu_torch.bgs import multicue as TMC
 from tracking_tpu_torch.bgs import multilayer as TM
 from tracking_tpu_torch.bgs import prati_mediod as TPM
 from tracking_tpu_torch.bgs import subsense_shrink as TS
@@ -158,6 +162,8 @@ def test_config_fields_and_defaults_match(ref, port):
         ("FuzzyChoquetIntegral", 22, ("fuzzy-choquet",), TFZ.FuzzyChoquetIntegral),
         ("KDE", 32, ("kde",), TKD.KDE),
         ("IndependentMultimodalBGS", 33, ("imbs",), TIM.IMBS),
+        ("SJN_MultiCueBGS", 34, ("multicue",), TMC.MultiCue),
+        ("LbpMrf", 30, ("lbp-mrf",), TLM.LbpMrf),
     ],
 )
 def test_registry(name, type_id, aliases, cls):
@@ -167,9 +173,9 @@ def test_registry(name, type_id, aliases, cls):
     assert cls.name == name and cls.type_id == type_id
     ref = j_list_algorithms()[name]
     assert (ref.type_id, ref.Config.__name__) == (type_id, cls.Config.__name__)
-    assert set(list_algorithms()) <= set(j_list_algorithms()) and len(list_algorithms()) == 40
+    assert set(list_algorithms()) == set(j_list_algorithms()) and len(list_algorithms()) == 42
     with pytest.raises(KeyError):
-        get_algorithm("SJN_MultiCueBGS")  # registered in the reference, not ported
+        get_algorithm("NoSuchBGS")  # registered in neither package
 
 
 @pytest.mark.parametrize("c", [1, 3])
@@ -203,6 +209,20 @@ def test_slice15_init_states_mirror_reference(ref, port, c):
     assert_tree_equal(got, convert.state_from_numpy(convert.state_to_numpy(got), device="cpu"))
     if port is TKD.KDE:
         assert all(isinstance(got[k], tuple) and len(got[k]) == c for k in ("seq", "hist", "c1n_px", "c2_px", "tb"))
+
+
+@pytest.mark.parametrize("ref,port,c", [(JMC.MultiCue, TMC.MultiCue, 3), (JMC.MultiCue, TMC.MultiCue, 1),
+                                        (JLM.LbpMrf, TLM.LbpMrf, 3)], ids=["multicue", "multicue-grey", "lbp-mrf"])
+def test_slice16_init_states_mirror_reference(ref, port, c):
+    """MultiCue's nested codebook tree (the four books with their fixed
+    capacities) and LbpMrf's model grid: the JAX pytree's leaves, through
+    ``convert`` both ways unchanged."""
+    h, w = 24, 40
+    want = jax.device_get(ref().init(h, w, c))
+    got = port().init(h, w, c, device="cpu")
+    assert_tree_equal(want, got)
+    assert_tree_equal(want, convert.state_from_numpy(want, device="cpu"))
+    assert_tree_equal(got, convert.state_from_numpy(convert.state_to_numpy(got), device="cpu"))
 
 
 @pytest.mark.parametrize(

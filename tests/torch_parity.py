@@ -182,3 +182,37 @@ def component_min(fg, lab0, big, conn):
         for p in comp:
             out[p] = m
     return out
+
+
+CHILD_PRELUDE = """
+import sys
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+inp = dict(np.load(sys.argv[1]))
+out = {}
+"""
+
+
+def run_jax_child(code: str, tmp_path, **arrays) -> dict:
+    """Run ``code`` in a fresh Python process with JAX on the CPU as the
+    tests set it up (the inherited ``XLA_FLAGS``, fusion off): ``inp`` holds
+    ``arrays``, and the numpy arrays the code puts into the dict ``out``
+    come back. For JAX code that must be compiled once per process: the
+    JAX package's exact LbpMrf step, lowered a second time in one process,
+    runs its first call and then fails on the cached executable (jax 0.9:
+    "Execution supplied 8 buffers but compiled program expected 19")."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src, dst = str(tmp_path / "child_in.npz"), str(tmp_path / "child_out.npz")
+    np.savez(src, **arrays)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, os.path.join(root, "tests")] + [
+        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    prog = CHILD_PRELUDE + code + "\nnp.savez(sys.argv[2], **out)\n"
+    res = subprocess.run([sys.executable, "-c", prog, src, dst], env=env, cwd=str(tmp_path), capture_output=True,
+                         text=True)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return dict(np.load(dst))

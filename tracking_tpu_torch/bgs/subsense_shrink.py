@@ -32,6 +32,7 @@ from tracking_tpu_torch.ops import rng
 from tracking_tpu_torch.ops.consensus import recip
 from tracking_tpu_torch.ops.filters import binary_median_blur
 from tracking_tpu_torch.ops.morphology import _reduce_axis, dilate, erode, morph_close
+from tracking_tpu_torch.ops.xla_math import powf as _powf
 
 _CROSS = np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]], bool)  # MORPH_ELLIPSE 3×3
 _F32 = np.float32
@@ -54,14 +55,6 @@ _INV_ZN = recip(1.088754)
 _K_X = _c(_F32(7.787) * _F32(_INV_XN))
 _K_Z = _c(_F32(7.787) * _F32(_INV_ZN))
 _L_SCALE = _c(_F32(255.0) * _F32(recip(100.0)))
-
-
-def _powf(t: torch.Tensor, e: float) -> torch.Tensor:
-    """``t ** e`` for positive f32 ``t``: XLA:CPU calls the C library's
-    ``powf``; the port takes the power in float64 with the f32 exponent and
-    rounds once, which agrees with it on every gamma input and all but a
-    few cube roots (the Lab test states the residue)."""
-    return t.to(torch.float64).pow(_c(e)).to(torch.float32)
 
 
 def _rgb2lab_u8(img: torch.Tensor) -> torch.Tensor:

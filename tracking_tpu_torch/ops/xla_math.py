@@ -1,5 +1,6 @@
 """f32 math as XLA:CPU computes it, for the ports of JAX code that
-draws random normals, takes square roots or exponentials.
+draws random normals, takes square roots, exponentials, powers, sines or
+cosines.
 
 The reference's numbers are XLA:CPU's. XLA lowers ``sqrt`` to a correctly
 rounded square root and expands ``erf_inv`` into f32 multiplies, adds, a
@@ -12,12 +13,19 @@ out XLA's operations one by one, with the constants XLA's code holds, so
 they are bit for bit XLA:CPU's on the CPU and on the card alike: each HLO op
 rounds once (with fusion off XLA runs each in its own kernel), and each
 fused multiply-add rounds once (:func:`fma`).
+
+Some ops XLA:CPU does not expand: its compiled code calls the C library's
+``sinf``, ``cosf`` and ``powf`` (``pow`` and ``cbrt``, which XLA lowers to
+``pow(|x|, f32(1/3))``). :func:`sin` and :func:`cos` write out glibc's
+``sinf`` / ``cosf`` (the range reduction and polynomials computed in
+float64, then rounded once); :func:`powf` takes the power in float64.
 """
 
 from __future__ import annotations
 
 import struct
 
+import numpy as np
 import torch
 
 _F32 = torch.float32
@@ -52,6 +60,68 @@ _EXP_LO, _EXP_HI = _hx(0xC055F33340000000), _hx(0x4056333340000000)
 _LOG2E = _hx(0x3FF7154760000000)
 _EXP_P = tuple(_hx(h) for h in (0x3F2A0D2CE0000000, 0x3F56E879C0000000, 0x3F81112100000000, 0x3FA5553820000000,
                                 0x3FC5555540000000))
+
+
+# glibc's sinf / cosf (sysdeps/ieee754/flt-32/sincosf.h): |x| < 0.75 (the
+# top 12 bits of |x| below those of pi/4) goes to the polynomials directly;
+# below 120 the quadrant n comes from x * (2/pi * 2**24) truncated to an
+# int32, and x - n * pi/2 is the reduced argument; the polynomials in
+# float64, the result rounded to f32 once
+_PI2_INV_2_24 = float.fromhex("0x1.45F306DC9C883p+23")
+_PI2 = float.fromhex("0x1.921FB54442D18p0")
+_SIN_S = tuple(float.fromhex(h) for h in ("-0x1.555545995a603p-3", "0x1.1107605230bc4p-7", "-0x1.994eb3774cf24p-13"))
+_COS_C = tuple(float.fromhex(h) for h in ("0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+                                          "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+
+
+def _sincos(y: torch.Tensor, cos: bool) -> torch.Tensor:
+    if y.dtype != _F32:
+        raise ValueError(f"sin / cos take f32, got {y.dtype}")
+    top12 = (y.view(torch.int32) >> 20) & 0x7FF
+    x = y.to(torch.float64)
+    near = top12 < 0x3F4  # |x| < 0.75
+    n = ((x * _PI2_INV_2_24).to(torch.int32) + 0x800000) >> 24
+    n = torch.where(near, 0, n)
+    r = x - n.to(torch.float64) * _PI2
+    r = torch.where(near, x, r)
+    # the sine's sign by quadrant, and the cosine polynomial negated in
+    # quadrants 2 and 3
+    r = torch.where((n & 3) % 3 == 0, r, -r)
+    c_sign = torch.where((n & 2) != 0, -1.0, 1.0).to(torch.float64)
+    q = n ^ 1 if cos else n
+    r2 = r * r
+    r3 = r * r2
+    s = r + r3 * _SIN_S[0]
+    s = s + (r3 * r2) * (_SIN_S[1] + r2 * _SIN_S[2])
+    r4 = r2 * r2
+    c2 = _COS_C[3] + r2 * _COS_C[4]
+    c = (_COS_C[0] + r2 * _COS_C[1]) + r4 * _COS_C[2]
+    c = (c + (r4 * r2) * c2) * c_sign
+    out = torch.where((q & 1) != 0, c, s).to(_F32)
+    tiny = top12 < 0x398  # |x| < 2**-12: sinf returns x, cosf 1
+    return torch.where(tiny, torch.ones_like(y) if cos else y, out)
+
+
+def sin(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``sin`` (glibc's ``sinf``): the same bits for every f32
+    with |x| < 17 (each one checked against glibc 2.36); from there to 120
+    a few arguments differ in the last bit (glibc's build contracts
+    x − n·π/2 into an FMA). torch's ``sin`` differs from it on ~5 % of f32
+    in [0, 2π]."""
+    return _sincos(x, cos=False)
+
+
+def cos(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``cos`` (glibc's ``cosf``), as :func:`sin`."""
+    return _sincos(x, cos=True)
+
+
+def powf(t: torch.Tensor, e: float) -> torch.Tensor:
+    """``t ** e`` for positive f32 ``t``: XLA:CPU calls the C library's
+    ``powf``; the port takes the power in float64 with the f32 exponent and
+    rounds once, which agrees with it on every gamma input and all but a
+    few cube roots (the Lab test states the residue)."""
+    return t.to(torch.float64).pow(float(np.float32(e))).to(_F32)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -174,8 +174,7 @@ class FrameProcessor:
         """The fan-out from ``config_dir/FrameProcessor.xml``'s enable flags
         and each algorithm's ``config_dir/<Name>.xml`` (``FrameProcessor::
         init``, ``FrameProcessor.cpp:35-155``); missing XMLs are written with
-        defaults. An enabled algorithm that this package has not ported
-        raises ``NotImplementedError`` naming it and its flag."""
+        defaults."""
         from tracking_tpu_torch.core.registry import get_algorithm
 
         fp_path = os.path.join(config_dir, "FrameProcessor.xml")
@@ -192,12 +191,7 @@ class FrameProcessor:
         for flag, name in _ENABLE_FLAGS:
             if not getattr(fp_cfg, flag):
                 continue
-            try:
-                algo_cls = get_algorithm(name)
-            except KeyError:
-                raise NotImplementedError(
-                    f"{fp_path}: {flag} enables {name}, which tracking_tpu_torch does not port yet"
-                ) from None
+            algo_cls = get_algorithm(name)
             a_path = os.path.join(config_dir, f"{name}.xml")
             a_cfg = config_from_xml(algo_cls.Config, a_path)
             if not os.path.exists(a_path):

@@ -16,8 +16,10 @@ MS-family trackers; the BGS apps (``bgs-run``'s loop with its XML fan-out,
 dp, Prati, VuMeter and lb algorithms alone and in a fan-out with SuBSENSE;
 the fuzzy-integral, type-2 fuzzy GMM / MRF, KDE, IMBS and Eigenbackground
 algorithms alone and in a fan-out with SuBSENSE; MultiCue and LbpMrf alone
-and in a fan-out with SuBSENSE - and fails (non-zero exit, no result line)
-on any broken phase:
+and in a fan-out with SuBSENSE; SuBSENSE in batches of 1, 2 and 4 streams,
+on a 2 x 2 stream x space mesh, and LOBSTER, SuBSENSE v3 and the fused
+switch in 4 row shards - and fails (non-zero exit, no result line) on any
+broken phase:
 
 1. device: the card's name and power limit; no CUDA device is an error;
 2. build: compiles the twelve CUDA kernels from ``tracking_tpu_torch/csrc``
@@ -69,7 +71,10 @@ on any broken phase:
    the hole fill's adversarial masks and their complements and on FGD's
    flooded mask, the fixed point with random initial labels, whole and on
    a shard's rows; the consensus's slab mode on three shards' halo slabs,
-   against its plain version and the unsharded kernel's rows);
+   against its plain version and the unsharded kernel's rows; LOBSTER's
+   consensus and the v3 walk in slab mode, C=3 and C=1, on the halo slabs
+   of shards 0, 1 and 3 and of shard 1 at a ragged width, against their
+   plain versions and the unsharded kernel's rows);
 4. the main path: warm start, then 64 frames of ``SuBSENSE.step`` and
    ``BlobTracker.step``; every kernel's launch count must be > 0, the mean
    foreground share in (0.1 %, 50 %), and a track active at the end;
@@ -181,6 +186,19 @@ on any broken phase:
    ``tracking-run --bgs_type 34`` (32 frames: 11 past MultiCue's training)
    and ``30`` (8 frames) with their kernels' launch counts, and
    ``cdnet-run --bgs lbp-mrf`` on 8 JPEGs;
+4k. stream batching and the sharded LBSP family on 4 streams (the clip and
+   three seeded clips of their own), each run against the streams' own
+   unsharded kernel runs (masks and every state leaf), launch counts zeroed
+   just before each run and read just after: ``run_video_batch`` of
+   SuBSENSE with 1, 2 and 4 streams over 16 frames (``consensus`` once a
+   stream and frame); ``run_video_batch_shardmap`` on ``make_mesh(4,
+   stream=4)``; 8 frames of ``run_video_batch`` on a 2 x 2 mesh (2 streams x
+   2 row shards of 360), of LOBSTER, of SuBSENSE v3 and of SuBSENSE under
+   ``TRACKING_TPU_FUSED=1`` in 4 row shards of 180: the path's kernel
+   launched in slab mode only (``consensus``, ``consensus_lobster``,
+   ``consensus_read``; ``consensus`` 0 times under v3, ``consensus_feedback``
+   0 times under the fused switch, which runs v1 there); the first 3 frames
+   of the first three again through the plain versions;
 5. the first 16 SuBSENSE + tracker frames again through the plain
    versions: masks, track ids and positions must equal the kernel run's;
 6. timing with CUDA events: each kernel beside its plain version and its
@@ -215,7 +233,12 @@ on any broken phase:
    step and LbpMrf's step in turns and their profiles, and LbpMrf's
    per-stage table (Luv, resize, LBP, histograms, both model updates, the
    min cut with its drain rounds, sweeps and host reads, assembly, fill,
-   erode; CUDA events at the stage marks).
+   erode; CUDA events at the stage marks); the slab mode of LOBSTER's
+   consensus and of the v3 walk beside their plain versions;
+   ``run_video_batch`` of SuBSENSE at 1, 2 and 4 streams in turns
+   (aggregate and per-stream ms/frame) and each batch's profile (busy
+   share, kernels per frame); LOBSTER's and SuBSENSE v3's steps unsharded
+   and in 4 row shards, in turns.
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -288,6 +311,14 @@ SPATIAL_PIPELINED = 8
 SPATIAL_PLAIN = 4
 SPATIAL_KERNELS = ("label_fixpoint", "consensus", "flood_reach", "greedy_assign")
 SPATIAL_TIMED = (8, 2)  # ms/frame = (T(8 frames) - T(2 frames)) / 6
+# phase 4k: stream batching (streams a batch, frames a stream) and the
+# LBSP family's row sharding (frames; frames through the plain versions);
+# phase 6 times the batches (a batch frame = (T(10) - T(2)) / 8)
+BATCH_STREAMS = (1, 2, 4)
+BATCH_FRAMES = 16
+SHARDED_FRAMES = 8
+SHARDED_PLAIN = 3
+BATCH_TIMED = (10, 2)
 APP_FRAMES = 32  # phase 4f: the tracking app
 APP_CHUNK = 16
 APP_TRAIN = 8  # FGTrainFrames
@@ -1650,6 +1681,100 @@ def check_spatial_kernels(algo, state3, frames, dev, errs, timing_inputs, bounds
             )
 
 
+def shard_args(args, rank: int, plane_idx: int, vals_idx, dev):
+    """A consensus call's arguments cut to shard ``rank`` of ``SHARDS``:
+    argument ``plane_idx`` (the planes) as halo slabs with the edge clamp,
+    ``vals_idx`` (the pending values, or None) with the ROI clamp, every
+    other map its owned rows; 0-d tensors as they are. Returns (args, r0,
+    h)."""
+    rows, r0, h = shard_rows(rank)
+    rows = rows.to(dev)
+    Hc = args[plane_idx][0].shape[0]
+
+    def cut(i, a):
+        if isinstance(a, tuple):
+            return tuple(cut(i, x) for x in a)
+        if not isinstance(a, torch.Tensor) or a.dim() < 2:
+            return a
+        if i == plane_idx:
+            return a.index_select(0, rows.clamp(0, Hc - 1)).contiguous()
+        if i == vals_idx:
+            return a.index_select(0, rows.clamp(2, Hc - 3)).contiguous()
+        return a[..., r0 : r0 + h, :].contiguous()
+
+    return tuple(cut(i, a) for i, a in enumerate(args)), r0, h
+
+
+def check_slab_kernels(frames, dev, errs, timing_inputs) -> None:
+    """Phase 3: LOBSTER's consensus and the v3 walk in slab mode (E = the
+    sharded path's halo) on the halo slabs of shards 0, 1 and 3 of 4, and
+    of shard 1 at the ragged width W - 6, C = 3 and 1, on the arguments a
+    720p step gives them (the state after 3 frames, frame 4): each output
+    equal to the plain version's slab mode and to the unsharded kernel's
+    rows, exactly."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.bgs import lbsp_family as LF
+    from tracking_tpu_torch.ops.consensus import (
+        color_desc_thresholds, consensus_lobster, consensus_lobster_ref, consensus_read, consensus_read_ref,
+        intra_descriptors, sample_good_lobster_ref, sample_good_ref, thr_closed_form, thr_lobster,
+    )
+    from tracking_tpu_torch.parallel.spatial import HALO
+
+    def slab_bound(name, s_args, p_out, kw, h):
+        """(bound_ms, bound_by) of the call on shard 1's owned rows (the
+        halo rows the stencils read add ~2 % and are left out), counted as
+        phase 3 counts the unsharded call."""
+        planes = tuple(p[HALO : HALO + h] for p in s_args[0])
+        c, hw_s = len(planes), h * W
+        if name == "consensus_lobster":
+            thr = lambda v: thr_lobster(v, kw["rel"], kw["offset"], kw["div"])  # noqa: E731
+            _, nbs = intra_descriptors(planes, thr)
+            good = sample_good_lobster_ref(planes, p_out[3], p_out[4], nbs, thr,
+                                           *(kw[k] for k in ("c_sc", "d_sc", "c_tot", "d_tot")))
+            return consensus_cost(planes, s_args[1:3], p_out[3:5], good, kw["req"], 4 * (1 + c), 1 + 2 * c)
+        _, colors, descs, lut, R, unstable, req = s_args
+        thr = lambda v: thr_closed_form(v, lut, kw["rel"], kw["div"], kw["hi_const"])  # noqa: E731
+        _, nbs = intra_descriptors(planes, thr)
+        ct, dt = color_desc_thresholds(R, unstable, c == 1, kw["min_cd"], kw["desc_off"])
+        good, _, _ = sample_good_ref(planes, colors, descs, p_out[3], nbs, thr, ct, dt)
+        walked = int(examined(good, req[None]).sum())
+        return bound(c * hw_s + 9 * hw_s + 3 * c * walked + 4 * (3 + c) * hw_s, walked * c * 48)
+
+    kernels = (
+        ("consensus_lobster", "LOBSTERBGS", {}, consensus_lobster, consensus_lobster_ref, 4,
+         ("count", "intra", "bg_sum", "colors", "descs")),
+        ("consensus_read", "subsense", {"TRACKING_TPU_CONSENSUS": "v3"}, consensus_read, consensus_read_ref, None,
+         ("count", "min_desc", "min_sum", "intra")),
+    )
+    wr = W - 6
+    for name, algo_name, env, fk, fp, vals_idx, outs in kernels:
+        for c in (3, 1):
+            fr = frames if c == 3 else frames[..., 0].contiguous()
+            with switches(env):
+                algo = get_algorithm(algo_name)()
+                st = algo.warm_start(algo.init(H, W, c, device=dev), fr[0])
+                for t in range(1, 4):
+                    st, _, _ = algo.step(st, fr[t])
+                args, kw = capture_call(LF, name, lambda: algo.step(clone(st), fr[4]))
+            kw = {k: v for k, v in kw.items() if k != "row_ext"}
+            full = {W: fk(*clone(args), **kw), wr: fk(*clone(crop_width(args, wr)), **kw)}
+            for rank, wc in ((0, W), (1, W), (SHARDS - 1, W), (1, wr)):
+                a = args if wc == W else crop_width(args, wc)
+                s_args, r0, h = shard_args(a, rank, 0, vals_idx, dev)
+                k_out = fk(*clone(s_args), **kw, row_ext=HALO)
+                p_out = fp(*clone(s_args), **kw, row_ext=HALO)
+                own = lambda x: x[..., r0 : r0 + h, :]  # noqa: E731
+                rows = tuple(tuple(map(own, u)) if isinstance(u, tuple) else own(u) for u in full[wc])
+                e = max(max_err(x, y) for x, y in zip(k_out, p_out))
+                e_u = max(max_err(x, y) for x, y in zip(k_out, rows))
+                errs[name] = max(errs[name], e)
+                check(e == 0.0 and e_u == 0.0, f"{name} slab mode C={c}, shard {rank} (rows {r0}-{r0 + h - 1}, "
+                                               f"halo {HALO}, {H}x{wc}): {', '.join(outs)} equal to its plain "
+                                               f"version and to the unsharded kernel's rows")
+                if c == 3 and rank == 1 and wc == W:
+                    timing_inputs[f"{name}_slab"] = (clone(s_args), kw, slab_bound(name, s_args, p_out, kw, h))
+
+
 def fill_cases(dev):
     """Phase 3's adversarial hole-fill masks, (what, background): a
     serpentine corridor that turns in every other row (one set through
@@ -2973,6 +3098,228 @@ def spatial_path(algo, tracker, state0, frames, dev, results) -> None:
         print(f"  {elapsed()}", flush=True)
 
 
+@contextlib.contextmanager
+def row_exts(module, name):
+    """The ``row_ext`` of each call of ``module.name`` inside the block (a
+    list that grows by one per call); the calls go through unchanged."""
+    orig = getattr(module, name)
+    seen = []
+
+    def spy(*a, **k):
+        seen.append(k.get("row_ext", 0))
+        return orig(*a, **k)
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, orig)
+
+
+def batch_streams(frames):
+    """Phase 4k's streams: [B, BATCH_FRAMES, H, W, C], the main clip's
+    first frames and seeded clips of their own (one seed a stream)."""
+    from tracking_tpu_torch.synth import make_clip
+
+    more = [torch.from_numpy(make_clip(BATCH_FRAMES, H, W, C, seed=s)).to(frames.device)
+            for s in range(1, max(BATCH_STREAMS))]
+    return torch.stack([frames[:BATCH_FRAMES]] + more)
+
+
+def batch_path(streams, dev, results) -> None:
+    """Phase 4k: the stream-batched runners and the LBSP family's row
+    sharding at 720p, each against the streams' own unsharded kernel runs
+    (masks and every state leaf), with the launch counts zeroed just before
+    each run and read just after; the sharded runs' first frames again
+    through the plain versions."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.bgs import lbsp_family as LF
+    from tracking_tpu_torch.convert import split_states
+    from tracking_tpu_torch.ops import _native
+    from tracking_tpu_torch.parallel.mesh import make_mesh, run_video_batch, run_video_batch_shardmap
+    from tracking_tpu_torch.parallel.spatial import HALO, run_video_spatial
+    from tracking_tpu_torch.runner.scan import run_video
+
+    B = max(BATCH_STREAMS)
+    print(f"[4k] stream batching and sharded LBSP: {B} streams of {BATCH_FRAMES} frames at {H}x{W}x{C} "
+          f"{elapsed()}", flush=True)
+    refs = {}
+
+    def ref(label, env, algo_name, b, n):
+        """Stream b's unsharded kernel run over its first n frames."""
+        if (label, b, n) not in refs:
+            with switches(env):
+                refs[label, b, n] = run_video(get_algorithm(algo_name)(), streams[b, :n])
+        return refs[label, b, n]
+
+    def launched(run):
+        _native.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        return out, dict(_native.LAUNCHES)
+
+    def same(what, out, label, env, algo_name, n, streams_idx):
+        st, masks = out
+        per = split_states(st, len(streams_idx)) if masks.dim() == 4 else [st]
+        masks = masks if masks.dim() == 4 else masks[None]
+        for i, b in enumerate(streams_idx):
+            r_st, r_m = ref(label, env, algo_name, b, n)
+            check(torch.equal(masks[i], r_m) and max_err(per[i], r_st) == 0.0,
+                  f"{what}: stream {b}'s masks and state equal its unsharded kernel run ({n} frames, fg "
+                  f"{float(r_m.gt(0).float().mean()):.4f})")
+
+    algo = get_algorithm("subsense")()
+    for n_streams in BATCH_STREAMS:
+        out, la = launched(lambda: run_video_batch(algo, streams[:n_streams, :BATCH_FRAMES]))
+        check(la["consensus"] == n_streams * BATCH_FRAMES and la["flood_reach"] > 0,
+              f"run_video_batch, {n_streams} streams: consensus launched {la['consensus']} times, flood_reach "
+              f"{la['flood_reach']}")
+        same(f"run_video_batch, {n_streams} streams", out, "v1", {}, "subsense", BATCH_FRAMES, range(n_streams))
+    results["consensus"]["batch_launches"] = la["consensus"]
+    mesh = make_mesh(B, stream=B, device=dev)
+    out, la = launched(lambda: run_video_batch_shardmap(algo, streams[:, :BATCH_FRAMES], mesh))
+    check(la["consensus"] == B * BATCH_FRAMES, f"run_video_batch_shardmap on {mesh.shape}: consensus launched "
+                                               f"{la['consensus']} times")
+    same(f"run_video_batch_shardmap on {mesh.shape}", out, "v1", {}, "subsense", BATCH_FRAMES, range(B))
+    print(f"  {elapsed()}", flush=True)
+
+    # the sharded runs: (what, algorithm, switches, its kernel, run, streams, the plain run)
+    n = SHARDED_FRAMES
+    mesh2 = make_mesh(4, stream=2, device=dev)
+    runs = (
+        (f"run_video_batch on {mesh2.shape}", "subsense", {}, "consensus", "v1",
+         lambda k, m: run_video_batch(get_algorithm("subsense")(), streams[:2, :m], mesh=mesh2, use_kernels=k),
+         range(2)),
+        (f"LOBSTER in {SHARDS} shards", "LOBSTERBGS", {}, "consensus_lobster", "lobster",
+         lambda k, m: run_video_spatial(get_algorithm("LOBSTERBGS")(), streams[0, :m], SHARDS, use_kernels=k),
+         range(1)),
+        (f"SuBSENSE v3 in {SHARDS} shards", "subsense", {"TRACKING_TPU_CONSENSUS": "v3"}, "consensus_read", "v3",
+         lambda k, m: run_video_spatial(get_algorithm("subsense")(), streams[0, :m], SHARDS, use_kernels=k),
+         range(1)),
+        (f"SuBSENSE under TRACKING_TPU_FUSED=1 in {SHARDS} shards (v1)", "subsense", {"TRACKING_TPU_FUSED": "1"},
+         "consensus", "v1", None, range(1)),
+    )
+    for what, algo_name, env, kernel, label, run, idx in runs:
+        if run is None:
+            run = lambda k, m: run_video_spatial(get_algorithm("subsense")(), streams[0, :m], SHARDS,  # noqa: E731
+                                                 use_kernels=k)
+        with switches(env), row_exts(LF, kernel) as seen:
+            out, la = launched(lambda: run(True, n))
+        slab = sum(1 for e in seen if e == HALO)
+        print(f"  {what} launches: {la}", flush=True)
+        check(la[kernel] > 0 and la[kernel] == len(seen) == slab,
+              f"{what}: {kernel} launched {la[kernel]} times, all in slab mode (halo {HALO})")
+        if label == "v3":
+            check(la["consensus"] == 0, f"{what}: consensus launched 0 times")
+        if env.get("TRACKING_TPU_FUSED"):
+            check(la["consensus_feedback"] == 0, f"{what}: consensus_feedback launched 0 times")
+        else:
+            results[kernel].setdefault("slab_mode", {})["launches_per_frame"] = la[kernel] / (len(idx) * n)
+        same(what, out, label, {} if label == "v1" else env, algo_name, n, idx)
+        if not env.get("TRACKING_TPU_FUSED"):
+            with switches(env):
+                out, la = launched(lambda: run(False, SHARDED_PLAIN))
+            check(sum(la.values()) == 0, f"{what}: no kernel launched through the plain versions")
+            same(f"{what}, plain versions", out, label, env, algo_name, SHARDED_PLAIN, idx)
+        print(f"  {elapsed()}", flush=True)
+
+
+def time_slab_kernels(timing_inputs, results, tag) -> None:
+    """Phase 6: the slab mode of LOBSTER's consensus and of the v3 walk on
+    shard 1's phase-3 slabs, kernel and plain version in turns."""
+    from tracking_tpu_torch.ops.consensus import (
+        consensus_lobster, consensus_lobster_ref, consensus_read, consensus_read_ref,
+    )
+    from tracking_tpu_torch.parallel.spatial import HALO
+
+    for name, fk, fp in (("consensus_lobster", consensus_lobster, consensus_lobster_ref),
+                         ("consensus_read", consensus_read, consensus_read_ref)):
+        args, kw, (b_ms, b_by) = timing_inputs[f"{name}_slab"]
+        p1 = cuda_ms(lambda: fp(*args, **kw, row_ext=HALO), 3)
+        k1 = cuda_ms(lambda: fk(*args, **kw, row_ext=HALO), 20)
+        k2 = cuda_ms(lambda: fk(*args, **kw, row_ext=HALO), 20)
+        p2 = cuda_ms(lambda: fp(*args, **kw, row_ext=HALO), 3)
+        row = results[name].setdefault("slab_mode", {})
+        row.update(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=b_ms, bound_by=b_by)
+        print(f"  {tag} {name} slab mode (shard 1 of {SHARDS} + halo {HALO}): kernel {k1:.4f} / {k2:.4f} ms, "
+              f"plain {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}) = {b_ms / row['ms']:.1%} of it "
+              f"reached; unsharded {results[name]['ms']:.4f} ms", flush=True)
+
+
+def time_batch(streams, dev, tag) -> None:
+    """Phase 6: ``run_video_batch`` of SuBSENSE at 1, 2 and 4 streams in
+    turns: wall ms a batch frame as (T(long) - T(short)) / (long - short)
+    with the device synchronized (the split of the stacked state and the
+    stacking cancel), aggregate and per-stream ms/frame; then each batch
+    under the profiler."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.parallel.mesh import run_video_batch
+
+    algo = get_algorithm("subsense")()
+    long_, short = BATCH_TIMED
+    warm = {b: run_video_batch(algo, streams[:b, :2])[0] for b in BATCH_STREAMS}
+
+    def wall(b, m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_video_batch(algo, streams[:b, 2 : 2 + m], states=warm[b])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    ms = {b: [] for b in BATCH_STREAMS}
+    for b in list(BATCH_STREAMS) + list(BATCH_STREAMS)[::-1]:
+        ms[b].append((wall(b, long_) - wall(b, short)) / (long_ - short) * 1e3)
+    for b, v in ms.items():
+        print(f"  {tag} run_video_batch SuBSENSE, {b} stream(s) (in turns): {v[0]:.3f} / {v[1]:.3f} ms a batch "
+              f"frame = {v[0] / b:.3f} / {v[1] / b:.3f} ms/frame aggregate ({1000 * b / min(v):.1f} fps), "
+              f"per stream {1000 / min(v):.1f} fps", flush=True)
+    for b in BATCH_STREAMS:
+        profile(lambda _: run_video_batch(algo, streams[:b, 2:6], states=warm[b]), [0], tag,
+                f"run_video_batch, {b} stream(s), 4 frames each with the split and stack", n_frames=4 * b)
+
+
+def time_sharded_lbsp(streams, dev, tag) -> None:
+    """Phase 6: LOBSTER's and SuBSENSE v3's steps unsharded and in
+    ``SHARDS`` row shards (``run_video_spatial``) in turns, on the first
+    stream: wall ms a frame as (T(8) - T(2)) / 6 with the device
+    synchronized (the state's split and join and the threads' start
+    cancel)."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.parallel.spatial import run_video_spatial
+
+    fr = streams[0]
+    long_, short = SPATIAL_TIMED
+    for label, name, env in (("LOBSTER", "LOBSTERBGS", {}),
+                             ("SuBSENSE v3", "subsense", {"TRACKING_TPU_CONSENSUS": "v3"})):
+        with switches(env):
+            algo = get_algorithm(name)()
+            st0 = algo.warm_start(algo.init(H, W, C, device=dev), fr[0])
+
+            def unsharded(n):
+                s = clone(st0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for t in range(1, n + 1):
+                    s, _, _ = algo.step(s, fr[t])
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+
+            def sharded(n):
+                st = clone(st0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_video_spatial(algo, fr[1 : n + 1], SHARDS, states=st)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+
+            arms = {"unsharded": unsharded, f"{SHARDS} shards": sharded}
+            ms = {k: [] for k in arms}
+            for arm in ("unsharded", f"{SHARDS} shards", f"{SHARDS} shards", "unsharded"):
+                ms[arm].append((arms[arm](long_) - arms[arm](short)) / (long_ - short) * 1e3)
+        print(f"  {tag} {label} step, unsharded · {SHARDS} shards (in turns): " + " · ".join(
+            f"{v[0]:.3f} / {v[1]:.3f}" for v in ms.values()) + " ms/frame", flush=True)
+
+
 def time_spatial(algo, tracker, state0, frames, dev, timing_inputs, results, tag) -> None:
     """Phase 6 for the sharded path: label_fixpoint and the slab mode beside
     their plain versions and bounds, the unsharded consensus on the same
@@ -3200,6 +3547,7 @@ def main(argv) -> None:
     check_cc_adversarial(timing_inputs["fgd_flooded"], dev, errs)
     print(f"  {elapsed()}", flush=True)
     check_spatial_kernels(algo, state_for_masks, frames, dev, errs, timing_inputs, bounds)
+    check_slab_kernels(frames, dev, errs, timing_inputs)
     print(f"  {elapsed()}", flush=True)
     for k, (b_ms, b_by) in bounds.items():
         results[k]["bound_ms"], results[k]["bound_by"] = b_ms, b_by
@@ -3271,6 +3619,10 @@ def main(argv) -> None:
     # -- 4j. MultiCue and LbpMrf --------------------------------------------
     s16 = slice16_path(clip, frames, dev, results, bgs_out)
 
+    # -- 4k. stream batching and the sharded LBSP family ------------------
+    streams = batch_streams(frames)
+    batch_path(streams, dev, results)
+
     # -- 5. path against path ----------------------------------------------
     print(f"[5] the first {PATH_FRAMES} frames through the plain versions {elapsed()}", flush=True)
     st_p = clone(state0)
@@ -3332,6 +3684,11 @@ def main(argv) -> None:
     time_fgd(timing_inputs, results, fgd_algo, fgd_start, tracker, quiet, dev, tag)
     print(f"  {elapsed()}", flush=True)
     time_spatial(algo, tracker, state0, frames, dev, timing_inputs, results, tag)
+    print(f"  {elapsed()}", flush=True)
+    time_slab_kernels(timing_inputs, results, tag)
+    time_batch(streams, dev, tag)
+    time_sharded_lbsp(streams, dev, tag)
+    del streams
     print(f"  {elapsed()}", flush=True)
     for k in SOURCES:
         results[k]["max_abs_err"] = errs[k]

@@ -170,11 +170,19 @@ def test_motion_analysis_size_matches_jax_run_video():
 
 
 def test_unsupported_configurations_raise():
-    from tracking_tpu_torch.bgs.lbsp_family import LOBSTER
+    """An algorithm whose step takes no ctx is refused, as the JAX package
+    refuses it (``spatial.py:735-740``); a height that does not split too."""
+    from tracking_tpu.bgs.simple import FrameDifference as JFrameDifference
+    from tracking_tpu.parallel.mesh import make_mesh
+    from tracking_tpu.parallel.spatial import run_video_spatial as j_run_spatial
+    from tracking_tpu_torch.bgs.simple import FrameDifference
 
     frames = torch.from_numpy(FRAMES[:2])
     with pytest.raises(ValueError, match="spatial-context"):
-        run_video_spatial(LOBSTER(), frames, n_shards=2)
+        run_video_spatial(FrameDifference(), frames, n_shards=2)
+    if len(jax.devices()) >= 2:
+        with pytest.raises(ValueError, match="spatial-context"):
+            j_run_spatial(JFrameDifference(), jnp.asarray(FRAMES[:2]), make_mesh(2, stream=1))
     with pytest.raises(ValueError, match="does not split"):
         run_video_spatial(TSuBSENSE(), frames, n_shards=5)
 
@@ -182,10 +190,30 @@ def test_unsupported_configurations_raise():
 @pytest.mark.parametrize("env", [{"TRACKING_TPU_CONSENSUS": "v3"}, {"TRACKING_TPU_FUSED": "1"}],
                          ids=["v3", "fused"])
 def test_v3_and_fused_states_refuse_ctx(monkeypatch, env):
+    """v3 and the fused switch under ``ctx`` in 2 shards against the JAX
+    package's ``run_video_spatial`` under the same switch: v3 walks its slab
+    mode with ``bg_sum`` row-sharded; the fused switch runs v1 there in both
+    packages (the fused step takes no ``ctx``), so no fused step is called.
+    v3 in 8 shards: ``tests/test_torch_spatial_lobster.py``."""
+    import tracking_tpu_torch.bgs.lbsp_family as TLF
+    from torch_parity import count_calls
+    from tracking_tpu.parallel.mesh import make_mesh
+    from tracking_tpu.parallel.spatial import run_video_spatial as j_run_spatial
+
+    if len(jax.devices()) < 2:
+        pytest.skip("needs the CPU mesh")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="consensus v1"):
-        run_video_spatial(TSuBSENSE(), torch.from_numpy(FRAMES[:2]), n_shards=2)
+    fused = {name: count_calls(monkeypatch, TLF, name) for name in ("consensus_feedback", "consensus")}
+    frames = _spatial_stream(64, 48)
+    j_state, j_masks = j_run_spatial(JSuBSENSE(), jnp.asarray(frames), make_mesh(2, stream=1))
+    state, masks = run_video_spatial(TSuBSENSE(), torch.from_numpy(frames), n_shards=2)
+    np.testing.assert_array_equal(masks.numpy(), np.asarray(j_masks))
+    assert int((masks > 0).sum()) > 0
+    assert_tree_equal(jax.device_get(j_state), state)
+    assert ("bg_sum" in state) == ("TRACKING_TPU_CONSENSUS" in env)
+    assert len(fused["consensus_feedback"]) == 0
+    assert len(fused["consensus"]) == (0 if "TRACKING_TPU_CONSENSUS" in env else 2 * len(frames))
 
 
 def test_auto_reset_refresh_in_4_shards():

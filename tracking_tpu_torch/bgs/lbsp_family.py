@@ -29,19 +29,20 @@ the state's ``shrink_req_offset`` where subsenseShrink sets one.
 
 Row-sharded mode: ``SuBSENSE.step(..., ctx=SpatialCtx)`` runs one rank of
 ``parallel/spatial.py``'s single-stream sharding (``lbsp_family.py:806-1400``,
-every ``ctx`` branch) on a v1 state: the frame arrives as a halo slab, the
-consensus runs its slab mode, RNG fields are drawn at the global shape and
-row-sliced, the nonzero-descriptor count is summed over ranks, the
-post-processing is ``sharded_postproc``, the motion analysis gathers the
-downsampled column sums, and the refresh reads border-extended slabs. The
-fused step and v3 states raise there (the JAX package runs its fused step
-without ``ctx`` only; v3 with ``ctx`` is not ported), and LOBSTER has no
-sharded mode in this port.
+every ``ctx`` branch): the frame arrives as a halo slab, the consensus (v1)
+or the read-only walk (v3) runs its slab mode, RNG fields are drawn at the
+global shape and row-sliced, the nonzero-descriptor count is summed over
+ranks, the post-processing is ``sharded_postproc``, the motion analysis
+gathers the downsampled column sums, and v3's slot writes and the refresh
+read border-extended slabs. ``TRACKING_TPU_FUSED=1`` runs v1 there, as the
+JAX package does (its fused step takes no ``ctx``).
 
 LOBSTER (below SuBSENSE) is the same model with fixed thresholds: N = 35
 samples, a 1/16 stochastic self and 3×3-neighbour update logged the same
 way, and a 9×9 median. Its consensus is the CUDA kernel
-``consensus_lobster`` on CUDA tensors.
+``consensus_lobster`` on CUDA tensors; its ``step(..., ctx=)`` runs the
+kernel's slab mode and the median on a slab extended by its radius
+(``lbsp_family.py:484-654``).
 """
 
 from __future__ import annotations
@@ -217,18 +218,23 @@ def _use_fused() -> bool:
     return os.environ.get("TRACKING_TPU_FUSED") == "1"
 
 
-def _apply_updates_global(upd1, u3, u5, s1, s3, s5, vals, colors, descs, bg_sum):
+def _apply_updates_global(upd1, u3, u5, s1, s3, s5, vals, colors, descs, bg_sum, ctx=None):
     """Consensus v3's bank update (``lbsp_family.py:316-357``): v1's per-pixel
     write decisions with frame-global slots ``s1`` / ``s3`` / ``s5`` (0-d
     int tensors, used on the device: no host sync), applied at once to the
     ≤ 3 touched slot planes. Later writes win: self, then the 5×5-only
     spread, then the 3×3 spread. ``bg_sum`` (C-tuple int32) moves by
-    new − old at each written slot.
+    new − old at each written slot. With ``ctx`` the spread sources are
+    shifts of border-extended slabs of ``vals`` (``lbsp_family.py:1225-1229``).
 
     The banks are updated IN PLACE (the desc banks through an int16 view)
     and returned; returns (colors, descs, bg_sum)."""
     C = len(colors)
-    ok3, ok5, nbv = resolve_spread(vals, u3, u5)
+    shift_src = None
+    if ctx is not None:
+        vals_ext = tuple(ctx.extend_border(v) for v in vals)
+        shift_src = lambda ci, dy, dx: ctx.shift_ext(vals_ext[ci], dy, dx)  # noqa: E731
+    ok3, ok5, nbv = resolve_spread(vals, u3, u5, shift_src)
     bg_sum = list(bg_sum)
     writes = ((s1, upd1 != 0, vals), (s5, ok5 & ~ok3, nbv), (s3, ok3, nbv))
     for slot, mask, src in writes:
@@ -417,12 +423,8 @@ class SuBSENSE(BGSAlgorithm):
         if "shrink_req_offset" in state:
             required = required + state["shrink_req_offset"]
         v2 = "bg_sum" in state  # consensus v3 (see _use_v2)
-        use_fused = not v2 and _use_fused()
-        if ctx is not None and (v2 or use_fused):
-            raise NotImplementedError(
-                "the row-sharded step runs consensus v1 without the fused kernel (the JAX package's fused "
-                "step takes no ctx; v3 with ctx is not ported)"
-            )
+        # the fused step takes no ctx: a rank runs v1 (lbsp_family.py:870-874)
+        use_fused = not v2 and ctx is None and _use_fused()
         bits = rng.as_i32(rng.field_bits(keys[2], (4, H, w)))
         if ctx is not None:
             bits = ctx.rng_rows(bits)  # the global draw, row-sliced
@@ -453,24 +455,21 @@ class SuBSENSE(BGSAlgorithm):
             mean_last, dmin_lt, dmin_st, raw_lt, raw_st, T, v, R = f32o
         else:
             required_eff = torch.where(roi, required, 0)
+            # the slab mode: the planes as halo slabs (E = the frame's halo)
+            k_planes, row_ext = (planes, 0) if ctx is None else (planes_ext, ctx.halo)
             if v2:
                 # -- v3: the banks are current; the walk only reads them ------
                 walk = consensus_read if use_kernels else consensus_read_ref
                 count, min_desc, min_sum, intra = walk(
-                    planes, state["colors"], state["descs"], state["lut_delta"], state["R"], state["unstable"],
-                    required_eff, **self._kernel_kw(c),
+                    k_planes, state["colors"], state["descs"], state["lut_delta"], state["R"], state["unstable"],
+                    required_eff, **self._kernel_kw(c), row_ext=row_ext,
                 )
                 bg_sums, colors, descs = state["bg_sum"], state["colors"], state["descs"]
             else:
-                # -- pending replay + sample consensus (:332-357) -------------
+                # -- pending replay + sample consensus (:332-357); with ctx the
+                # pending values as border slabs too (:991-1018)
                 cons = consensus if use_kernels else consensus_ref
-                if ctx is None:
-                    k_planes, k_vals, row_ext = planes, state["pend_vals"], 0
-                else:
-                    # the slab mode: planes and pending values as halo slabs
-                    # (:991-1018, with E = the frame's halo)
-                    k_planes, row_ext = planes_ext, ctx.halo
-                    k_vals = tuple(ctx.extend_border(v) for v in state["pend_vals"])
+                k_vals = state["pend_vals"] if ctx is None else tuple(ctx.extend_border(v) for v in state["pend_vals"])
                 count, min_desc, min_sum, intra, bg_sums, colors, descs = cons(
                     k_planes, state["colors"], state["descs"], state["pend_ctrl"], k_vals,
                     state["lut_delta"], state["R"], state["unstable"], required_eff, **self._kernel_kw(c),
@@ -509,7 +508,7 @@ class SuBSENSE(BGSAlgorithm):
                 slots = rng.randint(keys[4], (3,), 0, N)
                 colors, descs, bg_sums = _apply_updates_global(
                     fb.upd1, nb3_to_nb5_idx(fb.o3), fb.o5, slots[0], slots[1], slots[2],
-                    pack_pending_vals(planes, intra, fires), colors, descs, bg_sums,
+                    pack_pending_vals(planes, intra, fires), colors, descs, bg_sums, ctx=ctx,
                 )
             else:
                 # v1: logged for the next step's consensus
@@ -586,12 +585,12 @@ class SuBSENSE(BGSAlgorithm):
             # branch applies the pending log eagerly (v1; v3's banks are
             # current), refreshes, and clears the log or recomputes v3's
             # bank sum. Branching needs the flag on the host (one sync); the
-            # flag is the same on every rank, so all of them exchange halos
-            # in the branch together.
+            # flag is the same on every rank of a stream, so all of them
+            # exchange halos in the branch together.
             if bool(trigger):
                 if v2:
                     colors, descs = _refresh_samples(
-                        keys[9], N, n_refresh, start, planes, intra, ~final_fg, colors, descs
+                        keys[9], N, n_refresh, start, planes, intra, ~final_fg, colors, descs, ctx=ctx
                     )
                     bg_sums = tuple(cc.to(i32).sum(dim=0, dtype=i32) for cc in colors)
                 else:
@@ -726,38 +725,59 @@ class LOBSTER(BGSAlgorithm):
         )
         return dict(state, key=key, colors=colors, descs=descs)
 
-    def step(self, state: State, frame: torch.Tensor, use_kernels: bool = True) -> StepResult:
-        """One frame (``lbsp_family.py:484-654`` without ``ctx``). On CUDA
-        tensors the consensus kernel runs (and the banks update in place)
-        unless ``use_kernels=False``."""
+    def step(self, state: State, frame: torch.Tensor, use_kernels: bool = True, ctx=None) -> StepResult:
+        """One frame (``lbsp_family.py:484-654``). On CUDA tensors the
+        consensus kernel runs (and the banks update in place) unless
+        ``use_kernels=False``. ``ctx`` runs one rank of the row-sharded step,
+        as SuBSENSE's: the frame and the pending values go to the kernel's
+        slab mode, the RNG fields are drawn at the global shape and
+        row-sliced, and the median reads a slab extended by its radius."""
         cfg = self.config
         N = cfg.nBGSamples
-        planes, was_gray = _to_planes(frame)
+        planes_in, was_gray = _to_planes(frame)
+        planes = planes_in if ctx is None else tuple(ctx.crop(p) for p in planes_in)
         c = len(planes)
         h, w = planes[0].shape
-        roi = roi_map(h, w, frame.device)
+        H = h if ctx is None else ctx.H
+        roi = roi_map(h, w, frame.device) if ctx is None else ctx.roi(w)
         keys = rng.split(state["key"], 8)
 
         cons = consensus_lobster if use_kernels else consensus_lobster_ref
+        if ctx is None:
+            k_planes, k_vals, row_ext = planes, state["pend_vals"], 0
+        else:  # the runner extended the frame's rows (:565-600)
+            k_planes, row_ext = planes_in, ctx.halo
+            k_vals = tuple(ctx.extend_border(v) for v in state["pend_vals"])
         count, intra, bg_sums, colors, descs = cons(
-            planes, state["colors"], state["descs"], state["pend_ctrl"], state["pend_vals"], **self._kernel_kw(c)
+            k_planes, state["colors"], state["descs"], state["pend_ctrl"], k_vals, **self._kernel_kw(c),
+            row_ext=row_ext,
         )
         is_bg = (count >= cfg.nRequiredBGSamples) & roi
         raw_fg = torch.where(roi & ~is_bg, 255, 0).to(torch.uint8)
 
         # stochastic self + 3×3-neighbour updates (:209-222), logged for the
-        # next step; the 5×5 fields stay zero with their fire bit clear
+        # next step; the 5×5 fields stay zero with their fire bit clear.
+        # Sharded, each field is the global draw's rows (:609-611)
+        def draw(key, lo, hi):
+            x = rng.field_randint(key, (H, w), lo, hi)
+            return x if ctx is None else ctx.rng_rows(x)
+
         lr = int(np.ceil(cfg.learningRate))
-        self_upd = is_bg & (rng.field_randint(keys[2], (h, w), 0, _RMAX) % lr == 0)
-        slot_self = rng.field_randint(keys[3], (h, w), 0, N)
-        src_fire = is_bg & (rng.field_randint(keys[4], (h, w), 0, _RMAX) % lr == 0)
-        o_idx = rng.field_randint(keys[5], (h, w), 0, 8)
-        slot_nb = rng.field_randint(keys[6], (h, w), 0, N)
+        self_upd = is_bg & (draw(keys[2], 0, _RMAX) % lr == 0)
+        slot_self = draw(keys[3], 0, N)
+        src_fire = is_bg & (draw(keys[4], 0, _RMAX) % lr == 0)
+        o_idx = draw(keys[5], 0, 8)
+        slot_nb = draw(keys[6], 0, N)
         zero = torch.zeros((h, w), dtype=torch.int32, device=frame.device)
         pend_ctrl = pack_pending_ctrl(self_upd, slot_self, nb3_to_nb5_idx(o_idx), zero, slot_nb, zero)
         pend_vals = pack_pending_vals(planes, intra, src_fire)
 
-        final = binary_median_blur(raw_fg, DEFAULT_MEDIAN_KSIZE)
+        if ctx is None:
+            final = binary_median_blur(raw_fg, DEFAULT_MEDIAN_KSIZE)
+        else:  # the median on a slab extended by its radius (:632-639)
+            mr = DEFAULT_MEDIAN_KSIZE // 2
+            final = binary_median_blur(ctx.extend_plain(raw_fg, halo=mr), DEFAULT_MEDIAN_KSIZE)[mr : mr + h]
+            final = final.contiguous()
         bg_planes = tuple(torch.round(bg_sums[ci].to(torch.float32) * recip(N)).to(torch.uint8) for ci in range(c))
         new_state = {
             "t": state["t"] + 1,

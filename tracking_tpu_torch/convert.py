@@ -7,6 +7,11 @@ dict-of-tensors form with the same leaf names, shapes and dtypes, so both
 packages can start from one state and be compared leaf by leaf. The caller
 turns JAX arrays into numpy (``jax.device_get``) first: this module does
 not import JAX.
+
+A batch of streams (``parallel/mesh.py``) carries its states stacked leaf
+by leaf along a leading ``B``, the layout of JAX's vmapped pytree: both
+conversions take it as they take one state, :func:`stack_states` builds
+it and :func:`split_states` splits it into per-stream states.
 """
 
 from __future__ import annotations
@@ -35,3 +40,31 @@ def state_to_numpy(state):
     if isinstance(state, (tuple, list)):
         return tuple(state_to_numpy(v) for v in state)
     return state.detach().cpu().numpy()
+
+
+def _map_leaves(fn, trees):
+    """``fn`` over the leaves of same-structured trees (a list of them)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _map_leaves(fn, [t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return tuple(_map_leaves(fn, [t[i] for t in trees]) for i in range(len(first)))
+    return fn(trees)
+
+
+def stack_states(states):
+    """Per-stream states -> one state whose leaves are the streams' leaves
+    stacked along a new leading axis B."""
+    return _map_leaves(torch.stack, list(states))
+
+
+def split_states(stacked, b: int, device=None) -> list:
+    """A state stacked along B -> ``b`` per-stream states, each leaf a
+    contiguous copy of its slice (moved to ``device`` where given)."""
+
+    def check(xs):
+        if xs[0].shape[0] != b:
+            raise ValueError(f"a stacked state leaf of shape {tuple(xs[0].shape)} holds no {b} streams")
+
+    _map_leaves(check, [stacked])
+    return [_map_leaves(lambda xs: xs[0][i].to(device, copy=True), [stacked]) for i in range(b)]

@@ -38,6 +38,8 @@
 // the edge clamp, the pending values the ROI-interior clamp - so in slab mode
 // the kernel reads rows E + y +/- d without a row clamp; columns keep their
 // clamps. The banks, the maps and the outputs stay owned-size [H, W].
+// consensus_kernel, lobster_kernel (the planes and its pending values) and
+// read_walk_kernel (the planes) take it; fused_kernel does not.
 //
 // The file's other kernels share these steps as device functions:
 // fused_kernel (consensus_kernel's phases ct_replay and ct_walk, then the
@@ -137,7 +139,7 @@ __device__ __forceinline__ int src_row(int y, int dy, int H, int E) {
 
 // SuBSENSE's kernels' arguments, over the banks they write (Banks:
 // consensus_kernel, fused_kernel) or only read (ConstBanks: read_walk_kernel,
-// which leaves ctrl, bg_sum and vec unset and E = 0).
+// which leaves ctrl, bg_sum and vec unset).
 template <class B>
 struct ConsArgsT {
   const uint8_t* planes[3];
@@ -161,8 +163,8 @@ using ConsArgs = ConsArgsT<Banks>;
 using ReadArgs = ConsArgsT<ConstBanks>;
 
 // lobster_kernel's arguments: ConsArgs's fields for the replay and the walk,
-// and LOBSTER's fixed thresholds in place of R, unstable and required. E = 0:
-// LOBSTER has no slab mode yet; ct_replay reads it as consensus_kernel's.
+// and LOBSTER's fixed thresholds in place of R, unstable and required. E is
+// the slab mode's halo, read by ct_replay and ct_stage as consensus_kernel's.
 struct LobsterArgs {
   const uint8_t* planes[3];
   Banks banks;
@@ -795,8 +797,9 @@ TT_EXPORT int tt_consensus_lobster(const void* plane0, const void* plane1, const
                                    void* col2, void* desc0, void* desc1, void* desc2, const void* ctrl,
                                    const void* val0, const void* val1, const void* val2, void* count, void* intra,
                                    void* bg_sum, int C, int N, int H, int W, float rel, float offset, float div,
-                                   int c_sc, int d_sc, int c_tot, int d_tot, int req, void* stream_) {
-  if (N < 1 || N > 63) return (int)cudaErrorInvalidValue;  // the log's 6-bit slots
+                                   int c_sc, int d_sc, int c_tot, int d_tot, int req, int row_ext, void* stream_) {
+  if (row_ext != 0 && row_ext < 2) return (int)cudaErrorInvalidValue;  // the walk reads rows +/- 2
+  if (N < 1 || N > 63) return (int)cudaErrorInvalidValue;             // the log's 6-bit slots
   LobsterArgs a;
   const void* planes[3] = {plane0, plane1, plane2};
   void* cols[3] = {col0, col1, col2};
@@ -817,7 +820,7 @@ TT_EXPORT int tt_consensus_lobster(const void* plane0, const void* plane1, const
   a.N = N;
   a.H = H;
   a.W = W;
-  a.E = 0;
+  a.E = row_ext;
   a.rel = rel;
   a.offset = offset;
   a.inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
@@ -870,7 +873,7 @@ __global__ void __launch_bounds__(CT_T) read_walk_kernel(ReadArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
   const CtShared s = ct_shared<C>(smem, 0);  // no colour copy
   const int x0 = blockIdx.x * CT_W, y0 = blockIdx.y * CT_H;
-  ct_stage<C, Consensus::SuBSENSE>(a, s, threadIdx.x, x0, y0, a.H, a.W, 0);
+  ct_stage<C, Consensus::SuBSENSE>(a, s, threadIdx.x, x0, y0, a.H, a.W, a.E);
   if (threadIdx.x == 0) *s.qn = 0;
   __syncthreads();
   ct_walk<C, false, ColSrc::Banks, Consensus::SuBSENSE>(a, s, WalkOut{nullptr, nullptr}, x0, y0);
@@ -881,8 +884,9 @@ TT_EXPORT int tt_consensus_read(const void* plane0, const void* plane1, const vo
                                 const void* desc2, const void* R, const void* unstable, const void* required,
                                 const void* lut_delta, void* count, void* mind, void* mins, void* intra, int C, int N,
                                 int H, int W, float rel, float div, float hi_const, int min_cd, int desc_off,
-                                void* stream_) {
-  if (N < 1 || N > 63) return (int)cudaErrorInvalidValue;  // the queue's 6-bit counts
+                                int row_ext, void* stream_) {
+  if (row_ext != 0 && row_ext < 2) return (int)cudaErrorInvalidValue;  // the walk reads rows +/- 2
+  if (N < 1 || N > 63) return (int)cudaErrorInvalidValue;             // the queue's 6-bit counts
   ReadArgs a{};
   const void* planes[3] = {plane0, plane1, plane2};
   const void* cols[3] = {col0, col1, col2};
@@ -903,7 +907,7 @@ TT_EXPORT int tt_consensus_read(const void* plane0, const void* plane1, const vo
   a.N = N;
   a.H = H;
   a.W = W;
-  a.E = 0;
+  a.E = row_ext;
   a.rel = rel;
   a.inv_div = 1.0f / div;  // XLA's f32 reciprocal of the constant divisor
   a.hi = hi_const;

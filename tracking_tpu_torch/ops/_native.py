@@ -56,11 +56,11 @@ _SIGNATURES = {
     "tt_label_components": [_P] * 2 + [_I] * 3 + [_P],
     "tt_label_fixpoint": [_P] * 4 + [_I] * 4 + [_P],
     "tt_greedy_assign": [_P] * 3 + [_I] * 2 + [_P],
-    "tt_consensus_lobster": [_P] * 16 + [_I] * 4 + [_F] * 3 + [_I] * 5 + [_P],
+    "tt_consensus_lobster": [_P] * 16 + [_I] * 4 + [_F] * 3 + [_I] * 6 + [_P],
     "tt_gmg_step": [_P] * 7 + [_I] * 3 + [_F] * 5 + [_I, _P],
     "tt_texture_prox_cur": [_P] * 4 + [_I] * 3 + [_P],
     "tt_multilayer_step": [_P] * 18 + [_I] * 3 + [_F] * 14 + [_P],
-    "tt_consensus_read": [_P] * 17 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
+    "tt_consensus_read": [_P] * 17 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "tt_consensus_feedback": [_P] * 2 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "tt_fgd_tables": [_P] * 13 + [_I] * 9 + [_F] * 3 + [_P],
     "tt_error_string": [_I],

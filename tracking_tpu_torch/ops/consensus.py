@@ -19,7 +19,8 @@ Slab mode (``row_ext=E``, the row-sharded path of ``parallel/spatial.py``;
 ``pallas_consensus.py:640-700``): ``planes`` and ``pend_vals`` arrive as
 [h + 2E, W] slabs of a shard's h owned rows, built by ``SpatialCtx.
 extend_plain`` and ``extend_border``, whose halo rows carry the global row
-clamps; every other tensor is owned-size.
+clamps; every other tensor is owned-size. SuBSENSE's consensus, LOBSTER's
+and the read-only walk (its planes only) take it; the fused step does not.
 
 Also here: the pending-log helpers of ``pallas_consensus.py:258-320``;
 LOBSTER's consensus, the same four steps with fixed thresholds and the
@@ -291,6 +292,15 @@ def slab_shift(slab: torch.Tensor, E: int, dy: int, dx: int, border: int = 2) ->
     return slab[..., E - dy : E - dy + h, :].index_select(-1, cols)
 
 
+def replay_ref(pend_ctrl, pend_vals, colors, descs, row_ext: int = 0):
+    """:func:`apply_pending_ref` on owned pending values or, with
+    ``row_ext=E``, on [H + 2E, W] slabs of them: the spread sources are
+    shifts of the slab (``lbsp_family.py:1058-1069``)."""
+    E = row_ext
+    shift_src = (lambda c, dy, dx: slab_shift(pend_vals[c], E, dy, dx)) if E else None
+    return apply_pending_ref(pend_ctrl, tuple(_slab_rows(v, E) for v in pend_vals), colors, descs, shift_src)
+
+
 def consensus_ref(
     planes, colors, descs, pend_ctrl, pend_vals, lut_delta, R, unstable, required,
     rel: float, div: float, hi_const: float, min_cd: int, desc_off: int, row_ext: int = 0,
@@ -301,15 +311,12 @@ def consensus_ref(
     (count, min_desc, min_sum, intra ×C, bg_sum ×C, colors, descs), the
     maps int32 and the banks new tensors. ``row_ext=E``: planes and
     pend_vals are [H + 2E, W] slabs (module docstring); the spread sources
-    are shifts of the pending slab (``lbsp_family.py:1058-1069``) and the
+    are shifts of the pending slab (:func:`replay_ref`) and the
     descriptors are taken on the plane slab and cropped."""
     _check_args(planes, colors, descs, pend_vals)
-    E = row_ext
-    shift_src = (lambda c, dy, dx: slab_shift(pend_vals[c], E, dy, dx)) if E else None
-    own_vals = tuple(_slab_rows(v, E) for v in pend_vals)
-    colors, descs, bg_sum = apply_pending_ref(pend_ctrl, own_vals, colors, descs, shift_src)
+    colors, descs, bg_sum = replay_ref(pend_ctrl, pend_vals, colors, descs, row_ext)
     count, mind, mins, intra = consensus_read_ref(
-        planes, colors, descs, lut_delta, R, unstable, required, rel, div, hi_const, min_cd, desc_off, E
+        planes, colors, descs, lut_delta, R, unstable, required, rel, div, hi_const, min_cd, desc_off, row_ext
     )
     return count, mind, mins, intra, bg_sum, colors, descs
 
@@ -334,8 +341,7 @@ def consensus(
     N = colors[0].shape[0]
     if N > 63:
         raise ValueError("the pending log's 6-bit slots hold at most 63 samples")
-    if row_ext == 1 or row_ext < 0:
-        raise ValueError(f"row_ext must be 0 or >= 2 (the walk reads rows +-2), got {row_ext}")
+    _check_row_ext(row_ext)
     req = _native.require
     for c in range(C):
         req(planes[c], f"planes[{c}]", torch.uint8, (Hp, W))
@@ -366,28 +372,34 @@ def consensus(
     return count, mind, mins, tuple(intra.unbind(0)), tuple(bg_sum.unbind(0)), colors, descs
 
 
+def _check_row_ext(row_ext: int) -> None:
+    if row_ext == 1 or row_ext < 0:
+        raise ValueError(f"row_ext must be 0 or >= 2 (the walk reads rows +-2), got {row_ext}")
+
+
 def consensus_read(
     planes, colors, descs, lut_delta, R, unstable, required,
-    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int,
+    rel: float, div: float, hi_const: float, min_cd: int, desc_off: int, row_ext: int = 0,
 ):
     """Same contract as :func:`consensus_read_ref`. CPU tensors take the
     plain version. CUDA tensors launch ``read_walk_kernel``
     (``csrc/consensus.cu``, replacing ``pallas_consensus.consensus_read_pallas``
     and the retired ``attic/pallas_consensus2.py:consensus_walk_pallas``),
-    which only reads the banks."""
+    which only reads the banks; ``row_ext`` > 0 runs its slab mode (E >= 2)."""
     if planes[0].device.type == "cpu":
         return consensus_read_ref(
-            planes, colors, descs, lut_delta, R, unstable, required, rel, div, hi_const, min_cd, desc_off
+            planes, colors, descs, lut_delta, R, unstable, required, rel, div, hi_const, min_cd, desc_off, row_ext
         )
     _check_args(planes, colors, descs)
+    _check_row_ext(row_ext)
     C = len(planes)
-    H, W = planes[0].shape
+    H, W = R.shape
     N = colors[0].shape[0]
     if N > 63:
         raise ValueError("the walk's queue holds sample counts in 6 bits: at most 63 samples")
     req = _native.require
     for c in range(C):
-        req(planes[c], f"planes[{c}]", torch.uint8, (H, W))
+        req(planes[c], f"planes[{c}]", torch.uint8, (H + 2 * row_ext, W))
         req(colors[c], f"colors[{c}]", torch.uint8, (N, H, W))
         req(descs[c], f"descs[{c}]", torch.uint16, (N, H, W))
     req(R, "R", torch.float32, (H, W))
@@ -403,7 +415,7 @@ def consensus_read(
         ptr(descs, 0), ptr(descs, 1), ptr(descs, 2),
         R.data_ptr(), unstable.data_ptr(), required.data_ptr(), lut_delta.data_ptr(),
         count.data_ptr(), mind.data_ptr(), mins.data_ptr(), intra.data_ptr(),
-        C, N, H, W, rel, div, hi_const, min_cd, desc_off, _native.stream_ptr(),
+        C, N, H, W, rel, div, hi_const, min_cd, desc_off, row_ext, _native.stream_ptr(),
     )
     _native.check(rc, "consensus_read")
     _native.count_launch("consensus_read")
@@ -607,15 +619,19 @@ def sample_good_lobster_ref(planes, colors, descs, nbs, thr, c_sc: int, d_sc: in
 def consensus_lobster_ref(
     planes, colors, descs, pend_ctrl, pend_vals,
     rel: float, offset: float, div: float, c_sc: int, d_sc: int, c_tot: int, d_tot: int, req: int,
+    row_ext: int = 0,
 ):
     """Plain torch LOBSTER consensus. planes C-tuple u8 [H, W]; colors /
     descs C-tuples u8 / u16 [N, H, W]; pend_ctrl int32 [H, W] (3×3 spreads
     only); pend_vals C-tuple int32. Returns (count, intra ×C, bg_sum ×C,
-    colors, descs), the maps int32 and the banks new tensors."""
+    colors, descs), the maps int32 and the banks new tensors. ``row_ext=E``:
+    the slab mode of :func:`consensus_ref` (planes and pend_vals [H + 2E, W]
+    slabs; the spreads read the pending slab, ``lbsp_family.py:590-599``)."""
     _check_args(planes, colors, descs, pend_vals)
-    colors, descs, bg_sum = apply_pending_ref(pend_ctrl, pend_vals, colors, descs)
+    colors, descs, bg_sum = replay_ref(pend_ctrl, pend_vals, colors, descs, row_ext)
     thr = lambda v: thr_lobster(v, rel, offset, div)  # noqa: E731
     intra, nbs = intra_descriptors(planes, thr)
+    intra, nbs, planes = (tuple(_slab_rows(t, row_ext) for t in ts) for ts in (intra, nbs, planes))
     good = sample_good_lobster_ref(planes, colors, descs, nbs, thr, c_sc, d_sc, c_tot, d_tot)
     count = torch.clamp(good.sum(dim=0, dtype=torch.int32), max=req)  # the walk stops at req
     return count, intra, bg_sum, colors, descs
@@ -624,27 +640,31 @@ def consensus_lobster_ref(
 def consensus_lobster(
     planes, colors, descs, pend_ctrl, pend_vals,
     rel: float, offset: float, div: float, c_sc: int, d_sc: int, c_tot: int, d_tot: int, req: int,
+    row_ext: int = 0,
 ):
     """Same contract as :func:`consensus_lobster_ref`. CPU tensors take the
     plain version. CUDA tensors launch the kernel (``csrc/consensus.cu``,
     replacing ``pallas_consensus.consensus_lobster_pallas``), which updates
-    ``colors`` and ``descs`` IN PLACE and returns them."""
+    ``colors`` and ``descs`` IN PLACE and returns them; ``row_ext`` > 0 runs
+    its slab mode (E >= 2)."""
     if planes[0].device.type == "cpu":
         return consensus_lobster_ref(
-            planes, colors, descs, pend_ctrl, pend_vals, rel, offset, div, c_sc, d_sc, c_tot, d_tot, req
+            planes, colors, descs, pend_ctrl, pend_vals, rel, offset, div, c_sc, d_sc, c_tot, d_tot, req, row_ext
         )
     _check_args(planes, colors, descs, pend_vals)
+    _check_row_ext(row_ext)
     C = len(planes)
-    H, W = planes[0].shape
+    H, W = pend_ctrl.shape
+    Hp = H + 2 * row_ext
     N = colors[0].shape[0]
     if N > 63:
         raise ValueError("the pending log's 6-bit slots hold at most 63 samples")
     req_ = _native.require
     for c in range(C):
-        req_(planes[c], f"planes[{c}]", torch.uint8, (H, W))
+        req_(planes[c], f"planes[{c}]", torch.uint8, (Hp, W))
         req_(colors[c], f"colors[{c}]", torch.uint8, (N, H, W))
         req_(descs[c], f"descs[{c}]", torch.uint16, (N, H, W))
-        req_(pend_vals[c], f"pend_vals[{c}]", torch.int32, (H, W))
+        req_(pend_vals[c], f"pend_vals[{c}]", torch.int32, (Hp, W))
     req_(pend_ctrl, "pend_ctrl", torch.int32, (H, W))
     maps = torch.empty((1 + 2 * C, H, W), dtype=torch.int32, device=planes[0].device)
     count, intra, bg_sum = maps[0], maps[1 : 1 + C], maps[1 + C :]
@@ -656,7 +676,7 @@ def consensus_lobster(
         pend_ctrl.data_ptr(),
         ptr(pend_vals, 0), ptr(pend_vals, 1), ptr(pend_vals, 2),
         count.data_ptr(), intra.data_ptr(), bg_sum.data_ptr(),
-        C, N, H, W, rel, offset, div, c_sc, d_sc, c_tot, d_tot, req, _native.stream_ptr(),
+        C, N, H, W, rel, offset, div, c_sc, d_sc, c_tot, d_tot, req, row_ext, _native.stream_ptr(),
     )
     _native.check(rc, "consensus_lobster")
     _native.count_launch("consensus_lobster")

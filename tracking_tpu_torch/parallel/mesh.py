@@ -1,6 +1,5 @@
-"""Shards of one stream on one device: the counterpart of the mesh axis and
-``shard_map`` that ``tracking_tpu/parallel/spatial.py`` runs on
-(``tracking_tpu/parallel/mesh.py``).
+"""Ranks on one device: the counterpart of the mesh and ``shard_map`` that
+``tracking_tpu/parallel`` runs on (``tracking_tpu/parallel/mesh.py``).
 
 :class:`ShardGroup` runs ``fn(rank, ctx, *per_shard_args)`` for ranks
 0..n−1, one Python thread per rank, in one process on one device, and
@@ -15,7 +14,7 @@ keeps these rules:
 - a sent tensor is cloned before the barrier, so no later in-place write
   of its sender can reach a receiver;
 - ``ppermute`` zero-fills where no rank sends, as ``jax.lax.ppermute``;
-- a rank that raises aborts the barrier, and :meth:`ShardGroup.run`
+- a rank that raises aborts every barrier, and :meth:`ShardGroup.run`
   re-raises the first exception; a barrier wait longer than ``timeout``
   seconds fails the run instead of hanging it;
 - on CUDA every rank enqueues its work on the device's one current stream
@@ -24,6 +23,28 @@ keeps these rules:
   rank's tensor only after the barrier that the sender reached after it
   enqueued that tensor, so no event is needed;
 - the CUDA kernels are built before the threads start.
+
+The 2-D group (a :class:`Mesh` of ``stream`` × ``space`` ranks, rank = i ·
+space + j): :meth:`ShardComm.axis` gives a rank its view of one mesh axis,
+the ranks that share its other coordinate, with a barrier and slots of
+their own. A stream row's ``SpatialCtx`` runs its ``ppermute`` / ``psum`` /
+``pmax`` / ``all_gather`` over the ``space`` view, so each stream row
+synchronises only with itself: SuBSENSE's auto-reset branch (a host read
+of the trigger) and ``sharded_fill``'s injection rounds may run a
+different number of collectives in two rows without a deadlock. The
+stream axis needs no collective at all. The JAX package sums its fill's
+convergence flags over both axes (``SpatialCtx.conv_axes``) only to keep
+XLA:CPU's rendezvous in step: a row that has converged runs extra rounds
+that re-confirm its fixed point, so rows that stop on their own give the
+same bits.
+
+On top of the group: :class:`Mesh` and :func:`make_mesh` (the JAX split
+rule), :func:`video_batch_spec` and :func:`shard_video_batch`, and the
+stream-batched runners :func:`run_video_batch_shardmap` and
+:func:`run_video_batch` (``tracking_tpu/parallel/mesh.py:39-170``). Each
+stream keeps its own state tensors (the kernels update banks in place);
+states come back stacked leaf by leaf along a leading ``B``, the layout of
+JAX's vmapped pytree, and ``states=`` takes that layout.
 
 One device, not one card per rank: NCCL refuses two ranks on one GPU, and
 gloo's point-to-point calls take CPU tensors only, so every halo band would
@@ -35,32 +56,60 @@ A ``torch.distributed`` group, one process per card, is a later step.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import inspect
+import math
 import threading
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from tracking_tpu_torch.convert import split_states, stack_states
 from tracking_tpu_torch.ops import _native
 
 
+class _Sync:
+    """The barrier and the two alternating slot lists of a set of ranks."""
+
+    def __init__(self, n: int, timeout: float):
+        self.n = n
+        self.barrier = threading.Barrier(n, timeout=timeout)
+        self.slots = ([None] * n, [None] * n)
+
+
 class ShardComm:
-    """One rank's handle on its :class:`ShardGroup`: ``rank``, ``n`` and the
+    """One rank's handle on a set of ranks of its :class:`ShardGroup` (all
+    of them, or one mesh axis's: :meth:`axis`): ``rank``, ``n`` and the
     collectives. Built by :meth:`ShardGroup.run`."""
 
-    def __init__(self, group: "ShardGroup", rank: int):
+    def __init__(self, group: "ShardGroup", sync: _Sync, rank: int, coords: Optional[Dict[str, int]] = None):
         self.group = group
         self.rank = rank
-        self.n = group.n
+        self.n = sync.n
+        self.coords = coords
+        self._sync = sync
         self._calls = 0
+        self._views: Dict[str, "ShardComm"] = {}
+
+    def axis(self, name: str) -> "ShardComm":
+        """This rank's view of mesh axis ``name``: the ranks that share its
+        other coordinate, ranked along ``name``, with a barrier of their own
+        (one view a name, so its collectives keep their count)."""
+        if name not in self._views:
+            if self.coords is None or name not in self.coords:
+                raise ValueError(f"no mesh axis {name!r} in this group")
+            sync = self.group._syncs[_axis_key(self.coords, name)]
+            self._views[name] = ShardComm(self.group, sync, self.coords[name], self.coords)
+        return self._views[name]
 
     def _exchange(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Every rank's ``x`` (cloned), in rank order. Two slot lists
         alternate: a rank can refill one only after the next barrier, which
         every rank reaches only after it has read this one."""
-        slots = self.group._slots[self._calls % 2]
+        slots = self._sync.slots[self._calls % 2]
         self._calls += 1
         slots[self.rank] = x.clone()
-        self.group._wait()
+        self._sync.barrier.wait()
         return list(slots)
 
     def ppermute(self, x: torch.Tensor, shift: int) -> torch.Tensor:
@@ -103,19 +152,35 @@ def _first_tensor(tree) -> Optional[torch.Tensor]:
     return None
 
 
-class ShardGroup:
-    """``n`` ranks as threads on one device (module docstring)."""
+def _axis_key(coords: Dict[str, int], name: str):
+    return name, tuple((k, v) for k, v in coords.items() if k != name)
 
-    def __init__(self, n: int, timeout: float = 600.0):
+
+class ShardGroup:
+    """``n`` ranks as threads on one device (module docstring). ``axes``
+    (e.g. ``{"stream": 2, "space": 4}``, product ``n``) makes it a mesh:
+    rank r has the row-major coordinates of r, and
+    :meth:`ShardComm.axis` its views."""
+
+    def __init__(self, n: int, timeout: float = 600.0, axes: Optional[Dict[str, int]] = None):
         if n < 1:
             raise ValueError(f"a shard group needs at least one rank, got {n}")
+        if axes is not None and math.prod(axes.values()) != n:
+            raise ValueError(f"mesh axes {axes} do not hold {n} ranks")
         self.n = n
         self.timeout = timeout
-        self._barrier: Optional[threading.Barrier] = None
-        self._slots = None
+        self.axes = dict(axes) if axes is not None else None
+        self._syncs: Optional[dict] = None
 
-    def _wait(self) -> None:
-        self._barrier.wait()
+    def coords(self, rank: int) -> Optional[Dict[str, int]]:
+        """Rank ``rank``'s mesh coordinates (row-major), None without axes."""
+        if self.axes is None:
+            return None
+        out = {}
+        for name, size in reversed(list(self.axes.items())):
+            out[name] = rank % size
+            rank //= size
+        return {k: out[k] for k in self.axes}
 
     def run(self, fn: Callable, *per_shard_args: Sequence) -> list:
         """``fn(rank, ctx, *(a[rank] for a in per_shard_args))`` on ``n``
@@ -129,8 +194,13 @@ class ShardGroup:
         if t is not None and t.is_cuda:
             _native.library()  # build before the threads start
             stream = torch.cuda.current_stream(t.device)
-        self._barrier = threading.Barrier(n, timeout=self.timeout)
-        self._slots = ([None] * n, [None] * n)
+        self._syncs = {None: _Sync(n, self.timeout)}
+        for r in range(n if self.axes else 0):
+            c = self.coords(r)
+            for name in self.axes:
+                key = _axis_key(c, name)
+                if key not in self._syncs:
+                    self._syncs[key] = _Sync(self.axes[name], self.timeout)
         results: list = [None] * n
         errors: list = [None] * n
 
@@ -140,20 +210,160 @@ class ShardGroup:
                     if stream is not None:
                         stack.enter_context(torch.cuda.device(stream.device))
                         stack.enter_context(torch.cuda.stream(stream))
-                    results[rank] = fn(rank, ShardComm(self, rank), *(a[rank] for a in per_shard_args))
+                    comm = ShardComm(self, self._syncs[None], rank, self.coords(rank))
+                    results[rank] = fn(rank, comm, *(a[rank] for a in per_shard_args))
             except BaseException as e:  # noqa: BLE001 - re-raised by run()
                 errors[rank] = e
-                self._barrier.abort()
+                for sync in self._syncs.values():
+                    sync.barrier.abort()
 
         threads = [threading.Thread(target=worker, args=(r,), name=f"shard-{r}") for r in range(n)]
         for th in threads:
             th.start()
         for th in threads:
             th.join()
-        self._slots = None
+        self._syncs = None
         first = next((e for e in errors if e is not None and not isinstance(e, threading.BrokenBarrierError)), None)
         if first is not None:
             raise first
         if any(e is not None for e in errors):
             raise TimeoutError(f"shard group: a rank waited more than {self.timeout} s at a collective")
         return results
+
+
+# -- the mesh and the stream-batched runners ------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """``stream`` × ``space`` ranks on ``device`` (``jax.sharding.Mesh``
+    with the axis names ``("stream", "space")``)."""
+
+    stream: int
+    space: int
+    device: torch.device
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"stream": self.stream, "space": self.space}
+
+    @property
+    def size(self) -> int:
+        return self.stream * self.space
+
+    def group(self) -> ShardGroup:
+        """A :class:`ShardGroup` of the mesh's ranks, with its two axes."""
+        return ShardGroup(self.size, axes=self.shape)
+
+
+def make_mesh(n_devices: Optional[int] = None, stream: Optional[int] = None, device=None) -> Mesh:
+    """2-D mesh (stream × space) of ``n_devices`` ranks (default 1) on
+    ``device`` (default the card), split as ``tracking_tpu``'s
+    ``make_mesh``: without ``stream``, n's largest divisor d ≤ √n and n / d,
+    the larger of the two on the stream axis (it needs no communication)."""
+    n = 1 if n_devices is None else n_devices
+    if n < 1:
+        raise ValueError(f"a mesh needs at least one rank, got {n}")
+    if stream is None:
+        stream = 1
+        for cand in range(math.isqrt(n), 0, -1):
+            if n % cand == 0:
+                stream = max(cand, n // cand)
+                break
+    if stream < 1 or n % stream:
+        raise ValueError(f"{n} ranks do not split into {stream} streams")
+    return Mesh(stream, n // stream, torch.device("cuda" if device is None else device))
+
+
+def video_batch_spec() -> tuple:
+    """The mesh axis of each dim of a [B, T, H, W, C] video batch: B on
+    ``stream``, H on ``space``."""
+    return ("stream", None, "space", None, None)
+
+
+def shard_video_batch(frames: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
+    """A [B, T, H, W(, C)] batch as the mesh's per-rank blocks [B/stream,
+    T, H/space, W(, C)] on its device, in rank order (rank = i · space + j
+    holds stream block i, row block j)."""
+    b, _, h = frames.shape[:3]
+    if b % mesh.stream or h % mesh.space:
+        raise ValueError(f"a batch of {b} streams x {h} rows does not split over the mesh {mesh.shape}")
+    bs, hp = b // mesh.stream, h // mesh.space
+    frames = frames.to(mesh.device)
+    return [
+        frames[i * bs : (i + 1) * bs, :, j * hp : (j + 1) * hp].contiguous()
+        for i in range(mesh.stream)
+        for j in range(mesh.space)
+    ]
+
+
+def stream_states(algo, frames: torch.Tensor, states=None) -> list:
+    """One state per stream of ``frames`` [B, T, H, W(, C)]: ``init`` and
+    ``warm_start`` on each stream's frame 0, or a stacked ``states`` split
+    into per-stream clones (the kernels update state tensors in place)."""
+    b, _, h, w = frames.shape[:4]
+    c = frames.shape[4] if frames.ndim == 5 else 1
+    if states is None:
+        return [algo.warm_start(algo.init(h, w, c, device=frames.device), frames[i, 0]) for i in range(b)]
+    return split_states(states, b, device=frames.device)
+
+
+def run_streams(algo, states: list, frames: torch.Tensor, use_kernels: bool = True, ctx=None):
+    """Step ``len(states)`` streams over frames [B, T, ...]: ``t`` outer,
+    stream inner, as a multi-camera server runs them. Returns (states,
+    masks [B, T, H, W]); ``ctx`` is passed to each step where given."""
+    kw = {} if ctx is None else {"ctx": ctx}
+    states = list(states)
+    masks: List[list] = [[] for _ in states]
+    for t in range(frames.shape[1]):
+        for i in range(len(states)):
+            states[i], fg, _ = algo.step(states[i], frames[i, t], use_kernels=use_kernels, **kw)
+            masks[i].append(fg)
+    return states, torch.stack([torch.stack(m) for m in masks])
+
+
+def run_video_batch_shardmap(algo, frames: torch.Tensor, mesh: Mesh, states=None, use_kernels: bool = True):
+    """Stream-parallel batch (``tracking_tpu`` ``run_video_batch_shardmap``):
+    each of the mesh's ``stream`` ranks runs its B/stream whole streams with
+    no collective (per-stream state is private). The ``space`` axis only
+    replicates that work there, so its ranks are not run here.
+
+    frames [B, T, H, W(, C)] u8, B divisible by the stream size, placed on
+    the mesh's device. Returns (states stacked along B, masks [B, T, H, W])."""
+    frames = frames.to(mesh.device)
+    b = frames.shape[0]
+    if b % mesh.stream:
+        raise ValueError(f"{b} streams do not split over {mesh.stream} stream ranks")
+    per = b // mesh.stream
+    states = stream_states(algo, frames, states)
+    blocks = [range(i * per, (i + 1) * per) for i in range(mesh.stream)]
+
+    def rank_fn(rank, comm, idx):
+        return run_streams(algo, [states[i] for i in idx], frames[idx.start : idx.stop], use_kernels)
+
+    out = ShardGroup(mesh.stream).run(rank_fn, blocks)
+    return stack_states([s for o in out for s in o[0]]), torch.cat([o[1] for o in out])
+
+
+def run_video_batch(algo, frames: torch.Tensor, states=None, mesh: Optional[Mesh] = None, use_kernels: bool = True):
+    """Multi-stream batch: frames [B, T, H, W(, C)] -> (states stacked along
+    B, masks [B, T, H, W]) (``tracking_tpu`` ``run_video_batch``).
+
+    With a mesh whose ``space`` axis splits H into slabs of at least the
+    halo, an algorithm whose ``step`` takes ``ctx`` (SuBSENSE, LOBSTER) runs
+    :func:`~tracking_tpu_torch.parallel.spatial.run_video_batch_spatial`,
+    streams × row shards. Otherwise the frames go to the mesh's device and
+    each stream runs unsharded, frame ``t`` of every stream before frame
+    ``t + 1``: where the JAX package lets XLA partition the batched scan
+    over the mesh, the computation is the same, and on one device there is
+    nothing to partition."""
+    if mesh is not None:
+        from tracking_tpu_torch.parallel.spatial import HALO, run_video_batch_spatial
+
+        h = frames.shape[2]
+        if (mesh.space > 1 and "ctx" in inspect.signature(algo.step).parameters and h % mesh.space == 0
+                and h // mesh.space >= HALO):
+            return run_video_batch_spatial(algo, frames, mesh, states=states, use_kernels=use_kernels)
+        frames = frames.to(mesh.device)
+    sts, masks = run_streams(algo, stream_states(algo, frames, states), frames, use_kernels)
+    return stack_states(sts), masks

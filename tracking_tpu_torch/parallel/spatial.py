@@ -19,10 +19,22 @@ reachability (``flood_reach``), the min-label fixed point
 ``use_kernels=False`` takes their plain versions. Row indices are Python
 integers here (a rank knows its rows), where the JAX version traces them.
 
-Entry points: :func:`run_video_spatial` and :func:`run_video_spatial_tracked`
-(SuBSENSE v1 followed by the CC / CCMSPF tracker). State is made and
-warm-started unsharded, then split by :func:`shard_state` and joined by
-:func:`gather_state`.
+Entry points: :func:`run_video_spatial` (one stream of SuBSENSE - v1, v3,
+or v1 under ``TRACKING_TPU_FUSED=1`` as in the JAX package - or LOBSTER),
+:func:`run_video_spatial_tracked` (SuBSENSE followed by the CC / CCMSPF
+tracker) and :func:`run_video_batch_spatial` (streams × row shards on a
+``Mesh``, each stream row a ``space`` view of the 2-D group with a barrier
+of its own: ``parallel/mesh.py``). ``parallel/mesh.py:run_video_batch``
+routes to the last. State is made and warm-started unsharded, then split
+by :func:`shard_state` and joined by :func:`gather_state`.
+
+The unbounded loops (:func:`sharded_fill`, :func:`sharded_label`) stop
+when their row's summed change flag is 0. The JAX package sums that flag
+over both mesh axes (``conv_axes``) to keep XLA:CPU's in-process
+rendezvous in step, so there a converged row runs the other rows' extra
+rounds; each such round only re-confirms its fixed point (the boundary
+rows injected are the ones it converged on), so a row that stops on its
+own count gives the same bits.
 """
 
 from __future__ import annotations
@@ -32,8 +44,9 @@ from typing import List, Optional
 
 import torch
 
+from tracking_tpu_torch.convert import stack_states
 from tracking_tpu_torch.ops.consensus import slab_shift
-from tracking_tpu_torch.parallel.mesh import ShardComm, ShardGroup
+from tracking_tpu_torch.parallel.mesh import Mesh, ShardComm, ShardGroup, run_streams, stream_states
 
 HALO = 8  # the frame slabs' halo rows: LBSP ±2, spread ±2, refresh pattern ±3 (+ slack)
 N_CAND = 128  # blob-root candidates a frame (the sharded table is exact up to this many components)
@@ -402,7 +415,7 @@ def gather_state(states: List, specs):
 def _check_algo(algo) -> None:
     if "ctx" not in inspect.signature(algo.step).parameters:
         raise ValueError(
-            f"{type(algo).__name__}.step has no spatial-context support; the port shards SuBSENSE only"
+            f"{type(algo).__name__}.step has no spatial-context support; the port shards SuBSENSE and LOBSTER"
         )
 
 
@@ -446,6 +459,41 @@ def run_video_spatial(
 
     out = ShardGroup(n_shards).run(shard_fn, shards)
     return gather_state([o[0] for o in out], specs), torch.cat([o[1] for o in out], dim=1)
+
+
+def run_video_batch_spatial(algo, frames: torch.Tensor, mesh: Mesh, states=None, use_kernels: bool = True):
+    """Streams × row shards (``tracking_tpu`` ``run_video_batch_spatial``):
+    frames [B, T, H, W(, C)] on the ``stream`` × ``space`` ranks of
+    ``mesh``; rank (i, j) owns B/stream streams of block i and the H/space
+    rows of block j of each, and steps its streams frame by frame, ``t``
+    outer and stream inner, with a :class:`SpatialCtx` over the ``space``
+    view of its stream row (``parallel/mesh.py``: each row has its own
+    barrier; the stream axis runs no collective). States are made and
+    warm-started unsharded per stream (or split from the stacked
+    ``states``). Returns (the gathered states stacked along B, masks [B, T,
+    H, W]), bit-identical to each stream's unsharded run."""
+    _check_algo(algo)
+    frames = frames.to(mesh.device)
+    b, h = frames.shape[0], frames.shape[2]
+    if b % mesh.stream or h % mesh.space:
+        raise ValueError(f"a batch of {b} streams x {h} rows does not split over the mesh {mesh.shape}")
+    per, p = b // mesh.stream, mesh.space
+    sts = stream_states(algo, frames, states)
+    specs = spatial_specs(sts[0], h)
+    shards = [shard_state(st, specs, p) for st in sts]  # [stream][row block]
+    local = [[shards[k][j] for k in range(i * per, (i + 1) * per)] for i in range(mesh.stream) for j in range(p)]
+
+    def rank_fn(rank, comm, states_loc):
+        i = comm.coords["stream"]
+        ctx = SpatialCtx(comm.axis("space"), h, device=frames.device)
+        slabs = torch.stack([_frame_slabs(ctx, frames[k]) for k in range(i * per, (i + 1) * per)])
+        return run_streams(algo, states_loc, slabs, use_kernels, ctx=ctx)
+
+    out = mesh.group().run(rank_fn, local)
+    rows = [out[i * p : (i + 1) * p] for i in range(mesh.stream)]  # each stream row's ranks
+    states_out = [gather_state([o[0][k] for o in row], specs) for row in rows for k in range(per)]
+    masks = torch.cat([torch.cat([o[1] for o in row], dim=2) for row in rows])
+    return stack_states(states_out), masks
 
 
 def run_video_spatial_tracked(

@@ -18,8 +18,9 @@ the fuzzy-integral, type-2 fuzzy GMM / MRF, KDE, IMBS and Eigenbackground
 algorithms alone and in a fan-out with SuBSENSE; MultiCue and LbpMrf alone
 and in a fan-out with SuBSENSE; SuBSENSE in batches of 1, 2 and 4 streams,
 on a 2 x 2 stream x space mesh, and LOBSTER, SuBSENSE v3 and the fused
-switch in 4 row shards - and fails (non-zero exit, no result line) on any
-broken phase:
+switch in 4 row shards; the blob table (``ops/blobs.py``) on SuBSENSE's
+masks; the native FFmpeg reader and MJPEG writer - and fails (non-zero
+exit, no result line) on any broken phase:
 
 1. device: the card's name and power limit; no CUDA device is an error;
 2. build: compiles the twelve CUDA kernels from ``tracking_tpu_torch/csrc``
@@ -120,7 +121,8 @@ broken phase:
    ``bg_model_preload`` equals an unbroken run; GMG's u32 and FGD's f16
    leaves round-trip a checkpoint; where cv2 imports, ``tracking_run`` on an
    FFV1 AVI of the clip's first 16 frames gives the same CSV (else it says
-   so);
+   so), read through the native reader where it builds (its
+   ``vio_read_batch`` calls counted), else through cv2;
 4g. the BGS apps (``runner/cli.run_bgs``, the loop of ``bgs-run``, on the
    clip's frames in chunks of 8; ``cdnet_run`` on JPEGs of the clip):
    the default config directory (its 3 XMLs written; FrameDifference
@@ -199,6 +201,19 @@ broken phase:
    ``consensus_read``; ``consensus`` 0 times under v3, ``consensus_feedback``
    0 times under the fused switch, which runs v1 there); the first 3 frames
    of the first three again through the plain versions;
+4l. the blob table: ``blob_properties`` (with the gray frame, 64 slots) on 8
+   of SuBSENSE's masks at 720p launches ``label_components`` once a call
+   and nothing else, and its tables equal those from the plain labels
+   bit for bit; on the masks' top-left 360x640 the card's table, every
+   ``get_*`` evaluator, ``moment_ellipse`` and a ``filter_blobs`` +
+   ``nth_blob`` + ``paint_blobs`` chain equal a CPU run of the port bit for
+   bit; ``native.build()`` (its library or the compiler's reason is
+   printed); where it builds, ``VideoSource.chunks`` on phase 4f's AVI
+   (chunk 5 with ``max_frames`` 11; chunk 6 with flip and an ROI) yields
+   cv2's frames through the native reader, and the masks written through
+   ``native.VideoWriter`` decode through cv2 at 720x1280 (where it does not
+   build, files are read through cv2 and the run goes on, as the JAX
+   package chooses);
 5. the first 16 SuBSENSE + tracker frames again through the plain
    versions: masks, track ids and positions must equal the kernel run's;
 6. timing with CUDA events: each kernel beside its plain version and its
@@ -238,7 +253,11 @@ broken phase:
    ``run_video_batch`` of SuBSENSE at 1, 2 and 4 streams in turns
    (aggregate and per-stream ms/frame) and each batch's profile (busy
    share, kernels per frame); LOBSTER's and SuBSENSE v3's steps unsharded
-   and in 4 row shards, in turns.
+   and in 4 row shards, in turns; ``blob_properties`` at 720p (CUDA events,
+   device operations and device ms a call), and where the native reader
+   builds, the decode ms/frame of a 48-frame FFV1 AVI and the tracking
+   app's ms/frame on it, through the native reader and through cv2 in
+   turns.
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -254,6 +273,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 H, W, C = 720, 1280, 3
@@ -319,6 +339,15 @@ BATCH_FRAMES = 16
 SHARDED_FRAMES = 8
 SHARDED_PLAIN = 3
 BATCH_TIMED = (10, 2)
+# phase 4l: the blob table on SuBSENSE's masks of the clip (the evaluator
+# chain also on the top-left crop against a CPU run), then the native FFmpeg
+# reader on phase 4f's FFV1 AVI (chunk, max_frames, flip, ROI) and its MJPEG
+# writer; phase 6 decodes a longer AVI and runs the app on it through each
+# reader
+BLOB_FRAMES = 8
+BLOB_CUT = (360, 640)
+READER_CASES = ((5, 11, False, None), (6, 0, True, (100, 50, 900, 600)))
+READER_FRAMES = 48
 APP_FRAMES = 32  # phase 4f: the tracking app
 APP_CHUNK = 16
 APP_TRAIN = 8  # FGTrainFrames
@@ -2209,10 +2238,19 @@ def app_path(clip, frames, dev, results, out) -> None:
     for f in clip[:APP_CHUNK]:
         vw.write(f)
     vw.release()
-    cli.tracking_run([avi, "--quiet", "--chunk", str(APP_CHUNK), "--track", f"{out}/avi.csv", "--btgen", "RawTracks"])
+    from tracking_tpu_torch import native
+
+    lib = native.load()
+    with counted(lib, "vio_read_batch") if lib else contextlib.nullcontext([]) as reads:
+        cli.tracking_run([avi, "--quiet", "--chunk", str(APP_CHUNK), "--track", f"{out}/avi.csv",
+                          "--btgen", "RawTracks"])
+    why = native.last_error.splitlines() if native.last_error else [""]
+    reader = (f"the native reader ({len(reads)} vio_read_batch calls)" if lib else
+              f"cv2 (the native library is unavailable: {next((x for x in why if 'error' in x), why[0])})")
     check(open(f"{out}/avi.csv").read() == open(f"{out}/a.csv").read(),
-          f"cv2 {cv2.__version__} imports: tracking_run on an FFV1 AVI of the clip's first {APP_CHUNK} frames gives "
-          f"the synthetic run's track CSV")
+          f"cv2 {cv2.__version__} imports: tracking_run on an FFV1 AVI of the clip's first {APP_CHUNK} frames, read "
+          f"through {reader}, gives the synthetic run's track CSV")
+    check(not lib or len(reads) > 0, "the app read the file through the native reader where it builds")
 
 
 def bgs_args(cli, *extra):
@@ -3385,6 +3423,232 @@ def time_spatial(algo, tracker, state0, frames, dev, timing_inputs, results, tag
             [0], tag, f"sharded path ({SHARDS} shards, 3 frames with the split and join)", n_frames=3)
 
 
+@contextlib.contextmanager
+def counted(obj, name):
+    """Count the calls of ``obj.name`` inside the block: yields a list that
+    grows by one a call (``obj`` a module, a class or a ctypes library)."""
+    calls = []
+    fn = getattr(obj, name)
+
+    def wrap(*a, **k):
+        calls.append(1)
+        return fn(*a, **k)
+
+    setattr(obj, name, wrap)
+    try:
+        yield calls
+    finally:
+        setattr(obj, name, fn)
+
+
+def blob_chain(B, t, lab):
+    """Phase 4l's evaluator chain on a table: every ``get_*`` evaluator,
+    ``moment_ellipse``, ``filter_blobs`` + ``nth_blob`` + ``paint_blobs``."""
+    out = {name: getattr(B, name)(t) for name in dir(B)
+           if name.startswith("get_") and name not in ("get_moment", "get_num_blobs")}
+    out["get_distance_from_point"] = B.get_distance_from_point(t, 320.0, 180.0)
+    out["get_xy_inside"] = B.get_xy_inside(t, 320.0, 180.0)
+    out["moments"] = tuple(B.get_moment(t, p, q) for p, q in ((0, 0), (1, 0), (0, 1), (2, 0), (0, 2), (1, 1)))
+    out["moment_ellipse"] = B.moment_ellipse(t)
+    kept = B.filter_blobs(t, B.get_area(t), B.B_GREATER, 20.0)
+    out["filtered"] = tuple(kept)
+    out["num"] = B.get_num_blobs(kept)
+    out["nth"] = tuple(B.nth_blob(kept, B.get_perimeter(kept), 1))
+    out["painted"] = B.paint_blobs(lab, kept)
+    return out
+
+
+def video_frames(path, max_frames=0, flip=False, roi=None):
+    """The AVI decoded by cv2, flipped and cut as ``VideoSource`` does."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    out = []
+    while not max_frames or len(out) < max_frames:
+        ok, f = cap.read()
+        if not ok:
+            break
+        f = cv2.flip(f, 1) if flip else f
+        out.append(f if roi is None else f[roi[1]:roi[3], roi[0]:roi[2]])
+    cap.release()
+    return np.stack(out)
+
+
+def blobs_reader_path(frames, dev, app_out, out) -> dict:
+    """Phase 4l: ``blob_properties`` on SuBSENSE's masks at 720p (kernel #3's
+    labels against the plain labels, launch counts), the evaluator chain on
+    the crop against a CPU run of the port, the native reader's build and,
+    where it builds, its frames against cv2's and its writer. Returns the
+    timing phase's inputs."""
+    import cv2
+
+    from tracking_tpu_torch import get_algorithm, native
+    from tracking_tpu_torch.io.video import VideoSource
+    from tracking_tpu_torch.ops import _native
+    from tracking_tpu_torch.ops import blobs as B
+    from tracking_tpu_torch.ops.cc import label_components, label_components_ref
+    from tracking_tpu_torch.ops.color import bgr2gray_u8
+
+    print(f"[4l] blob_properties on {BLOB_FRAMES} SuBSENSE masks at {H}x{W}, the evaluator chain on the top-left "
+          f"{BLOB_CUT[0]}x{BLOB_CUT[1]} against the CPU, the native video reader and writer {elapsed()}", flush=True)
+    t_phase = time.perf_counter()
+    algo = get_algorithm("subsense")()
+    st = algo.warm_start(algo.init(H, W, C, device=dev), frames[0])
+    masks, grays = [], []
+    for t in range(1, BLOB_FRAMES + 1):
+        st, fg, _ = algo.step(st, frames[t])
+        masks.append(fg)
+        grays.append(bgr2gray_u8(frames[t]))
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    tables = [B.blob_properties(m, image=g, max_blobs=64) for m, g in zip(masks, grays)]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    check(launches == {"label_components": BLOB_FRAMES},
+          f"blob_properties launched {launches} in {BLOB_FRAMES} calls: label_components once a call, nothing else")
+    plain = [B.blob_properties(m, image=g, max_blobs=64, use_kernels=False) for m, g in zip(masks, grays)]
+    check(all(same_bits(a, b) for a, b in zip(tables, plain)),
+          f"the {H}x{W} tables from kernel #3's labels equal those from the plain labels, every field bit for bit")
+    n_valid = [int(t.valid.sum()) for t in tables]
+    big = [float(t.area.max()) for t in tables]
+    print(f"  blobs a frame {n_valid}, largest areas {big}, 2**24 passed by sumxx in "
+          f"{sum(int((t.sumxx > 2**24).sum()) for t in tables)} blobs, by sumxy in "
+          f"{sum(int((t.sumxy > 2**24).sum()) for t in tables)}", flush=True)
+    check(min(n_valid) >= 1, "every mask has blobs")
+
+    hc, wc = BLOB_CUT
+    for i, (m, g) in enumerate(zip(masks, grays)):
+        mc, gc = m[:hc, :wc].contiguous(), g[:hc, :wc].contiguous()
+        card = blob_chain(B, B.blob_properties(mc, image=gc), label_components(mc))
+        cpu = blob_chain(B, B.blob_properties(mc.cpu(), image=gc.cpu()), label_components_ref(mc.cpu()))
+        bad = sorted(k for k in card if not same_bits(cpu[k], card[k]))
+        if bad:
+            raise AssertionError(f"crop of frame {i + 1}: the card differs from the CPU in {bad}")
+    check(True, f"on the {hc}x{wc} crop of {BLOB_FRAMES} masks the card's table, every evaluator, moment_ellipse and "
+                f"the filter_blobs + nth_blob + paint_blobs chain equal a CPU run of the port bit for bit")
+
+    t0 = time.perf_counter()
+    lib_path = native.build(force=True)
+    if lib_path is None:
+        print(f"  native.build: the compiler's reason:\n{native.last_error}", flush=True)
+    print(f"  native.build() -> {lib_path} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    lib = native.load()
+    avi = f"{app_out}/clip.avi"
+    keep = {"masks": masks, "grays": grays, "avi": None}
+    if not os.path.exists(avi):  # cv2 does not import: phase 4f wrote no AVI
+        print(f"  the readers are not checked: no AVI {elapsed()}", flush=True)
+        print(f"  phase 4l: {time.perf_counter() - t_phase:.1f} s", flush=True)
+        return keep
+    keep["avi"] = f"{out}/reader.avi"
+    vw = cv2.VideoWriter(keep["avi"], cv2.VideoWriter_fourcc(*"FFV1"), 30.0, (W, H))
+    for f in frames[:READER_FRAMES].cpu().numpy():
+        vw.write(f)
+    vw.release()
+    if lib is None:
+        print(f"  the native reader is not checked: it does not build here; files are read through cv2 "
+              f"{elapsed()}", flush=True)
+        print(f"  phase 4l: {time.perf_counter() - t_phase:.1f} s", flush=True)
+        return keep
+    for chunk, max_frames, flip, roi in READER_CASES:
+        src = VideoSource(input_file=avi, enable_flip=flip, roi=roi)
+        with counted(VideoSource, "_native_chunks") as opened, counted(lib, "vio_read_batch") as reads:
+            got = list(src.chunks(chunk, max_frames=max_frames))
+        want = video_frames(avi, max_frames, flip, roi)
+        n = len(want)
+        check(len(opened) == 1 and len(reads) == len(got)
+              and [len(c) for c in got] == [min(chunk, n - i) for i in range(0, n, chunk)]
+              and np.array_equal(np.concatenate(got), want),
+              f"VideoSource.chunks({chunk}, max_frames={max_frames}) flip={flip} roi={roi}: {n} frames of "
+              f"{want.shape[1]}x{want.shape[2]} through the native reader ({len(reads)} vio_read_batch calls) "
+              f"equal cv2's")
+    path = f"{out}/blob_masks.avi"
+    w = native.VideoWriter(path, 30.0, (W, H))
+    host = [m.cpu().numpy() for m in masks]
+    for m in host:
+        w.write(m)
+    w.release()
+    back = video_frames(path)
+    err = float(np.abs(back[..., 1].astype(np.int32) - np.stack(host).astype(np.int32)).mean())
+    check(back.shape == (BLOB_FRAMES, H, W, 3) and err < 8.0,
+          f"native.VideoWriter: {BLOB_FRAMES} masks written as MJPEG decode through cv2 at {back.shape[1:]}, "
+          f"mean |error| {err:.3f} levels")
+    print(f"  phase 4l: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return keep
+
+
+def time_blobs_reader(keep, tag) -> None:
+    """Phase 6: ``blob_properties`` at 720p (CUDA events; device operations
+    and device ms under the profiler), then the decode ms/frame of a 720p
+    FFV1 AVI and the tracking app's ms/frame reading it (a whole run: its
+    loop's seconds over its frames, the first chunk's warm-up included),
+    through the native reader where it builds and through cv2, in turns."""
+    from tracking_tpu_torch import native
+    from tracking_tpu_torch.io.video import VideoSource
+    from tracking_tpu_torch.ops import blobs as B
+    from tracking_tpu_torch.runner import cli
+
+    i = max(range(BLOB_FRAMES), key=lambda j: int(keep["masks"][j].count_nonzero()))
+    m, g = keep["masks"][i], keep["grays"][i]
+    ms = [cuda_ms(lambda: B.blob_properties(m, image=g), 10, 2) for _ in range(2)]
+    plain_ms = cuda_ms(lambda: B.blob_properties(m, image=g, use_kernels=False), 3, 1)
+    n_ops, dev_ms = device_ops(lambda: B.blob_properties(m, image=g), "blob_properties", tag, reps=5)
+    print(f"  {tag} blob_properties at {H}x{W} (frame {i + 1}, {int(m.count_nonzero())} fg px, max_blobs 64): "
+          f"{ms[0]:.3f} / {ms[1]:.3f} ms a call (CUDA events), {dev_ms:.4f} device ms in {n_ops:.0f} device "
+          f"operations; with the plain labels {plain_ms:.3f} ms", flush=True)
+    avi = keep["avi"]
+    if avi is None:
+        print(f"  {tag} decode and the app from a file: not timed (no AVI: cv2 does not import)", flush=True)
+        return
+    lib = native.load()
+
+    @contextlib.contextmanager
+    def reader(name):
+        """The block reads through ``name``'s reader (checked by its calls)."""
+        if name == "native":
+            with counted(lib, "vio_read_batch") as calls:
+                yield
+        else:
+            with counted_off(native), counted(VideoSource, "_prep") as calls:
+                yield
+        if not calls:
+            raise AssertionError(f"a {name} turn did not read through {name}")
+
+    def decode(name):
+        with reader(name):
+            t0 = time.perf_counter()
+            n = sum(len(c) for c in VideoSource(input_file=avi).chunks(APP_CHUNK))
+            return (time.perf_counter() - t0) / n * 1e3
+
+    def app(name):
+        args, mod = cli.parse_tracking_args([avi, "--quiet", "--chunk", str(APP_CHUNK)])
+        algo, tracker = cli.build_modules(args, mod)
+        with reader(name), contextlib.redirect_stdout(io.StringIO()):
+            res = cli.run_tracking(VideoSource(input_file=avi).chunks(APP_CHUNK), args, algo, tracker)
+        return res.seconds / res.frames * 1e3
+
+    turns = ("native", "cv2", "cv2", "native") if lib else ("cv2", "cv2")
+    for label, fn in (("decode", decode), ("tracking app from the file", app)):
+        got = {"native": [], "cv2": []}
+        for name in turns:
+            got[name].append(fn(name))
+        native_ms = (f"{got['native'][0]:.3f} / {got['native'][1]:.3f} ms/frame" if lib else
+                     "not built here")
+        print(f"  {tag} {label}, {READER_FRAMES} frames of an FFV1 AVI at {H}x{W} in chunks of {APP_CHUNK} (in turns "
+              f"{', '.join(turns)}): native reader {native_ms}, cv2 {got['cv2'][0]:.3f} / {got['cv2'][1]:.3f} "
+              f"ms/frame", flush=True)
+
+
+@contextlib.contextmanager
+def counted_off(native):
+    """Inside the block ``native.load`` returns None: files go through cv2."""
+    fn = native.load
+    native.load = lambda: None
+    try:
+        yield
+    finally:
+        native.load = fn
+
+
 def main(argv) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check runs only on a GPU")
@@ -3623,6 +3887,9 @@ def main(argv) -> None:
     streams = batch_streams(frames)
     batch_path(streams, dev, results)
 
+    # -- 4l. the blob table and the native video reader --------------------
+    blobs_keep = blobs_reader_path(frames, dev, app_out, bgs_out)
+
     # -- 5. path against path ----------------------------------------------
     print(f"[5] the first {PATH_FRAMES} frames through the plain versions {elapsed()}", flush=True)
     st_p = clone(state0)
@@ -3730,6 +3997,7 @@ def main(argv) -> None:
     profile_app(clip, tag, app_out)
     time_bgs_apps(clip, frames, dev, bgs_out, tag)
     time_slice16(s16, frames, dev, tag)
+    time_blobs_reader(blobs_keep, tag)
 
     print(json.dumps({"kernels": [results[k] for k in SOURCES]}))
     print(card_line())

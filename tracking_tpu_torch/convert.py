@@ -12,6 +12,9 @@ A batch of streams (``parallel/mesh.py``) carries its states stacked leaf
 by leaf along a leading ``B``, the layout of JAX's vmapped pytree: both
 conversions take it as they take one state, :func:`stack_states` builds
 it and :func:`split_states` splits it into per-stream states.
+
+A blob table (``ops/blobs.py``) crosses with :func:`blob_table_from_numpy`
+and :func:`blob_table_to_numpy`.
 """
 
 from __future__ import annotations
@@ -68,3 +71,20 @@ def split_states(stacked, b: int, device=None) -> list:
 
     _map_leaves(check, [stacked])
     return [_map_leaves(lambda xs: xs[0][i].to(device, copy=True), [stacked]) for i in range(b)]
+
+
+def blob_table_from_numpy(table, device="cuda"):
+    """A JAX ``BlobTable`` whose fields are numpy arrays (or a dict of them
+    by field name) -> the port's :class:`~tracking_tpu_torch.ops.blobs.BlobTable`,
+    on the card unless ``device`` says otherwise."""
+    from tracking_tpu_torch.ops.blobs import BlobTable
+
+    get = table.get if isinstance(table, dict) else lambda f: getattr(table, f)
+    return BlobTable(*(torch.from_numpy(np.array(get(f), copy=True, order="C")).to(device) for f in BlobTable._fields))
+
+
+def blob_table_to_numpy(table) -> dict:
+    """The port's ``BlobTable`` -> a dict of numpy arrays by field name, in
+    field order (``tracking_tpu.ops.blobs.BlobTable(**d)`` rebuilds the JAX
+    package's table)."""
+    return {f: v.detach().cpu().numpy() for f, v in zip(table._fields, table)}

@@ -20,9 +20,10 @@
 Each takes every flag of the JAX app, and ``tracking-run`` the reference's
 ``name=value`` and ``prefix:Param=value`` tokens, plus ``--device``
 (default ``cuda``; an app runs on the CPU only when asked to). Video is
-read through cv2 (``io/video.py``) and mask videos are written through cv2
-(MJPG); checkpoints (``--savestate`` / ``--loadstate``, and MultiLayer's
-``bg_model_preload`` / ``saveModel``) are ``torch.save`` files
+read (``io/video.py``) and mask videos are written (MJPG) through the
+native FFmpeg library where it builds, else through cv2; checkpoints
+(``--savestate`` / ``--loadstate``, and MultiLayer's ``bg_model_preload``
+/ ``saveModel``) are ``torch.save`` files
 (``core/checkpoint.py``), not the JAX package's orbax directories.
 
 The frame loops (:func:`run_bgs`, :func:`run_tracking`) take any iterator
@@ -50,11 +51,17 @@ import torch
 
 
 def _writer(path, fps, size):
-    """MJPG / AVI writer through cv2 (the container and codec of the
-    reference's fgavi / btavi outputs)."""
-    import cv2
+    """MJPG / AVI writer (the container and codec of the reference's fgavi /
+    btavi outputs): the native FFmpeg encoder where its library loads, else
+    cv2's, as the JAX app chooses."""
+    from tracking_tpu_torch.native import VideoWriter
 
-    return cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), fps, size)
+    try:
+        return VideoWriter(path, fps, size)
+    except RuntimeError:
+        import cv2
+
+        return cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), fps, size)
 
 
 def bgs_parser() -> argparse.ArgumentParser:
@@ -229,7 +236,7 @@ def run_bgs(chunks, args, on_masks=None):
 
 def bgs_run(argv=None):
     """``bgs-run``: parse the arguments, read the frames (a PNG sequence,
-    a video file or a camera through cv2) and run :func:`run_bgs`."""
+    a video file or a camera, ``io/video.py``) and run :func:`run_bgs`."""
     from tracking_tpu_torch.io.video import VideoSource, read_frame_dir
 
     args = bgs_parser().parse_args(argv)
@@ -585,8 +592,8 @@ def _video_writers(args):
 
 
 def tracking_run(argv=None):
-    """``tracking-run``: parse the arguments, read the video through cv2 and
-    run :func:`run_tracking` on its chunks."""
+    """``tracking-run``: parse the arguments, read the video
+    (``io/video.py``) and run :func:`run_tracking` on its chunks."""
     from tracking_tpu_torch.io.video import VideoSource
 
     args, mod_params = parse_tracking_args(argv)

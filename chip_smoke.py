@@ -5,6 +5,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--ptxas]
 
+(``--nccl-only`` runs the build and phase 4m's NCCL part alone, over every
+card of a machine with several.)
+
 It drives the port's paths at 720×1280×3 on seeded synthetic clips -
 SuBSENSE followed by the default CCMSPF blob tracker; LOBSTER, GMG,
 DPTexture and MultiLayer through the registry; SuBSENSE's consensus v3 and
@@ -19,8 +22,9 @@ algorithms alone and in a fan-out with SuBSENSE; MultiCue and LbpMrf alone
 and in a fan-out with SuBSENSE; SuBSENSE in batches of 1, 2 and 4 streams,
 on a 2 x 2 stream x space mesh, and LOBSTER, SuBSENSE v3 and the fused
 switch in 4 row shards; the blob table (``ops/blobs.py``) on SuBSENSE's
-masks; the native FFmpeg reader and MJPEG writer - and fails (non-zero
-exit, no result line) on any broken phase:
+masks; the native FFmpeg reader and MJPEG writer; the process mesh (4 gloo
+processes that share the card, and NCCL over every card) - and fails
+(non-zero exit, no result line) on any broken phase:
 
 1. device: the card's name and power limit; no CUDA device is an error;
 2. build: compiles the twelve CUDA kernels from ``tracking_tpu_torch/csrc``
@@ -214,6 +218,22 @@ exit, no result line) on any broken phase:
    ``native.VideoWriter`` decode through cv2 at 720x1280 (where it does not
    build, files are read through cv2 and the run goes on, as the JAX
    package chooses);
+4m. the process mesh (``parallel/dist.py``): one group of 4 gloo
+   processes that share the card (``make_mesh(4, backend="gloo")``, each
+   CUDA tensor of an exchange staged through the host) runs the tracked
+   path (CCMSPF, pipelined, 4 shards of 180 rows, 8 frames), then, laid
+   out as 2 x 2, ``run_video_batch_spatial`` and, as 4 x 1,
+   ``run_video_batch_shardmap`` over 4 streams of 4 frames; each equals the
+   thread group's run on the same frames bit for bit (masks, states,
+   tracks), and the kernels of each launch in the ranks (their counts set
+   to 0 when a rank's call starts, summed after: ``label_fixpoint``,
+   ``consensus`` once a shard a frame, ``flood_reach``, ``greedy_assign``;
+   ``label_components`` 0 times on the tracked path); then an NCCL group,
+   one rank a card over every card (``make_mesh(backend="nccl")``), runs
+   ``run_video_batch`` of the same streams and equals it too (one card:
+   one rank, and the run says the multi-rank NCCL exchange was not run);
+   each run prints its arguments' and results' hand-offs (CUDA IPC
+   handles, copied on the device) and each rank's device memory;
 5. the first 16 SuBSENSE + tracker frames again through the plain
    versions: masks, track ids and positions must equal the kernel run's;
 6. timing with CUDA events: each kernel beside its plain version and its
@@ -257,7 +277,10 @@ exit, no result line) on any broken phase:
    device operations and device ms a call), and where the native reader
    builds, the decode ms/frame of a 48-frame FFV1 AVI and the tracking
    app's ms/frame on it, through the native reader and through cv2 in
-   turns.
+   turns; the tracked path in 4 shards and the 4-stream batch on 4 x 1, 4
+   gloo processes against 4 threads in turns (ms/frame, aggregate for the
+   batch), the processes' start seconds, hand-offs and device memory
+   (every process's context counted) beside the threads' peak.
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -339,6 +362,18 @@ BATCH_FRAMES = 16
 SHARDED_FRAMES = 8
 SHARDED_PLAIN = 3
 BATCH_TIMED = (10, 2)
+# phase 4m: the process mesh on the one card. One group of MESH_RANKS gloo
+# processes that share it runs the tracked path (1 x 4, pipelined), a 2 x 2
+# stream x space batch and a 4 x 1 stream batch, each against the thread
+# group's run on the same frames; then an NCCL group over every card runs
+# the stream batch (run_video_batch on its default mesh). Phase 6 times
+# processes against threads in turns (ms/frame = (T(6) - T(2)) / 4: the
+# threads' wall, the processes' compute from the first rank's start to
+# the last rank's end, their hand-offs apart).
+MESH_RANKS = 4
+MESH_FRAMES = 8
+MESH_BATCH_FRAMES = 4
+MESH_TIMED = (6, 2)
 # phase 4l: the blob table on SuBSENSE's masks of the clip (the evaluator
 # chain also on the top-left crop against a CPU run), then the native FFmpeg
 # reader on phase 4f's FFV1 AVI (chunk, max_frames, flip, ROI) and its MJPEG
@@ -2418,9 +2453,14 @@ def bgs_app_path(clip, frames, dev, results, out) -> None:
         results[name]["cdnet_launches"] = launches[name]
 
 
+BIT_VIEWS = {torch.float32: torch.int32, torch.uint32: torch.int32, torch.uint16: torch.int16}
+
+
 def same_bits(a, b) -> bool:
     """Trees of tensors equal bit for bit (f32 through its int32 view: a
-    signed zero or a NaN payload counts), ``b`` moved to ``a``'s device."""
+    signed zero or a NaN payload counts; u16 and u32, which CUDA torch
+    cannot compare, through their signed views), ``b`` moved to ``a``'s
+    device."""
     if isinstance(a, dict):
         return set(a) == set(b) and all(same_bits(a[k], b[k]) for k in a)
     if isinstance(a, (tuple, list)):
@@ -2428,8 +2468,8 @@ def same_bits(a, b) -> bool:
     b = b.to(a.device)
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
+    if a.dtype in BIT_VIEWS:
+        a, b = a.view(BIT_VIEWS[a.dtype]), b.view(BIT_VIEWS[a.dtype])
     return torch.equal(a, b)
 
 
@@ -3358,6 +3398,182 @@ def time_sharded_lbsp(streams, dev, tag) -> None:
             f"{v[0]:.3f} / {v[1]:.3f}" for v in ms.values()) + " ms/frame", flush=True)
 
 
+def gib(n_bytes) -> str:
+    return f"{n_bytes / 2**30:.2f} GiB"
+
+
+def print_pool(pool, what) -> None:
+    """A process group's last call: its arguments' and results' hand-offs,
+    the ranks' compute (first start to last end) and each rank's device
+    memory."""
+    last = pool.last
+    mem = "; ".join(f"rank {r}: peak {gib(m['peak_allocated'])} allocated, {gib(m['peak_reserved'])} reserved"
+                    for r, m in enumerate(last["ranks"]) if "peak_allocated" in m)
+    used = max((m["device_used"] for m in last["ranks"] if "device_used" in m), default=0)
+    print(f"  {what}: arguments onto the ranks {last['in_s']:.3f} s, compute {last['compute_s']:.3f} s, "
+          f"results back {last['out_s']:.3f} s; {mem}; the card's memory in use at the end {gib(used)} "
+          f"(every process's context and cache)", flush=True)
+
+
+def process_mesh_path(algo, tracker, state0, frames, streams, dev, results):
+    """Phase 4m: one group of ``MESH_RANKS`` gloo processes that share the
+    card runs the tracked path (1 x 4, pipelined), a 2 x 2 stream x space
+    batch and a 4 x 1 stream batch, each against the thread group's run on
+    the same frames, bit for bit, with each rank's launch counts set to 0
+    when its call starts and read at its end; then an NCCL group over every
+    card (one rank a card) runs the stream batch. Returns the gloo mesh and
+    the thread mesh for the timing phase."""
+    from tracking_tpu_torch.parallel.mesh import make_mesh, run_video_batch_shardmap
+    from tracking_tpu_torch.parallel.spatial import run_video_batch_spatial, run_video_spatial_tracked
+
+    t_phase = time.perf_counter()
+    n, nf = MESH_RANKS, MESH_FRAMES
+    batch = streams[:, :MESH_BATCH_FRAMES]
+    print(f"[4m] process mesh: {n} gloo processes sharing the card (the tracked path, {nf} frames at {H}x{W}x{C} "
+          f"in {n} shards of {H // n} rows; {batch.shape[0]} streams x {batch.shape[1]} frames on 2 x 2 and 4 x 1), "
+          f"then NCCL over {torch.cuda.device_count()} card(s) {elapsed()}", flush=True)
+    threads = make_mesh(n, stream=1, device=dev)
+
+    def tracked(mesh):
+        return run_video_spatial_tracked(algo, tracker, frames[1 : nf + 1], states=clone(state0), pipelined=True,
+                                         mesh=mesh)
+
+    # (what, run on a mesh, its kernels, consensus launches)
+    runs = (("the tracked path on 1 x 4, pipelined", tracked, SPATIAL_KERNELS, n * nf),
+            ("run_video_batch_spatial on 2 x 2", lambda m: run_video_batch_spatial(algo, batch, m.split(2)),
+             ("consensus", "flood_reach"), batch.shape[0] * batch.shape[1] * 2),
+            ("run_video_batch_shardmap on 4 x 1", lambda m: run_video_batch_shardmap(algo, batch, m.split(n)),
+             ("consensus", "flood_reach"), batch.shape[0] * batch.shape[1]))
+    refs = [run(threads) for _, run, _, _ in runs]
+    torch.cuda.synchronize()
+    print(f"  the thread group's runs {elapsed()}", flush=True)
+
+    mesh = make_mesh(n, stream=1, device=dev, backend="gloo")
+    pool = mesh.group()
+    print(f"  {n} gloo processes started and joined in {pool.start_s:.2f} s", flush=True)
+    for (what, run, kernels, n_cons), ref in zip(runs, refs):
+        out = run(mesh)
+        la = pool.last["launches"]
+        print(f"  {what} launches (summed over the ranks): {la}", flush=True)
+        for k in kernels:
+            check(la[k] > 0, f"{what}: {k} launched {la[k]} times in the ranks")
+        check(la["consensus"] == n_cons, f"{what}: consensus launched {la['consensus']} times ({n_cons} expected)")
+        if kernels is SPATIAL_KERNELS:
+            check(la["label_components"] == 0, f"{what}: label_components launched 0 times")
+            results["label_fixpoint"]["process_mesh_launches"] = la["label_fixpoint"]
+        check(same_bits(ref, out), f"{what}: masks, states{', tracks' if kernels is SPATIAL_KERNELS else ''} equal "
+                                   f"the thread group's run bit for bit")
+        print_pool(pool, what)
+
+    nccl_mesh_path(algo, batch, refs[1])
+    print(f"  phase 4m: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return mesh, threads
+
+
+def nccl_mesh_path(algo, batch, ref) -> None:
+    """Phase 4m's NCCL part: a group of one process a card over every card
+    (``make_mesh(backend="nccl")``) runs ``run_video_batch`` of the batch on
+    its default mesh and, laid out a stream a card, the shardmap; each
+    equals ``ref`` (the thread group's run of the batch) bit for bit. On
+    one card that is one rank, and it says so."""
+    import torch.distributed as dist
+
+    from tracking_tpu_torch.parallel.mesh import make_mesh, run_video_batch, run_video_batch_shardmap
+
+    check(dist.is_nccl_available(), "torch.distributed has NCCL")
+    with make_mesh(backend="nccl") as nccl:
+        group = nccl.group()
+        print(f"  NCCL: {nccl.size} rank(s), one a card, mesh {nccl.shape}, started and joined in "
+              f"{group.start_s:.2f} s", flush=True)
+        runs = ((f"run_video_batch on the NCCL mesh {nccl.shape}", lambda: run_video_batch(algo, batch, mesh=nccl),
+                 nccl.space),)
+        if nccl.size > 1:
+            runs += ((f"run_video_batch_shardmap on the NCCL mesh {nccl.size} x 1",
+                      lambda: run_video_batch_shardmap(algo, batch, nccl.split(nccl.size)), 1),)
+        for what, run, shards in runs:
+            out = run()
+            la = group.last["launches"]
+            check(la["consensus"] == batch.shape[0] * batch.shape[1] * shards,
+                  f"{what}: consensus launched {la['consensus']} times in the ranks")
+            check(same_bits(ref, out), f"{what}: masks and states equal the thread group's run bit for bit")
+            print_pool(group, what)
+        if nccl.size < 2:
+            print("  the multi-rank NCCL exchange was not run: this machine has one card", flush=True)
+
+
+def nccl_only(algo, frames, dev, kind) -> None:
+    """``--nccl-only``: phase 4m's NCCL part alone, for a machine with
+    several cards: the 4-stream batch on the thread group (2 x 2 on card 0),
+    then on the NCCL group over every card."""
+    from tracking_tpu_torch.parallel.mesh import make_mesh
+    from tracking_tpu_torch.parallel.spatial import run_video_batch_spatial
+
+    batch = batch_streams(frames)[:, :MESH_BATCH_FRAMES]
+    print(f"[4m] NCCL alone over {torch.cuda.device_count()} card(s): {batch.shape[0]} streams x {batch.shape[1]} "
+          f"frames at {H}x{W}x{C} {elapsed()}", flush=True)
+    ref = run_video_batch_spatial(algo, batch, make_mesh(MESH_RANKS, stream=2, device=dev))
+    nccl_mesh_path(algo, batch, ref)
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def time_process_mesh(mesh, threads, algo, tracker, state0, frames, streams, tag) -> None:
+    """Phase 6: the tracked path in 4 shards and the 4-stream batch on 4 x 1,
+    on the gloo processes and on the threads, in turns, ms a frame as
+    (T(6) - T(2)) / 4: for the threads the wall with the device
+    synchronized (the states' split and join cancel), for the processes
+    their compute, from the first rank's start to the last rank's end (the
+    ranks meet in one collective before they start; each device
+    synchronized), with each call's hand-offs and wall beside it; the
+    processes' device memory."""
+    from tracking_tpu_torch.parallel.mesh import run_video_batch_shardmap
+    from tracking_tpu_torch.parallel.spatial import run_video_spatial_tracked
+
+    long_, short = MESH_TIMED
+    pool = mesh.group()
+    warm = run_video_batch_shardmap(algo, streams[:, :2], threads.split(MESH_RANKS))[0]
+    b = streams.shape[0]
+    paths = {
+        f"SuBSENSE + CCMSPF in {MESH_RANKS} shards": (
+            lambda m, k: run_video_spatial_tracked(algo, tracker, frames[1 : k + 1], states=clone(state0), mesh=m), 1),
+        f"run_video_batch_shardmap, {b} streams on {MESH_RANKS} x 1": (
+            lambda m, k: run_video_batch_shardmap(algo, streams[:, 2 : 2 + k], m.split(MESH_RANKS), states=warm), b),
+    }
+    for label, (run, per) in paths.items():
+        def timed(m, k):
+            """(seconds of the call's wall, of its compute): the threads'
+            compute is their wall."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(m, k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return wall, (wall if m is threads else pool.last["compute_s"])
+
+        ms = {"threads": [], "processes": []}
+        calls = []
+        for arm, m in (("threads", threads), ("processes", mesh), ("processes", mesh), ("threads", threads)):
+            if arm == "threads":
+                torch.cuda.reset_peak_memory_stats()
+            w_long, c_long = timed(m, long_)
+            last = pool.last
+            w_short, c_short = timed(m, short)
+            ms[arm].append((c_long - c_short) / (long_ - short) * 1e3 / per)
+            if arm == "threads":
+                peak = torch.cuda.max_memory_allocated()
+            else:
+                calls.append(f"{w_long:.3f} s for {long_} frames (arguments onto the ranks {last['in_s']:.3f} s, "
+                             f"compute {last['compute_s']:.3f} s, results back {last['out_s']:.3f} s), "
+                             f"{w_short:.3f} s for {short}")
+        print(f"  {tag} {label}, {MESH_RANKS} threads · {MESH_RANKS} gloo processes on the card (in turns): "
+              + " · ".join(f"{v[0]:.3f} / {v[1]:.3f}" for v in ms.values())
+              + f" ms/frame{' aggregate' if per > 1 else ''} (the processes' compute); the threads' peak device "
+                f"memory {gib(peak)}", flush=True)
+        print(f"  {tag} {label}, the processes' calls: " + "; ".join(calls), flush=True)
+        print_pool(pool, f"{tag} {label}, the processes' last call")
+    print(f"  {tag} the gloo group's start: {pool.start_s:.2f} s", flush=True)
+
+
 def time_spatial(algo, tracker, state0, frames, dev, timing_inputs, results, tag) -> None:
     """Phase 6 for the sharded path: label_fixpoint and the slab mode beside
     their plain versions and bounds, the unsharded consensus on the same
@@ -3705,6 +3921,9 @@ def main(argv) -> None:
     print(f"  synthetic clips {tuple(frames.shape)}, sensor noise 2.5 and {FGD_NOISE}, in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     algo = get_algorithm("subsense")()
+    if "--nccl-only" in argv:
+        nccl_only(algo, frames, dev, kind)
+        return
     tracker = BlobTracker()
     state0 = algo.warm_start(algo.init(H, W, C, device=dev), frames[0])
     results = {
@@ -3890,6 +4109,9 @@ def main(argv) -> None:
     # -- 4l. the blob table and the native video reader --------------------
     blobs_keep = blobs_reader_path(frames, dev, app_out, bgs_out)
 
+    # -- 4m. the process mesh -----------------------------------------------
+    proc_mesh, thread_mesh = process_mesh_path(algo, tracker, state0, frames, streams, dev, results)
+
     # -- 5. path against path ----------------------------------------------
     print(f"[5] the first {PATH_FRAMES} frames through the plain versions {elapsed()}", flush=True)
     st_p = clone(state0)
@@ -3955,6 +4177,8 @@ def main(argv) -> None:
     time_slab_kernels(timing_inputs, results, tag)
     time_batch(streams, dev, tag)
     time_sharded_lbsp(streams, dev, tag)
+    time_process_mesh(proc_mesh, thread_mesh, algo, tracker, state0, frames, streams, tag)
+    proc_mesh.close()
     del streams
     print(f"  {elapsed()}", flush=True)
     for k in SOURCES:

@@ -161,9 +161,14 @@ def check(rc: int, name: str) -> None:
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``/``shape``."""
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``/``shape``
+    on the current device (a kernel launches on the current device's
+    stream: a rank bound to another card would pass it foreign pointers)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: the tensor is on {t.device}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -1,6 +1,9 @@
-"""Streams and row shards on the ranks of a
-:class:`~tracking_tpu_torch.parallel.mesh.ShardGroup` (``parallel/mesh.py``:
-the mesh and the stream-batched runners; ``parallel/spatial.py``: row
-sharding of a stream), counterpart of ``tracking_tpu/parallel``."""
+"""Streams and row shards on the ranks of a mesh, counterpart of
+``tracking_tpu/parallel``: ``parallel/mesh.py``, the mesh, its thread group
+(:class:`~tracking_tpu_torch.parallel.mesh.ShardGroup`, ranks on one device)
+and the stream-batched runners; ``parallel/dist.py``, the process group
+(one process a rank, NCCL across cards or gloo for ranks that share a
+device) behind the same collectives; ``parallel/spatial.py``, row sharding
+of a stream."""
 
 from tracking_tpu_torch.parallel.mesh import make_mesh, run_video_batch, shard_video_batch  # noqa: F401

@@ -1,0 +1,396 @@
+"""The mesh's ranks as processes, one per device: the counterpart of
+``shard_map`` over several chips (``tracking_tpu/parallel/mesh.py``).
+
+:class:`DistGroup` starts ``n`` worker processes (``torch.multiprocessing``,
+``spawn``: CUDA cannot be forked) that live until :meth:`DistGroup.close`.
+Each joins one ``torch.distributed`` process group (a file store in a
+temporary directory) and holds a :class:`DistComm`, which keeps the
+semantics of the thread group's ``ShardComm`` (``parallel/mesh.py``):
+
+- ``ppermute(x, shift)``: rank r sends to r + shift through
+  ``batch_isend_irecv``; a rank that receives nothing gets zeros. A rank
+  with no peer at a hop posts no op, and one with no op at all does not
+  enter the batch call;
+- ``psum`` / ``pmax``: an ``all_gather``, then the reduction in rank order
+  0..n−1 on every rank, so a float sum has the thread group's bits (a
+  ring ``all_reduce`` sums in another order);
+- ``all_gather(x, dim)``: the ranks' ``x`` concatenated in rank order;
+- ``axis("stream")`` / ``axis("space")``: the rank's column and row
+  groups, made once at start-up with ``dist.new_group`` (every rank makes
+  every group, in one order), so a stream row synchronises only with
+  itself.
+
+The transport is the backend the caller names: ``"nccl"`` puts rank r on
+``cuda:r`` (``torch.cuda.set_device`` before any allocation) and moves
+tensors card to card; ``"gloo"`` serves ranks that share one device - the
+CPU, or one card, where each CUDA tensor is staged through the host, since
+gloo's point-to-point calls take host tensors only. A bool tensor crosses
+as its bytes.
+
+:meth:`DistGroup.run` sends each rank its arguments and runs a module-level
+``fn(rank, comm, *args)`` there (a closure does not pickle). Tensors go
+through the ranks' pipes by handle (``torch.multiprocessing``'s reducers):
+a CUDA tensor as a CUDA IPC handle, a CPU tensor as shared memory (its
+storage moves there, its values unchanged). A rank copies its arguments
+onto its device - on the card it shares with the caller device to device,
+from another card peer to peer - so the caller's tensors stay as they were;
+its results come back the same way and are copied onto the group's
+``home`` device, so they outlive the group. Each rank takes an equal share
+of the parent's intra-op threads. The environment's ``TRACKING_TPU_*``
+switches go with each call. The parent builds the CUDA kernels before the
+workers start; the workers only load them. A rank that raises fails the
+call with its exception (its traceback in a note), and the group is torn
+down; a collective that waits longer than ``timeout`` raises in its rank.
+The workers import neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import datetime
+import math
+import os
+import pickle
+import shutil
+import tempfile
+import time
+import traceback
+import weakref
+from multiprocessing.connection import wait
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from tracking_tpu_torch.ops import _native
+from tracking_tpu_torch.parallel.mesh import Collectives, mesh_coords
+
+BACKENDS = ("nccl", "gloo")
+SWITCHES = "TRACKING_TPU_"  # the environment switches that go with each call
+
+
+def check_backend(backend: str, devices: Sequence[torch.device]) -> None:
+    """Raise unless ``backend`` can carry ranks on ``devices``."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: expected one of {BACKENDS}")
+    if backend == "nccl":
+        if not torch.cuda.is_available():
+            raise RuntimeError("backend 'nccl' puts one rank on each card, and no card is available")
+        if not dist.is_nccl_available():
+            raise RuntimeError("backend 'nccl': this torch has no NCCL")
+        if len(devices) > torch.cuda.device_count():
+            raise RuntimeError(f"backend 'nccl' puts one rank on each card: {len(devices)} ranks, "
+                               f"{torch.cuda.device_count()} cards")
+        if any(d.type != "cuda" for d in devices) or len({d.index for d in devices}) != len(devices):
+            raise ValueError(f"backend 'nccl' needs one card a rank, got {[str(d) for d in devices]}")
+
+
+def map_tensors(fn, tree, leaf=torch.Tensor):
+    """``fn`` on every ``leaf`` (a tensor) of a tree of dicts, lists, tuples
+    and named tuples; other leaves as they are."""
+    if isinstance(tree, leaf):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v, leaf) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tensors(fn, v, leaf) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_tensors(fn, v, leaf) for v in tree)
+    return tree
+
+
+class DistComm(Collectives):
+    """One rank's handle on a process group (all ranks, or one mesh axis's:
+    :meth:`axis`): ``rank``, ``n``, ``coords`` and the collectives."""
+
+    def __init__(self, rank: int, members: List[int], group, coords: Dict[str, int], device: torch.device,
+                 staged: bool):
+        self.rank = rank
+        self.n = len(members)
+        self.coords = coords
+        self.device = device
+        self._members = members  # global ranks, in this group's rank order
+        self._group = group
+        self._staged = staged
+        self._views: Dict[str, "DistComm"] = {}
+
+    def axis(self, name: str) -> "DistComm":
+        if name not in self._views:
+            raise ValueError(f"no mesh axis {name!r} in this group")
+        return self._views[name]
+
+    def _wire(self, x: torch.Tensor) -> torch.Tensor:
+        w = x.detach().contiguous().reshape(-1)
+        if w.dtype == torch.bool:
+            w = w.view(torch.uint8)
+        return w.cpu() if self._staged else w
+
+    def _unwire(self, w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        w = w.to(like.device)
+        if like.dtype == torch.bool:
+            w = w.view(torch.bool)
+        return w.reshape(like.shape)
+
+    def _exchange(self, x: torch.Tensor) -> List[torch.Tensor]:
+        w = self._wire(x)
+        out = [torch.empty_like(w) for _ in range(self.n)]
+        dist.all_gather(out, w, group=self._group)
+        return [self._unwire(o, x) for o in out]
+
+    def ppermute(self, x: torch.Tensor, shift: int) -> torch.Tensor:
+        w = self._wire(x)
+        dst, src = self.rank + shift, self.rank - shift
+        ops, buf = [], None
+        if 0 <= dst < self.n:
+            ops.append(dist.P2POp(dist.isend, w, self._members[dst], self._group))
+        if 0 <= src < self.n:
+            buf = torch.empty_like(w)
+            ops.append(dist.P2POp(dist.irecv, buf, self._members[src], self._group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return torch.zeros_like(x) if buf is None else self._unwire(buf, x)
+
+
+def _axis_groups(axes: Dict[str, int], name: str) -> List[List[int]]:
+    """The rank lists of mesh axis ``name``'s groups (those that share the
+    other coordinates), each in rank order along ``name``."""
+    groups: Dict[tuple, List[int]] = {}
+    for r in range(math.prod(axes.values())):
+        c = mesh_coords(r, axes)
+        groups.setdefault(tuple(v for k, v in c.items() if k != name), []).append(r)
+    return list(groups.values())
+
+
+def _join(rank: int, n: int, backend: str, init_method: str, device: torch.device, timeout: float) -> DistComm:
+    """Join the process group; one collective opens its communicator.
+    Every rank runs on this host, so gloo talks over the loopback device
+    unless the caller named another (a host name may resolve to none)."""
+    if backend == "gloo":
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=timeout))
+    world = DistComm(rank, list(range(n)), None, {}, device, backend == "gloo" and device.type == "cuda")
+    world.all_gather(torch.zeros(1, device=device))
+    return world
+
+
+def _layout(world: DistComm, axes: Dict[str, int]) -> DistComm:
+    """The world's ranks as a mesh of ``axes``: a handle with the rank's
+    coordinates and a group for each axis. Every rank makes every group of
+    the layout, in one order, then runs one collective on each of its own
+    to open its communicator before any point-to-point batch."""
+    coords = mesh_coords(world.rank, axes)
+    comm = DistComm(world.rank, world._members, None, coords, world.device, world._staged)
+    for name in axes:
+        for members in _axis_groups(axes, name):
+            group = dist.new_group(members)
+            if world.rank in members:
+                comm._views[name] = DistComm(members.index(world.rank), members, group, coords, world.device,
+                                             world._staged)
+    for view in comm._views.values():
+        view.all_gather(torch.zeros(1, device=world.device))
+    return comm
+
+
+def _error(e: BaseException, rank: int) -> BaseException:
+    """``e`` with the rank's traceback as a note, or a RuntimeError that
+    carries it where ``e`` does not pickle."""
+    text = f"in rank {rank}:\n{traceback.format_exc()}"
+    try:
+        e.add_note(text)
+        pickle.loads(pickle.dumps(e))
+        return e
+    except Exception:  # noqa: BLE001 - any pickling failure: send the text
+        return RuntimeError(f"{type(e).__name__}: {e}\n{text}")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _worker(rank: int, n: int, backend: str, init_method: str, device: torch.device, timeout: float,
+            threads: int, conn) -> None:
+    """A rank's process: join, report ready, then run calls until ``None``
+    (each layout's groups made at its first call)."""
+    torch.set_num_threads(threads)
+    try:
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+            _native.library()  # built by the parent
+        world = _join(rank, n, backend, init_method, device, timeout)
+    except BaseException as e:  # noqa: BLE001 - reported to the parent, which raises it
+        conn.send(("err", _error(e, rank)))
+        return
+    conn.send(("ready", None))
+    layouts: Dict[tuple, DistComm] = {}
+    try:
+        for fn, args, axes, env in iter(conn.recv, None):
+            for k in [k for k in os.environ if k.startswith(SWITCHES) and k not in env]:
+                del os.environ[k]
+            os.environ.update(env)
+            try:
+                key = tuple(axes.items())
+                if key not in layouts:
+                    layouts[key] = _layout(world, axes)
+                if device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(device)
+                args = map_tensors(lambda t: t.to(device, copy=True), args)  # the rank's own copies
+                _sync(device)
+                # every rank holds its arguments before any starts, so the
+                # ranks' windows run together
+                world.all_gather(torch.zeros(1, device=device))
+                t_ready = time.perf_counter()
+                _native.reset_launches()
+                out = fn(rank, layouts[key], *args)
+                del args
+                _sync(device)
+                t_done = time.perf_counter()
+                stats = {"t_ready": t_ready, "t_done": t_done, "launches": dict(_native.LAUNCHES)}
+                if device.type == "cuda":
+                    free, total = torch.cuda.mem_get_info(device)
+                    stats.update(peak_allocated=torch.cuda.max_memory_allocated(device),
+                                 peak_reserved=torch.cuda.max_memory_reserved(device), device_used=total - free)
+                conn.send(("ok", out, stats))
+                del out
+            except BaseException as e:  # noqa: BLE001 - reported to the parent, which raises it
+                conn.send(("err", _error(e, rank)))
+    finally:
+        dist.destroy_process_group()
+
+
+def _shutdown(procs, conns, tmpdir: str, graceful: bool) -> None:
+    """End the workers (``None`` to each, then a wait; else terminate),
+    close the pipes and remove the store's directory."""
+    if graceful:
+        for conn in conns:
+            try:
+                conn.send(None)
+            except OSError:
+                pass
+    for p in procs:
+        if graceful:
+            p.join(10)
+        if p.is_alive():
+            p.terminate()
+            p.join(5)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    for conn in conns:
+        conn.close()
+    shutil.rmtree(tmpdir, ignore_errors=True)
+
+
+class DistGroup:
+    """``n`` ranks as processes, rank r on ``devices[r]`` (module
+    docstring). Each call lays the ranks out as a mesh of its ``axes``
+    (default ``{"space": n}``): rank r has the row-major coordinates of r
+    and a group for each axis, made at the layout's first call, so one
+    group of processes serves meshes of several shapes. Results land on
+    ``home``, rank 0's device. After a call, :attr:`last` holds
+    its seconds on the host's monotonic clock, which every process reads
+    (``in_s``: from the call to the first rank's start, when every rank
+    has copied its arguments onto its device and the ranks have met in one
+    collective; ``compute_s``: from the first rank's start to the last
+    rank's end, each device synchronized; ``out_s``: from there to the
+    results on ``home``), the kernel
+    launches summed over the ranks (``launches``, each rank's counts set to
+    0 when its call starts) and each rank's device memory (``ranks``:
+    peak allocated and reserved bytes, and the device's bytes in use at the
+    call's end, every process's context included). :attr:`start_s`: the
+    seconds the workers took to start and join."""
+
+    def __init__(self, n: int, backend: str, devices: Sequence, timeout: float = 600.0):
+        devices = [torch.device(d) for d in devices]
+        if len(devices) != n:
+            raise ValueError(f"{n} ranks need {n} devices, got {len(devices)}")
+        check_backend(backend, devices)
+        self.n, self.backend, self.devices, self.timeout = n, backend, devices, timeout
+        self.home = devices[0]
+        self.last: dict = {}
+        if any(d.type == "cuda" for d in devices):
+            _native.library()  # build once, before the workers load it
+        t0 = time.perf_counter()
+        self._dir = tempfile.mkdtemp(prefix="tracking_tpu_dist_")
+        init_method = f"file://{os.path.join(self._dir, 'store')}"
+        ctx = mp.get_context("spawn")
+        self._procs, self._conns = [], []
+        self._closer = weakref.finalize(self, _shutdown, self._procs, self._conns, self._dir, True)
+        threads = max(1, torch.get_num_threads() // n)  # the ranks share the host's cores
+        for r in range(n):
+            here, there = ctx.Pipe()
+            p = ctx.Process(target=_worker, name=f"tracking-tpu-rank-{r}", daemon=True,
+                            args=(r, n, backend, init_method, devices[r], timeout, threads, there))
+            p.start()
+            there.close()
+            self._procs.append(p)
+            self._conns.append(here)
+        self._collect()
+        self.start_s = time.perf_counter() - t0
+
+    @property
+    def closed(self) -> bool:
+        return not self._closer.alive
+
+    def _collect(self) -> list:
+        """Each rank's next message, in rank order; the first error (or a
+        rank that died) tears the group down and is raised."""
+        out: list = [None] * self.n
+        pending = dict(zip(self._conns, range(self.n)))
+        while pending:
+            for conn in wait(list(pending)):
+                r = pending.pop(conn)
+                try:
+                    msg = conn.recv()
+                except EOFError:
+                    msg = ("err", RuntimeError(f"rank {r} ended (exit code {self._procs[r].exitcode})"))
+                if msg[0] == "err":
+                    self._closer.detach()
+                    _shutdown(self._procs, self._conns, self._dir, graceful=False)
+                    raise msg[1]
+                out[r] = msg[1:]
+        return out
+
+    def run(self, fn: Callable, *per_shard_args: Sequence, axes: Optional[Dict[str, int]] = None) -> list:
+        """``fn(rank, comm, *(a[rank] for a in per_shard_args))`` on every
+        rank, ``comm`` laid out as a mesh of ``axes``; returns the results
+        in rank order, on ``home``."""
+        if self.closed:
+            raise RuntimeError("the process group is closed")
+        axes = {"space": self.n} if axes is None else dict(axes)
+        if math.prod(axes.values()) != self.n:
+            raise ValueError(f"mesh axes {axes} do not hold {self.n} ranks")
+        for a in per_shard_args:
+            if len(a) != self.n:
+                raise ValueError(f"expected {self.n} per-shard values, got {len(a)}")
+        env = {k: v for k, v in os.environ.items() if k.startswith(SWITCHES)}
+        t0 = time.perf_counter()
+        for r, conn in enumerate(self._conns):
+            conn.send((fn, tuple(a[r] for a in per_shard_args), axes, env))
+        replies = self._collect()
+        results = [map_tensors(lambda t: t.to(self.home, copy=True), out) for out, _ in replies]
+        for d in set(self.devices):  # the copies end before the ranks' tensors are let go
+            _sync(d)
+        stats = [s for _, s in replies]
+        del replies  # the ranks' result tensors, which the copies replace
+        start, end = min(s["t_ready"] for s in stats), max(s["t_done"] for s in stats)
+        self.last = {
+            "in_s": start - t0,
+            "compute_s": end - start,
+            "out_s": time.perf_counter() - end,
+            "launches": {k: sum(s["launches"][k] for s in stats) for k in stats[0]["launches"]},
+            "ranks": [{k: v for k, v in s.items() if k not in ("t_ready", "t_done", "launches")} for s in stats],
+        }
+        return results
+
+    def close(self) -> None:
+        """End the workers; the group runs nothing more."""
+        self._closer()
+
+    def __enter__(self) -> "DistGroup":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

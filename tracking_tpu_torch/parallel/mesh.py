@@ -22,7 +22,8 @@ keeps these rules:
   which the device runs the work. A receiver enqueues its reads of another
   rank's tensor only after the barrier that the sender reached after it
   enqueued that tensor, so no event is needed;
-- the CUDA kernels are built before the threads start.
+- the CUDA kernels are built, and PyTorch's CUDA linear algebra loaded,
+  before the threads start.
 
 The 2-D group (a :class:`Mesh` of ``stream`` × ``space`` ranks, rank = i ·
 space + j): :meth:`ShardComm.axis` gives a rank its view of one mesh axis,
@@ -46,11 +47,16 @@ stream keeps its own state tensors (the kernels update banks in place);
 states come back stacked leaf by leaf along a leading ``B``, the layout of
 JAX's vmapped pytree, and ``states=`` takes that layout.
 
-One device, not one card per rank: NCCL refuses two ranks on one GPU, and
-gloo's point-to-point calls take CPU tensors only, so every halo band would
-cross the host. Threads keep the per-rank code as ``spatial.py`` writes it
-(its ``while`` loops hold collectives, which a loop over slabs could not).
-A ``torch.distributed`` group, one process per card, is a later step.
+The thread group runs on one device: NCCL refuses two ranks on one GPU,
+and gloo's point-to-point calls take CPU tensors only, so every halo band
+would cross the host. Threads keep the per-rank code as ``spatial.py``
+writes it (its ``while`` loops hold collectives, which a loop over slabs
+could not). A mesh made with a ``backend`` runs the same per-rank code on
+processes instead, one per device (``parallel/dist.py``: ``"nccl"`` one
+card a rank, ``"gloo"`` ranks that share the CPU or one card), behind the
+same collectives; its pool lives until :meth:`Mesh.close`. Processes
+receive their function by pickle, so the rank functions here and in
+``spatial.py`` are module-level, with explicit arguments.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ import dataclasses
 import inspect
 import math
 import threading
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -77,7 +83,35 @@ class _Sync:
         self.slots = ([None] * n, [None] * n)
 
 
-class ShardComm:
+class Collectives:
+    """``psum``, ``pmax`` and ``all_gather`` on a ``_exchange`` that returns
+    every rank's ``x`` in rank order: reductions run in rank order 0..n−1,
+    so a float sum has the same bits on every rank and in every group."""
+
+    def _exchange(self, x: torch.Tensor) -> List[torch.Tensor]:
+        raise NotImplementedError
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        got = self._exchange(x)
+        acc = got[0]
+        for t in got[1:]:
+            acc = acc + t
+        return acc
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        got = self._exchange(x)
+        acc = got[0]
+        for t in got[1:]:
+            acc = torch.maximum(acc, t)
+        return acc
+
+    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along ``dim`` in rank order (JAX's
+        ``all_gather(..., tiled=True)``)."""
+        return torch.cat(self._exchange(x), dim=dim)
+
+
+class ShardComm(Collectives):
     """One rank's handle on a set of ranks of its :class:`ShardGroup` (all
     of them, or one mesh axis's: :meth:`axis`): ``rank``, ``n`` and the
     collectives. Built by :meth:`ShardGroup.run`."""
@@ -119,25 +153,6 @@ class ShardComm:
         src = self.rank - shift
         return got[src] if 0 <= src < self.n else torch.zeros_like(x)
 
-    def psum(self, x: torch.Tensor) -> torch.Tensor:
-        got = self._exchange(x)
-        acc = got[0]
-        for t in got[1:]:
-            acc = acc + t
-        return acc
-
-    def pmax(self, x: torch.Tensor) -> torch.Tensor:
-        got = self._exchange(x)
-        acc = got[0]
-        for t in got[1:]:
-            acc = torch.maximum(acc, t)
-        return acc
-
-    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """The ranks' ``x`` concatenated along ``dim`` in rank order (JAX's
-        ``all_gather(..., tiled=True)``)."""
-        return torch.cat(self._exchange(x), dim=dim)
-
 
 def _first_tensor(tree) -> Optional[torch.Tensor]:
     if isinstance(tree, torch.Tensor):
@@ -154,6 +169,15 @@ def _first_tensor(tree) -> Optional[torch.Tensor]:
 
 def _axis_key(coords: Dict[str, int], name: str):
     return name, tuple((k, v) for k, v in coords.items() if k != name)
+
+
+def mesh_coords(rank: int, axes: Dict[str, int]) -> Dict[str, int]:
+    """Rank ``rank``'s row-major coordinates on a mesh of ``axes``."""
+    out = {}
+    for name, size in reversed(list(axes.items())):
+        out[name] = rank % size
+        rank //= size
+    return {k: out[k] for k in axes}
 
 
 class ShardGroup:
@@ -174,13 +198,7 @@ class ShardGroup:
 
     def coords(self, rank: int) -> Optional[Dict[str, int]]:
         """Rank ``rank``'s mesh coordinates (row-major), None without axes."""
-        if self.axes is None:
-            return None
-        out = {}
-        for name, size in reversed(list(self.axes.items())):
-            out[name] = rank % size
-            rank //= size
-        return {k: out[k] for k in self.axes}
+        return None if self.axes is None else mesh_coords(rank, self.axes)
 
     def run(self, fn: Callable, *per_shard_args: Sequence) -> list:
         """``fn(rank, ctx, *(a[rank] for a in per_shard_args))`` on ``n``
@@ -193,6 +211,10 @@ class ShardGroup:
         stream = None
         if t is not None and t.is_cuda:
             _native.library()  # build before the threads start
+            # PyTorch loads its CUDA linear algebra at the first linalg call,
+            # and two threads' first calls race (the tracker's inv_ex): load
+            # it here
+            torch.linalg.inv_ex(torch.eye(4, device=t.device).expand(2, 4, 4))
             stream = torch.cuda.current_stream(t.device)
         self._syncs = {None: _Sync(n, self.timeout)}
         for r in range(n if self.axes else 0):
@@ -234,14 +256,23 @@ class ShardGroup:
 # -- the mesh and the stream-batched runners ------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(eq=False)
 class Mesh:
-    """``stream`` × ``space`` ranks on ``device`` (``jax.sharding.Mesh``
-    with the axis names ``("stream", "space")``)."""
+    """``stream`` × ``space`` ranks (``jax.sharding.Mesh`` with the axis
+    names ``("stream", "space")``): threads on ``device`` when ``backend``
+    is None, else processes on ``devices`` (one a rank) behind
+    ``torch.distributed``'s ``backend``, started at the first
+    :meth:`group` and ended by :meth:`close` (or the ``with`` block).
+    Inputs are placed on ``device`` and results come back there."""
 
     stream: int
     space: int
     device: torch.device
+    backend: Optional[str] = None
+    devices: Tuple[torch.device, ...] = ()
+
+    def __post_init__(self):
+        self._pool = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -251,17 +282,72 @@ class Mesh:
     def size(self) -> int:
         return self.stream * self.space
 
-    def group(self) -> ShardGroup:
-        """A :class:`ShardGroup` of the mesh's ranks, with its two axes."""
-        return ShardGroup(self.size, axes=self.shape)
+    def group(self):
+        """A :class:`ShardGroup` of the mesh's ranks with its two axes, or
+        the mesh's process group (``parallel/dist.py:DistGroup``)."""
+        if self.backend is None:
+            return ShardGroup(self.size, axes=self.shape)
+        if self._pool is None:
+            from tracking_tpu_torch.parallel.dist import DistGroup
+
+            self._pool = DistGroup(self.size, self.backend, self.devices)
+        return self._pool
+
+    def run(self, fn: Callable, *per_rank_args: Sequence) -> list:
+        """``fn(rank, comm, *args)`` on the mesh's ranks, each ``comm`` with
+        its coordinates and axis views; the results in rank order."""
+        if self.backend is None:
+            return self.group().run(fn, *per_rank_args)
+        return self.group().run(fn, *per_rank_args, axes=self.shape)
+
+    def split(self, stream: int) -> "Mesh":
+        """The same ranks as ``stream`` × size/stream; a process mesh shares
+        its process group (started here if it was not)."""
+        if stream < 1 or self.size % stream:
+            raise ValueError(f"{self.size} ranks do not split into {stream} streams")
+        out = dataclasses.replace(self, stream=stream, space=self.size // stream)
+        if self.backend is not None:
+            out._pool = self.group()
+        return out
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.close()
+
+    def __enter__(self) -> "Mesh":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
-def make_mesh(n_devices: Optional[int] = None, stream: Optional[int] = None, device=None) -> Mesh:
-    """2-D mesh (stream × space) of ``n_devices`` ranks (default 1) on
-    ``device`` (default the card), split as ``tracking_tpu``'s
-    ``make_mesh``: without ``stream``, n's largest divisor d ≤ √n and n / d,
-    the larger of the two on the stream axis (it needs no communication)."""
-    n = 1 if n_devices is None else n_devices
+def make_mesh(n_devices: Optional[int] = None, stream: Optional[int] = None, device=None,
+              backend: Optional[str] = None) -> Mesh:
+    """2-D mesh (stream × space) of ``n_devices`` ranks, split as
+    ``tracking_tpu``'s ``make_mesh``: without ``stream``, n's largest
+    divisor d ≤ √n and n / d, the larger of the two on the stream axis (it
+    needs no communication).
+
+    ``backend=None``: threads on ``device`` (default the card), one rank
+    unless asked. ``"nccl"``: one process a card, rank r on ``cuda:r``, by
+    default every card (as JAX's default takes every device); it takes no
+    ``device``, and raises without NCCL or with more ranks than cards.
+    ``"gloo"``: processes that share ``device`` (default the card; ``"cpu"``
+    in the CPU tests)."""
+    if backend == "nccl":
+        if device is not None:
+            raise ValueError("backend 'nccl' puts rank r on cuda:r; it takes no device")
+        n = torch.cuda.device_count() if n_devices is None else n_devices
+        devices = tuple(torch.device("cuda", r) for r in range(n))
+        device = torch.device("cuda", 0)
+    else:
+        n = 1 if n_devices is None else n_devices
+        device = torch.device("cuda" if device is None else device)
+        devices = (device,) * n if backend is not None else ()
+    if backend is not None:
+        from tracking_tpu_torch.parallel.dist import check_backend
+
+        check_backend(backend, devices)
     if n < 1:
         raise ValueError(f"a mesh needs at least one rank, got {n}")
     if stream is None:
@@ -272,7 +358,7 @@ def make_mesh(n_devices: Optional[int] = None, stream: Optional[int] = None, dev
                 break
     if stream < 1 or n % stream:
         raise ValueError(f"{n} ranks do not split into {stream} streams")
-    return Mesh(stream, n // stream, torch.device("cuda" if device is None else device))
+    return Mesh(stream, n // stream, device, backend, devices)
 
 
 def video_batch_spec() -> tuple:
@@ -322,11 +408,20 @@ def run_streams(algo, states: list, frames: torch.Tensor, use_kernels: bool = Tr
     return states, torch.stack([torch.stack(m) for m in masks])
 
 
+def _stream_rank(rank, comm, algo, states: list, frames: torch.Tensor, use_kernels: bool):
+    """A stream rank's whole streams, with no collective; a rank that
+    holds no stream (off ``space`` 0 of a process mesh) returns None."""
+    if not states:
+        return None
+    return run_streams(algo, states, frames, use_kernels)
+
+
 def run_video_batch_shardmap(algo, frames: torch.Tensor, mesh: Mesh, states=None, use_kernels: bool = True):
     """Stream-parallel batch (``tracking_tpu`` ``run_video_batch_shardmap``):
     each of the mesh's ``stream`` ranks runs its B/stream whole streams with
     no collective (per-stream state is private). The ``space`` axis only
-    replicates that work there, so its ranks are not run here.
+    replicates that work there, so its ranks off ``space`` 0 get no stream
+    and return at once.
 
     frames [B, T, H, W(, C)] u8, B divisible by the stream size, placed on
     the mesh's device. Returns (states stacked along B, masks [B, T, H, W])."""
@@ -336,12 +431,11 @@ def run_video_batch_shardmap(algo, frames: torch.Tensor, mesh: Mesh, states=None
         raise ValueError(f"{b} streams do not split over {mesh.stream} stream ranks")
     per = b // mesh.stream
     states = stream_states(algo, frames, states)
-    blocks = [range(i * per, (i + 1) * per) for i in range(mesh.stream)]
-
-    def rank_fn(rank, comm, idx):
-        return run_streams(algo, [states[i] for i in idx], frames[idx.start : idx.stop], use_kernels)
-
-    out = ShardGroup(mesh.stream).run(rank_fn, blocks)
+    blocks = [r // mesh.space if r % mesh.space == 0 else None for r in range(mesh.size)]
+    own = [range(0) if i is None else range(i * per, (i + 1) * per) for i in blocks]
+    out = mesh.run(_stream_rank, [algo] * len(own), [[states[k] for k in idx] for idx in own],
+                    [frames[idx.start : idx.stop] for idx in own], [use_kernels] * len(own))
+    out = [o for o in out if o is not None]
     return stack_states([s for o in out for s in o[0]]), torch.cat([o[1] for o in out])
 
 
@@ -355,8 +449,10 @@ def run_video_batch(algo, frames: torch.Tensor, states=None, mesh: Optional[Mesh
     streams × row shards. Otherwise the frames go to the mesh's device and
     each stream runs unsharded, frame ``t`` of every stream before frame
     ``t + 1``: where the JAX package lets XLA partition the batched scan
-    over the mesh, the computation is the same, and on one device there is
-    nothing to partition."""
+    over the mesh, the computation is the same; on a thread mesh (one
+    device) there is nothing to partition, and a process mesh runs
+    :func:`run_video_batch_shardmap`, the streams split over its stream
+    ranks."""
     if mesh is not None:
         from tracking_tpu_torch.parallel.spatial import HALO, run_video_batch_spatial
 
@@ -364,6 +460,8 @@ def run_video_batch(algo, frames: torch.Tensor, states=None, mesh: Optional[Mesh
         if (mesh.space > 1 and "ctx" in inspect.signature(algo.step).parameters and h % mesh.space == 0
                 and h // mesh.space >= HALO):
             return run_video_batch_spatial(algo, frames, mesh, states=states, use_kernels=use_kernels)
+        if mesh.backend is not None:
+            return run_video_batch_shardmap(algo, frames, mesh, states=states, use_kernels=use_kernels)
         frames = frames.to(mesh.device)
     sts, masks = run_streams(algo, stream_states(algo, frames, states), frames, use_kernels)
     return stack_states(sts), masks

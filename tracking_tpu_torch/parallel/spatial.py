@@ -1,8 +1,10 @@
 """Single-stream row sharding with explicit halos, counterpart of
 ``tracking_tpu/parallel/spatial.py``.
 
-Each rank of a :class:`~tracking_tpu_torch.parallel.mesh.ShardGroup` owns
-``h_loc = H / n`` rows of every frame and of every per-pixel state leaf.
+Each rank of a mesh's ``space`` axis (threads of a
+:class:`~tracking_tpu_torch.parallel.mesh.ShardGroup`, or processes of a
+``parallel/dist.py`` group, one a device) owns ``h_loc = H / n`` rows of
+every frame and of every per-pixel state leaf.
 Bounded stencils read halo-extended slabs whose halo rows come from the
 neighbours (``ppermute``) and whose rows outside the image carry the op's
 border semantics, so the op itself runs unchanged; the unbounded ops - the
@@ -22,11 +24,15 @@ integers here (a rank knows its rows), where the JAX version traces them.
 Entry points: :func:`run_video_spatial` (one stream of SuBSENSE - v1, v3,
 or v1 under ``TRACKING_TPU_FUSED=1`` as in the JAX package - or LOBSTER),
 :func:`run_video_spatial_tracked` (SuBSENSE followed by the CC / CCMSPF
-tracker) and :func:`run_video_batch_spatial` (streams × row shards on a
-``Mesh``, each stream row a ``space`` view of the 2-D group with a barrier
-of its own: ``parallel/mesh.py``). ``parallel/mesh.py:run_video_batch``
-routes to the last. State is made and warm-started unsharded, then split
-by :func:`shard_state` and joined by :func:`gather_state`.
+tracker), both over ``n_shards`` threads or a ``mesh``'s ``space`` axis
+(its other rows replicate the stream, as JAX's ``shard_map`` does), and
+:func:`run_video_batch_spatial` (streams × row shards on a ``Mesh``, each
+stream row a ``space`` view of the 2-D group that synchronises only with
+itself: ``parallel/mesh.py``). ``parallel/mesh.py:run_video_batch`` routes
+to the last. State is made and warm-started unsharded, then split by
+:func:`shard_state` and joined by :func:`gather_state`; a rank receives
+only its own rows of the frames. The per-rank functions are module-level,
+so a process mesh can send them.
 
 The unbounded loops (:func:`sharded_fill`, :func:`sharded_label`) stop
 when their row's summed change flag is 0. The JAX package sums that flag
@@ -46,7 +52,8 @@ import torch
 
 from tracking_tpu_torch.convert import stack_states
 from tracking_tpu_torch.ops.consensus import slab_shift
-from tracking_tpu_torch.parallel.mesh import Mesh, ShardComm, ShardGroup, run_streams, stream_states
+from tracking_tpu_torch.parallel.dist import map_tensors
+from tracking_tpu_torch.parallel.mesh import Mesh, ShardComm, run_streams, stream_states
 
 HALO = 8  # the frame slabs' halo rows: LBSP ±2, spread ±2, refresh pattern ±3 (+ slack)
 N_CAND = 128  # blob-root candidates a frame (the sharded table is exact up to this many components)
@@ -419,6 +426,12 @@ def _check_algo(algo) -> None:
         )
 
 
+def _stream_mesh(mesh: Optional[Mesh], n_shards: int, frames: torch.Tensor) -> Mesh:
+    """The mesh of a one-stream run: ``mesh``, or ``n_shards`` threads on
+    the frames' device."""
+    return Mesh(1, n_shards, frames.device) if mesh is None else mesh
+
+
 def _prepare(algo, frames: torch.Tensor, n_shards: int, states):
     t, h, w = frames.shape[:3]
     c = frames.shape[3] if frames.ndim == 4 else 1
@@ -430,35 +443,65 @@ def _prepare(algo, frames: torch.Tensor, n_shards: int, states):
     return h, specs, shard_state(states, specs, n_shards)
 
 
-def _frame_slabs(ctx: SpatialCtx, frames: torch.Tensor) -> torch.Tensor:
-    """This rank's rows of every frame, halo-extended once for the chunk:
-    [T, h_loc + 2·halo, W(, C)]."""
-    own = frames.narrow(1, ctx.row0, ctx.h_loc)
-    if frames.ndim == 4:
+def _on_every_row(mesh: Mesh, per_block: list) -> list:
+    """Per-rank values of a one-stream run from its ``space`` blocks: rank
+    (i, j) holds block j, on a clone off stream row 0 (those rows replicate
+    the run, as JAX's ``shard_map`` over ``space`` does)."""
+    return [per_block[j] if i == 0 else map_tensors(torch.clone, per_block[j]) for i in range(mesh.stream)
+            for j in range(mesh.space)]
+
+
+def _own_rows(frames: torch.Tensor, dim: int, p: int) -> list:
+    """``frames`` cut into ``p`` row blocks along ``dim`` (views)."""
+    h = frames.shape[dim] // p
+    return [frames.narrow(dim, j * h, h) for j in range(p)]
+
+
+def _frame_slabs(ctx: SpatialCtx, own: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of every frame [T, h_loc, W(, C)], halo-extended
+    once for the chunk: [T, h_loc + 2·halo, W(, C)]."""
+    if own.ndim == 4:
         return ctx.extend_plain(own.movedim(3, 1)).movedim(1, 3)
     return ctx.extend_plain(own)
 
 
+def _spatial_rank(rank, comm, algo, h: int, state, own: torch.Tensor, use_kernels: bool):
+    """One rank of :func:`run_video_spatial`: (state, masks [T, h_loc, W])."""
+    ctx = SpatialCtx(comm.axis("space"), h, device=own.device)
+    masks = []
+    for fr in _frame_slabs(ctx, own):
+        state, fg, _ = algo.step(state, fr, use_kernels=use_kernels, ctx=ctx)
+        masks.append(fg)
+    return state, torch.stack(masks)
+
+
 def run_video_spatial(
     algo, frames: torch.Tensor, n_shards: int = 4, states=None, use_kernels: bool = True,
+    mesh: Optional[Mesh] = None,
 ):
-    """ONE stream, row-sharded over ``n_shards`` ranks of a
-    :class:`ShardGroup` on the frames' device. frames [T, H, W(, C)] u8, H
-    divisible by ``n_shards``. Returns (final state, masks [T, H, W]),
-    bit-identical to the unsharded ``run_video``."""
+    """ONE stream, row-sharded over the ``space`` axis of ``mesh`` (a thread
+    or process mesh), or over ``n_shards`` threads on the frames' device.
+    frames [T, H, W(, C)] u8, H divisible by the shard count. Returns (final
+    state, masks [T, H, W]) on the mesh's device, bit-identical to the
+    unsharded ``run_video``."""
     _check_algo(algo)
-    h, specs, shards = _prepare(algo, frames, n_shards, states)
-
-    def shard_fn(rank, comm, state):
-        ctx = SpatialCtx(comm, h, device=frames.device)
-        masks = []
-        for fr in _frame_slabs(ctx, frames):
-            state, fg, _ = algo.step(state, fr, use_kernels=use_kernels, ctx=ctx)
-            masks.append(fg)
-        return state, torch.stack(masks)
-
-    out = ShardGroup(n_shards).run(shard_fn, shards)
+    mesh = _stream_mesh(mesh, n_shards, frames)
+    frames = frames.to(mesh.device)
+    h, specs, shards = _prepare(algo, frames, mesh.space, states)
+    n = mesh.size
+    out = mesh.run(_spatial_rank, [algo] * n, [h] * n, _on_every_row(mesh, shards),
+                           _on_every_row(mesh, _own_rows(frames, 1, mesh.space)), [use_kernels] * n)
+    out = out[: mesh.space]
     return gather_state([o[0] for o in out], specs), torch.cat([o[1] for o in out], dim=1)
+
+
+def _batch_spatial_rank(rank, comm, algo, h: int, states_loc: list, own: torch.Tensor, use_kernels: bool):
+    """Rank (i, j) of :func:`run_video_batch_spatial`: its streams' row
+    block j, [per, T, h_loc, W(, C)], stepped over its stream row's
+    ``space`` view."""
+    ctx = SpatialCtx(comm.axis("space"), h, device=own.device)
+    slabs = torch.stack([_frame_slabs(ctx, f) for f in own])
+    return run_streams(algo, states_loc, slabs, use_kernels, ctx=ctx)
 
 
 def run_video_batch_spatial(algo, frames: torch.Tensor, mesh: Mesh, states=None, use_kernels: bool = True):
@@ -467,9 +510,9 @@ def run_video_batch_spatial(algo, frames: torch.Tensor, mesh: Mesh, states=None,
     ``mesh``; rank (i, j) owns B/stream streams of block i and the H/space
     rows of block j of each, and steps its streams frame by frame, ``t``
     outer and stream inner, with a :class:`SpatialCtx` over the ``space``
-    view of its stream row (``parallel/mesh.py``: each row has its own
-    barrier; the stream axis runs no collective). States are made and
-    warm-started unsharded per stream (or split from the stacked
+    view of its stream row (``parallel/mesh.py``: each row synchronises
+    only with itself; the stream axis runs no collective). States are made
+    and warm-started unsharded per stream (or split from the stacked
     ``states``). Returns (the gathered states stacked along B, masks [B, T,
     H, W]), bit-identical to each stream's unsharded run."""
     _check_algo(algo)
@@ -477,23 +520,46 @@ def run_video_batch_spatial(algo, frames: torch.Tensor, mesh: Mesh, states=None,
     b, h = frames.shape[0], frames.shape[2]
     if b % mesh.stream or h % mesh.space:
         raise ValueError(f"a batch of {b} streams x {h} rows does not split over the mesh {mesh.shape}")
-    per, p = b // mesh.stream, mesh.space
+    per, p, n = b // mesh.stream, mesh.space, mesh.size
     sts = stream_states(algo, frames, states)
     specs = spatial_specs(sts[0], h)
     shards = [shard_state(st, specs, p) for st in sts]  # [stream][row block]
-    local = [[shards[k][j] for k in range(i * per, (i + 1) * per)] for i in range(mesh.stream) for j in range(p)]
-
-    def rank_fn(rank, comm, states_loc):
-        i = comm.coords["stream"]
-        ctx = SpatialCtx(comm.axis("space"), h, device=frames.device)
-        slabs = torch.stack([_frame_slabs(ctx, frames[k]) for k in range(i * per, (i + 1) * per)])
-        return run_streams(algo, states_loc, slabs, use_kernels, ctx=ctx)
-
-    out = mesh.group().run(rank_fn, local)
-    rows = [out[i * p : (i + 1) * p] for i in range(mesh.stream)]  # each stream row's ranks
+    blocks = range(mesh.stream)
+    local = [[shards[k][j] for k in range(i * per, (i + 1) * per)] for i in blocks for j in range(p)]
+    own = [rows for i in blocks for rows in _own_rows(frames[i * per : (i + 1) * per], 2, p)]
+    out = mesh.run(_batch_spatial_rank, [algo] * n, [h] * n, local, own, [use_kernels] * n)
+    rows = [out[i * p : (i + 1) * p] for i in blocks]  # each stream row's ranks
     states_out = [gather_state([o[0][k] for o in row], specs) for row in rows for k in range(per)]
     masks = torch.cat([torch.cat([o[1] for o in row], dim=2) for row in rows])
     return stack_states(states_out), masks
+
+
+def _tracked_rank(rank, comm, algo, tracker, h: int, state, ts, own: torch.Tensor, pipelined: bool,
+                  use_kernels: bool):
+    """One rank of :func:`run_video_spatial_tracked`: (state, tracker state,
+    masks [T, h_loc, W], tracks_x [T, K])."""
+    ctx = SpatialCtx(comm.axis("space"), h, device=own.device)
+    k_blobs = tracker.config.maxBlobs
+    masks, xs, pending = [], [], None
+
+    def track(fg, blobs):
+        nonlocal ts
+        ts, tracks = tracker.step(ts, fg, use_kernels=use_kernels, blobs=blobs, ctx=ctx)
+        xs.append(tracks.x)
+
+    for fr in _frame_slabs(ctx, own):
+        if pipelined and pending is not None:
+            track(*pending)  # tracking(t - 1), before BGS(t)
+        state, fg, _ = algo.step(state, fr, use_kernels=use_kernels, ctx=ctx)
+        blobs = sharded_extract_blobs(ctx, fg, max_blobs=k_blobs, use_kernels=use_kernels)
+        masks.append(fg)
+        if pipelined:
+            pending = (fg, blobs)
+        else:
+            track(fg, blobs)
+    if pipelined:
+        track(*pending)
+    return state, ts, torch.stack(masks), torch.stack(xs)
 
 
 def run_video_spatial_tracked(
@@ -504,11 +570,14 @@ def run_video_spatial_tracked(
     states=None,
     pipelined: bool = False,
     use_kernels: bool = True,
+    mesh: Optional[Mesh] = None,
 ):
-    """ONE stream through the whole sharded pipeline: the row-sharded BGS
-    step and post-processing, :func:`sharded_extract_blobs`, then the
-    replicated tracker (CC or CCMSPF, whose mean-shift collision refinement
-    sums window moments over ranks). Masks, per-frame tracks and states are
+    """ONE stream through the whole sharded pipeline, over the ``space``
+    axis of ``mesh`` (a thread or process mesh) or over ``n_shards``
+    threads on the frames' device: the row-sharded BGS step and
+    post-processing, :func:`sharded_extract_blobs`, then the replicated
+    tracker (CC or CCMSPF, whose mean-shift collision refinement sums
+    window moments over ranks). Masks, per-frame tracks and states are
     bit-identical to the unsharded ``step -> tracker.step`` chain.
 
     ``pipelined=True`` runs tracking one frame behind the BGS stage: step
@@ -520,33 +589,14 @@ def run_video_spatial_tracked(
     ttype = tracker.config.trackerType.upper()
     if ttype not in ("CC", "CCMSPF"):
         raise ValueError("the sharded tracked pipeline supports the CC and CCMSPF trackers")
-    h, specs, shards = _prepare(algo, frames, n_shards, states)
-    t_states = [tracker.init(device=frames.device) for _ in range(n_shards)]
-    k_blobs = tracker.config.maxBlobs
-
-    def shard_fn(rank, comm, state, ts):
-        ctx = SpatialCtx(comm, h, device=frames.device)
-        masks, xs, pending = [], [], None
-
-        def track(fg, blobs):
-            nonlocal ts
-            ts, tracks = tracker.step(ts, fg, use_kernels=use_kernels, blobs=blobs, ctx=ctx)
-            xs.append(tracks.x)
-
-        for fr in _frame_slabs(ctx, frames):
-            if pipelined and pending is not None:
-                track(*pending)  # tracking(t - 1), before BGS(t)
-            state, fg, _ = algo.step(state, fr, use_kernels=use_kernels, ctx=ctx)
-            blobs = sharded_extract_blobs(ctx, fg, max_blobs=k_blobs, use_kernels=use_kernels)
-            masks.append(fg)
-            if pipelined:
-                pending = (fg, blobs)
-            else:
-                track(fg, blobs)
-        if pipelined:
-            track(*pending)
-        return state, ts, torch.stack(masks), torch.stack(xs)
-
-    out = ShardGroup(n_shards).run(shard_fn, shards, t_states)
+    mesh = _stream_mesh(mesh, n_shards, frames)
+    frames = frames.to(mesh.device)
+    h, specs, shards = _prepare(algo, frames, mesh.space, states)
+    n = mesh.size
+    t_states = [tracker.init(device=mesh.device) for _ in range(n)]
+    out = mesh.run(_tracked_rank, [algo] * n, [tracker] * n, [h] * n, _on_every_row(mesh, shards),
+                           t_states, _on_every_row(mesh, _own_rows(frames, 1, mesh.space)), [pipelined] * n,
+                           [use_kernels] * n)
+    out = out[: mesh.space]
     state = gather_state([o[0] for o in out], specs)
     return state, out[0][1], torch.cat([o[2] for o in out], dim=1), out[0][3]

@@ -370,10 +370,17 @@ BATCH_TIMED = (10, 2)
 # processes against threads in turns (ms/frame = (T(6) - T(2)) / 4: the
 # threads' wall, the processes' compute from the first rank's start to
 # the last rank's end, their hand-offs apart).
+# The placed batches: the 4 streams' first MESH_PLACED frames placed on 4 x 1
+# and run in chunks of MESH_CHUNK with the states kept on the ranks, the
+# tracked path in chunks of MESH_CHUNK with both states kept; phase 6 runs
+# the batch in chunks of MESH_TIMED frames with its states as tensors and
+# placed, in turns.
 MESH_RANKS = 4
 MESH_FRAMES = 8
 MESH_BATCH_FRAMES = 4
 MESH_TIMED = (6, 2)
+MESH_PLACED = 12
+MESH_CHUNK = 4
 # phase 4l: the blob table on SuBSENSE's masks of the clip (the evaluator
 # chain also on the top-left crop against a CPU run), then the native FFmpeg
 # reader on phase 4f's FFV1 AVI (chunk, max_frames, flip, ROI) and its MJPEG
@@ -3465,20 +3472,126 @@ def process_mesh_path(algo, tracker, state0, frames, streams, dev, results):
                                    f"the thread group's run bit for bit")
         print_pool(pool, what)
 
-    nccl_mesh_path(algo, batch, refs[1])
+    ref12 = placed_path(algo, tracker, state0, frames, streams, mesh, threads, refs[0])
+    nccl_mesh_path(algo, batch, refs[1], streams[:, :MESH_PLACED], ref12)
     print(f"  phase 4m: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return mesh, threads
 
 
-def nccl_mesh_path(algo, batch, ref) -> None:
+def chain_placed(algo, placed, mesh, what, plain_chunk=None):
+    """The placed batch's chunks of MESH_CHUNK frames through
+    run_video_batch_shardmap on ``mesh``, the states kept on the ranks
+    (chunk 1 from ``plain_chunk``, a tensor, where given); each call's
+    consensus launches and the bytes it moved (the plain chunk's frames in,
+    the masks out) checked. Returns (the last states, the masks along T,
+    the states before the last chunk, the parent's device memory above its
+    level before the first chunk, its largest between chunks)."""
+    from tracking_tpu_torch.parallel.mesh import run_video_batch_shardmap
+    from tracking_tpu_torch.parallel.placed import tensor_bytes
+
+    pool = mesh.group()
+    b, nf, ck = placed.shape[0], placed.shape[1], MESH_CHUNK
+    torch.cuda.synchronize()
+    base, rise = torch.cuda.memory_allocated(), 0
+    st = prev = None
+    masks = []
+    for k in range(nf // ck):
+        chunk = plain_chunk if k == 1 and plain_chunk is not None else placed.narrow(1, k * ck, ck)
+        prev = st
+        st, m = run_video_batch_shardmap(algo, chunk, mesh, states=st)
+        last = pool.last
+        moved = (tensor_bytes(chunk), tensor_bytes(m))
+        check((last["bytes_in"], last["bytes_out"]) == moved,
+              f"{what}, chunk {k}: {last['bytes_in']} bytes in, {last['bytes_out']} out (frames in {moved[0]}, "
+              f"masks out {moved[1]}: no state)")
+        check(last["launches"]["consensus"] == b * ck,
+              f"{what}, chunk {k}: consensus launched {last['launches']['consensus']} times in the ranks")
+        masks.append(m)
+        torch.cuda.synchronize()
+        rise = max(rise, torch.cuda.memory_allocated() - base)
+        print_pool(pool, f"{what}, chunk {k} ({last['bytes_in']} bytes in, {last['bytes_out']} out)")
+    return st, torch.cat(masks, dim=1), prev, rise
+
+
+def placed_path(algo, tracker, state0, frames, streams, mesh, threads, tracked_ref):
+    """Phase 4m's placed batches on the gloo processes: the 4 streams' first
+    MESH_PLACED frames placed with shard_video_batch on 4 x 1 (each block
+    straight to its rank) and run in chunks of MESH_CHUNK with the states
+    kept on the ranks, masks and the gathered states against one thread
+    group call over every frame; the last chunk again from the same state
+    handle; the tracked path (1 x 4, pipelined) in chunks of MESH_CHUNK
+    with both states kept, against the phase's thread run. The parent's
+    device memory between chunks stays below one stream's state. Returns
+    the thread group's run of the batch."""
+    from tracking_tpu_torch.parallel.mesh import run_video_batch_shardmap, shard_video_batch
+    from tracking_tpu_torch.parallel.placed import place, tensor_bytes
+    from tracking_tpu_torch.parallel.spatial import run_video_spatial_tracked
+
+    t0 = time.perf_counter()
+    pool, nf, ck = mesh.group(), MESH_PLACED, MESH_CHUNK
+    batch = streams[:, :nf]
+    b = batch.shape[0]
+    print(f"  placed: {b} streams x {nf} frames on {MESH_RANKS} x 1 in chunks of {ck}, states kept on the ranks; "
+          f"the tracked path in chunks of {ck} {elapsed()}", flush=True)
+    ref = run_video_batch_shardmap(algo, batch, threads.split(MESH_RANKS))
+    one_state = tensor_bytes(state0)
+    m4 = mesh.split(MESH_RANKS)
+    placed = shard_video_batch(batch, m4)
+    last = pool.last
+    check((last["bytes_in"], last["bytes_out"]) == (tensor_bytes(batch), 0),
+          f"shard_video_batch moved {last['bytes_in']} bytes in, {last['bytes_out']} out (the batch's "
+          f"{tensor_bytes(batch)}, each block once)")
+    print_pool(pool, "shard_video_batch of the batch")
+    st, masks, prev, rise = chain_placed(algo, placed, m4, "the placed batch on 4 x 1", batch[:, ck : 2 * ck])
+    check(rise < one_state, f"the parent's device memory rose {gib(rise)} over the chained calls, below one "
+                            f"stream's state ({gib(one_state)})")
+    again_st, again = run_video_batch_shardmap(algo, placed.narrow(1, nf - ck, ck), m4, states=prev)
+    check(torch.equal(again, masks[:, nf - ck :]) and same_bits(st.gather(), again_st.gather()),
+          "the same state handle run again gives the same masks and states")
+    check(same_bits(ref, (st.gather(), masks)),
+          f"the chained placed batch: masks of every chunk and the gathered states equal one thread group call "
+          f"over {nf} frames bit for bit")
+    del again_st, st, prev, placed
+
+    # the first chunk hands the ranks state0 (a tensor tree) and keeps the
+    # states there; the second runs from the placed states
+    st, ts, m0, x0 = run_video_spatial_tracked(algo, tracker, place(frames[1 : 1 + ck], mesh, (None, "space")),
+                                               states=clone(state0), pipelined=True, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.ipc_collect()  # the handed-over state0 clone, once the ranks have let it go
+    base = torch.cuda.memory_allocated()
+    st, ts, m1, x1 = run_video_spatial_tracked(algo, tracker, frames[1 + ck : 1 + MESH_FRAMES], states=st,
+                                               tracker_state=ts, pipelined=True, mesh=mesh)
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - base
+    last = pool.last
+    print_pool(pool, "the tracked path's second chunk")
+    moved = (tensor_bytes(frames[1 + ck : 1 + MESH_FRAMES]), tensor_bytes((m1, x1)))
+    check((last["bytes_in"], last["bytes_out"]) == moved,
+          f"the tracked path's second chunk: {last['bytes_in']} bytes in, {last['bytes_out']} out (frames in "
+          f"{moved[0]}, masks and tracks out {moved[1]})")
+    check(rise < one_state, f"the parent's device memory rose {gib(rise)} over the tracked path's second chunk, "
+                            f"below one stream's state ({gib(one_state)})")
+    for k in SPATIAL_KERNELS:
+        check(last["launches"][k] > 0, f"the tracked path's second chunk: {k} launched {last['launches'][k]} times")
+    check(same_bits(tracked_ref, (st.gather(), ts.gather(), torch.cat([m0, m1]), torch.cat([x0, x1]))),
+          "the tracked path in two chunks with both states placed: masks, states and tracks equal the thread "
+          "group's run bit for bit")
+    print(f"  placed: {time.perf_counter() - t0:.1f} s", flush=True)
+    return ref
+
+
+def nccl_mesh_path(algo, batch, ref, batch12, ref12) -> None:
     """Phase 4m's NCCL part: a group of one process a card over every card
     (``make_mesh(backend="nccl")``) runs ``run_video_batch`` of the batch on
     its default mesh and, laid out a stream a card, the shardmap; each
-    equals ``ref`` (the thread group's run of the batch) bit for bit. On
-    one card that is one rank, and it says so."""
+    equals ``ref`` (the thread group's run of the batch) bit for bit. Then
+    ``batch12`` placed a stream block a card and run in chunks with the
+    states kept on the cards, against ``ref12``. On one card that is one
+    rank, and it says so."""
     import torch.distributed as dist
 
-    from tracking_tpu_torch.parallel.mesh import make_mesh, run_video_batch, run_video_batch_shardmap
+    from tracking_tpu_torch.parallel.mesh import make_mesh, run_video_batch, run_video_batch_shardmap, shard_video_batch
 
     check(dist.is_nccl_available(), "torch.distributed has NCCL")
     with make_mesh(backend="nccl") as nccl:
@@ -3497,6 +3610,13 @@ def nccl_mesh_path(algo, batch, ref) -> None:
                   f"{what}: consensus launched {la['consensus']} times in the ranks")
             check(same_bits(ref, out), f"{what}: masks and states equal the thread group's run bit for bit")
             print_pool(group, what)
+        streams_mesh = nccl.split(nccl.size)
+        what = f"the placed batch on the NCCL mesh {nccl.size} x 1"
+        placed = shard_video_batch(batch12, streams_mesh)
+        print_pool(group, f"shard_video_batch on the NCCL mesh {nccl.size} x 1 ({group.last['bytes_in']} bytes in)")
+        st, masks, _, _ = chain_placed(algo, placed, streams_mesh, what)
+        check(same_bits(ref12, (st.gather(), masks)),
+              f"{what}: masks of every chunk and the gathered states equal the thread group's run bit for bit")
         if nccl.size < 2:
             print("  the multi-rank NCCL exchange was not run: this machine has one card", flush=True)
 
@@ -3505,14 +3625,16 @@ def nccl_only(algo, frames, dev, kind) -> None:
     """``--nccl-only``: phase 4m's NCCL part alone, for a machine with
     several cards: the 4-stream batch on the thread group (2 x 2 on card 0),
     then on the NCCL group over every card."""
-    from tracking_tpu_torch.parallel.mesh import make_mesh
+    from tracking_tpu_torch.parallel.mesh import make_mesh, run_video_batch_shardmap
     from tracking_tpu_torch.parallel.spatial import run_video_batch_spatial
 
-    batch = batch_streams(frames)[:, :MESH_BATCH_FRAMES]
+    streams = batch_streams(frames)
+    batch, batch12 = streams[:, :MESH_BATCH_FRAMES], streams[:, :MESH_PLACED]
     print(f"[4m] NCCL alone over {torch.cuda.device_count()} card(s): {batch.shape[0]} streams x {batch.shape[1]} "
-          f"frames at {H}x{W}x{C} {elapsed()}", flush=True)
+          f"frames at {H}x{W}x{C}, then {batch12.shape[1]} frames placed {elapsed()}", flush=True)
     ref = run_video_batch_spatial(algo, batch, make_mesh(MESH_RANKS, stream=2, device=dev))
-    nccl_mesh_path(algo, batch, ref)
+    ref12 = run_video_batch_shardmap(algo, batch12, make_mesh(MESH_RANKS, stream=MESH_RANKS, device=dev))
+    nccl_mesh_path(algo, batch, ref, batch12, ref12)
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -3571,7 +3693,39 @@ def time_process_mesh(mesh, threads, algo, tracker, state0, frames, streams, tag
                 f"memory {gib(peak)}", flush=True)
         print(f"  {tag} {label}, the processes' calls: " + "; ".join(calls), flush=True)
         print_pool(pool, f"{tag} {label}, the processes' last call")
+    time_placed(mesh, algo, streams, warm, tag)
     print(f"  {tag} the gloo group's start: {pool.start_s:.2f} s", flush=True)
+
+
+def time_placed(mesh, algo, streams, warm, tag) -> None:
+    """Phase 6: the 4-stream batch on the gloo processes' 4 x 1 in chunks of
+    MESH_TIMED frames, its states as tensors (split, handed to the ranks and
+    back at every call) against states placed on the ranks (``place``, then
+    kept), in turns; each call's wall, hand-offs, compute and bytes."""
+    from tracking_tpu_torch.parallel.mesh import run_video_batch_shardmap
+    from tracking_tpu_torch.parallel.placed import place
+
+    m4, pool = mesh.split(MESH_RANKS), mesh.group()
+
+    def line(last) -> str:
+        return (f"in {last['in_s']:.3f} s, compute {last['compute_s']:.3f} s, out {last['out_s']:.3f} s, "
+                f"{last['bytes_in'] / 2**20:.1f} MiB in, {last['bytes_out'] / 2**20:.1f} MiB out")
+
+    for arm in ("tensors", "placed", "placed", "tensors"):
+        st = warm
+        if arm == "placed":
+            st = place(warm, m4, ("stream",))
+            print(f"  {tag} the batch's states placed on {MESH_RANKS} x 1: {line(pool.last)}", flush=True)
+        start = 2
+        for k in MESH_TIMED:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = run_video_batch_shardmap(algo, streams[:, start : start + k], m4, states=st)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            print(f"  {tag} {streams.shape[0]} streams on {MESH_RANKS} x 1, states as {arm}, a chunk of {k} "
+                  f"frames: wall {wall:.3f} s, {line(pool.last)}", flush=True)
+            start += k
 
 
 def time_spatial(algo, tracker, state0, frames, dev, timing_inputs, results, tag) -> None:

@@ -77,14 +77,17 @@ def test_video_batch_spec():
 @pytest.mark.parametrize("gray", [False, True], ids=["bthwc", "bthw"])
 @pytest.mark.parametrize("stream", [4, 2])
 def test_shard_video_batch_blocks_equal_jax_shards(gray, stream):
-    """Rank i · space + j holds the JAX shard on the mesh's device (i, j)."""
+    """Rank i · space + j holds the JAX shard on the mesh's device (i, j),
+    read through the placed batch's handle."""
     _need_mesh()
     frames = BATCH[..., 0] if gray else BATCH
     jm = jmesh.make_mesh(8, stream=stream)
     placed = jmesh.shard_video_batch(jnp.asarray(frames), jm)
     by_device = {s.device: np.asarray(s.data) for s in placed.addressable_shards}
     tm = tmesh.make_mesh(8, stream=stream, device="cpu")
-    blocks = tmesh.shard_video_batch(torch.from_numpy(frames), tm)
+    handle = tmesh.shard_video_batch(torch.from_numpy(frames), tm)
+    assert handle.shape == frames.shape
+    blocks = handle.blocks()
     assert len(blocks) == tm.size
     for i in range(tm.stream):
         for j in range(tm.space):

@@ -61,16 +61,20 @@ def stack_states(states):
     return _map_leaves(torch.stack, list(states))
 
 
-def split_states(stacked, b: int, device=None) -> list:
-    """A state stacked along B -> ``b`` per-stream states, each leaf a
-    contiguous copy of its slice (moved to ``device`` where given)."""
+def split_states(stacked, b: int, device=None, copy: bool = True) -> list:
+    """A state stacked along B -> ``b`` per-stream states (moved to
+    ``device`` where given). Each leaf is a contiguous copy of its slice,
+    so that stepping a stream, which updates its state in place, leaves the
+    caller's stacked tensors as they were; ``copy=False`` gives the slices
+    themselves where they already lie on ``device``, for a caller that owns
+    ``stacked`` (a mesh rank's own block)."""
 
     def check(xs):
         if xs[0].shape[0] != b:
             raise ValueError(f"a stacked state leaf of shape {tuple(xs[0].shape)} holds no {b} streams")
 
     _map_leaves(check, [stacked])
-    return [_map_leaves(lambda xs: xs[0][i].to(device, copy=True), [stacked]) for i in range(b)]
+    return [_map_leaves(lambda xs: xs[0][i].to(device, copy=copy), [stacked]) for i in range(b)]
 
 
 def blob_table_from_numpy(table, device="cuda"):

@@ -35,7 +35,11 @@ storage moves there, its values unchanged). A rank copies its arguments
 onto its device - on the card it shares with the caller device to device,
 from another card peer to peer - so the caller's tensors stay as they were;
 its results come back the same way and are copied onto the group's
-``home`` device, so they outlive the group. Each rank takes an equal share
+``home`` device, so they outlive the group. A call may instead keep
+results on the ranks: each rank holds a registry of blocks by handle id on
+its own device (``parallel/placed.py``'s ``MeshArray``), which later calls
+name by :class:`~tracking_tpu_torch.parallel.placed.Ref`, so a state kept
+there crosses nothing between calls. Each rank takes an equal share
 of the parent's intra-op threads. The environment's ``TRACKING_TPU_*``
 switches go with each call. The parent builds the CUDA kernels before the
 workers start; the workers only load them. A rank that raises fails the
@@ -64,6 +68,7 @@ import torch.multiprocessing as mp
 
 from tracking_tpu_torch.ops import _native
 from tracking_tpu_torch.parallel.mesh import Collectives, mesh_coords
+from tracking_tpu_torch.parallel.placed import Ref, map_tensors, owned, tensor_bytes
 
 BACKENDS = ("nccl", "gloo")
 SWITCHES = "TRACKING_TPU_"  # the environment switches that go with each call
@@ -83,20 +88,6 @@ def check_backend(backend: str, devices: Sequence[torch.device]) -> None:
                                f"{torch.cuda.device_count()} cards")
         if any(d.type != "cuda" for d in devices) or len({d.index for d in devices}) != len(devices):
             raise ValueError(f"backend 'nccl' needs one card a rank, got {[str(d) for d in devices]}")
-
-
-def map_tensors(fn, tree, leaf=torch.Tensor):
-    """``fn`` on every ``leaf`` (a tensor) of a tree of dicts, lists, tuples
-    and named tuples; other leaves as they are."""
-    if isinstance(tree, leaf):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: map_tensors(fn, v, leaf) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(map_tensors(fn, v, leaf) for v in tree))
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(map_tensors(fn, v, leaf) for v in tree)
-    return tree
 
 
 class DistComm(Collectives):
@@ -210,10 +201,27 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _resolve(registry: dict, rank: int):
+    """A :class:`Ref` -> the rank's block of that handle (a clone where the
+    ref asks); a handle the rank does not hold raises."""
+
+    def one(ref: Ref):
+        if ref.hid not in registry:
+            raise RuntimeError(f"rank {rank} holds no block of placed handle {ref.hid}")
+        block = registry[ref.hid]
+        return map_tensors(torch.clone, block) if ref.clone else block
+
+    return one
+
+
 def _worker(rank: int, n: int, backend: str, init_method: str, device: torch.device, timeout: float,
             threads: int, conn) -> None:
     """A rank's process: join, report ready, then run calls until ``None``
-    (each layout's groups made at its first call)."""
+    (each layout's groups made at its first call). The registry holds the
+    rank's blocks of placed handles by id: a call's ``drop`` ids leave it
+    first, its :class:`Ref` arguments name entries, and its results at the
+    indices of ``keep`` enter it under their ids. A call with no function
+    only drops, and reports the ids held."""
     torch.set_num_threads(threads)
     try:
         if device.type == "cuda":
@@ -225,8 +233,14 @@ def _worker(rank: int, n: int, backend: str, init_method: str, device: torch.dev
         return
     conn.send(("ready", None))
     layouts: Dict[tuple, DistComm] = {}
+    registry: dict = {}
     try:
-        for fn, args, axes, env in iter(conn.recv, None):
+        for fn, args, axes, env, keep, drop in iter(conn.recv, None):
+            for hid in drop:
+                registry.pop(hid, None)
+            if fn is None:
+                conn.send(("ok", sorted(registry), None))
+                continue
             for k in [k for k in os.environ if k.startswith(SWITCHES) and k not in env]:
                 del os.environ[k]
             os.environ.update(env)
@@ -236,7 +250,8 @@ def _worker(rank: int, n: int, backend: str, init_method: str, device: torch.dev
                     layouts[key] = _layout(world, axes)
                 if device.type == "cuda":
                     torch.cuda.reset_peak_memory_stats(device)
-                args = map_tensors(lambda t: t.to(device, copy=True), args)  # the rank's own copies
+                args = map_tensors(lambda t: owned(t, device), args)  # the rank's own copies
+                args = map_tensors(_resolve(registry, rank), args, leaf=Ref)
                 _sync(device)
                 # every rank holds its arguments before any starts, so the
                 # ranks' windows run together
@@ -247,6 +262,10 @@ def _worker(rank: int, n: int, backend: str, init_method: str, device: torch.dev
                 del args
                 _sync(device)
                 t_done = time.perf_counter()
+                for i, hid in keep.items():
+                    registry[hid] = None if out is None else out[i]
+                if keep and out is not None:
+                    out = tuple(None if i in keep else v for i, v in enumerate(out))
                 stats = {"t_ready": t_ready, "t_done": t_done, "launches": dict(_native.LAUNCHES)}
                 if device.type == "cuda":
                     free, total = torch.cuda.mem_get_info(device)
@@ -299,8 +318,19 @@ class DistGroup:
     launches summed over the ranks (``launches``, each rank's counts set to
     0 when its call starts) and each rank's device memory (``ranks``:
     peak allocated and reserved bytes, and the device's bytes in use at the
-    call's end, every process's context included). :attr:`start_s`: the
-    seconds the workers took to start and join."""
+    call's end, every process's context included), and the bytes of the
+    tensors that crossed to the ranks (``bytes_in``: the arguments) and
+    back (``bytes_out``: the results; blocks kept on the ranks cross
+    nothing). :attr:`start_s`: the seconds the workers took to start and
+    join.
+
+    Each rank keeps a registry of blocks of placed handles
+    (``parallel/placed.py``): :meth:`run`'s ``keep`` enters results there,
+    a :class:`Ref` argument names an entry. Ids a finalizer appended to
+    :attr:`drops` leave the registries with the next message;
+    :meth:`release` sends them at once, :meth:`held` reports each rank's
+    ids. A rank that died takes its blocks with it, and the group's next
+    call raises."""
 
     def __init__(self, n: int, backend: str, devices: Sequence, timeout: float = 600.0):
         devices = [torch.device(d) for d in devices]
@@ -310,6 +340,8 @@ class DistGroup:
         self.n, self.backend, self.devices, self.timeout = n, backend, devices, timeout
         self.home = devices[0]
         self.last: dict = {}
+        self.drops: List[int] = []  # released handles' ids, for the next message
+        self._next_id = 0
         if any(d.type == "cuda" for d in devices):
             _native.library()  # build once, before the workers load it
         t0 = time.perf_counter()
@@ -353,12 +385,32 @@ class DistGroup:
                 out[r] = msg[1:]
         return out
 
-    def run(self, fn: Callable, *per_shard_args: Sequence, axes: Optional[Dict[str, int]] = None) -> list:
-        """``fn(rank, comm, *(a[rank] for a in per_shard_args))`` on every
-        rank, ``comm`` laid out as a mesh of ``axes``; returns the results
-        in rank order, on ``home``."""
+    def new_id(self) -> int:
+        """A fresh handle id for :meth:`run`'s ``keep``."""
+        self._next_id += 1
+        return self._next_id
+
+    def _send(self, msgs: Sequence) -> None:
+        """Each rank its message, with the ids released since the last; a
+        rank that is gone tears the group down and raises."""
         if self.closed:
             raise RuntimeError("the process group is closed")
+        drop = self.drops[:]
+        del self.drops[: len(drop)]
+        for r, (conn, msg) in enumerate(zip(self._conns, msgs)):
+            try:
+                conn.send(msg + (drop,))
+            except OSError as e:
+                self._closer.detach()
+                _shutdown(self._procs, self._conns, self._dir, graceful=False)
+                raise RuntimeError(f"rank {r} is gone (exit code {self._procs[r].exitcode}); its blocks with it") from e
+
+    def run(self, fn: Callable, *per_shard_args: Sequence, axes: Optional[Dict[str, int]] = None,
+            keep: Optional[Dict[int, int]] = None) -> list:
+        """``fn(rank, comm, *(a[rank] for a in per_shard_args))`` on every
+        rank, ``comm`` laid out as a mesh of ``axes``; returns the results
+        in rank order, on ``home``. ``keep`` ({result index: handle id})
+        leaves those results in each rank's registry; they read None here."""
         axes = {"space": self.n} if axes is None else dict(axes)
         if math.prod(axes.values()) != self.n:
             raise ValueError(f"mesh axes {axes} do not hold {self.n} ranks")
@@ -366,9 +418,9 @@ class DistGroup:
             if len(a) != self.n:
                 raise ValueError(f"expected {self.n} per-shard values, got {len(a)}")
         env = {k: v for k, v in os.environ.items() if k.startswith(SWITCHES)}
+        args = [tuple(a[r] for a in per_shard_args) for r in range(self.n)]
         t0 = time.perf_counter()
-        for r, conn in enumerate(self._conns):
-            conn.send((fn, tuple(a[r] for a in per_shard_args), axes, env))
+        self._send([(fn, a, axes, env, dict(keep or {})) for a in args])
         replies = self._collect()
         results = [map_tensors(lambda t: t.to(self.home, copy=True), out) for out, _ in replies]
         for d in set(self.devices):  # the copies end before the ranks' tensors are let go
@@ -380,10 +432,21 @@ class DistGroup:
             "in_s": start - t0,
             "compute_s": end - start,
             "out_s": time.perf_counter() - end,
+            "bytes_in": tensor_bytes(args),
+            "bytes_out": tensor_bytes(results),
             "launches": {k: sum(s["launches"][k] for s in stats) for k in stats[0]["launches"]},
             "ranks": [{k: v for k, v in s.items() if k not in ("t_ready", "t_done", "launches")} for s in stats],
         }
         return results
+
+    def held(self) -> List[List[int]]:
+        """Each rank's registry ids, after the pending releases."""
+        self._send([(None, (), None, {}, {})] * self.n)
+        return [ids for ids, _ in self._collect()]
+
+    def release(self) -> None:
+        """Send the pending releases now."""
+        self.held()
 
     def close(self) -> None:
         """End the workers; the group runs nothing more."""

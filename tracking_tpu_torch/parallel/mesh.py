@@ -45,7 +45,11 @@ stream-batched runners :func:`run_video_batch_shardmap` and
 :func:`run_video_batch` (``tracking_tpu/parallel/mesh.py:39-170``). Each
 stream keeps its own state tensors (the kernels update banks in place);
 states come back stacked leaf by leaf along a leading ``B``, the layout of
-JAX's vmapped pytree, and ``states=`` takes that layout.
+JAX's vmapped pytree, and ``states=`` takes that layout. Frames and states
+placed on the mesh (``parallel/placed.py``: ``shard_video_batch`` returns
+a :class:`~tracking_tpu_torch.parallel.placed.MeshArray`) stay on the
+ranks: a runner given one keeps its states placed, where JAX's
+``out_specs`` keep them sharded.
 
 The thread group runs on one device: NCCL refuses two ranks on one GPU,
 and gloo's point-to-point calls take CPU tensors only, so every halo band
@@ -72,6 +76,8 @@ import torch
 
 from tracking_tpu_torch.convert import split_states, stack_states
 from tracking_tpu_torch.ops import _native
+from tracking_tpu_torch.parallel.placed import (MeshArray, block_of, join, map_tensors, mesh_coords, meta_of, owned,
+                                                place, placed_mesh, rank_args, spec_rule)
 
 
 class _Sync:
@@ -169,15 +175,6 @@ def _first_tensor(tree) -> Optional[torch.Tensor]:
 
 def _axis_key(coords: Dict[str, int], name: str):
     return name, tuple((k, v) for k, v in coords.items() if k != name)
-
-
-def mesh_coords(rank: int, axes: Dict[str, int]) -> Dict[str, int]:
-    """Rank ``rank``'s row-major coordinates on a mesh of ``axes``."""
-    out = {}
-    for name, size in reversed(list(axes.items())):
-        out[name] = rank % size
-        rank //= size
-    return {k: out[k] for k in axes}
 
 
 class ShardGroup:
@@ -293,12 +290,34 @@ class Mesh:
             self._pool = DistGroup(self.size, self.backend, self.devices)
         return self._pool
 
-    def run(self, fn: Callable, *per_rank_args: Sequence) -> list:
+    def run(self, fn: Callable, *per_rank_args: Sequence, keep: Sequence[int] = ()) -> Tuple[list, list]:
         """``fn(rank, comm, *args)`` on the mesh's ranks, each ``comm`` with
-        its coordinates and axis views; the results in rank order."""
+        its coordinates and axis views. Returns (the results in rank order,
+        ``kept``): result index ``keep[k]`` of every rank stays with the
+        ranks, and ``kept[k]`` is its per-rank list on a thread mesh, its
+        handle id on a process mesh (each rank keeps its own under it; a
+        rank that returns None keeps None); those indices read None in the
+        results."""
+        if self.backend is not None:
+            pool = self.group()
+            ids = {i: pool.new_id() for i in keep}
+            return pool.run(fn, *per_rank_args, axes=self.shape, keep=ids), [ids[i] for i in keep]
+        out = self.group().run(fn, *per_rank_args)
+        kept = [[None if o is None else o[i] for o in out] for i in keep]
+        if keep:
+            out = [None if o is None else tuple(None if i in keep else v for i, v in enumerate(o)) for o in out]
+        return out, kept
+
+    def cut(self, tree, meta, holders: Optional[Sequence[int]] = None) -> list:
+        """A global tree's per-rank blocks for a call (``None`` off
+        ``holders``): on a thread mesh contiguous copies on the device, the
+        rank's own; on a process mesh views of the caller's tensors, which
+        each rank copies onto its device as they arrive."""
+        blocks = [block_of(tree, meta, self.shape, r) if holders is None or r in holders else None
+                  for r in range(self.size)]
         if self.backend is None:
-            return self.group().run(fn, *per_rank_args)
-        return self.group().run(fn, *per_rank_args, axes=self.shape)
+            blocks = [map_tensors(lambda t: owned(t, self.device), b) for b in blocks]
+        return blocks
 
     def split(self, stream: int) -> "Mesh":
         """The same ranks as ``stream`` × size/stream; a process mesh shares
@@ -367,31 +386,50 @@ def video_batch_spec() -> tuple:
     return ("stream", None, "space", None, None)
 
 
-def shard_video_batch(frames: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
-    """A [B, T, H, W(, C)] batch as the mesh's per-rank blocks [B/stream,
-    T, H/space, W(, C)] on its device, in rank order (rank = i · space + j
-    holds stream block i, row block j)."""
+batch_dims = spec_rule(video_batch_spec())  # the dims rule of a [B, T, H, W(, C)] batch
+
+
+def _on_streams(shape) -> tuple:
+    """The dims of a leaf stacked along B and split over ``stream`` only."""
+    return ("stream",) + (None,) * (len(shape) - 1)
+
+
+def shard_video_batch(frames: torch.Tensor, mesh: Mesh) -> MeshArray:
+    """A [B, T, H, W(, C)] batch placed on the mesh (``tracking_tpu``
+    ``shard_video_batch``): rank i · space + j holds stream block i, row
+    block j, [B/stream, T, H/space, W(, C)]. On a thread mesh the blocks are
+    copies on its device; on a process mesh each block goes from the
+    caller's tensor to its rank's device (a host tensor through shared
+    memory, a card's by CUDA IPC, or peer to peer to another card) and
+    stays there."""
     b, _, h = frames.shape[:3]
     if b % mesh.stream or h % mesh.space:
         raise ValueError(f"a batch of {b} streams x {h} rows does not split over the mesh {mesh.shape}")
-    bs, hp = b // mesh.stream, h // mesh.space
-    frames = frames.to(mesh.device)
-    return [
-        frames[i * bs : (i + 1) * bs, :, j * hp : (j + 1) * hp].contiguous()
-        for i in range(mesh.stream)
-        for j in range(mesh.space)
-    ]
+    return place(frames, mesh, video_batch_spec())
 
 
-def stream_states(algo, frames: torch.Tensor, states=None) -> list:
+def stream_states(algo, frames: torch.Tensor, states=None, copy: bool = True) -> list:
     """One state per stream of ``frames`` [B, T, H, W(, C)]: ``init`` and
     ``warm_start`` on each stream's frame 0, or a stacked ``states`` split
-    into per-stream clones (the kernels update state tensors in place)."""
+    into per-stream states (``convert.split_states``: copies, the kernels
+    update state tensors in place; views where ``copy`` is False, for a
+    caller that owns ``states``)."""
     b, _, h, w = frames.shape[:4]
     c = frames.shape[4] if frames.ndim == 5 else 1
     if states is None:
         return [algo.warm_start(algo.init(h, w, c, device=frames.device), frames[i, 0]) for i in range(b)]
-    return split_states(states, b, device=frames.device)
+    return split_states(states, b, device=frames.device, copy=copy)
+
+
+def batch_state_meta(algo, states, frames_shape, rule: Callable, axes: Dict[str, int]):
+    """The meta tree of a batch's stacked states under ``rule``: that of
+    ``states``, or, where the call makes them, of B ``init`` states on the
+    ``meta`` device."""
+    if states is None:
+        b, _, h, w = frames_shape[:4]
+        c = frames_shape[4] if len(frames_shape) == 5 else 1
+        states = map_tensors(lambda t: t.expand(b, *t.shape), algo.init(h, w, c, device="meta"))
+    return meta_of(states, rule, axes)
 
 
 def run_streams(algo, states: list, frames: torch.Tensor, use_kernels: bool = True, ctx=None):
@@ -408,38 +446,51 @@ def run_streams(algo, states: list, frames: torch.Tensor, use_kernels: bool = Tr
     return states, torch.stack([torch.stack(m) for m in masks])
 
 
-def _stream_rank(rank, comm, algo, states: list, frames: torch.Tensor, use_kernels: bool):
-    """A stream rank's whole streams, with no collective; a rank that
-    holds no stream (off ``space`` 0 of a process mesh) returns None."""
-    if not states:
+def _stream_rank(rank, comm, algo, states, frames: torch.Tensor, gather_rows: bool, use_kernels: bool):
+    """A stream rank's streams [per, T, H, W(, C)], stepped with no
+    collective: (states stacked along B, masks). Frames placed with their
+    rows over ``space`` are first gathered over the rank's ``space`` row; a
+    rank off ``space`` 0 then returns None. ``states``: the rank's own
+    stacked block, or None (made here)."""
+    if gather_rows:
+        frames = comm.axis("space").all_gather(frames, dim=2)
+    if comm.coords["space"]:
         return None
-    return run_streams(algo, states, frames, use_kernels)
+    sts, masks = run_streams(algo, stream_states(algo, frames, states, copy=False), frames, use_kernels)
+    return stack_states(sts), masks
 
 
-def run_video_batch_shardmap(algo, frames: torch.Tensor, mesh: Mesh, states=None, use_kernels: bool = True):
+def run_video_batch_shardmap(algo, frames, mesh: Mesh, states=None, use_kernels: bool = True):
     """Stream-parallel batch (``tracking_tpu`` ``run_video_batch_shardmap``):
     each of the mesh's ``stream`` ranks runs its B/stream whole streams with
     no collective (per-stream state is private). The ``space`` axis only
-    replicates that work there, so its ranks off ``space`` 0 get no stream
-    and return at once.
+    replicates that work there, so its ranks off ``space`` 0 hold no stream
+    (they only lend their rows of placed frames) and return at once.
 
-    frames [B, T, H, W(, C)] u8, B divisible by the stream size, placed on
-    the mesh's device. Returns (states stacked along B, masks [B, T, H, W])."""
-    frames = frames.to(mesh.device)
+    frames [B, T, H, W(, C)] u8, a tensor or a batch placed by
+    :func:`shard_video_batch`, B divisible by the stream size; ``states``
+    stacked along B, as tensors or placed by an earlier call, or None (made
+    on the ranks). Returns (states, masks [B, T, H, W] on the mesh's
+    device): the states stacked along B on the mesh's device where frames
+    and states are tensors, else placed on the stream ranks."""
     b = frames.shape[0]
     if b % mesh.stream:
         raise ValueError(f"{b} streams do not split over {mesh.stream} stream ranks")
-    per = b // mesh.stream
-    states = stream_states(algo, frames, states)
-    blocks = [r // mesh.space if r % mesh.space == 0 else None for r in range(mesh.size)]
-    own = [range(0) if i is None else range(i * per, (i + 1) * per) for i in blocks]
-    out = mesh.run(_stream_rank, [algo] * len(own), [[states[k] for k in idx] for idx in own],
-                    [frames[idx.start : idx.stop] for idx in own], [use_kernels] * len(own))
-    out = [o for o in out if o is not None]
-    return stack_states([s for o in out for s in o[0]]), torch.cat([o[1] for o in out])
+    n, holders = mesh.size, tuple(range(0, mesh.size, mesh.space))
+    placed = placed_mesh(frames, states) is not None
+    gather_rows = isinstance(frames, MeshArray) and mesh.space > 1
+    frame_args = rank_args(mesh, frames, batch_dims) if gather_rows else rank_args(mesh, frames, _on_streams,
+                                                                                       holders)
+    meta = batch_state_meta(algo, states, frames.shape, _on_streams, mesh.shape)
+    out, kept = mesh.run(_stream_rank, [algo] * n, rank_args(mesh, states, _on_streams, holders, clone=True),
+                         frame_args, [gather_rows] * n, [use_kernels] * n, keep=(0,) if placed else ())
+    masks = torch.cat([out[r][1] for r in holders])
+    if placed:
+        return MeshArray(mesh, meta, kept[0], holders), masks
+    return join([None if o is None else o[0] for o in out], meta, mesh.shape), masks
 
 
-def run_video_batch(algo, frames: torch.Tensor, states=None, mesh: Optional[Mesh] = None, use_kernels: bool = True):
+def run_video_batch(algo, frames, states=None, mesh: Optional[Mesh] = None, use_kernels: bool = True):
     """Multi-stream batch: frames [B, T, H, W(, C)] -> (states stacked along
     B, masks [B, T, H, W]) (``tracking_tpu`` ``run_video_batch``).
 
@@ -452,7 +503,11 @@ def run_video_batch(algo, frames: torch.Tensor, states=None, mesh: Optional[Mesh
     over the mesh, the computation is the same; on a thread mesh (one
     device) there is nothing to partition, and a process mesh runs
     :func:`run_video_batch_shardmap`, the streams split over its stream
-    ranks."""
+    ranks. Placed frames or states (:class:`MeshArray`) run on their mesh
+    (``mesh`` may be left out) through those runners, and the states come
+    back placed."""
+    if mesh is None:
+        mesh = placed_mesh(frames, states)
     if mesh is not None:
         from tracking_tpu_torch.parallel.spatial import HALO, run_video_batch_spatial
 
@@ -460,7 +515,7 @@ def run_video_batch(algo, frames: torch.Tensor, states=None, mesh: Optional[Mesh
         if (mesh.space > 1 and "ctx" in inspect.signature(algo.step).parameters and h % mesh.space == 0
                 and h // mesh.space >= HALO):
             return run_video_batch_spatial(algo, frames, mesh, states=states, use_kernels=use_kernels)
-        if mesh.backend is not None:
+        if mesh.backend is not None or placed_mesh(frames, states) is not None:
             return run_video_batch_shardmap(algo, frames, mesh, states=states, use_kernels=use_kernels)
         frames = frames.to(mesh.device)
     sts, masks = run_streams(algo, stream_states(algo, frames, states), frames, use_kernels)

@@ -29,10 +29,13 @@ tracker), both over ``n_shards`` threads or a ``mesh``'s ``space`` axis
 :func:`run_video_batch_spatial` (streams × row shards on a ``Mesh``, each
 stream row a ``space`` view of the 2-D group that synchronises only with
 itself: ``parallel/mesh.py``). ``parallel/mesh.py:run_video_batch`` routes
-to the last. State is made and warm-started unsharded, then split by
-:func:`shard_state` and joined by :func:`gather_state`; a rank receives
-only its own rows of the frames. The per-rank functions are module-level,
-so a process mesh can send them.
+to the last. A state the call makes is made and warm-started unsharded
+on each rank (its first frame gathered over the row's ranks), which keeps
+its own rows (:func:`shard_state`'s part); a rank receives only its own
+rows of the frames. States come back joined (:func:`gather_state`) where
+every input is a tensor, else placed on the ranks (``parallel/placed.py``).
+The per-rank functions are module-level, so a process mesh can send
+them.
 
 The unbounded loops (:func:`sharded_fill`, :func:`sharded_label`) stop
 when their row's summed change flag is 0. The JAX package sums that flag
@@ -46,14 +49,15 @@ own count gives the same bits.
 from __future__ import annotations
 
 import inspect
-from typing import List, Optional
+from typing import Optional, Sequence
 
 import torch
 
-from tracking_tpu_torch.convert import stack_states
+from tracking_tpu_torch.convert import split_states, stack_states
 from tracking_tpu_torch.ops.consensus import slab_shift
-from tracking_tpu_torch.parallel.dist import map_tensors
-from tracking_tpu_torch.parallel.mesh import Mesh, ShardComm, run_streams, stream_states
+from tracking_tpu_torch.parallel.mesh import Mesh, ShardComm, batch_dims, batch_state_meta, run_streams
+from tracking_tpu_torch.parallel.placed import (Leaf, MeshArray, block_of, join, map_tensors, meta_leaf, meta_of, owned,
+                                                placed_mesh, rank_args)
 
 HALO = 8  # the frame slabs' halo rows: LBSP ±2, spread ±2, refresh pattern ±3 (+ slack)
 N_CAND = 128  # blob-root candidates a frame (the sharded table is exact up to this many components)
@@ -378,45 +382,64 @@ def sharded_postproc(
 # -- state and entry points -------------------------------------------------------
 
 
+def row_rule(h_global: int, batched: bool = False):
+    """The dims rule of a state leaf (JAX's ``spatial_specs``): rows on
+    ``space`` where the leaf's second-to-last axis is ``h_global``, the
+    rest replicated; ``batched``: stacked along B, on ``stream``."""
+    lead = ("stream",) if batched else ()
+
+    def rule(shape):
+        rest = len(shape) - len(lead)
+        if rest >= 2 and shape[-2] == h_global:
+            return lead + (None,) * (rest - 2) + ("space", None)
+        return lead + (None,) * rest
+
+    return rule
+
+
 def spatial_specs(state, h_global: int):
     """The state's tree with True for each leaf whose second-to-last axis
     is ``h_global`` (row-sharded) and False for the rest (replicated)."""
+    rule = row_rule(h_global)
+    return map_tensors(lambda x: "space" in rule(tuple(x.shape)), state)
+
+
+def _row_meta(state, specs):
+    """The meta tree of one state split over ``space`` as ``specs`` marks."""
     if isinstance(state, dict):
-        return {k: spatial_specs(v, h_global) for k, v in state.items()}
+        return {k: _row_meta(v, specs[k]) for k, v in state.items()}
     if isinstance(state, (tuple, list)):
-        return tuple(spatial_specs(v, h_global) for v in state)
-    return state.ndim >= 2 and state.shape[-2] == h_global
+        return tuple(_row_meta(v, s) for v, s in zip(state, specs))
+    dims = (None,) * (state.ndim - 2) + ("space", None) if specs else (None,) * state.ndim
+    return Leaf(tuple(state.shape), state.dtype, dims)
 
 
-def shard_state(state, specs, n: int) -> List:
+def _rows_of(state, specs, n: int, r: int):
+    """Rank ``r`` of ``n``'s part of a state: its rows of the sharded
+    leaves, the replicated leaves whole, each a contiguous tensor of its
+    own."""
+    return map_tensors(lambda t: owned(t, t.device), block_of(state, _row_meta(state, specs), {"space": n}, r))
+
+
+def shard_state(state, specs, n: int) -> list:
     """One state per rank: sharded leaves split into ``n`` row blocks,
     replicated leaves cloned (each a contiguous tensor of its own)."""
-
-    def part(x, sharded, r):
-        if isinstance(x, dict):
-            return {k: part(v, sharded[k], r) for k, v in x.items()}
-        if isinstance(x, (tuple, list)):
-            return tuple(part(v, s, r) for v, s in zip(x, sharded))
-        if sharded:
-            h = x.shape[-2] // n
-            return x.narrow(x.ndim - 2, r * h, h).contiguous()
-        return x.clone()
-
-    return [part(state, specs, r) for r in range(n)]
+    return [_rows_of(state, specs, n, r) for r in range(n)]
 
 
-def gather_state(states: List, specs):
+def gather_state(states: list, specs):
     """The ranks' states joined: sharded leaves concatenated along rows,
     replicated leaves taken from rank 0."""
+    return join(states, _row_meta(states[0], specs), {"space": len(states)})
 
-    def join(xs, sharded):
-        if isinstance(xs[0], dict):
-            return {k: join([x[k] for x in xs], sharded[k]) for k in xs[0]}
-        if isinstance(xs[0], (tuple, list)):
-            return tuple(join([x[i] for x in xs], sharded[i]) for i in range(len(xs[0])))
-        return torch.cat(xs, dim=xs[0].ndim - 2) if sharded else xs[0]
 
-    return join(states, specs)
+def _replicated(shape) -> tuple:
+    return (None,) * len(shape)
+
+
+def _one_stream(shape) -> tuple:
+    """A stream's frames [T, H, W(, C)] or masks: rows on ``space``."""
+    return (None, "space") + (None,) * (len(shape) - 2)
 
 
 def _check_algo(algo) -> None:
@@ -426,35 +449,31 @@ def _check_algo(algo) -> None:
         )
 
 
-def _stream_mesh(mesh: Optional[Mesh], n_shards: int, frames: torch.Tensor) -> Mesh:
-    """The mesh of a one-stream run: ``mesh``, or ``n_shards`` threads on
-    the frames' device."""
+def _stream_mesh(mesh: Optional[Mesh], n_shards: int, frames, *placed) -> Mesh:
+    """The mesh of a one-stream run: ``mesh``, that of its placed inputs,
+    or ``n_shards`` threads on the frames' device."""
+    if mesh is None:
+        mesh = placed_mesh(frames, *placed)
     return Mesh(1, n_shards, frames.device) if mesh is None else mesh
 
 
-def _prepare(algo, frames: torch.Tensor, n_shards: int, states):
-    t, h, w = frames.shape[:3]
-    c = frames.shape[3] if frames.ndim == 4 else 1
-    if h % n_shards:
-        raise ValueError(f"height {h} does not split into {n_shards} shards")
+def _state_meta(algo, states, frames_shape, axes):
+    """The meta tree of one stream's state: ``states``', or that of an
+    ``init`` state on the ``meta`` device where the call makes it."""
+    t, h, w = frames_shape[:3]
     if states is None:
-        states = algo.warm_start(algo.init(h, w, c, device=frames.device), frames[0])
-    specs = spatial_specs(states, h)
-    return h, specs, shard_state(states, specs, n_shards)
+        states = algo.init(h, w, frames_shape[3] if len(frames_shape) == 4 else 1, device="meta")
+    return meta_of(states, row_rule(h), axes)
 
 
-def _on_every_row(mesh: Mesh, per_block: list) -> list:
-    """Per-rank values of a one-stream run from its ``space`` blocks: rank
-    (i, j) holds block j, on a clone off stream row 0 (those rows replicate
-    the run, as JAX's ``shard_map`` over ``space`` does)."""
-    return [per_block[j] if i == 0 else map_tensors(torch.clone, per_block[j]) for i in range(mesh.stream)
-            for j in range(mesh.space)]
-
-
-def _own_rows(frames: torch.Tensor, dim: int, p: int) -> list:
-    """``frames`` cut into ``p`` row blocks along ``dim`` (views)."""
-    h = frames.shape[dim] // p
-    return [frames.narrow(dim, j * h, h) for j in range(p)]
+def _init_rows(algo, ctx: SpatialCtx, rows: torch.Tensor):
+    """A stream's state made on this rank: ``init`` and ``warm_start`` on
+    its whole first frame (its ``rows`` gathered over the row's ranks),
+    then this rank's part (:func:`shard_state`'s)."""
+    full = ctx.comm.all_gather(rows, dim=0)
+    c = full.shape[2] if full.ndim == 3 else 1
+    state = algo.warm_start(algo.init(ctx.H, full.shape[1], c, device=full.device), full)
+    return _rows_of(state, spatial_specs(state, ctx.H), ctx.n, ctx.idx)
 
 
 def _frame_slabs(ctx: SpatialCtx, own: torch.Tensor) -> torch.Tensor:
@@ -466,8 +485,11 @@ def _frame_slabs(ctx: SpatialCtx, own: torch.Tensor) -> torch.Tensor:
 
 
 def _spatial_rank(rank, comm, algo, h: int, state, own: torch.Tensor, use_kernels: bool):
-    """One rank of :func:`run_video_spatial`: (state, masks [T, h_loc, W])."""
+    """One rank of :func:`run_video_spatial`: (state, masks [T, h_loc, W]);
+    ``state`` the rank's own, or None (made here)."""
     ctx = SpatialCtx(comm.axis("space"), h, device=own.device)
+    if state is None:
+        state = _init_rows(algo, ctx, own[0])
     masks = []
     for fr in _frame_slabs(ctx, own):
         state, fg, _ = algo.step(state, fr, use_kernels=use_kernels, ctx=ctx)
@@ -475,70 +497,93 @@ def _spatial_rank(rank, comm, algo, h: int, state, own: torch.Tensor, use_kernel
     return state, torch.stack(masks)
 
 
+def _finish(mesh: Mesh, out: list, kept: list, metas: Sequence, placed: bool) -> list:
+    """A runner's states: placed handles of the kept blocks, or the blocks
+    (results 0.. of each rank) joined on the mesh's device."""
+    if placed:
+        return [MeshArray(mesh, meta, k) for meta, k in zip(metas, kept)]
+    return [join([o[i] for o in out], meta, mesh.shape) for i, meta in enumerate(metas)]
+
+
 def run_video_spatial(
-    algo, frames: torch.Tensor, n_shards: int = 4, states=None, use_kernels: bool = True,
-    mesh: Optional[Mesh] = None,
+    algo, frames, n_shards: int = 4, states=None, use_kernels: bool = True, mesh: Optional[Mesh] = None,
 ):
     """ONE stream, row-sharded over the ``space`` axis of ``mesh`` (a thread
     or process mesh), or over ``n_shards`` threads on the frames' device.
-    frames [T, H, W(, C)] u8, H divisible by the shard count. Returns (final
-    state, masks [T, H, W]) on the mesh's device, bit-identical to the
-    unsharded ``run_video``."""
+    frames [T, H, W(, C)] u8, H divisible by the shard count, a tensor or
+    placed on the mesh with its rows on ``space`` (``placed.place(frames,
+    mesh, (None, "space"))``); ``states`` a tensor tree, placed by an
+    earlier call, or None (made on the ranks). Returns (final state, masks
+    [T, H, W] on the mesh's device), bit-identical to the unsharded
+    ``run_video``: the state on the mesh's device where frames and states
+    are tensors, else placed (rows on ``space``, the rest replicated)."""
     _check_algo(algo)
-    mesh = _stream_mesh(mesh, n_shards, frames)
-    frames = frames.to(mesh.device)
-    h, specs, shards = _prepare(algo, frames, mesh.space, states)
-    n = mesh.size
-    out = mesh.run(_spatial_rank, [algo] * n, [h] * n, _on_every_row(mesh, shards),
-                           _on_every_row(mesh, _own_rows(frames, 1, mesh.space)), [use_kernels] * n)
-    out = out[: mesh.space]
-    return gather_state([o[0] for o in out], specs), torch.cat([o[1] for o in out], dim=1)
+    mesh = _stream_mesh(mesh, n_shards, frames, states)
+    h, n = frames.shape[1], mesh.size
+    if h % mesh.space:
+        raise ValueError(f"height {h} does not split into {mesh.space} shards")
+    placed = placed_mesh(frames, states) is not None
+    meta = _state_meta(algo, states, frames.shape, mesh.shape)
+    out, kept = mesh.run(_spatial_rank, [algo] * n, [h] * n, rank_args(mesh, states, row_rule(h), clone=True),
+                         rank_args(mesh, frames, _one_stream), [use_kernels] * n, keep=(0,) if placed else ())
+    masks = join([o[1] for o in out], meta_leaf(frames.shape[:3], _one_stream, mesh.shape), mesh.shape)
+    return _finish(mesh, out, kept, [meta], placed)[0], masks
 
 
-def _batch_spatial_rank(rank, comm, algo, h: int, states_loc: list, own: torch.Tensor, use_kernels: bool):
+def _batch_spatial_rank(rank, comm, algo, h: int, states, own: torch.Tensor, use_kernels: bool):
     """Rank (i, j) of :func:`run_video_batch_spatial`: its streams' row
     block j, [per, T, h_loc, W(, C)], stepped over its stream row's
-    ``space`` view."""
+    ``space`` view; ``states`` the rank's own stacked block, or None (made
+    here). Returns (states stacked along B, masks)."""
     ctx = SpatialCtx(comm.axis("space"), h, device=own.device)
+    if states is None:
+        sts = [_init_rows(algo, ctx, f[0]) for f in own]
+    else:
+        sts = split_states(states, own.shape[0], copy=False)
     slabs = torch.stack([_frame_slabs(ctx, f) for f in own])
-    return run_streams(algo, states_loc, slabs, use_kernels, ctx=ctx)
+    sts, masks = run_streams(algo, sts, slabs, use_kernels, ctx=ctx)
+    return stack_states(sts), masks
 
 
-def run_video_batch_spatial(algo, frames: torch.Tensor, mesh: Mesh, states=None, use_kernels: bool = True):
+def run_video_batch_spatial(algo, frames, mesh: Mesh, states=None, use_kernels: bool = True):
     """Streams × row shards (``tracking_tpu`` ``run_video_batch_spatial``):
     frames [B, T, H, W(, C)] on the ``stream`` × ``space`` ranks of
     ``mesh``; rank (i, j) owns B/stream streams of block i and the H/space
     rows of block j of each, and steps its streams frame by frame, ``t``
     outer and stream inner, with a :class:`SpatialCtx` over the ``space``
     view of its stream row (``parallel/mesh.py``: each row synchronises
-    only with itself; the stream axis runs no collective). States are made
-    and warm-started unsharded per stream (or split from the stacked
-    ``states``). Returns (the gathered states stacked along B, masks [B, T,
-    H, W]), bit-identical to each stream's unsharded run."""
+    only with itself; the stream axis runs no collective). frames a tensor
+    or placed by ``shard_video_batch``; ``states`` stacked along B, as
+    tensors or placed by an earlier call, or None: each rank makes and
+    warm-starts its streams unsharded, then keeps its rows. Returns
+    (states, masks [B, T, H, W] on the mesh's device), bit-identical to
+    each stream's unsharded run: the states stacked along B on the mesh's
+    device where frames and states are tensors, else placed (B on
+    ``stream``, rows on ``space``)."""
     _check_algo(algo)
-    frames = frames.to(mesh.device)
     b, h = frames.shape[0], frames.shape[2]
     if b % mesh.stream or h % mesh.space:
         raise ValueError(f"a batch of {b} streams x {h} rows does not split over the mesh {mesh.shape}")
-    per, p, n = b // mesh.stream, mesh.space, mesh.size
-    sts = stream_states(algo, frames, states)
-    specs = spatial_specs(sts[0], h)
-    shards = [shard_state(st, specs, p) for st in sts]  # [stream][row block]
-    blocks = range(mesh.stream)
-    local = [[shards[k][j] for k in range(i * per, (i + 1) * per)] for i in blocks for j in range(p)]
-    own = [rows for i in blocks for rows in _own_rows(frames[i * per : (i + 1) * per], 2, p)]
-    out = mesh.run(_batch_spatial_rank, [algo] * n, [h] * n, local, own, [use_kernels] * n)
-    rows = [out[i * p : (i + 1) * p] for i in blocks]  # each stream row's ranks
-    states_out = [gather_state([o[0][k] for o in row], specs) for row in rows for k in range(per)]
-    masks = torch.cat([torch.cat([o[1] for o in row], dim=2) for row in rows])
-    return stack_states(states_out), masks
+    n, rule = mesh.size, row_rule(h, batched=True)
+    placed = placed_mesh(frames, states) is not None
+    meta = batch_state_meta(algo, states, frames.shape, rule, mesh.shape)
+    out, kept = mesh.run(_batch_spatial_rank, [algo] * n, [h] * n, rank_args(mesh, states, rule, clone=True),
+                         rank_args(mesh, frames, batch_dims), [use_kernels] * n,
+                         keep=(0,) if placed else ())
+    masks = join([o[1] for o in out], meta_leaf(frames.shape[:4], batch_dims, mesh.shape), mesh.shape)
+    return _finish(mesh, out, kept, [meta], placed)[0], masks
 
 
 def _tracked_rank(rank, comm, algo, tracker, h: int, state, ts, own: torch.Tensor, pipelined: bool,
                   use_kernels: bool):
     """One rank of :func:`run_video_spatial_tracked`: (state, tracker state,
-    masks [T, h_loc, W], tracks_x [T, K])."""
+    masks [T, h_loc, W], tracks_x [T, K] on rank 0, else None); ``state``
+    and ``ts`` the rank's own, or None (made here)."""
     ctx = SpatialCtx(comm.axis("space"), h, device=own.device)
+    if state is None:
+        state = _init_rows(algo, ctx, own[0])
+    if ts is None:
+        ts = tracker.init(device=own.device)
     k_blobs = tracker.config.maxBlobs
     masks, xs, pending = [], [], None
 
@@ -559,18 +604,19 @@ def _tracked_rank(rank, comm, algo, tracker, h: int, state, ts, own: torch.Tenso
             track(fg, blobs)
     if pipelined:
         track(*pending)
-    return state, ts, torch.stack(masks), torch.stack(xs)
+    return state, ts, torch.stack(masks), torch.stack(xs) if rank == 0 else None
 
 
 def run_video_spatial_tracked(
     algo,
     tracker,
-    frames: torch.Tensor,
+    frames,
     n_shards: int = 4,
     states=None,
     pipelined: bool = False,
     use_kernels: bool = True,
     mesh: Optional[Mesh] = None,
+    tracker_state=None,
 ):
     """ONE stream through the whole sharded pipeline, over the ``space``
     axis of ``mesh`` (a thread or process mesh) or over ``n_shards``
@@ -584,19 +630,28 @@ def run_video_spatial_tracked(
     ``t`` enqueues tracking(t − 1) before BGS(t), the same tracker calls on
     the same inputs in the same order, then drains the last frame.
 
-    Returns (bgs state, tracker state, masks [T, H, W], tracks_x [T, K])."""
+    frames, ``states`` and ``tracker_state`` as tensors, or placed (as in
+    :func:`run_video_spatial`; the tracker state replicated on every rank,
+    JAX's ``P()``), or None for the states (made on the ranks). Returns
+    (bgs state, tracker state, masks [T, H, W], tracks_x [T, K]): the
+    states on the mesh's device where every input is a tensor, else
+    placed."""
     _check_algo(algo)
     ttype = tracker.config.trackerType.upper()
     if ttype not in ("CC", "CCMSPF"):
         raise ValueError("the sharded tracked pipeline supports the CC and CCMSPF trackers")
-    mesh = _stream_mesh(mesh, n_shards, frames)
-    frames = frames.to(mesh.device)
-    h, specs, shards = _prepare(algo, frames, mesh.space, states)
-    n = mesh.size
-    t_states = [tracker.init(device=mesh.device) for _ in range(n)]
-    out = mesh.run(_tracked_rank, [algo] * n, [tracker] * n, [h] * n, _on_every_row(mesh, shards),
-                           t_states, _on_every_row(mesh, _own_rows(frames, 1, mesh.space)), [pipelined] * n,
-                           [use_kernels] * n)
-    out = out[: mesh.space]
-    state = gather_state([o[0] for o in out], specs)
-    return state, out[0][1], torch.cat([o[2] for o in out], dim=1), out[0][3]
+    mesh = _stream_mesh(mesh, n_shards, frames, states, tracker_state)
+    h, n = frames.shape[1], mesh.size
+    if h % mesh.space:
+        raise ValueError(f"height {h} does not split into {mesh.space} shards")
+    placed = placed_mesh(frames, states, tracker_state) is not None
+    metas = [_state_meta(algo, states, frames.shape, mesh.shape),
+             meta_of(tracker.init(device="meta") if tracker_state is None else tracker_state, _replicated,
+                     mesh.shape)]
+    out, kept = mesh.run(_tracked_rank, [algo] * n, [tracker] * n, [h] * n,
+                         rank_args(mesh, states, row_rule(h), clone=True),
+                         rank_args(mesh, tracker_state, _replicated, clone=True), rank_args(mesh, frames, _one_stream),
+                         [pipelined] * n, [use_kernels] * n, keep=(0, 1) if placed else ())
+    masks = join([o[2] for o in out], meta_leaf(frames.shape[:3], _one_stream, mesh.shape), mesh.shape)
+    state, ts = _finish(mesh, out, kept, metas, placed)
+    return state, ts, masks, out[0][3]

@@ -153,7 +153,9 @@ processes that share the card, and NCCL over every card) - and fails
    finite state); the first 6 frames of the clip's top-left 360x640 on the
    card equal a CPU run bit for bit (masks, background, state; Prati with
    historySize 4 and samplingRate 1, the SOMs with trainingSteps 3, so
-   that the ring replaces slots and calibration ends); a ``run_bgs``
+   that the ring replaces slots and calibration ends), and MultiLayer's
+   there too, kernel #11 on the card against the CPU's plain version (both
+   take XLA's ``exp`` and ``sqrt``); a ``run_bgs``
    fan-out from an XML directory enabling the 13 and SuBSENSE, 2 chunks of
    8: ``consensus`` and ``flood_reach`` launch 16 times each and every
    fan-out mask equals its own ``run_video``; the fan-out's tictoc;
@@ -228,12 +230,24 @@ processes that share the card, and NCCL over every card) - and fails
    tracks), and the kernels of each launch in the ranks (their counts set
    to 0 when a rank's call starts, summed after: ``label_fixpoint``,
    ``consensus`` once a shard a frame, ``flood_reach``, ``greedy_assign``;
-   ``label_components`` 0 times on the tracked path); then an NCCL group,
+   ``label_components`` 0 times on the tracked path); placed batches in
+   chunks with their states kept on the ranks; the reshard chain: the 4
+   streams' first 12 frames placed on 4 x 1 and run 3 frames a layout
+   through 4 x 1 -> 2 x 2 -> 1 x 4 -> 4 x 1, the states resharded on the
+   ranks between calls (each reshard's ``bytes_moved`` equal to the plan's
+   count from the two metas, 0 bytes through the parent; the first hop in
+   turns with a gather plus a new placement), masks and final states
+   equal to the same chain on 4 threads bit for bit; then an NCCL group,
    one rank a card over every card (``make_mesh(backend="nccl")``), runs
-   ``run_video_batch`` of the same streams and equals it too (one card:
-   one rank, and the run says the multi-rank NCCL exchange was not run);
-   each run prints its arguments' and results' hand-offs (CUDA IPC
-   handles, copied on the device) and each rank's device memory;
+   ``run_video_batch`` of the same streams and equals it too, a placed
+   batch in chunks, the tracked path on 1 x n cards in 2 chunks with both
+   states placed (masks and SuBSENSE state bit for bit against 1 x n
+   threads on card 0, tracks bit for bit or within the Kalman tolerance;
+   its kernels' launches a frame) and the reshard chain across the cards
+   (one card: one rank, the chain has one layout, and the run says the
+   multi-rank NCCL exchange was not run); each run prints its arguments'
+   and results' hand-offs (CUDA IPC handles, copied on the device) and
+   each rank's device memory;
 5. the first 16 SuBSENSE + tracker frames again through the plain
    versions: masks, track ids and positions must equal the kernel run's;
 6. timing with CUDA events: each kernel beside its plain version and its
@@ -291,6 +305,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -381,6 +396,7 @@ MESH_BATCH_FRAMES = 4
 MESH_TIMED = (6, 2)
 MESH_PLACED = 12
 MESH_CHUNK = 4
+RESHARD_STREAMS = (4, 2, 1)  # the reshard chain's stream counts (those that divide the ranks), then the first
 # phase 4l: the blob table on SuBSENSE's masks of the clip (the evaluator
 # chain also on the top-left crop against a CPU run), then the native FFmpeg
 # reader on phase 4f's FFV1 AVI (chunk, max_frames, flip, ROI) and its MJPEG
@@ -2485,7 +2501,8 @@ def new_algorithms_path(clip, frames, dev, results, out, tag) -> None:
     Zivkovic), ``bgs/dp.py``, ``bgs/prati_mediod.py``, ``bgs/lb.py`` and
     ``bgs/vumeter.py``, each alone through ``run_video`` at 720p (CUDA
     events), the first frames of the top-left crop on the card against the
-    CPU bit for bit (masks, background and state), and a ``run_bgs``
+    CPU bit for bit (masks, background and state; MultiLayer's too, kernel
+    #11 on the card against the CPU's plain version), and a ``run_bgs``
     fan-out from an XML directory of all 13 beside SuBSENSE: the launch
     counts of SuBSENSE's kernels, each fan-out mask against its own run,
     and the fan-out's tictoc."""
@@ -2531,6 +2548,17 @@ def new_algorithms_path(clip, frames, dev, results, out, tag) -> None:
         check(same_bits((mk, bk, sk), (mc, bc, sc)),
               f"{name}{cfg or ''}: masks, background and state of the card equal the CPU's bit for bit over "
               f"{NEW_CPU} frames (foreground share {float(mc.gt(0).to(torch.float32).mean()):.4f})")
+    # MultiLayer's colour distance takes XLA's exp and sqrt on both devices:
+    # kernel #11 on the card equals a CPU run of the plain version
+    _native.reset_launches()
+    sk, (mk, bk) = run_video(get_algorithm("MultiLayerBGS")(), cut.to(dev), with_background=True)
+    torch.cuda.synchronize()
+    n_ml = _native.LAUNCHES["multilayer_step"]
+    sc, (mc, bc) = run_video(get_algorithm("MultiLayerBGS")(), cut, with_background=True)
+    check(n_ml > 0 and same_bits((mk, bk, sk), (mc, bc, sc)),
+          f"MultiLayerBGS: kernel #11 ({n_ml} launches) gives masks, background and state equal to the CPU's plain "
+          f"run bit for bit over {NEW_CPU} frames (up to {int(sc['n'].max())} modes, foreground share "
+          f"{float(mc.gt(0).to(torch.float32).mean()):.4f})")
     print(f"  card against CPU on the crop: {time.perf_counter() - t0:.1f} s", flush=True)
 
     fan = f"{out}/fanout_new"
@@ -3473,9 +3501,43 @@ def process_mesh_path(algo, tracker, state0, frames, streams, dev, results):
         print_pool(pool, what)
 
     ref12 = placed_path(algo, tracker, state0, frames, streams, mesh, threads, refs[0])
-    nccl_mesh_path(algo, batch, refs[1], streams[:, :MESH_PLACED], ref12)
+    batch12 = streams[:, :MESH_PLACED]
+    thread_ref = thread_refs(algo, tracker, state0, frames, batch12, dev, {("tracked", n): refs[0]})
+    t0 = time.perf_counter()
+    got = reshard_chain(algo, batch12, mesh, "the reshard chain on the gloo processes")
+    layouts = " -> ".join(f"{m.stream} x {m.space}" for m in chain_layouts(mesh))
+    check(same_bits(thread_ref("chain", n), got),
+          f"the reshard chain on {n} gloo processes ({layouts}): masks of every chunk and the final states equal the "
+          f"thread mesh's chain bit for bit ({time.perf_counter() - t0:.1f} s)")
+    nccl_mesh_path(algo, tracker, state0, frames, batch, refs[1], batch12, ref12, thread_ref)
     print(f"  phase 4m: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return mesh, threads
+
+
+def thread_refs(algo, tracker, state0, frames, batch12, dev, known):
+    """A getter of the thread meshes' references on card 0, made once each:
+    ("tracked", n) the tracked path on 1 x n threads over 2 · MESH_CHUNK
+    frames (pipelined, from ``state0``), ("chain", n) the reshard chain of
+    ``batch12`` on n threads; ``known`` holds those made already."""
+    from tracking_tpu_torch.parallel.mesh import make_mesh
+    from tracking_tpu_torch.parallel.spatial import run_video_spatial_tracked
+
+    cache = dict(known)
+
+    def get(kind, n):
+        if (kind, n) not in cache:
+            threads = make_mesh(n, stream=1, device=dev)
+            t0 = time.perf_counter()
+            if kind == "tracked":
+                cache[kind, n] = run_video_spatial_tracked(algo, tracker, frames[1 : 1 + 2 * MESH_CHUNK],
+                                                           states=clone(state0), pipelined=True, mesh=threads)
+            else:
+                cache[kind, n] = reshard_chain(algo, batch12, threads, f"the reshard chain on {n} threads")
+            torch.cuda.synchronize()
+            print(f"  the thread mesh's {kind} reference on {n} ranks: {time.perf_counter() - t0:.1f} s", flush=True)
+        return cache[kind, n]
+
+    return get
 
 
 def chain_placed(algo, placed, mesh, what, plain_chunk=None):
@@ -3581,14 +3643,146 @@ def placed_path(algo, tracker, state0, frames, streams, mesh, threads, tracked_r
     return ref
 
 
-def nccl_mesh_path(algo, batch, ref, batch12, ref12) -> None:
+def chain_layouts(mesh) -> list:
+    """The reshard chain's layouts of ``mesh``'s ranks: stream counts of
+    RESHARD_STREAMS that divide the ranks and the batch's 4 streams, in
+    order, then the first again (4 x 1, 2 x 2, 1 x 4, 4 x 1 on 4 ranks)."""
+    counts = [s for s in RESHARD_STREAMS if mesh.size % s == 0]
+    return [mesh.split(s) for s in counts + counts[:1]]
+
+
+def chain_states_rule(m):
+    """(the dims rule, the holders) a layout's runner takes the batch's
+    states with: the shardmap's on one space rank, else the spatial
+    batch's (rows on ``space``)."""
+    from tracking_tpu_torch.parallel.spatial import row_rule
+
+    return (lambda shape: ("stream",) + (None,) * (len(shape) - 1)) if m.space == 1 else row_rule(H, batched=True)
+
+
+def reshard_chain(algo, batch, mesh, what):
+    """The 4-stream batch placed once on the chain's first layout of
+    ``mesh``'s ranks (``chain_layouts``) and run a chunk of frames a layout
+    (the shardmap on one space rank, else the spatial batch), the frames
+    narrowed from the one placement (each call reshards them) and the
+    states resharded explicitly between calls. On a process mesh each
+    reshard's wall, its bytes through the parent (checked 0) and
+    ``bytes_moved`` (checked against the plan's count from the two metas)
+    are printed; the first hop's reshard is timed in turns with a gather
+    plus a new placement of the same handle; and each call's launches per
+    rank. Returns (the masks along T, the gathered final states)."""
+    from tracking_tpu_torch.parallel.mesh import run_video_batch_shardmap, shard_video_batch
+    from tracking_tpu_torch.parallel.placed import leaves, place, plan_bytes, relaid, reshard_plan, tensor_bytes
+    from tracking_tpu_torch.parallel.spatial import run_video_batch_spatial
+
+    layouts = chain_layouts(mesh)
+    ck = batch.shape[1] // len(layouts)
+    procs = mesh.backend is not None
+    pool = mesh.group() if procs else None
+    placed = shard_video_batch(batch, layouts[0])
+    st, masks = None, []
+    for k, m in enumerate(layouts):
+        rule = chain_states_rule(m)
+        if st is not None and st.mesh.shape != m.shape:
+            hop = f"{st.mesh.stream} x {st.mesh.space} -> {m.stream} x {m.space}"
+            new_meta = relaid(st.meta, rule, m.shape)
+            want = plan_bytes(reshard_plan(st.meta, st.mesh.shape, st.holders, new_meta, m.shape, range(m.size)))
+            arms = ("reshard", "gather + place", "gather + place", "reshard") if procs and k == 1 else ("reshard",)
+            state_mib = sum(leaf.dtype.itemsize * math.prod(leaf.shape) for leaf in leaves(st.meta)) / 2**20
+            secs = {}
+            for arm in arms:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = st.reshard(m, rule) if arm == "reshard" else place(st.gather(), m, rule)
+                torch.cuda.synchronize()
+                secs.setdefault(arm, []).append(time.perf_counter() - t0)
+                if procs:
+                    last = pool.last
+                    if arm == "reshard":
+                        check((last["bytes_in"], last["bytes_out"], last["bytes_moved"]) == (0, 0, want),
+                              f"{what}, reshard {hop}: {last['bytes_in']} bytes in, {last['bytes_out']} out (0 "
+                              f"through the parent), {last['bytes_moved']} bytes rank to rank ({want} planned)")
+                    else:
+                        print(f"  {what}, gather + place {hop}: the place moved {last['bytes_in']} bytes in",
+                              flush=True)
+                if arm == "reshard":
+                    new = y
+                else:
+                    y.delete()
+            print(f"  {what}, {hop}: " + "; ".join(f"{arm} " + " / ".join(f"{t:.3f}" for t in v) + " s"
+                                                 for arm, v in secs.items())
+                  + f" (in turns; {state_mib:.1f} MiB of states, {want / 2**20:.1f} MiB planned rank to rank)",
+                  flush=True)
+            st = new
+        frames = placed.narrow(1, k * ck, ck)
+        if m.space == 1:
+            st, mk = run_video_batch_shardmap(algo, frames, m, states=st)
+        else:
+            st, mk = run_video_batch_spatial(algo, frames, m, states=st)
+        masks.append(mk)
+        if procs:
+            last = pool.last
+            check(last["bytes_out"] == tensor_bytes(mk) and last["bytes_in"] == 0,
+                  f"{what}, chunk {k} on {m.stream} x {m.space}: {last['bytes_in']} bytes in, {last['bytes_out']} out "
+                  f"(the masks only)")
+            print(f"  {what}, chunk {k} on {m.stream} x {m.space}: launches per rank "
+                  + "; ".join(f"{r}: " + ", ".join(f"{n} {c}" for n, c in rank["launches"].items() if c)
+                              for r, rank in enumerate(last["ranks"])), flush=True)
+    out = torch.cat(masks, dim=1), st.gather()
+    placed.delete()
+    st.delete()
+    return out
+
+
+def nccl_tracked(algo, tracker, state0, frames, nccl, ref):
+    """The tracked path (SuBSENSE + CCMSPF, pipelined) on the NCCL ranks laid
+    out 1 x n, one row shard a card, in two chunks of MESH_CHUNK frames with
+    both states placed: masks and SuBSENSE state bit for bit against ``ref``
+    (the thread mesh's run of the same shards on card 0), the tracks and
+    tracker state bit for bit or within the Kalman tolerance (the residue
+    printed); each kernel's launches a frame, summed and per rank."""
+    from tracking_tpu_torch.parallel.placed import place
+    from tracking_tpu_torch.parallel.spatial import run_video_spatial_tracked
+
+    mesh, ck, group = nccl.split(1), MESH_CHUNK, nccl.group()
+    what = f"the tracked path on the NCCL mesh 1 x {mesh.size}"
+    st, ts, m0, x0 = run_video_spatial_tracked(algo, tracker, place(frames[1 : 1 + ck], mesh, (None, "space")),
+                                               states=clone(state0), pipelined=True, mesh=mesh)
+    st, ts, m1, x1 = run_video_spatial_tracked(algo, tracker, frames[1 + ck : 1 + 2 * ck], states=st,
+                                               tracker_state=ts, pipelined=True, mesh=mesh)
+    la = group.last["launches"]
+    print(f"  {what}, second chunk: launches a frame (summed over the ranks) "
+          + ", ".join(f"{k} {la[k] / ck:g}" for k in SPATIAL_KERNELS) + "; per rank "
+          + "; ".join(f"{r}: " + ", ".join(f"{k} {rank['launches'][k] / ck:g}" for k in SPATIAL_KERNELS)
+                      for r, rank in enumerate(group.last["ranks"])), flush=True)
+    for k in SPATIAL_KERNELS:
+        check(la[k] > 0, f"{what}: {k} launched {la[k]} times in the ranks")
+    check(la["label_components"] == 0, f"{what}: label_components launched 0 times")
+    print_pool(group, f"{what}, second chunk")
+    got = (st.gather(), ts.gather(), torch.cat([m0, m1]), torch.cat([x0, x1]))
+    check(same_bits(ref[0], got[0]) and same_bits(ref[2], got[2]),
+          f"{what}, 2 chunks with both states placed: masks and SuBSENSE state equal the thread mesh's run on card 0 "
+          f"bit for bit")
+    e = max_err([ref[1], ref[3]], [got[1], got[3]])
+    scale = 1.0 + float(ref[1]["kx"].abs().max())
+    check(same_bits((ref[1], ref[3]), (got[1], got[3])) or e <= KALMAN_TOL * scale,
+          f"{what}: tracks and tracker state {'bit for bit' if e == 0 else f'within {KALMAN_TOL:g} (relative)'} "
+          f"(max |err| {e})")
+    st.delete()
+    ts.delete()
+
+
+def nccl_mesh_path(algo, tracker, state0, frames, batch, ref, batch12, ref12, thread_ref) -> None:
     """Phase 4m's NCCL part: a group of one process a card over every card
     (``make_mesh(backend="nccl")``) runs ``run_video_batch`` of the batch on
     its default mesh and, laid out a stream a card, the shardmap; each
     equals ``ref`` (the thread group's run of the batch) bit for bit. Then
     ``batch12`` placed a stream block a card and run in chunks with the
-    states kept on the cards, against ``ref12``. On one card that is one
-    rank, and it says so."""
+    states kept on the cards, against ``ref12``; the tracked path on 1 x n
+    cards (``nccl_tracked``) and ``batch12`` through the reshard chain
+    across the cards (``reshard_chain``), each against the thread mesh's
+    run on card 0 (``thread_ref``). On one card that is one rank, and it
+    says so."""
     import torch.distributed as dist
 
     from tracking_tpu_torch.parallel.mesh import make_mesh, run_video_batch, run_video_batch_shardmap, shard_video_batch
@@ -3617,24 +3811,38 @@ def nccl_mesh_path(algo, batch, ref, batch12, ref12) -> None:
         st, masks, _, _ = chain_placed(algo, placed, streams_mesh, what)
         check(same_bits(ref12, (st.gather(), masks)),
               f"{what}: masks of every chunk and the gathered states equal the thread group's run bit for bit")
+        del st, placed
+        nccl_tracked(algo, tracker, state0, frames, nccl, thread_ref("tracked", nccl.size))
+        layouts = " -> ".join(f"{m.stream} x {m.space}" for m in chain_layouts(nccl))
+        t0 = time.perf_counter()
+        got = reshard_chain(algo, batch12, nccl, "the reshard chain on the NCCL ranks")
+        check(same_bits(thread_ref("chain", nccl.size), got),
+              f"the reshard chain on {nccl.size} NCCL rank(s) ({layouts}): masks of every chunk and the final states "
+              f"equal the thread mesh's chain on card 0 bit for bit ({time.perf_counter() - t0:.1f} s)")
         if nccl.size < 2:
-            print("  the multi-rank NCCL exchange was not run: this machine has one card", flush=True)
+            print("  the multi-rank NCCL exchange was not run: this machine has one card (the tracked path ran in "
+                  "one shard, the chain had no second layout to reshard to)", flush=True)
 
 
 def nccl_only(algo, frames, dev, kind) -> None:
     """``--nccl-only``: phase 4m's NCCL part alone, for a machine with
-    several cards: the 4-stream batch on the thread group (2 x 2 on card 0),
-    then on the NCCL group over every card."""
+    several cards: the thread group's references on card 0, then the NCCL
+    group over every card (``nccl_mesh_path``)."""
     from tracking_tpu_torch.parallel.mesh import make_mesh, run_video_batch_shardmap
     from tracking_tpu_torch.parallel.spatial import run_video_batch_spatial
+    from tracking_tpu_torch.track.tracker import BlobTracker
 
     streams = batch_streams(frames)
     batch, batch12 = streams[:, :MESH_BATCH_FRAMES], streams[:, :MESH_PLACED]
     print(f"[4m] NCCL alone over {torch.cuda.device_count()} card(s): {batch.shape[0]} streams x {batch.shape[1]} "
-          f"frames at {H}x{W}x{C}, then {batch12.shape[1]} frames placed {elapsed()}", flush=True)
+          f"frames at {H}x{W}x{C}, then {batch12.shape[1]} frames placed, the tracked path and the reshard chain "
+          f"{elapsed()}", flush=True)
     ref = run_video_batch_spatial(algo, batch, make_mesh(MESH_RANKS, stream=2, device=dev))
     ref12 = run_video_batch_shardmap(algo, batch12, make_mesh(MESH_RANKS, stream=MESH_RANKS, device=dev))
-    nccl_mesh_path(algo, batch, ref, batch12, ref12)
+    tracker = BlobTracker()
+    state0 = algo.warm_start(algo.init(H, W, C, device=dev), frames[0])
+    nccl_mesh_path(algo, tracker, state0, frames, batch, ref, batch12, ref12,
+                   thread_refs(algo, tracker, state0, frames, batch12, dev, {}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -10,18 +10,12 @@ package.
 - The helpers it uses: ``gaussian_blur``, ``bgr2gray_u8`` and the sorting
   network, exactly.
 
-The tolerance and its reason: MultiLayer's colour distance is
-``1 − exp(−100·angle²)``, and torch's CPU ``exp`` and XLA:CPU's differ by
-≤ 1 ulp on 6.7 % of f32 arguments in [−1000, 0] (torch 2.13 against JAX
-0.9; on 1.1 % of this distance's values, by ≤ 5.96e-8). So a pixel whose two best
-modes, or whose best distance and the 0.2 match threshold, lie within
-1e-6 may take another branch, and the float leaves may differ by a few
-ulps. The one-step check is exact away from those pixels, with f32 leaves
-and the distance to 1e-6; whole runs must agree on ≥ 99.9 % of the mask and
-of ``n`` in every frame, and where both agree the bg image and every
-integer leaf exactly and every f32 leaf to 1e-6 (relative and absolute).
-Each test prints the residue it measured, so the tolerance can be
-tightened.
+No tolerance: the port's colour distance takes XLA:CPU's ``exp`` and
+``sqrt`` (``ops/xla_math``), so the masks, ``n``, the bg image and every
+state leaf equal the JAX package's bit for bit, also on pixels whose two
+best modes, or whose best distance and the 0.2 match threshold, lie within
+``TIE`` of each other (where an ulp of ``exp`` would pick another branch;
+each test prints how many there were).
 """
 
 import jax
@@ -30,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import run_both
+from torch_parity import assert_step_equal, run_both
 from tracking_tpu.bgs import gmm as JGMM
 from tracking_tpu.bgs import multilayer as JM
 from tracking_tpu.ops import color as JC
@@ -45,19 +39,18 @@ from tracking_tpu_torch.ops.multilayer import LEAF_SPEC, joint_distances, multil
 from tracking_tpu_torch.ops.sort import sort_desc_maps
 from tracking_tpu_torch.synth import make_clip
 
-NEAR = 1e-6
-AGREE = 0.999
+TIE = 1e-6  # two distances this close count as a near tie (counted, not excused)
 
 
 def _pixels_near_a_tie(cfg, state, cf, pat):
     """Pixels whose two smallest joint distances, or best distance and the
-    match threshold, lie within NEAR: there the ≤ 1-ulp ``exp`` residue may
-    pick another mode or branch."""
+    match threshold, lie within TIE: there an ulp of ``exp`` may pick
+    another mode or branch."""
     A = {short: list(state[leaf].unbind(0)) for leaf, short in LEAF_SPEC}
     d = torch.stack(joint_distances(cfg, A, state["n"], cf, pat)).numpy()
     d.sort(axis=0)
-    near = np.isfinite(d[1]) & (np.abs(d[1] - d[0]) < NEAR)
-    return near | (np.abs(d[0] - cfg.bg_prob_updating_threshold) < NEAR)
+    near = np.isfinite(d[1]) & (np.abs(d[1] - d[0]) < TIE)
+    return near | (np.abs(d[0] - cfg.bg_prob_updating_threshold) < TIE)
 
 
 @pytest.mark.parametrize("learn", [True, False], ids=["learn", "frozen"])
@@ -82,20 +75,12 @@ def test_ml_update_matches_reference_kernel(learn):
     got, tdist = multilayer_step(TM.MultiLayerConfig(), ts, torch.from_numpy(cf), torch.from_numpy(pat), scal,
                                  torch.tensor(9, dtype=torch.int32), learn)
     near = _pixels_near_a_tie(cfg, ts, torch.from_numpy(cf), torch.from_numpy(pat))
-    ok = ~near
-    worst = {}
     for k, ref in want.items():
         g = got[k].numpy()
         assert g.dtype == ref.dtype and g.shape == ref.shape, k
-        diff = np.abs(g.astype(np.float64) - ref)
-        worst[k] = float(diff.max())
-        if ref.dtype == np.float32:
-            assert float(diff[..., ok].max()) <= NEAR, k
-        else:
-            np.testing.assert_array_equal(g[..., ok], ref[..., ok], err_msg=k)
-    dd = np.abs(tdist.numpy() - np.asarray(dist))
-    assert float(dd[ok].max()) <= NEAR
-    print(f"learn={learn}: {int(near.sum())} px near a tie; largest |diff| per leaf {worst}; dist {float(dd.max())}")
+        np.testing.assert_array_equal(g, ref, err_msg=k)
+    np.testing.assert_array_equal(tdist.numpy(), np.asarray(dist))
+    print(f"learn={learn}: every leaf and the distance equal, {int(near.sum())} px near a tie among them")
     assert int(js["n"].max()) > 1
     assert (want["n"] != js["n"]).any() == learn  # modes were added only while learning
 
@@ -103,32 +88,8 @@ def test_ml_update_matches_reference_kernel(learn):
 @pytest.mark.parametrize("detect_after", [0, 3], ids=["learn", "detectAfter3"])
 def test_multilayer_matches_reference(detect_after):
     frames = make_clip(17, 32, 48, 3, seed=7)
-    counts = []
-
-    def check(t, ref, got):
-        mask_ok = got[0].numpy() == ref[0]
-        n_ok = got[2]["n"].numpy() == ref[2]["n"]
-        counts.append((t, int((~mask_ok).sum()), int((~n_ok).sum())))
-        assert mask_ok.mean() >= AGREE and n_ok.mean() >= AGREE, (t, mask_ok.mean(), n_ok.mean())
-        # away from the pixels a tie flipped: the bg image and every state
-        # leaf, integers exactly and f32 leaves to NEAR
-        ok = mask_ok.reshape(n_ok.shape) & n_ok  # run_video's outputs carry a frame axis of 1
-        np.testing.assert_array_equal(got[1].numpy()[0][ok], ref[1][0][ok], err_msg=f"bg, frame {t}")
-        for k, want in ref[2].items():
-            g = got[2][k].numpy()
-            assert g.dtype == want.dtype and g.shape == want.shape, (t, k)
-            if k == "t":
-                assert g == want, (t, k)
-            elif want.dtype == np.float32:
-                np.testing.assert_allclose(g[..., ok], want[..., ok], rtol=NEAR, atol=NEAR, err_msg=f"{k}, frame {t}")
-            else:
-                np.testing.assert_array_equal(g[..., ok], want[..., ok], err_msg=f"{k}, frame {t}")
-        leaf_diff = max(float(np.abs(got[2][k].numpy().astype(np.float64) - v).max()) for k, v in ref[2].items())
-        counts[-1] += (leaf_diff,)
-
     shares, ts = run_both(JM.MultiLayerBGS(detectAfter=detect_after), TM.MultiLayerBGS(detectAfter=detect_after),
-                          frames, check=check)
-    print(f"detectAfter={detect_after}: (frame, mask px differing, n px differing, largest leaf |diff|) {counts}")
+                          frames, check=assert_step_equal)
     assert shares[0] == 0.0 and 0.001 < np.mean(shares[1:]) < 0.5, shares
     assert int(ts["n"].max()) > 1
 

@@ -1,9 +1,10 @@
-// Shared helpers of the port's CUDA kernels: the export macro and a
-// run-based two-level union-find over the "active" pixels of an image
-// (background for the hole fill in fill.cu, foreground for the CC labelling
-// in cc.cu). Links always point to the smaller index, so every root is the
-// minimum row-major index of its set; fill.cu adds one more set, the index
-// -1, below every pixel, which the find and the union below accept.
+// Shared helpers of the port's CUDA kernels: the export macro, XLA:CPU's
+// f32 exp (xla_expf, below) and a run-based two-level union-find over the
+// "active" pixels of an image (background for the hole fill in fill.cu,
+// foreground for the CC labelling in cc.cu). Links always point to the
+// smaller index, so every root is the minimum row-major index of its set;
+// fill.cu adds one more set, the index -1, below every pixel, which the
+// find and the union below accept.
 //
 // Level 1 (uf_tile_roots, inside each caller's tile kernel): one block of
 // 8 warps per 32x32 tile. Each warp takes a row of the tile as a
@@ -41,6 +42,30 @@
 #define UF_KR (UF_T / UF_WARPS)
 
 inline unsigned tt_blocks(int n, int threads) { return (unsigned)((n + threads - 1) / threads); }
+
+// XLA:CPU's f32 exp, step for step as ops/xla_math.exp writes it: the
+// Cephes range reduction exp(x) = 2^n (1 + r + r^2 P(r)), n = floor(x
+// log2(e) + 1/2), r = x - n ln 2 (ln 2 split in two), with __fmaf_rn at
+// exactly the multiply-adds XLA's compiled code contracts (the build's
+// -fmad=false keeps every other product and sum rounded on its own). x is
+// clamped to [-87.8, 88.8] and n to [-127, 127] (2^-127 is encoded as +0),
+// and a result below the smallest normal is flushed to 0, as XLA:CPU does.
+// libdevice's expf differs from it by an ulp on some arguments.
+__device__ __forceinline__ float xla_expf(float x) {
+  const float xc = x < __uint_as_float(0xc2af999au) ? __uint_as_float(0xc2af999au)
+                   : x > __uint_as_float(0x42b1999au) ? __uint_as_float(0x42b1999au) : x;  // NaN passes
+  const float n = fminf(fmaxf(floorf(__fmaf_rn(xc, __uint_as_float(0x3fb8aa3bu), 0.5f)), -127.0f), 127.0f);
+  float r = __fmaf_rn(-n, __uint_as_float(0x3f318000u), xc);  // ln 2 = 0.693359375 - (-2.12194440e-4)
+  r = __fmaf_rn(-n, __uint_as_float(0xb95e8083u), r);
+  float y = __fmaf_rn(r, __uint_as_float(0x39506967u), __uint_as_float(0x3ab743ceu));
+  y = __fmaf_rn(y, r, __uint_as_float(0x3c088908u));
+  y = __fmaf_rn(y, r, __uint_as_float(0x3d2aa9c1u));
+  y = __fmaf_rn(y, r, __uint_as_float(0x3e2aaaaau));
+  y = __fmaf_rn(y, r, 0.5f);
+  y = __fmaf_rn(y, r * r, r) + 1.0f;
+  const float e = y * __int_as_float(((int)n + 127) << 23);
+  return e < __uint_as_float(0x00800000u) ? 0.0f : e;  // the smallest normal
+}
 
 // The lane where this lane's run of set bits in m starts.
 __device__ __forceinline__ int run_start(unsigned m, int lane) {

@@ -13,8 +13,10 @@
 //
 // Floats follow the plain version (ops/multilayer.py:ml_update_ref) op for
 // op: sums over the colour axis in index order, the pattern mean as a sum
-// times f32(1/6), true divisions, expf and sqrtf (IEEE without fast math),
-// no fused multiply-adds (-fmad=false). The learning scalars (lr, wlr, imw,
+// times f32(1/6), true divisions, no fused multiply-adds (-fmad=false) but
+// those of XLA:CPU's exp (common.cuh's xla_expf, as the plain version's
+// xla_math.exp), and sqrtf, which without fast math is IEEE's correctly
+// rounded root, as xla_math.sqrt is. The learning scalars (lr, wlr, imw,
 // 1 - lr) and the frame index are read from the card: under detectAfter they
 // depend on the frame.
 //
@@ -266,7 +268,7 @@ __global__ void __launch_bounds__(kT)
     const float noised = norm_bg == 0.0f ? kPi
                                          : (sin_noise < k.min_sine ? k.min_angle : (sin_noise >= 1.0f ? kPi : sin_noise));
     const float angle = fmaxf(org_angle - noised, 0.0f);
-    const float col_d = out_range ? 1.0f : 1.0f - expf(-100.0f * angle * angle);
+    const float col_d = out_range ? 1.0f : 1.0f - xla_expf(-100.0f * angle * angle);
     const float joint = k.tex_w * tex_d + k.col_w * col_d;
     if (joint < best_d) best = m;
     best_d = fminf(best_d, joint);

@@ -16,9 +16,12 @@ Floats follow the reference's order of operations: sums over the colour
 axis are written out in order, the mean over the pattern axis is a sum
 times ``recip(6)`` (XLA's rewrite of a division by a constant), true
 divisions take tensor divisors, and ``1 − lr`` arrives precomputed
-(``oml``) as the reference forms it. On the card the kernel and this
-version then agree exactly; against XLA:CPU on the CPU the only residue is
-``exp``, whose CPU implementations differ by ≤ 1 ulp on some arguments.
+(``oml``) as the reference forms it, and the colour distance's ``exp``
+and ``sqrt`` are XLA:CPU's (``ops/xla_math``: its Cephes ``exp`` with the
+multiply-adds its compiled code contracts, and the correctly rounded
+root; torch's CPU ``exp`` and ``sqrt`` differ from them in the last bit
+on some arguments). So this version equals the JAX package bit for bit on
+the CPU, and the kernel equals it on the card.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tracking_tpu_torch.ops import _native
+from tracking_tpu_torch.ops import _native, xla_math
 from tracking_tpu_torch.ops.consensus import recip
 from tracking_tpu_torch.ops.sort import sort_desc_maps
 
@@ -107,15 +110,15 @@ def joint_distances(cfg, A, n, cf, cur_pat):
         n1 = _sum0(bi * bi)
         n12 = n1 * n2c
         sin2 = torch.clamp(1.0 - dot * dot / torch.clamp(n12, min=1e-20), min=0.0)
-        org_angle = torch.where(n12 == 0, 0.0, torch.sqrt(sin2))
-        norm_bg = torch.sqrt(n1)
+        org_angle = torch.where(n12 == 0, 0.0, xla_math.sqrt(sin2))
+        norm_bg = xla_math.sqrt(n1)
         sin_noise = offset / torch.clamp(norm_bg, min=1e-20)
         noised = torch.where(
             norm_bg == 0, PI,
             torch.where(sin_noise < min_sine, cfg.min_noised_angle, torch.where(sin_noise >= 1.0, PI, sin_noise)),
         )
         angle = torch.clamp(org_angle - noised, min=0.0)
-        col_d = torch.where(out_range, 1.0, 1.0 - torch.exp(-100.0 * angle * angle))
+        col_d = torch.where(out_range, 1.0, 1.0 - xla_math.exp(-100.0 * angle * angle))
         joint = cfg.texture_weight * tex_d + (1.0 - cfg.texture_weight) * col_d
         joints.append(torch.where(n > m, joint, INF))
     return joints

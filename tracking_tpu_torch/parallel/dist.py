@@ -15,6 +15,10 @@ semantics of the thread group's ``ShardComm`` (``parallel/mesh.py``):
   0..n−1 on every rank, so a float sum has the thread group's bits (a
   ring ``all_reduce`` sums in another order);
 - ``all_gather(x, dim)``: the ranks' ``x`` concatenated in rank order;
+- ``send_recv(sends, sizes)``: bytes to and from any ranks in one batch
+  (a reshard's pieces, ``parallel/placed.py``); gloo ranks that share a
+  card pass each other CUDA IPC handles, and the receiver copies on the
+  card;
 - ``axis("stream")`` / ``axis("space")``: the rank's column and row
   groups, made once at start-up with ``dist.new_group`` (every rank makes
   every group, in one order), so a stream row synchronises only with
@@ -23,9 +27,10 @@ semantics of the thread group's ``ShardComm`` (``parallel/mesh.py``):
 The transport is the backend the caller names: ``"nccl"`` puts rank r on
 ``cuda:r`` (``torch.cuda.set_device`` before any allocation) and moves
 tensors card to card; ``"gloo"`` serves ranks that share one device - the
-CPU, or one card, where each CUDA tensor is staged through the host, since
-gloo's point-to-point calls take host tensors only. A bool tensor crosses
-as its bytes.
+CPU, or one card, where each CUDA tensor of a collective is staged through
+the host, since gloo's point-to-point calls take host tensors only (a
+reshard's pieces go by CUDA IPC handle instead, ``send_recv``). A bool
+tensor crosses as its bytes.
 
 :meth:`DistGroup.run` sends each rank its arguments and runs a module-level
 ``fn(rank, comm, *args)`` there (a closure does not pickle). Tensors go
@@ -60,6 +65,7 @@ import time
 import traceback
 import weakref
 from multiprocessing.connection import wait
+from multiprocessing.reduction import ForkingPickler
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -67,8 +73,8 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from tracking_tpu_torch.ops import _native
-from tracking_tpu_torch.parallel.mesh import Collectives, mesh_coords
-from tracking_tpu_torch.parallel.placed import Ref, map_tensors, owned, tensor_bytes
+from tracking_tpu_torch.parallel.mesh import Collectives
+from tracking_tpu_torch.parallel.placed import Ref, map_tensors, mesh_coords, owned, tensor_bytes
 
 BACKENDS = ("nccl", "gloo")
 SWITCHES = "TRACKING_TPU_"  # the environment switches that go with each call
@@ -92,10 +98,13 @@ def check_backend(backend: str, devices: Sequence[torch.device]) -> None:
 
 class DistComm(Collectives):
     """One rank's handle on a process group (all ranks, or one mesh axis's:
-    :meth:`axis`): ``rank``, ``n``, ``coords`` and the collectives."""
+    :meth:`axis`): ``rank``, ``n``, ``coords`` and the collectives.
+    ``sent``: the bytes the rank has sent other ranks (a one-element list
+    that the world's handle, its layouts and their views share; the worker
+    sets it to 0 as each call starts)."""
 
     def __init__(self, rank: int, members: List[int], group, coords: Dict[str, int], device: torch.device,
-                 staged: bool):
+                 staged: bool, sent: List[int]):
         self.rank = rank
         self.n = len(members)
         self.coords = coords
@@ -103,6 +112,7 @@ class DistComm(Collectives):
         self._members = members  # global ranks, in this group's rank order
         self._group = group
         self._staged = staged
+        self.sent = sent
         self._views: Dict[str, "DistComm"] = {}
 
     def axis(self, name: str) -> "DistComm":
@@ -126,21 +136,65 @@ class DistComm(Collectives):
         w = self._wire(x)
         out = [torch.empty_like(w) for _ in range(self.n)]
         dist.all_gather(out, w, group=self._group)
+        self.sent[0] += w.numel() * w.element_size() * (self.n - 1)
         return [self._unwire(o, x) for o in out]
+
+    def _p2p(self, sends: Dict[int, torch.Tensor], recvs: Dict[int, torch.Tensor], count: bool = True) -> None:
+        """One batch of sends and receives by this group's rank numbers (a
+        rank with none enters no batch); the sends' bytes count in
+        ``sent`` where ``count``."""
+        ops = [dist.P2POp(dist.isend, w, self._members[r], self._group) for r, w in sends.items()]
+        ops += [dist.P2POp(dist.irecv, buf, self._members[r], self._group) for r, buf in recvs.items()]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        if count:
+            self.sent[0] += sum(w.numel() * w.element_size() for w in sends.values())
 
     def ppermute(self, x: torch.Tensor, shift: int) -> torch.Tensor:
         w = self._wire(x)
         dst, src = self.rank + shift, self.rank - shift
-        ops, buf = [], None
-        if 0 <= dst < self.n:
-            ops.append(dist.P2POp(dist.isend, w, self._members[dst], self._group))
-        if 0 <= src < self.n:
-            buf = torch.empty_like(w)
-            ops.append(dist.P2POp(dist.irecv, buf, self._members[src], self._group))
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
+        buf = torch.empty_like(w) if 0 <= src < self.n else None
+        self._p2p({dst: w} if 0 <= dst < self.n else {}, {} if buf is None else {src: buf})
         return torch.zeros_like(x) if buf is None else self._unwire(buf, x)
+
+    def send_recv(self, sends: Dict[int, torch.Tensor], sizes: Dict[int, int]) -> Dict[int, torch.Tensor]:
+        """Point to point in one batch: ``sends`` {rank: uint8 bytes on this
+        rank's device} out, and from each rank of ``sizes`` {rank: bytes}
+        its bytes in, returned on this rank's device (a reshard's pieces,
+        ``parallel/placed.py``). NCCL and gloo on the CPU carry the bytes
+        themselves. Gloo ranks that share a card send each other CUDA IPC
+        handles instead (:meth:`_send_recv_ipc`): gloo would stage every
+        byte through the host at both ends."""
+        if self._staged:
+            return self._send_recv_ipc(sends, sizes)
+        recvs = {r: torch.empty(nb, dtype=torch.uint8, device=self.device) for r, nb in sizes.items()}
+        self._p2p(sends, recvs)
+        return recvs
+
+    def _send_recv_ipc(self, sends: Dict[int, torch.Tensor], sizes: Dict[int, int]) -> Dict[int, torch.Tensor]:
+        """:meth:`send_recv` between processes on one card: each send goes
+        as its CUDA IPC handle (``torch.multiprocessing``'s reducer, the
+        hand-offs' channel; its length, then its bytes, over gloo), the
+        receiver copies the bytes on the card from the sender's memory,
+        and a barrier after the copies lets the senders free theirs."""
+        handles = {r: torch.frombuffer(bytearray(ForkingPickler.dumps(w)), dtype=torch.uint8)
+                   for r, w in sends.items()}
+        lengths = {r: torch.empty(1, dtype=torch.int64) for r in sizes}
+        self._p2p({r: torch.tensor([h.numel()]) for r, h in handles.items()}, lengths, count=False)
+        bufs = {r: torch.empty(int(n), dtype=torch.uint8) for r, n in lengths.items()}
+        self._p2p(handles, bufs, count=False)
+        out = {}
+        for r, buf in bufs.items():
+            there = ForkingPickler.loads(buf.numpy().tobytes())
+            if there.numel() != sizes[r]:
+                raise RuntimeError(f"rank {self.rank} expected {sizes[r]} bytes from rank {r}, got {there.numel()}")
+            out[r] = there.clone()
+            del there
+        _sync(self.device)
+        dist.barrier(group=self._group)
+        self.sent[0] += sum(w.numel() for w in sends.values())
+        return out
 
 
 def _axis_groups(axes: Dict[str, int], name: str) -> List[List[int]]:
@@ -161,7 +215,7 @@ def _join(rank: int, n: int, backend: str, init_method: str, device: torch.devic
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=n,
                             timeout=datetime.timedelta(seconds=timeout))
-    world = DistComm(rank, list(range(n)), None, {}, device, backend == "gloo" and device.type == "cuda")
+    world = DistComm(rank, list(range(n)), None, {}, device, backend == "gloo" and device.type == "cuda", [0])
     world.all_gather(torch.zeros(1, device=device))
     return world
 
@@ -172,13 +226,13 @@ def _layout(world: DistComm, axes: Dict[str, int]) -> DistComm:
     the layout, in one order, then runs one collective on each of its own
     to open its communicator before any point-to-point batch."""
     coords = mesh_coords(world.rank, axes)
-    comm = DistComm(world.rank, world._members, None, coords, world.device, world._staged)
+    comm = DistComm(world.rank, world._members, None, coords, world.device, world._staged, world.sent)
     for name in axes:
         for members in _axis_groups(axes, name):
             group = dist.new_group(members)
             if world.rank in members:
                 comm._views[name] = DistComm(members.index(world.rank), members, group, coords, world.device,
-                                             world._staged)
+                                             world._staged, world.sent)
     for view in comm._views.values():
         view.all_gather(torch.zeros(1, device=world.device))
     return comm
@@ -258,6 +312,7 @@ def _worker(rank: int, n: int, backend: str, init_method: str, device: torch.dev
                 world.all_gather(torch.zeros(1, device=device))
                 t_ready = time.perf_counter()
                 _native.reset_launches()
+                world.sent[0] = 0
                 out = fn(rank, layouts[key], *args)
                 del args
                 _sync(device)
@@ -266,7 +321,8 @@ def _worker(rank: int, n: int, backend: str, init_method: str, device: torch.dev
                     registry[hid] = None if out is None else out[i]
                 if keep and out is not None:
                     out = tuple(None if i in keep else v for i, v in enumerate(out))
-                stats = {"t_ready": t_ready, "t_done": t_done, "launches": dict(_native.LAUNCHES)}
+                stats = {"t_ready": t_ready, "t_done": t_done, "launches": dict(_native.LAUNCHES),
+                         "sent": world.sent[0]}
                 if device.type == "cuda":
                     free, total = torch.cuda.mem_get_info(device)
                     stats.update(peak_allocated=torch.cuda.max_memory_allocated(device),
@@ -316,12 +372,16 @@ class DistGroup:
     rank's end, each device synchronized; ``out_s``: from there to the
     results on ``home``), the kernel
     launches summed over the ranks (``launches``, each rank's counts set to
-    0 when its call starts) and each rank's device memory (``ranks``:
-    peak allocated and reserved bytes, and the device's bytes in use at the
-    call's end, every process's context included), and the bytes of the
+    0 when its call starts), each rank's own (``ranks``: its ``launches``)
+    and its device memory (``ranks``: peak allocated and reserved bytes,
+    and the device's bytes in use at the call's end, every process's
+    context included), and the bytes of the
     tensors that crossed to the ranks (``bytes_in``: the arguments) and
     back (``bytes_out``: the results; blocks kept on the ranks cross
-    nothing). :attr:`start_s`: the seconds the workers took to start and
+    nothing), and the bytes the ranks sent one another (``bytes_moved``:
+    point-to-point messages - a reshard's pieces, halo bands - and each
+    rank's share of a gather or reduction once for every other rank of its
+    group). :attr:`start_s`: the seconds the workers took to start and
     join.
 
     Each rank keeps a registry of blocks of placed handles
@@ -434,8 +494,9 @@ class DistGroup:
             "out_s": time.perf_counter() - end,
             "bytes_in": tensor_bytes(args),
             "bytes_out": tensor_bytes(results),
+            "bytes_moved": sum(s["sent"] for s in stats),
             "launches": {k: sum(s["launches"][k] for s in stats) for k in stats[0]["launches"]},
-            "ranks": [{k: v for k, v in s.items() if k not in ("t_ready", "t_done", "launches")} for s in stats],
+            "ranks": [{k: v for k, v in s.items() if k not in ("t_ready", "t_done", "sent")} for s in stats],
         }
         return results
 

@@ -6,10 +6,9 @@ on 2 and 4 ranks, ``run_video_spatial`` on 1 × 2, 1 × 4 and 2 × 2 meshes
 (the stream replicated over the rows), ``run_video_batch_spatial`` on a
 2 × 2 mesh, ``run_video_batch_shardmap`` on its 2 stream ranks and
 ``run_video_batch`` on it for SuBSENSE (routed to the spatial batch) and
-FrameDifference (no ``ctx``: the stream ranks). Masks and SuBSENSE
-states bit for bit, tracker states and per-frame track positions to the
-Kalman tolerance (as ``tests/test_torch_spatial_path.py``), and all of it
-bit for bit against the port's unsharded chain. JAX's runners give the
+FrameDifference (no ``ctx``: the stream ranks). Masks, SuBSENSE states,
+tracker states and per-frame track positions bit for bit, against JAX
+and against the port's unsharded chain. JAX's runners give the
 same bits on every shard count and schedule, and its batch runners the
 same bits as each other (``tests/test_mesh.py``), so one JAX run of each
 kind serves the process runs."""
@@ -78,8 +77,8 @@ def test_tracked_pipeline_on_processes_matches_jax(meshes, n, pipelined):
     mesh = meshes[(1, n)]
     got = run_video_spatial_tracked(TSuBSENSE(), TTracker(trackerType="CCMSPF", **TKW), torch.from_numpy(FRAMES),
                                     pipelined=pipelined, mesh=mesh)
-    _check_tracked(_jax_tracked(), got, exact=False)
-    _check_tracked(_port_chain("CCMSPF"), got, exact=True)
+    _check_tracked(_jax_tracked(), got)
+    _check_tracked(_port_chain("CCMSPF"), got)
     assert sum(mesh.group().last["launches"].values()) == 0  # CPU tensors: the plain versions
 
 

@@ -12,8 +12,8 @@ same API), against the JAX package's runners chained through their
 - The tracked path (CCMSPF, pipelined) on 1 × 4 in 2 chunks of 6 frames,
   the tracker state kept placed (replicated), against JAX's
   ``run_video_spatial_tracked`` chained with ``states=`` and
-  ``tracker_state=``: masks and SuBSENSE state bit for bit, the tracker to
-  the Kalman tolerance (``tests/test_torch_spatial_path.py``).
+  ``tracker_state=``: masks, SuBSENSE state and the tracker bit for bit
+  (``tests/test_torch_spatial_path.py``).
 - What crosses: a chained call with placed states moves the frames in and
   the masks out (``DistGroup.last``'s bytes), nothing of a state; a
   placed batch crosses once, block by block.
@@ -177,7 +177,7 @@ def test_tracked_chain_with_placed_states_matches_jax(procs, kind):
     if kind == "processes":
         last = mesh.group().last
         assert (last["bytes_in"], last["bytes_out"]) == (FRAMES[c:d].nbytes, m1.numel() + x1.numel() * x1.element_size())
-    _check_tracked(want, (st.gather(), ts.gather(), torch.cat([m0, m1]), torch.cat([x0, x1])), exact=False)
+    _check_tracked(want, (st.gather(), ts.gather(), torch.cat([m0, m1]), torch.cat([x0, x1])))
 
 
 def test_a_placed_handle_runs_twice_alike(procs):

@@ -7,7 +7,7 @@
   leaf exact, on the noisy clip at 26×70 (which the TPU kernel pads).
 - FGD → the default CCMSPF ``BlobTracker`` (BD_CC), the tracking app's
   ``--fg FG_0`` with the default tracker, on the quiet clip: masks exact
-  every frame, track tables to ``KALMAN_TOL`` (see test_torch_tracker.py),
+  every frame, track tables bit for bit (Kalman floats included),
   a track confirmed from FGD's masks (the port's FGD comes from the
   registry as ``get_algorithm("FG_0")``).
 - ``area_gate`` (FGD's minArea gate) against JAX's CPU branch: specks

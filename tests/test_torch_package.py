@@ -508,16 +508,33 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
     assert {p.name for p in _native.sources()} >= {
         "consensus.cu", "fill.cu", "cc.cu", "assoc.cu", "gmg.cu", "texture.cu", "multilayer.cu", "feedback.cuh",
-        "fgd.cu",
+        "fgd.cu", "kalman.cu", "resize.cu",
     }
     assert set(_native.LAUNCHES) == {
         "consensus", "flood_reach", "label_components", "greedy_assign",
         "consensus_lobster", "gmg_step", "texture_prox_cur", "multilayer_step",
         "consensus_read", "consensus_feedback", "fgd_tables", "label_fixpoint",
+        "kalman_predict", "kalman_update", "resize_bilinear",
     }
-    assert {"tt_consensus_read", "tt_consensus_feedback", "tt_fgd_tables", "tt_label_fixpoint"} <= set(
-        _native._SIGNATURES
-    )
+    assert {"tt_consensus_read", "tt_consensus_feedback", "tt_fgd_tables", "tt_label_fixpoint", "tt_kalman_predict",
+            "tt_kalman_update", "tt_resize_contract"} <= set(_native._SIGNATURES)
+
+
+def test_kalman_and_resize_refuse_other_devices():
+    """The Kalman and resize wrappers take the plain versions only for CPU
+    tensors: on another device they launch their kernel or raise."""
+    from tracking_tpu_torch.ops.resize import resize_bilinear
+    from tracking_tpu_torch.track import kalman
+
+    kp = kalman.KalmanParams(*(t.to("meta") for t in kalman.default_params(device="cpu")))
+    x, P = torch.empty((32, 8), device="meta"), torch.empty((32, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        kalman.kalman_predict(x, P, kp)
+    with pytest.raises(ValueError, match="CUDA"):
+        kalman.kalman_update(x, P, torch.empty((32, 4), device="meta"),
+                             torch.empty((32,), dtype=torch.bool, device="meta"), kp)
+    with pytest.raises(ValueError, match="CUDA"):
+        resize_bilinear(torch.empty((48, 64), device="meta"), (24, 32))
     # consensus takes the C plane pointers (no stacked copy); flood_reach no mark array
     P = ctypes.c_void_p
     assert _native._SIGNATURES["tt_consensus"][:3] == [P, P, P] and len(_native._SIGNATURES["tt_consensus"]) == 33

@@ -1,7 +1,7 @@
 """The ported slice end to end against the JAX package: SuBSENSE on a short
 synthetic colour clip, its masks fed to the default CCMSPF tracker; masks
-and track tables compared after every frame (Kalman floats to 1e-5, see
-test_torch_tracker.py)."""
+and track tables compared bit for bit after every frame (Kalman floats
+included, see test_torch_kalman.py)."""
 
 import jax
 import jax.numpy as jnp

@@ -2,9 +2,8 @@
 (``tracking_tpu_torch.parallel.spatial``) against the JAX package: its
 8-shard ``run_video_spatial_tracked`` on the 8-device CPU mesh, its
 unsharded step -> track chain and its unsharded ``run_video``. Masks and
-SuBSENSE states exact, tracker states and per-frame track positions exact
-up to the Kalman tolerance (as ``tests/test_torch_tracker.py``); against
-the port's own unsharded chain everything is exact."""
+SuBSENSE states, tracker states and per-frame track positions exact, against
+the JAX chains and against the port's own unsharded chain."""
 
 import jax
 import jax.numpy as jnp
@@ -12,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import KALMAN_TOL, assert_tree_equal
+from torch_parity import assert_tree_equal
 from tracking_tpu.bgs.lbsp_family import SuBSENSE as JSuBSENSE
 from tracking_tpu.runner.scan import run_video as jrun
 from tracking_tpu.track.tracker import BlobTracker as JTracker
@@ -23,7 +22,6 @@ from tracking_tpu_torch.track.tracker import BlobTracker as TTracker
 # relaxed confirmation so the crossing engages within 12 frames (the knobs of
 # tests/test_mesh.py's crossing case)
 TKW = dict(newBlobDetectFrames=3, minBlobArea=10, maxLostFrames=5)
-XS_TOL = {"xs": KALMAN_TOL["x"]}
 
 
 def _crossing_stream(h, w, t=12):
@@ -118,13 +116,12 @@ def _jax_chain(ttype):
     return _once(("jax", ttype), make)
 
 
-def _check(want, got, exact: bool):
-    """want / got: (bgs state, tracker state, masks, xs)."""
-    tol = None if exact else KALMAN_TOL
+def _check(want, got):
+    """want / got: (bgs state, tracker state, masks, xs), bit for bit."""
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]), err_msg="masks")
     assert int((got[2] > 0).sum()) > 0
-    assert_tree_equal({"xs": want[3]}, {"xs": got[3]}, tol=None if exact else XS_TOL)
-    assert_tree_equal(want[1], got[1], "tracker", tol=tol)
+    assert_tree_equal({"xs": want[3]}, {"xs": got[3]})
+    assert_tree_equal(want[1], got[1], "tracker")
     assert_tree_equal(want[0], got[0], "bgs")
 
 
@@ -142,8 +139,8 @@ def test_eight_shards_match_jax_sharded_pipeline():
     want = (jax.device_get(st), jax.device_get(ts)._asdict(), np.asarray(masks), np.asarray(xs))
     got = run_video_spatial_tracked(TSuBSENSE(), TTracker(trackerType="CCMSPF", **TKW), torch.from_numpy(FRAMES),
                                     n_shards=8)
-    _check(want, got, exact=False)
-    _check(_port_chain("CCMSPF"), got, exact=True)
+    _check(want, got)
+    _check(_port_chain("CCMSPF"), got)
 
 
 @pytest.mark.parametrize(
@@ -154,8 +151,8 @@ def test_eight_shards_match_jax_sharded_pipeline():
 def test_shard_counts_and_pipelining_match_the_unsharded_chain(ttype, pipelined, n):
     got = run_video_spatial_tracked(TSuBSENSE(), TTracker(trackerType=ttype, **TKW), torch.from_numpy(FRAMES),
                                     n_shards=n, pipelined=pipelined)
-    _check(_jax_chain(ttype), got, exact=False)
-    _check(_port_chain(ttype), got, exact=True)
+    _check(_jax_chain(ttype), got)
+    _check(_port_chain(ttype), got)
 
 
 def test_motion_analysis_size_matches_jax_run_video():

@@ -2,11 +2,9 @@
 head-on (the CCMSPF mean-shift collision path fires mid-clip): active flags,
 ids, ages, candidates and blob-derived outputs bit-exact after every frame;
 the MS-family trackers (MS, MSFG, MSPF) with and without the frame, and
-their colour mean-shift functions, bit for bit (Kalman leaves included).
-
-Kalman ``kx`` / ``kP`` and the filtered positions get rtol = atol = 1e-5:
-the covariance products and ``jnp.linalg.inv`` (kalman.py:75) accumulate in
-another order than torch's matmul and ``linalg.inv_ex``."""
+their colour mean-shift functions, bit for bit (Kalman leaves included:
+``kx`` / ``kP`` and the filtered positions are exact, the port's filter
+runs in XLA:CPU's orders, ``tests/test_torch_kalman.py``)."""
 
 import jax
 import jax.numpy as jnp

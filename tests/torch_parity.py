@@ -17,12 +17,6 @@ from tracking_tpu_torch.runner.scan import run_video as trun
 # keeps xdist's parallel workers from oversubscribing the cores.
 torch.set_num_threads(1)
 
-# Kalman kx / kP and the filtered positions: the covariance products and
-# jnp.linalg.inv (kalman.py:75) accumulate in another order than torch's
-# matmul and linalg.inv_ex
-KALMAN_TOL = {k: (1e-5, 1e-5) for k in ("kx", "kP", "x", "y", "w", "h", "rx", "ry", "rw", "rh")}
-
-
 def to_torch(tree):
     """numpy / JAX pytree of arrays (tuples, dicts) -> the same of CPU tensors."""
     if isinstance(tree, dict):
@@ -121,8 +115,8 @@ def step_both(jstep, tt, js, ts, mask):
     """One step of both trackers (``jstep`` = the jitted JAX step), compared."""
     js, jtr = jstep(js, jnp.asarray(mask))
     ts, ttr = tt.step(ts, torch.from_numpy(np.array(mask)))
-    assert_tree_equal(jax.device_get(js)._asdict(), ts, tol=KALMAN_TOL)
-    assert_tree_equal(jax.device_get(jtr)._asdict(), ttr._asdict(), tol=KALMAN_TOL)
+    assert_tree_equal(jax.device_get(js)._asdict(), ts)
+    assert_tree_equal(jax.device_get(jtr)._asdict(), ttr._asdict())
     return js, ts, jtr
 
 

@@ -298,7 +298,7 @@ class LbpMrf(BGSAlgorithm):
 
         luv = _rgb2luv_u8(f3)
         _stage("luv")
-        blue = resize_bilinear(luv[..., 1].to(torch.float32), (24, 32))
+        blue = resize_bilinear(luv[..., 1].to(torch.float32), (24, 32), use_kernels)
         changed = ((blue - state["prev_blue"]).abs() > 12).sum(dtype=torch.int32).to(torch.float32)
         reset_all = (changed * _PCT > 80.0) & (t > 0)
         _stage("resize")

@@ -500,5 +500,5 @@ class MultiCue(BGSAlgorithm):
             st["ccache"] = self._cache_clear(st["ccache"], lm_fg, st["c_ref"], 10, inset)
 
         # enlarge (GetForegroundMap -> cvResize bilinear, :1137-1186)
-        out = resize_bilinear(fore.to(torch.float32), (h, w))
+        out = resize_bilinear(fore.to(torch.float32), (h, w), use_kernels)
         return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)

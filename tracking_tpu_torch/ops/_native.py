@@ -42,6 +42,7 @@ LAUNCHES = {
     "consensus": 0, "flood_reach": 0, "label_components": 0, "greedy_assign": 0,
     "consensus_lobster": 0, "gmg_step": 0, "texture_prox_cur": 0, "multilayer_step": 0,
     "consensus_read": 0, "consensus_feedback": 0, "fgd_tables": 0, "label_fixpoint": 0,
+    "kalman_predict": 0, "kalman_update": 0, "resize_bilinear": 0,
 }
 _LAUNCH_LOCK = threading.Lock()
 
@@ -63,6 +64,9 @@ _SIGNATURES = {
     "tt_consensus_read": [_P] * 17 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "tt_consensus_feedback": [_P] * 2 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "tt_fgd_tables": [_P] * 13 + [_I] * 9 + [_F] * 3 + [_P],
+    "tt_kalman_predict": [_P] * 6 + [_I, _P],
+    "tt_kalman_update": [_P] * 8 + [_I, _P],
+    "tt_resize_contract": [_P] * 5 + [_I] * 8 + [_P],
     "tt_error_string": [_I],
 }
 

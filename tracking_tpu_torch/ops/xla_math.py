@@ -234,7 +234,7 @@ def fma(a, b, c) -> torch.Tensor:
     s = p + c
     bb = s - p
     err = (p - (s - bb)) + (c - bb)
-    inexact = err != 0
+    inexact = (err != 0) & torch.isfinite(s)  # an infinite or NaN sum is the FMA's
     bits = s.view(torch.int64)
     bits = bits - (inexact & ((err < 0) != (s < 0))).to(torch.int64)  # s truncated toward zero
     return (bits | inexact.to(torch.int64)).view(torch.float64).to(_F32)

@@ -164,7 +164,7 @@ class BlobTracker:
         blobs: Blobs | None = None, ctx=None,
     ) -> Tuple[dict, Tracks]:
         """One step on a foreground mask [H, W] (u8 or bool). On CUDA tensors
-        the CC and assignment kernels run unless ``use_kernels=False``.
+        the CC, assignment and Kalman kernels run unless ``use_kernels=False``.
 
         ``frame``: the [H, W, 3] (or grey [H, W]) u8 frame, which the MS
         family tracks on; without it their templates are all ones and the
@@ -193,7 +193,7 @@ class BlobTracker:
             frame = frame[..., None].expand(-1, -1, 3)
 
         # 1) Kalman predict
-        kx, kP = kalman.kalman_predict(state["kx"], state["kP"], kp)
+        kx, kP = (kalman.kalman_predict if use_kernels else kalman.kalman_predict_ref)(state["kx"], state["kP"], kp)
         pred_pos = kx[:, :4]
         new_key = state["key"]
 
@@ -256,7 +256,7 @@ class BlobTracker:
             )
             taken = ((d / scale <= cfg.gateDistance) & matched[:, None]).any(dim=0)
 
-        kx, kP = kalman.kalman_update(kx, kP, z, matched, kp)
+        kx, kP = (kalman.kalman_update if use_kernels else kalman.kalman_update_ref)(kx, kP, z, matched, kp)
 
         act_i = state["active"].to(torch.int32)
         lost = torch.where(matched, 0, state["lost"] + act_i).to(torch.int32)

@@ -29,8 +29,10 @@ processes that share the card, and NCCL over every card) - and fails
 1. device: the card's name and power limit; no CUDA device is an error;
 2. build: compiles the CUDA kernels from ``tracking_tpu_torch/csrc`` (the
    13 TPU kernels' twelve counterparts: ``consensus_read`` replaces two; and
-   three with no Pallas counterpart, ``kalman_predict``, ``kalman_update``
-   and ``resize_bilinear``, which reproduce XLA:CPU's orders), one
+   five with no Pallas counterpart, ``kalman_predict``, ``kalman_update``,
+   ``contract`` (XLA:CPU's dot: the resize's contractions, Eigenbackground's
+   Gram product and lift), ``pca_project`` and ``syevd_small`` (LAPACK's
+   ``ssyevd`` as jaxlib runs it), which reproduce the reference's orders), one
    ``nvcc`` per source in parallel (anew, even where a library of these
    sources was built before), and prints each kernel's registers, stack
    frame, spills and static shared memory (``--ptxas``: nvcc's own output);
@@ -86,9 +88,15 @@ processes that share the card, and NCCL over every card) - and fails
    block that pivots at every step of the 4x4 inverse, gated-out slots of
    -0.0, NaN and 3e38, a singular S, magnitudes 1e-3 to 1e4 - and over 12
    chained steps; the resize on LbpMrf's u plane of the clip to its 24x32
-   grid, on a 1080p and a random plane, and MultiCue's 120x160 map enlarged
-   to 720x1280 and 576x720; the inverse's agreement with the machine's
-   LAPACK printed as information);
+   grid, on a 1080p and a random plane, on 240x320, 360x640 and 576x720
+   planes (the row contraction sharded in Eigen's tree), and MultiCue's
+   120x160 map enlarged to 720x1280 and 576x720; Eigenbackground's Gram
+   product of 20 frames at 720p and of the 360x640 crop, its lift and
+   projection there, ``syevd`` on the eigensolver tests' 5,000 matrices
+   (n = 4, 8, 20, 25; Gram, rank-deficient, zero, repeated eigenvalues,
+   scaled by 1e-6, 1e6, 1e-30) and the two Gram matrices; the inverse's and
+   the eigensolver's agreement with the machine's LAPACK printed as
+   information);
 4. the main path: warm start, then 64 frames of ``SuBSENSE.step`` and
    ``BlobTracker.step``; every kernel's launch count must be > 0, the mean
    foreground share in (0.1 %, 50 %), and a track active at the end;
@@ -174,16 +182,16 @@ processes that share the card, and NCCL over every card) - and fails
    and a 4-sample IMBS model and a 4-frame Eigenbackground history: each
    alone through ``run_video``, 6 frames then 16 timed with CUDA events
    (masks in the algorithm's labels, IMBS's {0, 80, 180, 255}; a finite
-   state; IMBS's ``label_components`` launched once per frame, nothing
-   else launched); the first 7 frames of the clip's top-left 360x640 on
-   the card equal a CPU run bit for bit (Eigenbackground: t, history and
-   mean exactly, its basis's projector on seeded random vectors to a
-   relative 1e-4, the background to 1 level on 0.1 % of its values, the
-   mask on all but 0.5 % of its pixels); a ``run_bgs`` fan-out from an
+   state; IMBS's ``label_components`` launched once per frame,
+   Eigenbackground's ``contract`` twice and ``syevd_small`` once (its PCA)
+   and ``pca_project`` once a frame, nothing else launched); the first 7
+   frames of the clip's top-left 360x640 on the card equal a CPU run bit
+   for bit (masks, background, every state leaf); a ``run_bgs`` fan-out from an
    XML directory enabling the nine (those configs in their XMLs) and
    SuBSENSE, 2 chunks of 8: ``consensus`` and ``flood_reach`` launch 16
    times each, ``label_components`` once per IMBS frame that starts with a
-   model, and every fan-out mask equals its own ``run_video``; the
+   model, Eigenbackground's kernels as alone, and every fan-out mask equals
+   its own ``run_video``; the
    fan-out's tictoc;
 4j. MultiCue (type 34) at its defaults: 21 training frames with empty
    masks, then 8 detection frames that launch ``label_components`` 24
@@ -349,8 +357,15 @@ SOURCES = {
                        "no Pallas counterpart; reproduces tracking_tpu/track/kalman.py:60 kalman_predict"),
     "kalman_update": ("tracking_tpu_torch/csrc/kalman.cu",
                       "no Pallas counterpart; reproduces tracking_tpu/track/kalman.py:67 kalman_update"),
-    "resize_bilinear": ("tracking_tpu_torch/csrc/resize.cu",
-                        "no Pallas counterpart; reproduces jax.image.resize at tracking_tpu/bgs/lbp_mrf.py:377"),
+    "contract": ("tracking_tpu_torch/csrc/contract.cu",
+                 "no Pallas counterpart; reproduces XLA:CPU's dot in jax.image.resize (tracking_tpu/bgs/lbp_mrf.py:377) "
+                 "and in Eigenbackground's Gram product and lift (tracking_tpu/bgs/eigenbackground.py:70, :74)"),
+    "pca_project": ("tracking_tpu_torch/csrc/pca.cu",
+                    "no Pallas counterpart; reproduces tracking_tpu/bgs/eigenbackground.py:89-90, the projection and "
+                    "reconstruction"),
+    "syevd_small": ("tracking_tpu_torch/csrc/pca.cu",
+                    "no Pallas counterpart; reproduces jnp.linalg.eigh (LAPACK ssyevd) at "
+                    "tracking_tpu/bgs/eigenbackground.py:71"),
 }
 # the registry path: (algorithm, its kernel, first frame after its training
 # window, frames replayed through the plain versions)
@@ -496,13 +511,8 @@ S16_LBP = 6  # LbpMrf's frames alone
 S16_CPU = {"SJN_MultiCueBGS": 25, "LbpMrf": 5}  # crop frames on the card and on the CPU
 S16_CUT_CFG = {"SJN_MultiCueBGS": {"reducedHeight": 60, "reducedWidth": 80}}
 S16_FAN_CFG = {"SJN_MultiCueBGS": {"trainingPeriod": 4}}  # detects inside the fan-out's frames
-# Eigenbackground's basis comes from cuSOLVER on the card and LAPACK on the
-# CPU: its projector applied to seeded random vectors agrees to this
-# relative tolerance, the background image to 1 level on at most this
-# share of its values, the mask on all but this share of its pixels
-EIGEN_PROJ_RTOL = 1e-4
-EIGEN_BG_SHARE = 1e-3
-EIGEN_MASK_SHARE = 5e-3
+# phase 3: Eigenbackground's products at its default history and basis
+EIGEN_S, EIGEN_E = 20, 10
 # phase 6: the tracker's steps on the main path's masks, the Kalman kernels
 # against the parent's Kalman (cuBLAS products and cuSOLVER's inverse), in
 # turns
@@ -765,8 +775,9 @@ def kalman_cost(x, gate, update: bool):
 
 
 def resize_cost(h: int, w: int, shape):
-    """(bound_ms, bound_by) of resize_bilinear: the plane and the weights'
-    bands read once, the result written; two operations a band term."""
+    """(bound_ms, bound_by) of the resize's two contractions: the plane and
+    the weights' bands read once, the result written; two operations a
+    band term."""
     from tracking_tpu_torch.ops.resize import _band
 
     oh, ow = shape
@@ -788,8 +799,9 @@ def check_kalman_resize_kernels(frames, dev, errs, timing_inputs, bounds) -> Non
     seeded banks of 32 and 7 tracks that the clip never reaches (a block
     that pivots at every step, gated-out slots of −0.0, NaN and 3e38, a
     singular S, magnitudes 1e-3 to 1e4) and over twelve chained steps;
-    resize_bilinear on LbpMrf's u plane of the clip (720p to 24x32), a
-    1080p plane and a random one, MultiCue's 0/255 map enlarged to
+    the resize's contraction kernel on LbpMrf's u plane of the clip (720p to
+    24x32), a 1080p plane and a random one, 240x320, 360x640 and 576x720
+    planes (Eigen's sharded tree), MultiCue's 0/255 map enlarged to
     720x1280 and 576x720. The inverse's agreement with this machine's
     LAPACK (scipy's sgetrf + strsm) is printed, as information: OpenBLAS
     picks its kernels by the host's CPU."""
@@ -849,16 +861,18 @@ def check_kalman_resize_kernels(frames, dev, errs, timing_inputs, bounds) -> Non
     cases = [("LbpMrf's u plane, 720p -> 24x32", u, (24, 32)),
              ("a 1080p plane -> 24x32", torch.randint(0, 256, (1080, 1920), generator=rng).to(torch.float32), (24, 32)),
              ("a random normal plane, 720p -> 24x32", torch.randn((H, W), generator=rng) * 100, (24, 32))]
+    for hw_ in ((240, 320), (360, 640), (576, 720)):
+        cases.append((f"a {hw_[0]}x{hw_[1]} plane -> 24x32 (sharded rows)",
+                      torch.randint(0, 256, hw_, generator=rng).to(torch.float32), (24, 32)))
     for shape in ((720, 1280), (576, 720)):
         fore = torch.where(torch.rand((120, 160), generator=rng) < 0.3, 255.0, 0.0)
         cases.append((f"MultiCue's 120x160 map -> {shape[0]}x{shape[1]}", fore, shape))
     for what, img, shape in cases:
         img = img.to(dev).contiguous()
         e = nan_err(resize_bilinear(img, shape), resize_bilinear(img, shape, use_kernels=False))
-        errs["resize_bilinear"] = max(errs["resize_bilinear"], e)
-        check(e == 0.0, f"resize_bilinear equal on {what}")
-    timing_inputs["resize_bilinear"] = (u, (24, 32))
-    bounds["resize_bilinear"] = resize_cost(H, W, (24, 32))
+        errs["contract"] = max(errs["contract"], e)
+        check(e == 0.0, f"contract equal in the resize of {what}")
+    timing_inputs["resize"] = (u, (24, 32))
 
 
 def parent_kalman_predict(x, P, params):
@@ -879,12 +893,14 @@ def parent_kalman_update(x, P, z, gate_mask, params):
 
 
 def time_kalman_resize(timing_inputs, results, masks, tracker, dev, tag) -> None:
-    """Phase 6 for kalman_predict, kalman_update and resize_bilinear (each
-    against its plain version in turns; the resize beside
-    torch.nn.functional.interpolate's antialiased bilinear, the library
-    call for the same function), then the tracker's steps on the main
-    path's masks with the Kalman kernels and with the parent's Kalman, in
-    turns: ms a frame and device operations a frame."""
+    """Phase 6 for kalman_predict and kalman_update (each against its plain
+    version in turns, beside the parent's Kalman: cuBLAS products and
+    cuSOLVER's batched inverse, the library calls for the same function)
+    and the resize through the contraction kernel (beside
+    torch.nn.functional.interpolate's antialiased bilinear), then the
+    tracker's steps on the main path's masks with the Kalman kernels and
+    with the parent's Kalman, in turns: ms a frame and device operations a
+    frame."""
     from tracking_tpu_torch.ops.resize import resize_bilinear
     from tracking_tpu_torch.track import kalman
 
@@ -893,14 +909,23 @@ def time_kalman_resize(timing_inputs, results, masks, tracker, dev, tag) -> None
               lambda: kalman.kalman_update_ref(x, P, z, g, kp), 200, 5, results, tag)
     time_pair("kalman_predict", lambda: kalman.kalman_predict(x, P, kp),
               lambda: kalman.kalman_predict_ref(x, P, kp), 200, 5, results, tag)
-    u, shape = timing_inputs["resize_bilinear"]
-    time_pair("resize_bilinear", lambda: resize_bilinear(u, shape),
-              lambda: resize_bilinear(u, shape, use_kernels=False), 200, 3, results, tag)
+    for k, lib_fn in (("kalman_update", lambda: parent_kalman_update(x, P, z, g, kp)),
+                      ("kalman_predict", lambda: parent_kalman_predict(x, P, kp))):
+        lib = [cuda_ms(lib_fn, 200) for _ in range(2)]
+        results[k]["library_ms"] = min(lib)
+        print(f"  {tag} {k}'s library calls (the parent's Kalman: torch.matmul, torch.linalg.inv_ex): "
+              f"{lib[0]:.4f} / {lib[1]:.4f} ms", flush=True)
+    u, shape = timing_inputs["resize"]
+    own = [cuda_ms(lambda: resize_bilinear(u, shape), 200) for _ in range(2)]
+    plain = [cuda_ms(lambda: resize_bilinear(u, shape, use_kernels=False), 3) for _ in range(2)]
     lib = [cuda_ms(lambda: torch.nn.functional.interpolate(u[None, None], size=shape, mode="bilinear",
                                                            antialias=True), 200) for _ in range(2)]
-    results["resize_bilinear"]["library_ms"] = min(lib)
-    print(f"  {tag} resize_bilinear's library call (F.interpolate, bilinear, antialias): {lib[0]:.4f} / "
-          f"{lib[1]:.4f} ms", flush=True)
+    r = results["contract"]
+    r["resize_ms"], r["resize_plain_ms"], r["resize_library_ms"] = min(own), min(plain), min(lib)
+    r["resize_bound_ms"] = resize_cost(H, W, shape)[0]
+    print(f"  {tag} the resize 720p -> 24x32 through contract (two launches a contraction): kernel {own[0]:.4f} / "
+          f"{own[1]:.4f} ms, plain {plain[0]:.4f} / {plain[1]:.4f} ms, bound {r['resize_bound_ms']:.4f} ms (bytes); "
+          f"library call (F.interpolate, bilinear, antialias) {lib[0]:.4f} / {lib[1]:.4f} ms", flush=True)
 
     own = (kalman.kalman_predict, kalman.kalman_update)
 
@@ -938,6 +963,152 @@ def time_kalman_resize(timing_inputs, results, masks, tracker, dev, tag) -> None
           f"{ms['kernels'][0]:.3f} / {ms['kernels'][1]:.3f} ms/frame, {ops['kernels']:.1f} device operations a frame; "
           f"the parent's Kalman {ms['parent'][0]:.3f} / {ms['parent'][1]:.3f} ms/frame, {ops['parent']:.1f} device "
           f"operations a frame", flush=True)
+
+
+def eigh_cases(n: int, count: int, seed: int) -> np.ndarray:
+    """tests/test_torch_eigh.py's seeded symmetric matrices: Gram matrices of
+    centred u8 histories (rank-deficient where a history is short), the same
+    scaled by 1e-6, 1e6 and 1e-30, zero, and repeated eigenvalues."""
+    gen = np.random.default_rng(seed)
+    out = []
+    for t in range(count):
+        kind = t % 6
+        if kind == 4:
+            g = np.zeros((n, n), np.float32)
+        elif kind == 5:
+            q = np.linalg.qr(gen.standard_normal((n, n)))[0]
+            g = ((q * gen.integers(0, 3, n)) @ q.T).astype(np.float32)
+        else:
+            x = gen.integers(0, 256, (n, int(gen.integers(2, 4 * n)))).astype(np.float32)
+            xc = x - x.mean(1, keepdims=True).astype(np.float32)
+            g = (xc @ xc.T).astype(np.float32) * np.float32((1.0, 1e-6, 1e6, 1e-30)[kind])
+        out.append(((g + g.T) * np.float32(0.5)).astype(np.float32))
+    return np.stack(out)
+
+
+def gram_cost(s: int, d: int):
+    """(bound_ms, bound_by) of Eigenbackground's Gram product: the centred
+    history read once, the [S, S] matrix written; 2 S^2 D operations."""
+    return bound(4 * (s * d + s * s), 2 * s * s * d)
+
+
+def pca_cost(e: int, d: int):
+    """(bound_ms, bound_by) of pca_project: the basis, the centred frame and
+    the mean read once, the reconstruction written; two products of 2 E D
+    operations."""
+    return bound(4 * (e * d + 3 * d), 4 * e * d)
+
+
+def syevd_cost(n: int):
+    """(bound_ms, bound_by) of syevd_small on one matrix: the matrix read, the
+    eigenvalues and vectors written; ssytd2's 4/3 n^3 and sorm2r's 2 n^3
+    operations (the QL / QR sweeps, which depend on the data, not counted)."""
+    return bound(4 * (2 * n * n + n), (4 * n ** 3) // 3 + 2 * n ** 3)
+
+
+def check_pca_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
+    """Phase 3 for Eigenbackground's kernels, exactly against their plain
+    versions on the CPU (the plain version is the order both share): the
+    contraction's Gram product of 20 frames of the clip at 720p and of its
+    360x640 crop, the lift and the projection on the crop (a basis of 10),
+    syevd_small on the eigensolver tests' 5,000 matrices and the two Gram
+    matrices. The eigensolver's agreement with this machine's LAPACK
+    (scipy's ssyevd) is printed, as information."""
+    from tracking_tpu_torch.ops import eigh, pca
+    from tracking_tpu_torch.ops.contract import contract, gram_plan, lift_plan
+
+    def centred(hist):
+        X = hist.reshape(hist.shape[0], -1).to(torch.float32)
+        return X - X.sum(0) * np.float32(1.0 / X.shape[0])
+
+    t0 = time.perf_counter()
+    S, E = EIGEN_S, EIGEN_E
+    grams = []
+    for what, hist in (("720p", frames[1 : 1 + S]), ("the 360x640 crop", frames[1 : 1 + S, : NEW_CUT[0], : NEW_CUT[1]])):
+        Xc = centred(hist).contiguous()
+        D = Xc.shape[1]
+        G = contract(Xc, Xc.T, gram_plan(S, D))
+        Xh = Xc.cpu()
+        Gp = contract(Xh, Xh.T, gram_plan(S, D))
+        e = nan_err(G, Gp.to(dev))
+        errs["contract"] = max(errs["contract"], e)
+        check(e == 0.0, f"contract: the Gram product of {S} frames at {what} (D = {D}) equals the plain version")
+        grams.append((G + G.T) * 0.5)
+    G = grams[1]
+    w, V, info = eigh.syevd(G[None])
+    order = torch.argsort(-w[0], stable=True)
+    L = V[0][:, order].T.contiguous()
+    comps = contract(L, Xc, lift_plan(S, D))
+    e = nan_err(comps, contract(L.cpu(), Xh, lift_plan(S, D)).to(dev))
+    errs["contract"] = max(errs["contract"], e)
+    check(e == 0.0, f"contract: the lift [S, S] x [S, {D}] equals the plain version")
+    basis = (comps / torch.clamp(pca.row_norms(comps)[:, None], min=1e-12))[:E].contiguous()
+    mean = hist.reshape(S, -1).to(torch.float32).sum(0) * np.float32(1.0 / S)
+    flat = frames[1 + S, : NEW_CUT[0], : NEW_CUT[1]].reshape(-1).to(torch.float32)
+    xc = flat - mean
+    e = nan_err(pca.project(basis, xc, mean), pca.project(basis.cpu(), xc.cpu(), mean.cpu()).to(dev))
+    errs["pca_project"] = max(errs["pca_project"], e)
+    small = torch.randn((4, 24 * 37), generator=torch.Generator().manual_seed(23))
+    e2 = nan_err(pca.project(small.to(dev), small[0].to(dev), small[1].to(dev)), pca.project(small, small[0], small[1]))
+    errs["pca_project"] = max(errs["pca_project"], e2)
+    check(e == 0.0 and e2 == 0.0, f"pca_project equals the plain version on the crop (E = {E}, D = {D}) and at "
+                                  f"E = 4, D = 888 (a partial tile of rows, columns with a remainder mod 8)")
+    mats = [eigh_cases(n, c, n) for n, c in ((4, 1500), (8, 1500), (20, 1200), (25, 800))]
+    n_bad = n_same = n_all = 0
+    for m in mats + [np.stack([g.cpu().numpy() for g in grams])]:
+        Gm = torch.from_numpy(m)
+        wk, Vk, ik = eigh.syevd(Gm.to(dev))
+        wp, Vp, ip = eigh.syevd(Gm)
+        errs["syevd_small"] = max(errs["syevd_small"], nan_err(wk, wp), nan_err(Vk, Vp))
+        n_bad += int(sum(not (same_bits(wk[b], wp[b]) and same_bits(Vk[b], Vp[b]) and int(ik[b]) == int(ip[b]))
+                         for b in range(len(m))))
+        n_all += len(m)
+        try:
+            from scipy.linalg import lapack
+
+            wk_, Vk_ = wk.cpu().numpy(), Vk.cpu().numpy()
+            for b in range(len(m)):
+                wr, vr, _ = lapack.ssyevd(m[b], compute_v=1, lower=1)
+                n_same += bool(np.array_equal(wr, wk_[b]) and np.array_equal(vr, Vk_[b]))
+        except ImportError:
+            n_same = -1
+    check(n_bad == 0, f"syevd_small equals the plain version on all {n_all} matrices (the eigensolver tests' 5,000 "
+                      f"and the 720p and crop Gram matrices)")
+    print(f"  information: the card's ssyevd equals this machine's LAPACK (scipy) on {n_same} of {n_all} matrices "
+          f"(-1: scipy does not import here); {time.perf_counter() - t0:.1f} s", flush=True)
+    timing_inputs["contract"] = Xc
+    timing_inputs["syevd_small"] = G[None].contiguous()
+    timing_inputs["pca_project"] = (basis, xc, mean)
+    bounds["contract"] = gram_cost(S, D)
+    bounds["syevd_small"] = syevd_cost(S)
+    bounds["pca_project"] = pca_cost(E, D)
+
+
+def time_pca_kernels(timing_inputs, results, tag) -> None:
+    """Phase 6 for contract (the Gram product of 20 frames of the 360x640
+    crop), syevd_small (its Gram matrix) and pca_project (a basis of 10 on
+    the crop): each against its plain version on the card in turns and
+    beside the library call that computes the same function (torch.matmul;
+    torch.linalg.eigh; torch.matmul for both products)."""
+    from tracking_tpu_torch.ops import eigh, pca
+    from tracking_tpu_torch.ops.contract import contract, gram_plan
+
+    Xc = timing_inputs["contract"]
+    S, D = Xc.shape
+    plan = gram_plan(S, D)
+    time_pair("contract", lambda: contract(Xc, Xc.T, plan), lambda: contract(Xc, Xc.T, plan, use_kernels=False),
+              20, 1, results, tag, label=f"contract, the Gram product [{S}, {D}]")
+    G = timing_inputs["syevd_small"]
+    time_pair("syevd_small", lambda: eigh.syevd(G), lambda: eigh.syevd(G, use_kernels=False), 20, 1, results, tag)
+    basis, xc, mean = timing_inputs["pca_project"]
+    time_pair("pca_project", lambda: pca.project(basis, xc, mean),
+              lambda: pca.project(basis, xc, mean, use_kernels=False), 10, 1, results, tag,
+              plain_warmup=0)  # the plain chains take ~30 s a call on the card (a launch a step)
+    for k, fn in (("contract", lambda: torch.matmul(Xc, Xc.T)), ("syevd_small", lambda: torch.linalg.eigh(G[0])),
+                  ("pca_project", lambda: mean + torch.matmul(basis.T, torch.matmul(basis, xc)))):
+        lib = [cuda_ms(fn, 20) for _ in range(2)]
+        results[k]["library_ms"] = min(lib)
+        print(f"  {tag} {k}'s library call: {lib[0]:.4f} / {lib[1]:.4f} ms", flush=True)
 
 
 def check_registry_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
@@ -1544,13 +1715,14 @@ def time_registry(timing_inputs, results, starts, frames, tag) -> None:
         profile(run_frame, range(5 + REGISTRY_TIMED, 13 + REGISTRY_TIMED), tag, name, top=6)
 
 
-def time_pair(k, fk, fp, rk, rp, results, tag, label=None) -> None:
+def time_pair(k, fk, fp, rk, rp, results, tag, label=None, plain_warmup: int = 1) -> None:
     """A kernel's and its plain version's ms, in turns (plain, kernel,
-    kernel, plain), beside the kernel's bound, into ``results[k]``."""
-    ms_p1 = cuda_ms(fp, rp)
+    kernel, plain), beside the kernel's bound, into ``results[k]``
+    (``plain_warmup`` 0 for a plain version that takes seconds a call)."""
+    ms_p1 = cuda_ms(fp, rp, plain_warmup)
     ms_k1 = cuda_ms(fk, rk)
     ms_k2 = cuda_ms(fk, rk)
-    ms_p2 = cuda_ms(fp, rp)
+    ms_p2 = cuda_ms(fp, rp, plain_warmup)
     r = results[k]
     r["ms"] = min(ms_k1, ms_k2)
     r["plain_ms"] = min(ms_p1, ms_p2)
@@ -2836,32 +3008,19 @@ def new_algorithms_path(clip, frames, dev, results, out, tag) -> None:
     print(f"  phase 4h: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def eigen_residue(a, b, gen) -> dict:
-    """Eigenbackground's card run ``a`` = (masks, bg, state) against the CPU
-    run ``b``: exact leaves, and the basis, background and masks' residue
-    (see EIGEN_PROJ_RTOL)."""
-    (ma, ba, sa), (mb, bb, sb) = a, b
-    mb, bb, sb = mb.to(ma.device), bb.to(ma.device), {k: v.to(ma.device) for k, v in sb.items()}
-    exact = all(same_bits(sa[k], sb[k]) for k in ("t", "history", "mean"))
-    v = torch.randn((4, sa["basis"].shape[1]), generator=gen).to(ma.device)
-    pa, pb = (s["basis"].T @ (s["basis"] @ v.T) for s in (sa, sb))
-    proj = float((pa - pb).abs().max() / pb.abs().max())
-    bg_diff = (ba.to(torch.int32) - bb.to(torch.int32)).abs()
-    return {"exact": exact, "proj": proj, "bg_max": int(bg_diff.max()),
-            "bg_share": float(bg_diff.gt(0).to(torch.float32).mean()),
-            "mask_share": float((ma != mb).to(torch.float32).mean())}
-
-
 def slice15_path(clip, frames, dev, results, out, tag) -> None:
     """Phase 4i: the nine algorithms of ``bgs/fuzzy.py``, ``bgs/t2f.py``,
     ``bgs/kde.py``, ``bgs/imbs.py`` and ``bgs/eigenbackground.py``, each
     alone through ``run_video`` at 720p (CUDA events; IMBS's
     ``label_components`` launches once per frame that starts with a model),
     the first frames of the top-left crop on the card against the CPU
-    (bit for bit; Eigenbackground to its tolerance), and a ``run_bgs``
+    (bit for bit, Eigenbackground's basis included), and a ``run_bgs``
     fan-out from an XML directory of the nine beside SuBSENSE: the launch
-    counts of SuBSENSE's and IMBS's kernels, each fan-out mask against its
-    own run."""
+    counts of SuBSENSE's, IMBS's and Eigenbackground's kernels (``contract``
+    twice and ``syevd_small`` once at its PCA, ``pca_project`` once a
+    frame), each fan-out mask against its own run. Eigenbackground's
+    counts, read over its warm-up and timed frames alone, give the kernels
+    line its launches of ``syevd_small`` and ``pca_project``."""
     from tracking_tpu_torch import get_algorithm
     from tracking_tpu_torch.core.config import config_to_xml
     from tracking_tpu_torch.ops import _native
@@ -2875,9 +3034,13 @@ def slice15_path(clip, frames, dev, results, out, tag) -> None:
           f"against the CPU, and a bgs-run fan-out of them with SuBSENSE, {BGS_FRAMES} frames in chunks of "
           f"{BGS_CHUNK}, at {H}x{W}x{C} {elapsed()}", flush=True)
     ms, shares = {}, {}
+    eigen_kernels = ("contract", "syevd_small", "pca_project")
     for name in S15_ALGOS:
         algo = get_algorithm(name)(**S15_CFG.get(name, {}))
+        _native.reset_launches()
         st, _ = run_video(algo, frames[:S15_WARM])
+        torch.cuda.synchronize()
+        warm = dict(_native.LAUNCHES)
         ready = bool(st["model_ready"]) if "model_ready" in st else True
         torch.cuda.synchronize()
         _native.reset_launches()
@@ -2896,32 +3059,34 @@ def slice15_path(clip, frames, dev, results, out, tag) -> None:
               and set(masks.unique().tolist()) <= labels
               and all(bool(torch.isfinite(x).all()) for x in leaves if x.is_floating_point()),
               f"{name}: {S15_TIMED} u8 masks in {sorted(labels)}, a finite state, foreground share {shares[name]}")
-        want = S15_TIMED if name == "IndependentMultimodalBGS" else 0
-        check(ready and launches["label_components"] == want and sum(launches.values()) == want,
-              f"{name}: label_components launched {launches['label_components']} times in {S15_TIMED} frames "
-              f"that start with a model (kernels launched in all: {sum(launches.values())})")
-        if want:
-            results["label_components"]["imbs_launches"] = launches["label_components"]
+        if name == "DPEigenbackgroundBGS":
+            got = {k: warm[k] + launches[k] for k in eigen_kernels}
+            want = {"contract": 2, "syevd_small": 1, "pca_project": S15_WARM + S15_TIMED}
+            check(got == want and sum(warm.values()) + sum(launches.values()) == sum(want.values()),
+                  f"{name}: over its {S15_WARM} + {S15_TIMED} frames contract launched {got['contract']} times "
+                  f"(the Gram product and the lift), syevd_small {got['syevd_small']} (the PCA at t = "
+                  f"{S15_CFG[name]['historySize']}), pca_project {got['pca_project']} (once a frame), nothing else")
+            for k in ("syevd_small", "pca_project"):
+                results[k]["launches"] = got[k]
+            results["contract"]["eigen_launches"] = got["contract"]
+        else:
+            want = S15_TIMED if name == "IndependentMultimodalBGS" else 0
+            check(ready and launches["label_components"] == want and sum(launches.values()) == want,
+                  f"{name}: label_components launched {launches['label_components']} times in {S15_TIMED} frames "
+                  f"that start with a model (kernels launched in all: {sum(launches.values())})")
+            if want:
+                results["label_components"]["imbs_launches"] = launches["label_components"]
         del st, masks
     print(f"  {tag} each alone, ms/frame (CUDA events, {S15_TIMED} frames after {S15_WARM}): "
           + ", ".join(f"{n} {v:.3f}" for n, v in ms.items()), flush=True)
 
     cut = torch.from_numpy(clip[:S15_CPU, : NEW_CUT[0], : NEW_CUT[1]].copy())
-    gen = torch.Generator().manual_seed(15)
     t0 = time.perf_counter()
     for name in S15_ALGOS:
         cfg = S15_CFG.get(name, {})
         sk, (mk, bk) = run_video(get_algorithm(name)(**cfg), cut.to(dev), with_background=True)
         sc, (mc, bc) = run_video(get_algorithm(name)(**cfg), cut, with_background=True)
         share = float(mc.gt(0).to(torch.float32).mean())
-        if name == "DPEigenbackgroundBGS":
-            r = eigen_residue((mk, bk, sk), (mc, bc, sc), gen)
-            check(r["exact"] and r["proj"] <= EIGEN_PROJ_RTOL and r["bg_max"] <= 1
-                  and r["bg_share"] <= EIGEN_BG_SHARE and r["mask_share"] <= EIGEN_MASK_SHARE,
-                  f"{name}{cfg}: t, history and mean of the card equal the CPU's; residue (cuSOLVER against "
-                  f"LAPACK) {r} within projector {EIGEN_PROJ_RTOL}, background 1 level on {EIGEN_BG_SHARE}, mask "
-                  f"{EIGEN_MASK_SHARE} over {S15_CPU} frames (foreground share {share:.4f})")
-            continue
         check(same_bits((mk, bk, sk), (mc, bc, sc)),
               f"{name}{cfg or ''}: masks, background and state of the card equal the CPU's bit for bit over "
               f"{S15_CPU} frames (foreground share {share:.4f})")
@@ -2960,7 +3125,8 @@ def slice15_path(clip, frames, dev, results, out, tag) -> None:
             _, alone = run_video(algo, prepped)
         e = max(e, max_err(alone, fk[name]))
     check(e == 0.0, f"each algorithm's fan-out masks equal its own run_video over {BGS_FRAMES} frames")
-    for k, want in (("consensus", BGS_FRAMES), ("flood_reach", BGS_FRAMES), ("label_components", with_model)):
+    for k, want in (("consensus", BGS_FRAMES), ("flood_reach", BGS_FRAMES), ("label_components", with_model),
+                    ("contract", 2), ("syevd_small", 1), ("pca_project", BGS_FRAMES)):
         check(launches[k] == want and want > 0, f"{k} launched {launches[k]} times by the fan-out of {len(names)} "
                                                 f"(expected {want})")
         results[k]["bgs15_launches"] = launches[k]
@@ -3068,12 +3234,12 @@ def slice16_path(clip, frames, dev, results, out) -> dict:
           f"MultiCue: {S16_DETECT} u8 detection masks (soft enlarged edges), foreground share {share:.4f}, a finite "
           f"state")
     check(launches["label_components"] == 3 * S16_DETECT and counts == {4: S16_DETECT, 8: 2 * S16_DETECT}
-          and launches["resize_bilinear"] == 2 * S16_DETECT and sum(launches.values()) == 5 * S16_DETECT,
+          and launches["contract"] == 2 * S16_DETECT and sum(launches.values()) == 5 * S16_DETECT,
           f"MultiCue: label_components launched {launches['label_components']} times in {S16_DETECT} detection "
           f"frames, {counts[4]} 4-connected (the boxes) and {counts[8]} 8-connected (Canny on the frame and on the "
-          f"candidate map), resize_bilinear {launches['resize_bilinear']} times (the enlarge's two contractions), "
+          f"candidate map), contract {launches['contract']} times (the enlarge's two contractions), "
           f"nothing else")
-    results["resize_bilinear"]["multicue_launches"] = launches["resize_bilinear"]
+    results["contract"]["multicue_launches"] = launches["contract"]
     results["label_components"]["multicue_launches"] = launches["label_components"]
     same_as_plain(mc, keep["SJN_MultiCueBGS"][1], frames, range(S16_TRAIN + 1, S16_TRAIN + 1 + S16_DETECT), masks, st,
                   f"MultiCue: its {S16_DETECT} detection frames (the CC kernel on the "
@@ -3098,13 +3264,13 @@ def slice16_path(clip, frames, dev, results, out) -> dict:
     check(masks.dtype == torch.uint8 and set(masks.unique().tolist()) <= {0, 255} and shares[0] == 0.0
           and max(shares[1:]) > 0.0 and finite(st),
           f"LbpMrf: {S16_LBP} 0/255 masks (the first empty), foreground shares {shares}, a finite state")
-    check(launches["flood_reach"] == S16_LBP and launches["resize_bilinear"] == 2 * S16_LBP
+    check(launches["flood_reach"] == S16_LBP and launches["contract"] == 2 * S16_LBP
           and sum(launches.values()) == 3 * S16_LBP,
           f"LbpMrf: flood_reach launched {launches['flood_reach']} times in {S16_LBP} frames (the corner fill), "
-          f"resize_bilinear {launches['resize_bilinear']} times (the scene-cut grid's two contractions), nothing "
+          f"contract {launches['contract']} times (the scene-cut grid's two contractions), nothing "
           f"else")
     results["flood_reach"]["lbp_mrf_launches"] = launches["flood_reach"]
-    results["resize_bilinear"]["launches"] = launches["resize_bilinear"]
+    results["contract"]["launches"] = launches["contract"]
     print(f"  LbpMrf's min cut per frame (drain rounds, distance sweeps, host reads): "
           + "; ".join(f"{s['drain_rounds']}, {s['sweeps']}, {s['host_reads']}" for s in stats), flush=True)
     same_as_plain(lb, keep["LbpMrf"][1], frames, range(1, 1 + S16_LBP), masks, st,
@@ -3174,10 +3340,10 @@ def slice16_apps(clip, frames, dev, out) -> None:
     torch.cuda.synchronize()
     launches = dict(_native.LAUNCHES)
     _, alone = run_video(get_algorithm("LbpMrf")(), frames[:BGS_CHUNK])
-    check(launches["flood_reach"] == BGS_CHUNK and launches["resize_bilinear"] == 2 * BGS_CHUNK
+    check(launches["flood_reach"] == BGS_CHUNK and launches["contract"] == 2 * BGS_CHUNK
           and sum(launches.values()) == 3 * BGS_CHUNK and max_err(joined(ak, dev)["LbpMrf"], alone) == 0.0,
           f"bgs-run -a LbpMrf: {BGS_CHUNK} frames, flood_reach launched {launches['flood_reach']} times, "
-          f"resize_bilinear {launches['resize_bilinear']}, the masks equal run_video's")
+          f"contract {launches['contract']}, the masks equal run_video's")
     # the tracker (BD_CC + CCMSPF) labels each frame once and assigns once
     for bgs_type, n, detect in ((34, APP_FRAMES, APP_FRAMES - S16_TRAIN), (30, BGS_CHUNK, 0)):
         _native.reset_launches()
@@ -3185,7 +3351,7 @@ def slice16_apps(clip, frames, dev, out) -> None:
         torch.cuda.synchronize()
         launches = dict(_native.LAUNCHES)
         want = {"label_components": n + 3 * detect, "greedy_assign": n, "flood_reach": n if bgs_type == 30 else 0,
-                "kalman_predict": n, "kalman_update": n, "resize_bilinear": 2 * (n if bgs_type == 30 else detect)}
+                "kalman_predict": n, "kalman_update": n, "contract": 2 * (n if bgs_type == 30 else detect)}
         check(run.frames == n and {k: launches[k] for k in want} == want
               and sum(launches.values()) == sum(want.values()) and bool(torch.isfinite(run.trk_state["kx"]).all()),
               f"tracking-run --bgs_type {bgs_type}: {n} frames, launches {want} ({detect} MultiCue detection frames "
@@ -4634,6 +4800,7 @@ def main(argv) -> None:
     check_spatial_kernels(algo, state_for_masks, frames, dev, errs, timing_inputs, bounds)
     check_slab_kernels(frames, dev, errs, timing_inputs)
     check_kalman_resize_kernels(frames, dev, errs, timing_inputs, bounds)
+    check_pca_kernels(frames, dev, errs, timing_inputs, bounds)
     print(f"  {elapsed()}", flush=True)
     for k, (b_ms, b_by) in bounds.items():
         results[k]["bound_ms"], results[k]["bound_by"] = b_ms, b_by
@@ -4779,6 +4946,7 @@ def main(argv) -> None:
     print(f"  {elapsed()}", flush=True)
     time_slab_kernels(timing_inputs, results, tag)
     time_kalman_resize(timing_inputs, results, masks, tracker, dev, tag)
+    time_pca_kernels(timing_inputs, results, tag)
     time_batch(streams, dev, tag)
     time_sharded_lbsp(streams, dev, tag)
     time_process_mesh(proc_mesh, thread_mesh, algo, tracker, state0, frames, streams, tag)

@@ -1,0 +1,99 @@
+"""The shared contraction (``tracking_tpu_torch/ops/contract.py``) and
+Eigenbackground's per-frame products (``ops/pca.py``) against the XLA:CPU
+dots they reproduce, bit for bit on seeded data: the resize's row
+contraction where Eigen shards it over the inner dimension (240 rows,
+blocks of 96 in its tree) and where it does not (720 rows, equal slices),
+its column contraction (blocks of 1,024), the Gram product ``Xc @ Xc.T``
+and the lift ``evecs.T @ Xc`` at the histories' shapes (24x32 frames, colour and
+grey, 20 and 8 frames; 240x320 grey; the colour 240x320 history runs in
+``test_torch_eigen.py``), the norms of
+``jnp.linalg.norm`` and the projection and reconstruction of the step."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tracking_tpu_torch.ops import contract as C
+from tracking_tpu_torch.ops.pca import project, row_norms
+
+torch.set_num_threads(1)  # as tests/torch_parity.py: xdist's workers share the cores
+
+ROWDOT = jax.jit(lambda a, b: jax.lax.dot_general(a, b, (((0,), (0,)), ((), ())), precision="highest"))
+COLDOT = jax.jit(lambda a, b: jax.lax.dot_general(a, b, (((1,), (0,)), ((), ())), precision="highest"))
+GRAM = jax.jit(lambda x: x @ x.T)
+LIFT = jax.jit(lambda l, x: l @ x)
+NORM = jax.jit(lambda x: jnp.linalg.norm(x, axis=1))
+STEP = jax.jit(lambda basis, mean, flat: mean + basis.T @ (basis @ (flat - mean)))
+
+
+def centred(rng, s, d):
+    x = rng.integers(0, 256, (s, d)).astype(np.float32)
+    return (x - (x.sum(0) * np.float32(1.0 / s)).astype(np.float32)).astype(np.float32)
+
+
+def test_eigen_shard_rule():
+    """Eigen's inner-dimension sharding of the resize's row contraction
+    (XLA's [24, W] output over H): shards of 96 at 240-576 rows of 320-720
+    columns, none at 720p and 1080p, nor for the column contraction."""
+    for h, w in [(240, 320), (360, 640), (480, 640), (576, 720)]:
+        assert C.eigen_shard_block(w, 24, h) == 96, (h, w)
+        assert C.resize_rows_plan(h, w, 24).tree
+    for h, w in [(720, 1280), (1080, 1920), (48, 64)]:
+        assert C.eigen_shard_block(w, 24, h) == 0, (h, w)
+    assert C.resize_rows_plan(720, 1280, 24).blocks == ((0, 240), (240, 480), (480, 720))
+    assert C.resize_rows_plan(1080, 1920, 24).blocks[0] == (0, 272)
+
+
+@pytest.mark.parametrize("h,w", [(240, 320), (576, 720), (720, 1280)])
+def test_rows_contraction(h, w):
+    """Dense weights (no band): the sharded tree and the equal slices."""
+    rng = np.random.default_rng(h)
+    wt = rng.standard_normal((h, 24)).astype(np.float32)
+    x = rng.integers(0, 256, (h, w)).astype(np.float32)
+    got = C.contract(torch.from_numpy(wt).T, torch.from_numpy(x), C.resize_rows_plan(h, w, 24))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ROWDOT(wt, x)))
+
+
+@pytest.mark.parametrize("w", [320, 1280, 2560])
+def test_cols_contraction(w):
+    rng = np.random.default_rng(w)
+    t = rng.standard_normal((24, w)).astype(np.float32)
+    wc = rng.standard_normal((w, 32)).astype(np.float32)
+    got = C.contract(torch.from_numpy(wc).T, torch.from_numpy(t).T, C.resize_cols_plan(w), out_t=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(COLDOT(t, wc)))
+
+
+@pytest.mark.parametrize("s,d", [(20, 24 * 32 * 3), (8, 24 * 32 * 3), (8, 24 * 32), (8, 240 * 320)])
+def test_gram_and_lift(s, d):
+    rng = np.random.default_rng(s * d)
+    xc = centred(rng, s, d)
+    X = torch.from_numpy(xc)
+    np.testing.assert_array_equal(C.contract(X, X.T, C.gram_plan(s, d)).numpy(), np.asarray(GRAM(xc)))
+    lift = np.linalg.qr(rng.standard_normal((s, s)))[0].astype(np.float32)
+    comps = C.contract(torch.from_numpy(lift), X, C.lift_plan(s, d))
+    np.testing.assert_array_equal(comps.numpy(), np.asarray(LIFT(lift, xc)))
+    np.testing.assert_array_equal(row_norms(comps).numpy(), np.asarray(NORM(comps.numpy())))
+
+
+@pytest.mark.parametrize("d", [2000, 7000, 20000])
+def test_lift_panels(d):
+    """The lift's split and unsplit columns around a panel's edge."""
+    rng = np.random.default_rng(d)
+    for s in (20, 8):
+        xc = centred(rng, s, d)
+        lift = rng.standard_normal((s, s)).astype(np.float32)
+        got = C.contract(torch.from_numpy(lift), torch.from_numpy(xc), C.lift_plan(s, d))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(LIFT(lift, xc)), err_msg=f"S={s}")
+
+
+@pytest.mark.parametrize("e,d", [(10, 24 * 32 * 3), (4, 24 * 32), (10, 24 * 37), (12, 1001)])
+def test_projection(e, d):
+    """Whole and partial tiles of 8 rows, columns with a remainder mod 8."""
+    rng = np.random.default_rng(e * d)
+    basis = (rng.standard_normal((e, d)) * 0.05).astype(np.float32)
+    mean = (rng.integers(0, 256, d) * 0.75).astype(np.float32)
+    flat = rng.integers(0, 256, d).astype(np.float32)
+    got = project(torch.from_numpy(basis), torch.from_numpy(flat - mean), torch.from_numpy(mean))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(STEP(basis, mean, flat)))

@@ -1,18 +1,13 @@
 """DPEigenbackgroundBGS in the port against the JAX package: both
-packages' ``run_video`` over seeded frames at 24x32, past the PCA at t ==
-historySize, at the defaults and with a short history, colour and grey.
+packages' ``run_video`` over seeded frames, past the PCA at t ==
+historySize: at 24x32 at the defaults and with a short history, colour
+and grey, and at 240x320 (CDnet's size, a Gram product of 230,400 terms).
+The mask, the background image and every state leaf (``basis`` included)
+are compared bit for bit: the Gram product and the lift in XLA:CPU's dot
+orders (``ops/contract``), LAPACK's ``ssyevd`` in jaxlib's order
+(``ops/eigh``), the norms and the per-frame projection in XLA's orders
+(``ops/pca``)."""
 
-``history`` and ``t`` are compared bit for bit, and so is ``mean`` (a sum
-of u8 values times f32(1/S)). The basis comes from an eigensolver and
-[S, D] matrix products whose libraries round differently (XLA:CPU's
-LAPACK and Eigen, torch's LAPACK and BLAS; cuSOLVER and cuBLAS on the
-card), and an eigenvector's sign is arbitrary, so the basis is compared
-through its projector basis^T basis, to an absolute 1e-5; the background
-image to 1 level; the mask to 0.5 % of its pixels. The residue is
-printed (measured: projector 1.5e-7, background and mask equal but for a
-pixel a level off)."""
-
-import numpy as np
 import pytest
 
 from torch_parity import run_both
@@ -20,33 +15,14 @@ from tracking_tpu.core.registry import get_algorithm as jget
 from tracking_tpu_torch import get_algorithm as tget
 from tracking_tpu_torch.synth import make_clip
 
-H, W = 24, 32
-PROJ_TOL = 1e-5
-BG_TOL = 1
-MASK_SHARE_TOL = 0.005
-CASES = [({}, 3, 26), ({"historySize": 8, "embeddedDim": 4}, 3, 14), ({"historySize": 8, "embeddedDim": 4}, 1, 14)]
+CASES = [({}, 3, 24, 32, 26), ({"historySize": 8, "embeddedDim": 4}, 3, 24, 32, 14),
+         ({"historySize": 8, "embeddedDim": 4}, 1, 24, 32, 14), ({}, 3, 240, 320, 22)]
 
 
-@pytest.mark.parametrize("cfg,c,T", CASES, ids=["default", "short", "short-grey"])
-def test_eigenbackground_matches_reference(cfg, c, T):
-    frames = make_clip(T, H, W, c, seed=3)
+@pytest.mark.parametrize("cfg,c,h,w,T", CASES, ids=["default", "short", "short-grey", "default-240x320"])
+def test_eigenbackground_matches_reference(cfg, c, h, w, T):
+    frames = make_clip(T, h, w, c, seed=3)
     S = jget("eigenbackground").Config(**cfg).historySize
-    res = []
-
-    def check(t, ref, got):
-        (jm, jb, js), (tm, tb, ts) = ref, got
-        assert int(ts["t"]) == int(js["t"]) == t
-        for leaf in ("history", "mean"):
-            np.testing.assert_array_equal(ts[leaf].numpy(), js[leaf], err_msg=f"{leaf}, frame {t}")
-        jB, tB = js["basis"], ts["basis"].numpy()
-        proj = float(np.abs(jB.T @ jB - tB.T @ tB).max())
-        bg = int(np.abs(jb.astype(np.int32) - tb.numpy().astype(np.int32)).max())
-        mask = float((jm != tm.numpy()).mean())
-        res.append((t, proj, bg, mask))
-        assert proj <= PROJ_TOL and bg <= BG_TOL and mask <= MASK_SHARE_TOL, res[-1]
-
-    shares, st = run_both(jget("eigenbackground")(**cfg), tget("eigenbackground")(**cfg), frames, check=check)
-    print(f"residue after the PCA (frame, projector max |err|, background max |err|, mask share differing): "
-          f"{[r for r in res if r[0] >= S]}")
+    shares, st = run_both(jget("eigenbackground")(**cfg), tget("eigenbackground")(**cfg), frames)
     assert not any(shares[:S]) and max(shares[S:]) > 0.0  # empty while the history fills
-    assert float(np.abs(st["basis"].numpy()).max()) > 0.0  # the basis was built
+    assert float(st["basis"].abs().max()) > 0.0  # the basis was built

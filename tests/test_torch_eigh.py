@@ -1,0 +1,80 @@
+"""The port's ordered ``ssyevd`` (``tracking_tpu_torch/ops/eigh.py``)
+against LAPACK as scipy's OpenBLAS runs it (``scipy.linalg.lapack.ssyevd``,
+the library jaxlib calls) on 5,000 seeded symmetric matrices of n = 4, 8,
+20 and 25 (1,500, 1,500, 1,200 and 800), and against ``jnp.linalg.eigh`` on a few hundred: eigenvalues,
+eigenvectors and ``info`` bit for bit. The matrices: Gram matrices of
+centred u8 histories (rank-deficient where the history has fewer columns
+than rows), the same scaled by 1e-6, 1e6 and 1e-30 (the last below
+ssyevd's scaling threshold), zero, and matrices with repeated
+eigenvalues."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.linalg.lapack as lapack
+import torch
+
+from tracking_tpu_torch.ops import eigh
+
+torch.set_num_threads(1)  # as tests/torch_parity.py: xdist's workers share the cores
+SCALES = (1.0, 1e-6, 1e6, 1e-30)
+
+
+def make(rng, n, kind):
+    """One seeded symmetric f32 matrix of the test's six kinds."""
+    if kind == 4:
+        return np.zeros((n, n), np.float32)
+    if kind == 5:  # eigenvalues 0, 1 and 2, each several times
+        q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+        g = ((q * rng.integers(0, 3, n)) @ q.T).astype(np.float32)
+    else:
+        x = rng.integers(0, 256, (n, int(rng.integers(2, 4 * n)))).astype(np.float32)
+        xc = x - x.mean(1, keepdims=True).astype(np.float32)
+        g = (xc @ xc.T).astype(np.float32) * np.float32(SCALES[kind])
+    return ((g + g.T) * np.float32(0.5)).astype(np.float32)
+
+
+def batch(n, count, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([make(rng, n, t % 6) for t in range(count)])
+
+
+@pytest.mark.parametrize("n,count", [(4, 1500), (8, 1500), (20, 1200), (25, 800)])
+def test_syevd_matches_lapack(n, count):
+    G = batch(n, count, n)
+    w, V, info = eigh.syevd(torch.from_numpy(G))
+    bad = []
+    for b in range(len(G)):
+        wr, vr, ir = lapack.ssyevd(G[b], compute_v=1, lower=1)
+        if not (np.array_equal(wr, w[b].numpy()) and np.array_equal(vr, V[b].numpy()) and ir == int(info[b])):
+            bad.append(b)
+    assert not bad, f"{len(bad)} of {len(G)} differ, first {bad[:5]} (kinds {[b % 6 for b in bad[:5]]})"
+
+
+@pytest.mark.parametrize("n", [8, 20])
+def test_syevd_matches_jax(n):
+    G = batch(n, 150, 100 + n)
+    wj, vj = jax.jit(jax.vmap(jnp.linalg.eigh))(jnp.asarray(G))
+    w, V, _ = eigh.syevd(torch.from_numpy(G))
+    np.testing.assert_array_equal(w.numpy(), np.asarray(wj))
+    np.testing.assert_array_equal(V.numpy(), np.asarray(vj))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_syevd_small_orders(n):
+    G = batch(n, 60, 7)
+    w, V, info = eigh.syevd(torch.from_numpy(G))
+    for b in range(len(G)):
+        wr, vr, ir = lapack.ssyevd(G[b], compute_v=1, lower=1)
+        np.testing.assert_array_equal(w[b].numpy(), wr)
+        np.testing.assert_array_equal(V[b].numpy(), vr)
+
+
+def test_syevd_refuses_what_it_does_not_reproduce():
+    """Above 25 LAPACK divides and conquers: refused; a tensor on another
+    device than the CPU launches the kernel or raises."""
+    with pytest.raises(ValueError, match="n <= 25"):
+        eigh.syevd_ref(torch.zeros((1, 26, 26)))
+    with pytest.raises(ValueError, match="CUDA"):
+        eigh.syevd(torch.zeros((1, 4, 4), device="meta"))

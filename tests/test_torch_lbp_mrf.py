@@ -8,8 +8,9 @@ package runs in a process of its own (``torch_parity.run_jax_child``). Then the 
 colours (Luv bit for bit) and ``ops/resize.resize_bilinear`` against
 ``jax.image.resize`` at the shapes both LbpMrf and MultiCue use, bit for
 bit: the tests' sizes, the scene-cut grid at 720p and 1080p (720x1280 and
-1080x1920 -> 24x32, XLA:CPU's dot summing in blocks of 240 and 272 rows)
-and MultiCue's enlarges of a 0/255 map (120x160 -> 720x1280, and
+1080x1920 -> 24x32, XLA:CPU's dot summing in blocks of 240 and 272 rows),
+at 240x320, 360x640, 480x640 and 576x720 (Eigen shards the rows over its
+threads in blocks of 96, summed in its tree) and MultiCue's enlarges of a 0/255 map (120x160 -> 720x1280, and
 576x720, a non-integer scale), whose einsum contracts the columns first;
 with XLA:CPU's fusion on, the non-integer enlarge within 1 level on at
 most 0.1 % of the pixels."""
@@ -108,7 +109,10 @@ def test_luv_all_colours():
 ENLARGE_SHARE = 1e-3
 RESIZE_CASES = [((48, 64), (24, 32), "u8"), ((24, 32), (48, 64), "mask"),
                 ((120, 160), (240, 320), "mask"), ((720, 1280), (24, 32), "u8"), ((120, 160), (720, 1280), "mask"),
-                ((120, 160), (576, 720), "mask"), ((1080, 1920), (24, 32), "u8")]
+                ((120, 160), (576, 720), "mask"), ((1080, 1920), (24, 32), "u8"),
+                # CDnet's and PAL's sizes, where XLA:CPU shards the row contraction over its threads
+                ((240, 320), (24, 32), "u8"), ((360, 640), (24, 32), "u8"), ((480, 640), (24, 32), "u8"),
+                ((576, 720), (24, 32), "u8")]
 
 
 def check_enlarge(got, want, how):

@@ -508,21 +508,22 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
     assert {p.name for p in _native.sources()} >= {
         "consensus.cu", "fill.cu", "cc.cu", "assoc.cu", "gmg.cu", "texture.cu", "multilayer.cu", "feedback.cuh",
-        "fgd.cu", "kalman.cu", "resize.cu",
+        "fgd.cu", "kalman.cu", "contract.cu", "pca.cu",
     }
     assert set(_native.LAUNCHES) == {
         "consensus", "flood_reach", "label_components", "greedy_assign",
         "consensus_lobster", "gmg_step", "texture_prox_cur", "multilayer_step",
         "consensus_read", "consensus_feedback", "fgd_tables", "label_fixpoint",
-        "kalman_predict", "kalman_update", "resize_bilinear",
+        "kalman_predict", "kalman_update", "contract", "pca_project", "syevd_small",
     }
     assert {"tt_consensus_read", "tt_consensus_feedback", "tt_fgd_tables", "tt_label_fixpoint", "tt_kalman_predict",
-            "tt_kalman_update", "tt_resize_contract"} <= set(_native._SIGNATURES)
+            "tt_kalman_update", "tt_contract", "tt_pca_project", "tt_syevd_small"} <= set(_native._SIGNATURES)
 
 
 def test_kalman_and_resize_refuse_other_devices():
-    """The Kalman and resize wrappers take the plain versions only for CPU
-    tensors: on another device they launch their kernel or raise."""
+    """The Kalman, resize (contraction) and PCA wrappers take the plain
+    versions only for CPU tensors: on another device they launch their
+    kernel or raise."""
     from tracking_tpu_torch.ops.resize import resize_bilinear
     from tracking_tpu_torch.track import kalman
 
@@ -535,6 +536,11 @@ def test_kalman_and_resize_refuse_other_devices():
                              torch.empty((32,), dtype=torch.bool, device="meta"), kp)
     with pytest.raises(ValueError, match="CUDA"):
         resize_bilinear(torch.empty((48, 64), device="meta"), (24, 32))
+    from tracking_tpu_torch.ops import eigh, pca
+    with pytest.raises(ValueError, match="CUDA"):
+        pca.project(torch.empty((10, 96), device="meta"), torch.empty(96, device="meta"), torch.empty(96, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        eigh.syevd(torch.empty((1, 20, 20), device="meta"))
     # consensus takes the C plane pointers (no stacked copy); flood_reach no mark array
     P = ctypes.c_void_p
     assert _native._SIGNATURES["tt_consensus"][:3] == [P, P, P] and len(_native._SIGNATURES["tt_consensus"]) == 33

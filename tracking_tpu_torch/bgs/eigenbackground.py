@@ -11,16 +11,19 @@ reconstructed, and a pixel is FG where a channel's squared
 reconstruction error exceeds 2 x threshold.
 
 The mean over the history is exact (a sum of u8 values, times f32(1/S),
-as XLA:CPU computes ``jnp.mean``). The eigensolver (``torch.linalg.eigh``
-for ``jnp.linalg.eigh``: LAPACK on the CPU, cuSOLVER on the card) and the
-[S, D] products are plain library calls outside any kernel of the JAX
-package, and their libraries round differently, so the basis, the
-reconstruction and the mask agree with the JAX package's to a tolerance,
-not bit for bit (the reconstruction does not depend on each
-eigenvector's sign). The JAX package builds the basis under ``lax.cond``;
-the port reads ``t`` on the host (one synchronisation a frame) and builds
-it only at t == historySize. The history updates in place (``step``
-consumes its state).
+as XLA:CPU computes ``jnp.mean``). The Gram product ``Xc @ Xc.T`` and the
+lift ``evecs.T @ Xc`` run through ``ops/contract.contract`` (XLA:CPU's dot
+orders: ``gram_plan``, ``lift_plan``), the Gram matrix is symmetrised as
+``jnp.linalg.eigh`` does ((G + G^T) * 0.5), the eigensolver is LAPACK's
+``ssyevd`` in jaxlib's order (``ops/eigh.syevd``, for a history of at most
+25 frames; a longer one takes ``torch.linalg.eigh``, not bit for bit), the
+norms are XLA's windowed sums (``ops/pca.row_norms``) and every frame's
+projection and reconstruction is ``ops/pca.project`` (XLA's row-major
+GEMV orders). On the card these are the kernels ``contract``,
+``syevd_small`` and ``pca_project``. The JAX package builds the basis
+under ``lax.cond``; the port reads ``t`` on the host (one synchronisation
+a frame) and builds it only at t == historySize. The history updates in
+place (``step`` consumes its state).
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ import torch
 from tracking_tpu_torch.bgs.base import BGSAlgorithm, State, StepResult
 from tracking_tpu_torch.core.config import BGSConfig
 from tracking_tpu_torch.core.registry import register
-from tracking_tpu_torch.ops import xla_math
+from tracking_tpu_torch.ops import eigh
 from tracking_tpu_torch.ops.consensus import recip
+from tracking_tpu_torch.ops.contract import contract, gram_plan, lift_plan
+from tracking_tpu_torch.ops.pca import project, row_norms
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,18 +49,26 @@ class EigenbackgroundConfig(BGSConfig):
     showOutput: bool = True
 
 
-def build_pca(history: torch.Tensor, embedded_dim: int):
+def build_pca(history: torch.Tensor, embedded_dim: int, use_kernels: bool = True):
     """(mean [D], basis [E, D]) of a [S, D] u8 history: the top E
     principal directions by the Gram trick, descending by eigenvalue."""
     X = history.to(torch.float32)
-    mean = X.sum(dim=0) * recip(X.shape[0])
+    S, D = X.shape
+    mean = X.sum(dim=0) * recip(S)
     Xc = X - mean[None]
-    evals, evecs = torch.linalg.eigh(Xc @ Xc.T)  # ascending
-    evecs = evecs[:, torch.argsort(-evals, stable=True)]
-    comps = evecs.T @ Xc
-    norms = xla_math.sqrt((comps * comps).sum(dim=1, keepdim=True))
-    comps = comps / torch.clamp(norms, min=1e-12)
-    return mean, comps[:embedded_dim]
+    G = contract(Xc, Xc.T, gram_plan(S, D), use_kernels=use_kernels)
+    G = (G + G.T) * 0.5  # jnp.linalg.eigh symmetrises its input
+    if S <= eigh.NMAX:
+        evals, evecs, info = eigh.syevd(G[None], use_kernels)  # ascending
+        failed = info[0] != 0  # jnp.linalg.eigh turns LAPACK's failure into NaN
+        evals = torch.where(failed, float("nan"), evals[0])
+        evecs = torch.where(failed, float("nan"), evecs[0])
+    else:  # ssyevd divides and conquers above 25 (not reproduced: ROADMAP)
+        evals, evecs = torch.linalg.eigh(G)
+    lift = evecs[:, torch.argsort(-evals, stable=True)].T.contiguous()
+    comps = contract(lift, Xc, lift_plan(S, D), use_kernels=use_kernels)
+    comps = comps / torch.clamp(row_norms(comps)[:, None], min=1e-12)
+    return mean, comps[:embedded_dim].contiguous()
 
 
 @register("DPEigenbackgroundBGS", type_id=15, aliases=("eigenbackground",))
@@ -72,15 +85,15 @@ class DPEigenbackground(BGSAlgorithm):
         }
 
     def step(self, state: State, frame: torch.Tensor, use_kernels: bool = True) -> StepResult:
-        """One frame (``use_kernels``: the common step signature; no kernel)."""
+        """One frame; ``use_kernels=False`` runs the plain versions on the card."""
         cfg = self.config
         S = cfg.historySize
         t = int(state["t"])  # the branch's scalar, one synchronisation
         history, mean, basis = state["history"], state["mean"], state["basis"]
         if t == S:
-            mean, basis = build_pca(history, cfg.embeddedDim)
+            mean, basis = build_pca(history, cfg.embeddedDim, use_kernels)
         flat = frame.reshape(-1).to(torch.float32)
-        recon = mean + basis.T @ (basis @ (flat - mean))
+        recon = project(basis, flat - mean, mean, use_kernels)
         err2 = (flat - recon).square().reshape(frame.shape)
         if frame.ndim == 2:
             err2 = err2[..., None]

@@ -42,7 +42,7 @@ LAUNCHES = {
     "consensus": 0, "flood_reach": 0, "label_components": 0, "greedy_assign": 0,
     "consensus_lobster": 0, "gmg_step": 0, "texture_prox_cur": 0, "multilayer_step": 0,
     "consensus_read": 0, "consensus_feedback": 0, "fgd_tables": 0, "label_fixpoint": 0,
-    "kalman_predict": 0, "kalman_update": 0, "resize_bilinear": 0,
+    "kalman_predict": 0, "kalman_update": 0, "contract": 0, "pca_project": 0, "syevd_small": 0,
 }
 _LAUNCH_LOCK = threading.Lock()
 
@@ -66,7 +66,9 @@ _SIGNATURES = {
     "tt_fgd_tables": [_P] * 13 + [_I] * 9 + [_F] * 3 + [_P],
     "tt_kalman_predict": [_P] * 6 + [_I, _P],
     "tt_kalman_update": [_P] * 8 + [_I, _P],
-    "tt_resize_contract": [_P] * 5 + [_I] * 8 + [_P],
+    "tt_contract": [_P] * 8 + [_I] * 13 + [_P],
+    "tt_pca_project": [_P] * 5 + [_I] * 2 + [_P],
+    "tt_syevd_small": [_P] * 6 + [_I] * 2 + [_P],
     "tt_error_string": [_I],
 }
 
@@ -164,10 +166,11 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
 
 
-def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``/``shape``
-    on the current device (a kernel launches on the current device's
-    stream: a rank bound to another card would pass it foreign pointers)."""
+def require(t: torch.Tensor, name: str, dtype, shape=None, contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a CUDA tensor of ``dtype``/``shape`` on the
+    current device (a kernel launches on the current device's stream: a
+    rank bound to another card would pass it foreign pointers), contiguous
+    unless the kernel takes its strides (``contiguous=False``)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.device.index != torch.cuda.current_device():
@@ -177,5 +180,5 @@ def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

@@ -91,12 +91,14 @@ processes that share the card, and NCCL over every card) - and fails
    grid, on a 1080p and a random plane, on 240x320, 360x640 and 576x720
    planes (the row contraction sharded in Eigen's tree), and MultiCue's
    120x160 map enlarged to 720x1280 and 576x720; Eigenbackground's Gram
-   product of 20 frames at 720p and of the 360x640 crop, its lift and
-   projection there, ``syevd`` on the eigensolver tests' 5,000 matrices
-   (n = 4, 8, 20, 25; Gram, rank-deficient, zero, repeated eigenvalues,
-   scaled by 1e-6, 1e6, 1e-30) and the two Gram matrices; the inverse's and
-   the eigensolver's agreement with the machine's LAPACK printed as
-   information);
+   product of 20 frames at 720p and of 20, 28 and 32 frames of the 360x640
+   crop, also of the crop less its last value (a depth of 3 mod 4), its
+   lifts (against the plain versions on the card) and the projection there,
+   ``syevd`` on the eigensolver tests' 5,000 matrices (n = 4, 8, 20, 25;
+   Gram, rank-deficient, zero, repeated eigenvalues, scaled by 1e-6, 1e6,
+   1e-30), their 3,500 of n = 26-32 (sstedc's divide and conquer) and the
+   Gram matrices; the inverse's and the eigensolver's agreement with the
+   machine's LAPACK printed as information);
 4. the main path: warm start, then 64 frames of ``SuBSENSE.step`` and
    ``BlobTracker.step``; every kernel's launch count must be > 0, the mean
    foreground share in (0.1 %, 50 %), and a track active at the end;
@@ -186,7 +188,9 @@ processes that share the card, and NCCL over every card) - and fails
    Eigenbackground's ``contract`` twice and ``syevd_small`` once (its PCA)
    and ``pca_project`` once a frame, nothing else launched); the first 7
    frames of the clip's top-left 360x640 on the card equal a CPU run bit
-   for bit (masks, background, every state leaf); a ``run_bgs`` fan-out from an
+   for bit (masks, background, every state leaf), and Eigenbackground with
+   a 26-frame history (``syevd_small``'s divide and conquer) over 27 crop
+   frames too (the PCA at the last), its launches counted; a ``run_bgs`` fan-out from an
    XML directory enabling the nine (those configs in their XMLs) and
    SuBSENSE, 2 chunks of 8: ``consensus`` and ``flood_reach`` launch 16
    times each, ``label_components`` once per IMBS frame that starts with a
@@ -327,6 +331,7 @@ import contextlib
 import io
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -495,6 +500,7 @@ S15_CFG = {"DPEigenbackgroundBGS": {"historySize": 4, "embeddedDim": 3}, "FuzzyS
            "FuzzyChoquetIntegral": {"framesToLearn": 4}, "KDE": {"framesToLearn": 4},
            "IndependentMultimodalBGS": {"fps": 2.0, "numSamples": 4}}
 S15_LABELS = {"IndependentMultimodalBGS": {0, 80, 180, 255}}
+S15_LONG = {"historySize": 26, "embeddedDim": 10}  # Eigenbackground past ssteqr: sstedc divides and conquers
 S15_WARM, S15_TIMED = 6, 16
 S15_CPU = 7  # crop frames on the card and on the CPU: two past every algorithm's learning
 S15_KERNELS = ("consensus", "flood_reach", "label_components")
@@ -986,6 +992,60 @@ def eigh_cases(n: int, count: int, seed: int) -> np.ndarray:
     return np.stack(out)
 
 
+# The CPU side of phase 3's eigensolver check and of phase 4i's crop runs
+# in one spawned process while the card works through phases 3-4h: the
+# same comparisons, their CPU time out of the command's wall time.
+EIGH_SETS = ((4, 1500, 4), (8, 1500, 8), (20, 1200, 20), (25, 800, 25)) + tuple(
+    (n, 500, 300 + n) for n in range(26, 33))  # (n, count, seed): the tests' 5,000 and 3,500
+CPU_WORKER_THREADS = 4
+
+
+def cpu_worker_init(root: str) -> None:
+    sys.path.insert(0, root)
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+def cpu_eigh_sets(sets):
+    """The plain ssyevd on the CPU of eigh_cases(n, count, seed) for each set:
+    numpy (eigenvalues, eigenvectors, info)."""
+    from tracking_tpu_torch.ops import eigh
+
+    out = []
+    for n, count, seed in sets:
+        w, V, info = eigh.syevd(torch.from_numpy(eigh_cases(n, count, seed)))
+        out.append((w.numpy(), V.numpy(), info.numpy()))
+    return out
+
+
+def to_numpy_tree(t):
+    if isinstance(t, dict):
+        return {k: to_numpy_tree(v) for k, v in t.items()}
+    if isinstance(t, (tuple, list)):
+        return tuple(to_numpy_tree(v) for v in t)
+    return t.numpy()
+
+
+def from_numpy_tree(t):
+    if isinstance(t, dict):
+        return {k: from_numpy_tree(v) for k, v in t.items()}
+    if isinstance(t, tuple):
+        return tuple(from_numpy_tree(v) for v in t)
+    return torch.from_numpy(t)
+
+
+def cpu_crop_runs(cut: np.ndarray, runs):
+    """run_video on the CPU over the first ``frames`` of ``cut`` for each
+    (name, config, frames): numpy (masks, backgrounds, state)."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.runner.scan import run_video
+
+    out = []
+    for name, cfg, nf in runs:
+        st, (m, b) = run_video(get_algorithm(name)(**cfg), torch.from_numpy(cut[:nf].copy()), with_background=True)
+        out.append(to_numpy_tree((m, b, st)))
+    return out
+
+
 def gram_cost(s: int, d: int):
     """(bound_ms, bound_by) of Eigenbackground's Gram product: the centred
     history read once, the [S, S] matrix written; 2 S^2 D operations."""
@@ -1002,18 +1062,25 @@ def pca_cost(e: int, d: int):
 def syevd_cost(n: int):
     """(bound_ms, bound_by) of syevd_small on one matrix: the matrix read, the
     eigenvalues and vectors written; ssytd2's 4/3 n^3 and sorm2r's 2 n^3
-    operations (the QL / QR sweeps, which depend on the data, not counted)."""
+    operations (the QL / QR sweeps and, above n = 25, the merge's secular
+    roots and products, which depend on the data, not counted)."""
     return bound(4 * (2 * n * n + n), (4 * n ** 3) // 3 + 2 * n ** 3)
 
 
-def check_pca_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
+def check_pca_kernels(frames, dev, errs, timing_inputs, bounds, cpu_eigh) -> None:
     """Phase 3 for Eigenbackground's kernels, exactly against their plain
-    versions on the CPU (the plain version is the order both share): the
+    versions (the contractions on the card, the projection and the
+    eigensolver on the CPU, the tests' batches in the CPU worker,
+    ``cpu_eigh``; phase 4i holds the card against the CPU): the
     contraction's Gram product of 20 frames of the clip at 720p and of its
-    360x640 crop, the lift and the projection on the crop (a basis of 10),
-    syevd_small on the eigensolver tests' 5,000 matrices and the two Gram
-    matrices. The eigensolver's agreement with this machine's LAPACK
-    (scipy's ssyevd) is printed, as information."""
+    360x640 crop, of 28 and 32 frames of the crop (MKL-DNN's 2-lane kernel,
+    blocks of 1,024), and of 20 and 28 frames of the crop less its last
+    value (D = 691,199: a tail of 3 and of 1 rounded products); the lift at
+    20 and 28 frames (panels of 2,048, chains of 16) at both D; the
+    projection on the crop (a basis of 10); syevd_small on the eigensolver
+    tests' 5,000 matrices of n <= 25 and 3,500 of n = 26-32 (sstedc's divide
+    and conquer), and on the Gram matrices. The eigensolver's agreement with
+    this machine's LAPACK (scipy's ssyevd) is printed, as information."""
     from tracking_tpu_torch.ops import eigh, pca
     from tracking_tpu_torch.ops.contract import contract, gram_plan, lift_plan
 
@@ -1021,27 +1088,39 @@ def check_pca_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
         X = hist.reshape(hist.shape[0], -1).to(torch.float32)
         return X - X.sum(0) * np.float32(1.0 / X.shape[0])
 
+    def held(name, what, got, plain):
+        e = nan_err(got, plain)
+        errs[name] = max(errs[name], e)
+        check(e == 0.0, f"{name}: {what} equals the plain version")
+
     t0 = time.perf_counter()
     S, E = EIGEN_S, EIGEN_E
-    grams = []
-    for what, hist in (("720p", frames[1 : 1 + S]), ("the 360x640 crop", frames[1 : 1 + S, : NEW_CUT[0], : NEW_CUT[1]])):
-        Xc = centred(hist).contiguous()
+    crop = frames[1:, : NEW_CUT[0], : NEW_CUT[1]]
+    grams, lifts = {}, {}
+    for s, what, hist, cut in ((S, "720p", frames[1 : 1 + S], 0), (S, "the 360x640 crop", crop[:S], 0),
+                               (28, "the crop", crop[:28], 0), (32, "the crop", crop[:32], 0),
+                               (S, "the crop less its last value", crop[:S], 1),
+                               (28, "the crop less its last value", crop[:28], 1)):
+        Xc = centred(hist)
+        Xc = Xc[:, : Xc.shape[1] - cut].contiguous()
         D = Xc.shape[1]
-        G = contract(Xc, Xc.T, gram_plan(S, D))
-        Xh = Xc.cpu()
-        Gp = contract(Xh, Xh.T, gram_plan(S, D))
-        e = nan_err(G, Gp.to(dev))
-        errs["contract"] = max(errs["contract"], e)
-        check(e == 0.0, f"contract: the Gram product of {S} frames at {what} (D = {D}) equals the plain version")
-        grams.append((G + G.T) * 0.5)
-    G = grams[1]
-    w, V, info = eigh.syevd(G[None])
-    order = torch.argsort(-w[0], stable=True)
-    L = V[0][:, order].T.contiguous()
-    comps = contract(L, Xc, lift_plan(S, D))
-    e = nan_err(comps, contract(L.cpu(), Xh, lift_plan(S, D)).to(dev))
-    errs["contract"] = max(errs["contract"], e)
-    check(e == 0.0, f"contract: the lift [S, S] x [S, {D}] equals the plain version")
+        plan = gram_plan(s, D)
+        G = contract(Xc, Xc.T, plan)
+        held("contract", f"the Gram product of {s} frames at {what} (D = {D}, {plan.lanes} lanes, "
+                         f"{len(plan.blocks)} blocks)", G, contract(Xc, Xc.T, plan, use_kernels=False))
+        G = (G + G.T) * 0.5
+        grams[(s, what)] = G
+        if what != "720p" and s != 32:
+            w, V, info = eigh.syevd(G[None])
+            L = V[0][:, torch.argsort(-w[0], stable=True)].T.contiguous()
+            lp = lift_plan(s, D)
+            comps = contract(L, Xc, lp)
+            held("contract", f"the lift [{s}, {s}] x [{s}, {D}] (chains a column: {len(lp.blocks)}"
+                             f"{', in the last panel ' + str(len(lp.alt)) if lp.alt else ''})",
+                 comps, contract(L, Xc, lp, use_kernels=False))
+            lifts[(s, what)] = (comps, Xc, hist)
+    comps, Xc, hist = lifts[(S, "the 360x640 crop")]
+    D = Xc.shape[1]
     basis = (comps / torch.clamp(pca.row_norms(comps)[:, None], min=1e-12))[:E].contiguous()
     mean = hist.reshape(S, -1).to(torch.float32).sum(0) * np.float32(1.0 / S)
     flat = frames[1 + S, : NEW_CUT[0], : NEW_CUT[1]].reshape(-1).to(torch.float32)
@@ -1053,12 +1132,16 @@ def check_pca_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
     errs["pca_project"] = max(errs["pca_project"], e2)
     check(e == 0.0 and e2 == 0.0, f"pca_project equals the plain version on the crop (E = {E}, D = {D}) and at "
                                   f"E = 4, D = 888 (a partial tile of rows, columns with a remainder mod 8)")
-    mats = [eigh_cases(n, c, n) for n, c in ((4, 1500), (8, 1500), (20, 1200), (25, 800))]
+    print(f"  Eigenbackground's contractions and projection: {time.perf_counter() - t0:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    sets = [eigh_cases(n, c, seed) for n, c, seed in EIGH_SETS]
+    sets += [np.stack([g.cpu().numpy()]) for k, g in grams.items() if k[0] != S or k[1] in ("720p", "the 360x640 crop")]
+    plain = [tuple(map(torch.from_numpy, r)) for r in cpu_eigh.get()]  # the worker's, on the CPU
     n_bad = n_same = n_all = 0
-    for m in mats + [np.stack([g.cpu().numpy() for g in grams])]:
+    for i, m in enumerate(sets):
         Gm = torch.from_numpy(m)
         wk, Vk, ik = eigh.syevd(Gm.to(dev))
-        wp, Vp, ip = eigh.syevd(Gm)
+        wp, Vp, ip = plain[i] if i < len(plain) else eigh.syevd(Gm)  # the plain version on the CPU
         errs["syevd_small"] = max(errs["syevd_small"], nan_err(wk, wp), nan_err(Vk, Vp))
         n_bad += int(sum(not (same_bits(wk[b], wp[b]) and same_bits(Vk[b], Vp[b]) and int(ik[b]) == int(ip[b]))
                          for b in range(len(m))))
@@ -1073,21 +1156,23 @@ def check_pca_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
         except ImportError:
             n_same = -1
     check(n_bad == 0, f"syevd_small equals the plain version on all {n_all} matrices (the eigensolver tests' 5,000 "
-                      f"and the 720p and crop Gram matrices)")
+                      f"of n <= 25 and 3,500 of n = 26-32, and the Gram matrices of 20, 28 and 32 frames)")
     print(f"  information: the card's ssyevd equals this machine's LAPACK (scipy) on {n_same} of {n_all} matrices "
-          f"(-1: scipy does not import here); {time.perf_counter() - t0:.1f} s", flush=True)
+          f"(-1: scipy does not import here); {time.perf_counter() - t1:.1f} s", flush=True)
+    comps, Xc, _ = lifts[(S, "the 360x640 crop")]
     timing_inputs["contract"] = Xc
-    timing_inputs["syevd_small"] = G[None].contiguous()
+    timing_inputs["syevd_small"] = grams[(32, "the crop")][None].contiguous()
     timing_inputs["pca_project"] = (basis, xc, mean)
-    bounds["contract"] = gram_cost(S, D)
-    bounds["syevd_small"] = syevd_cost(S)
-    bounds["pca_project"] = pca_cost(E, D)
+    bounds["contract"] = gram_cost(S, Xc.shape[1])
+    bounds["syevd_small"] = syevd_cost(32)
+    bounds["pca_project"] = pca_cost(E, Xc.shape[1])
 
 
 def time_pca_kernels(timing_inputs, results, tag) -> None:
     """Phase 6 for contract (the Gram product of 20 frames of the 360x640
-    crop), syevd_small (its Gram matrix) and pca_project (a basis of 10 on
-    the crop): each against its plain version on the card in turns and
+    crop), syevd_small (the Gram matrix of 32 frames of the crop: sstedc's
+    divide and conquer) and pca_project (a basis of 10 on the crop): each
+    against its plain version on the card in turns and
     beside the library call that computes the same function (torch.matmul;
     torch.linalg.eigh; torch.matmul for both products)."""
     from tracking_tpu_torch.ops import eigh, pca
@@ -1099,11 +1184,13 @@ def time_pca_kernels(timing_inputs, results, tag) -> None:
     time_pair("contract", lambda: contract(Xc, Xc.T, plan), lambda: contract(Xc, Xc.T, plan, use_kernels=False),
               20, 1, results, tag, label=f"contract, the Gram product [{S}, {D}]")
     G = timing_inputs["syevd_small"]
-    time_pair("syevd_small", lambda: eigh.syevd(G), lambda: eigh.syevd(G, use_kernels=False), 20, 1, results, tag)
+    time_pair("syevd_small", lambda: eigh.syevd(G), lambda: eigh.syevd(G, use_kernels=False), 20, 1, results, tag,
+              label=f"syevd_small, n = {G.shape[1]} (a 32-frame history's Gram matrix)",
+              plain_turns=1)  # the plain version ~6 s a call on the card
     basis, xc, mean = timing_inputs["pca_project"]
     time_pair("pca_project", lambda: pca.project(basis, xc, mean),
               lambda: pca.project(basis, xc, mean, use_kernels=False), 10, 1, results, tag,
-              plain_warmup=0)  # the plain chains take ~30 s a call on the card (a launch a step)
+              plain_warmup=0, plain_turns=1)  # the plain chains take ~40 s a call on the card (a launch a step)
     for k, fn in (("contract", lambda: torch.matmul(Xc, Xc.T)), ("syevd_small", lambda: torch.linalg.eigh(G[0])),
                   ("pca_project", lambda: mean + torch.matmul(basis.T, torch.matmul(basis, xc)))):
         lib = [cuda_ms(fn, 20) for _ in range(2)]
@@ -1715,18 +1802,20 @@ def time_registry(timing_inputs, results, starts, frames, tag) -> None:
         profile(run_frame, range(5 + REGISTRY_TIMED, 13 + REGISTRY_TIMED), tag, name, top=6)
 
 
-def time_pair(k, fk, fp, rk, rp, results, tag, label=None, plain_warmup: int = 1) -> None:
+def time_pair(k, fk, fp, rk, rp, results, tag, label=None, plain_warmup: int = 1, plain_turns: int = 2) -> None:
     """A kernel's and its plain version's ms, in turns (plain, kernel,
     kernel, plain), beside the kernel's bound, into ``results[k]``
-    (``plain_warmup`` 0 for a plain version that takes seconds a call)."""
+    (``plain_warmup`` 0 and ``plain_turns`` 1 for a plain version that takes
+    seconds a call: plain, kernel, kernel)."""
     ms_p1 = cuda_ms(fp, rp, plain_warmup)
     ms_k1 = cuda_ms(fk, rk)
     ms_k2 = cuda_ms(fk, rk)
-    ms_p2 = cuda_ms(fp, rp, plain_warmup)
+    ms_p2 = cuda_ms(fp, rp, plain_warmup) if plain_turns > 1 else ms_p1
     r = results[k]
     r["ms"] = min(ms_k1, ms_k2)
     r["plain_ms"] = min(ms_p1, ms_p2)
-    print(f"  {tag} {label or k}: kernel {ms_k1:.4f} / {ms_k2:.4f} ms, plain {ms_p1:.4f} / {ms_p2:.4f} ms, "
+    plain = f"{ms_p1:.4f} / {ms_p2:.4f}" if plain_turns > 1 else f"{ms_p1:.4f} (one call)"
+    print(f"  {tag} {label or k}: kernel {ms_k1:.4f} / {ms_k2:.4f} ms, plain {plain} ms, "
           f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) = {r['bound_ms'] / r['ms']:.1%} of it reached", flush=True)
 
 
@@ -3008,7 +3097,14 @@ def new_algorithms_path(clip, frames, dev, results, out, tag) -> None:
     print(f"  phase 4h: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def slice15_path(clip, frames, dev, results, out, tag) -> None:
+def s15_cpu_runs():
+    """Phase 4i's CPU runs on the crop (for cpu_crop_runs): each algorithm
+    over S15_CPU frames, then Eigenbackground with the long history."""
+    return [(name, S15_CFG.get(name, {}), S15_CPU) for name in S15_ALGOS] + [
+        ("DPEigenbackgroundBGS", S15_LONG, S15_LONG["historySize"] + 1)]
+
+
+def slice15_path(clip, frames, dev, results, out, tag, cpu_crop) -> None:
     """Phase 4i: the nine algorithms of ``bgs/fuzzy.py``, ``bgs/t2f.py``,
     ``bgs/kde.py``, ``bgs/imbs.py`` and ``bgs/eigenbackground.py``, each
     alone through ``run_video`` at 720p (CUDA events; IMBS's
@@ -3018,7 +3114,9 @@ def slice15_path(clip, frames, dev, results, out, tag) -> None:
     fan-out from an XML directory of the nine beside SuBSENSE: the launch
     counts of SuBSENSE's, IMBS's and Eigenbackground's kernels (``contract``
     twice and ``syevd_small`` once at its PCA, ``pca_project`` once a
-    frame), each fan-out mask against its own run. Eigenbackground's
+    frame), each fan-out mask against its own run. Eigenbackground with a
+    26-frame history runs on the crop too, card against CPU, its launches
+    counted. Eigenbackground's
     counts, read over its warm-up and timed frames alone, give the kernels
     line its launches of ``syevd_small`` and ``pca_project``."""
     from tracking_tpu_torch import get_algorithm
@@ -3082,15 +3180,37 @@ def slice15_path(clip, frames, dev, results, out, tag) -> None:
 
     cut = torch.from_numpy(clip[:S15_CPU, : NEW_CUT[0], : NEW_CUT[1]].copy())
     t0 = time.perf_counter()
-    for name in S15_ALGOS:
+    cpu_runs = [from_numpy_tree(r) for r in cpu_crop.get()]  # the CPU worker's runs, s15_cpu_runs()
+    for i, name in enumerate(S15_ALGOS):
         cfg = S15_CFG.get(name, {})
         sk, (mk, bk) = run_video(get_algorithm(name)(**cfg), cut.to(dev), with_background=True)
-        sc, (mc, bc) = run_video(get_algorithm(name)(**cfg), cut, with_background=True)
+        mc, bc, sc = cpu_runs[i]
         share = float(mc.gt(0).to(torch.float32).mean())
         check(same_bits((mk, bk, sk), (mc, bc, sc)),
               f"{name}{cfg or ''}: masks, background and state of the card equal the CPU's bit for bit over "
               f"{S15_CPU} frames (foreground share {share:.4f})")
     print(f"  card against CPU on the crop: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    name, cfg = "DPEigenbackgroundBGS", S15_LONG
+    frames_long = S15_LONG["historySize"] + 1  # the PCA at the last frame, which it projects
+    long_cut = torch.from_numpy(clip[:frames_long, : NEW_CUT[0], : NEW_CUT[1]].copy())
+    _native.reset_launches()
+    sk, (mk, bk) = run_video(get_algorithm(name)(**cfg), long_cut.to(dev), with_background=True)
+    torch.cuda.synchronize()
+    got = {k: _native.LAUNCHES[k] for k in eigen_kernels}
+    want = {"contract": 2, "syevd_small": 1, "pca_project": frames_long}
+    check(got == want and sum(_native.LAUNCHES.values()) == sum(want.values()),
+          f"{name}{cfg} on the crop: contract launched {got['contract']} times, syevd_small {got['syevd_small']} "
+          f"(sstedc's divide and conquer at n = {cfg['historySize']}), pca_project {got['pca_project']} in "
+          f"{frames_long} frames, nothing else")
+    mc, bc, sc = cpu_runs[-1]
+    check(same_bits((mk, bk, sk), (mc, bc, sc)) and float(sc["basis"].abs().max()) > 0.0,
+          f"{name}{cfg}: masks, background and state (the basis built at t = {cfg['historySize']}) of the card "
+          f"equal the CPU's bit for bit over {frames_long} frames (foreground share "
+          f"{float(mc.gt(0).to(torch.float32).mean()):.4f})")
+    results["syevd_small"]["long_history_launches"] = got["syevd_small"]
+    print(f"  a {cfg['historySize']}-frame history, card against CPU on the crop: {time.perf_counter() - t0:.1f} s "
+          f"(the CPU's runs in the worker)", flush=True)
 
     fan = f"{out}/fanout_15"
     flag = {name: f for f, name in _ENABLE_FLAGS}
@@ -4692,6 +4812,10 @@ def main(argv) -> None:
     if "--nccl-only" in argv:
         nccl_only(algo, frames, dev, kind)
         return
+    cpu_pool = multiprocessing.get_context("spawn").Pool(1, cpu_worker_init, (os.path.dirname(os.path.abspath(__file__)),))
+    cpu_eigh = cpu_pool.apply_async(cpu_eigh_sets, (EIGH_SETS,))
+    n_cut = max(nf for _, _, nf in s15_cpu_runs())
+    cpu_crop = cpu_pool.apply_async(cpu_crop_runs, (clip[:n_cut, : NEW_CUT[0], : NEW_CUT[1]], s15_cpu_runs()))
     tracker = BlobTracker()
     state0 = algo.warm_start(algo.init(H, W, C, device=dev), frames[0])
     results = {
@@ -4800,7 +4924,7 @@ def main(argv) -> None:
     check_spatial_kernels(algo, state_for_masks, frames, dev, errs, timing_inputs, bounds)
     check_slab_kernels(frames, dev, errs, timing_inputs)
     check_kalman_resize_kernels(frames, dev, errs, timing_inputs, bounds)
-    check_pca_kernels(frames, dev, errs, timing_inputs, bounds)
+    check_pca_kernels(frames, dev, errs, timing_inputs, bounds, cpu_eigh)
     print(f"  {elapsed()}", flush=True)
     for k, (b_ms, b_by) in bounds.items():
         results[k]["bound_ms"], results[k]["bound_by"] = b_ms, b_by
@@ -4867,7 +4991,9 @@ def main(argv) -> None:
     new_algorithms_path(clip, frames, dev, results, bgs_out, tag)
 
     # -- 4i. the fuzzy, T2F, KDE, IMBS and Eigenbackground algorithms ----
-    slice15_path(clip, frames, dev, results, bgs_out, tag)
+    slice15_path(clip, frames, dev, results, bgs_out, tag, cpu_crop)
+    cpu_pool.close()
+    cpu_pool.join()
 
     # -- 4j. MultiCue and LbpMrf --------------------------------------------
     s16 = slice16_path(clip, frames, dev, results, bgs_out)

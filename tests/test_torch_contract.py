@@ -6,7 +6,9 @@ blocks of 96 in its tree) and where it does not (720 rows, equal slices),
 its column contraction (blocks of 1,024), the Gram product ``Xc @ Xc.T``
 and the lift ``evecs.T @ Xc`` at the histories' shapes (24x32 frames, colour and
 grey, 20 and 8 frames; 240x320 grey; the colour 240x320 history runs in
-``test_torch_eigen.py``), the norms of
+``test_torch_eigen.py``), the rules of both for every history of 2-32
+frames (depths of every residue mod 16, frames of 1-16 values, the Gram
+kernel's blocks and the lift's panels), the norms of
 ``jnp.linalg.norm`` and the projection and reconstruction of the step."""
 
 import jax
@@ -97,3 +99,42 @@ def test_projection(e, d):
     flat = rng.integers(0, 256, d).astype(np.float32)
     got = project(torch.from_numpy(basis), torch.from_numpy(flat - mean), torch.from_numpy(mean))
     np.testing.assert_array_equal(got.numpy(), np.asarray(STEP(basis, mean, flat)))
+
+
+def _check_dots(shapes, seed):
+    """The Gram product and the lift at each (S, D) of ``shapes`` against
+    one jitted program holding all their dots (one compilation)."""
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+    ls = [rng.standard_normal((sh[0], sh[0])).astype(np.float32) for sh in shapes]
+    gs, lf = jax.jit(lambda xs, ls: ([x @ x.T for x in xs], [l @ x for l, x in zip(ls, xs)]))(xs, ls)
+    bad = []
+    for (s, d), x, l, g, q in zip(shapes, xs, ls, gs, lf):
+        X = torch.from_numpy(x)
+        if not np.array_equal(C.contract(X, X.T, C.gram_plan(s, d)).numpy(), np.asarray(g)):
+            bad.append(("gram", s, d))
+        if d > 1 and not np.array_equal(C.contract(torch.from_numpy(l), X, C.lift_plan(s, d)).numpy(), np.asarray(q)):
+            bad.append(("lift", s, d))
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("rows", [(2, 3, 4, 5, 6, 7), (8, 9, 10, 11, 12), (13, 14, 15, 16, 17), (18, 19, 20, 21, 22),
+                                  (23, 24, 25, 26, 27), (28, 29, 30, 31, 32)], ids=lambda r: f"S{r[0]}-{r[-1]}")
+def test_dot_rules_every_history(rows):
+    """Every history S of 2-32 frames at depths 32-47 (every residue mod
+    16), frames of 1-16 values (the lift in the Gram kernel's lanes) and
+    89-94 (the 2-lane kernel's end at 17-24 rows); one chain past 4,096 at
+    2-3 rows. (24x32x3 and 23x37 run whole in test_torch_eigen.py.)"""
+    ds = list(range(1, 17)) + list(range(32, 48)) + [89, 90, 91, 93, 94]
+    _check_dots([(s, d) for s in rows for d in ds + ([4099] if s <= 3 else [])], rows[0])
+
+
+@pytest.mark.parametrize("rows", [(4, 8, 9), (12, 16, 17), (20, 25, 32)], ids=lambda r: "S" + "-".join(map(str, r)))
+def test_gram_blocks_and_lift_panels(rows):
+    """Around the Gram kernel's blocks (8,192 over the 4-row groups, 4,096,
+    1,024) and the lift's panels, with last panels of 1, 8 and 9 columns."""
+    shapes = []
+    for s in rows:
+        blk, width = C.gram_block(s), C.lift_panel(s)
+        shapes += [(s, d) for d in sorted({blk + 3, 2 * blk - 1, width + 1, width + 8, width + 9})]
+    _check_dots(shapes, 1000 + rows[0])

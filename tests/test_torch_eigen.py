@@ -1,7 +1,11 @@
 """DPEigenbackgroundBGS in the port against the JAX package: both
 packages' ``run_video`` over seeded frames, past the PCA at t ==
 historySize: at 24x32 at the defaults and with a short history, colour
-and grey, and at 240x320 (CDnet's size, a Gram product of 230,400 terms).
+and grey, and at 240x320 (CDnet's size, a Gram product of 230,400 terms);
+at 24x32x3 for histories of 2-32 frames (MKL-DNN's kernels by S, ssteqr up
+to 25, sstedc's divide and conquer from 26; E = min(10, S), E = S leaves
+a null-space component, the lift of rounding noise), and at 23x37 grey and
+colour (D = 851 and 2,553, remainders 3 and 1 mod 4).
 The mask, the background image and every state leaf (``basis`` included)
 are compared bit for bit: the Gram product and the lift in XLA:CPU's dot
 orders (``ops/contract``), LAPACK's ``ssyevd`` in jaxlib's order
@@ -26,3 +30,23 @@ def test_eigenbackground_matches_reference(cfg, c, h, w, T):
     shares, st = run_both(jget("eigenbackground")(**cfg), tget("eigenbackground")(**cfg), frames)
     assert not any(shares[:S]) and max(shares[S:]) > 0.0  # empty while the history fills
     assert float(st["basis"].abs().max()) > 0.0  # the basis was built
+
+
+HISTORIES = [2, 4, 6, 10, 12, 16, 25, 26, 30, 32]
+
+
+@pytest.mark.parametrize("S", HISTORIES)
+def test_eigenbackground_every_history(S):
+    cfg = {"historySize": S, "embeddedDim": min(10, S)}
+    frames = make_clip(S + 4, 24, 32, 3, seed=3)
+    shares, st = run_both(jget("eigenbackground")(**cfg), tget("eigenbackground")(**cfg), frames)
+    assert not any(shares[:S]) and float(st["basis"].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("c", [1, 3], ids=["grey", "colour"])
+def test_eigenbackground_odd_frame(c):
+    """23x37: D mod 4 = 3 (grey) and 1 (colour), the Gram product's tail of
+    rounded products and, grey, the 2-lane kernel's remainder."""
+    frames = make_clip(24, 23, 37, c, seed=3)
+    shares, st = run_both(jget("eigenbackground")(), tget("eigenbackground")(), frames)
+    assert not any(shares[:20]) and float(st["basis"].abs().max()) > 0.0

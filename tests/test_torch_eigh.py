@@ -1,12 +1,15 @@
 """The port's ordered ``ssyevd`` (``tracking_tpu_torch/ops/eigh.py``)
 against LAPACK as scipy's OpenBLAS runs it (``scipy.linalg.lapack.ssyevd``,
 the library jaxlib calls) on 5,000 seeded symmetric matrices of n = 4, 8,
-20 and 25 (1,500, 1,500, 1,200 and 800), and against ``jnp.linalg.eigh`` on a few hundred: eigenvalues,
+20 and 25 (1,500, 1,500, 1,200 and 800) and 500 of each n = 26-32 (the
+divide and conquer), and against ``jnp.linalg.eigh`` on a few hundred: eigenvalues,
 eigenvectors and ``info`` bit for bit. The matrices: Gram matrices of
 centred u8 histories (rank-deficient where the history has fewer columns
 than rows), the same scaled by 1e-6, 1e6 and 1e-30 (the last below
 ssyevd's scaling threshold), zero, and matrices with repeated
 eigenvalues."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -52,10 +55,36 @@ def test_syevd_matches_lapack(n, count):
     assert not bad, f"{len(bad)} of {len(G)} differ, first {bad[:5]} (kinds {[b % 6 for b in bad[:5]]})"
 
 
-@pytest.mark.parametrize("n", [8, 20])
+@pytest.mark.parametrize("n", range(26, 33))
+def test_syevd_divide_and_conquer_matches_lapack(n):
+    """n = 26-32: sstedc divides and conquers (slaed0-slaed6) on 500 seeded
+    matrices of the six kinds: rank-deficient Gram matrices (fewer history
+    columns than rows), scaled by 1e-6, 1e6 and 1e-30, zero, and repeated
+    eigenvalues, which deflate."""
+    G = batch(n, 500, 300 + n)
+    w, V, info = eigh.syevd(torch.from_numpy(G))
+    bad = []
+    for b in range(len(G)):
+        wr, vr, ir = lapack.ssyevd(G[b], compute_v=1, lower=1)
+        if not (np.array_equal(wr, w[b].numpy()) and np.array_equal(vr, V[b].numpy()) and ir == int(info[b])):
+            bad.append(b)
+    assert not bad, f"{len(bad)} of {len(G)} differ, first {bad[:5]} (kinds {[b % 6 for b in bad[:5]]})"
+
+
+JAX_SIZES = [8, 20] + list(range(26, 33))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_eigh():
+    """jnp.linalg.eigh of every size's batch in one compiled program."""
+    Gs = [batch(n, 150 if n <= 25 else 12, 100 + n) for n in JAX_SIZES]
+    out = jax.jit(lambda gs: [jax.vmap(jnp.linalg.eigh)(g) for g in gs])([jnp.asarray(g) for g in Gs])
+    return {n: (g, np.asarray(w), np.asarray(v)) for n, g, (w, v) in zip(JAX_SIZES, Gs, out)}
+
+
+@pytest.mark.parametrize("n", JAX_SIZES)
 def test_syevd_matches_jax(n):
-    G = batch(n, 150, 100 + n)
-    wj, vj = jax.jit(jax.vmap(jnp.linalg.eigh))(jnp.asarray(G))
+    G, wj, vj = jax_eigh()[n]
     w, V, _ = eigh.syevd(torch.from_numpy(G))
     np.testing.assert_array_equal(w.numpy(), np.asarray(wj))
     np.testing.assert_array_equal(V.numpy(), np.asarray(vj))
@@ -72,9 +101,9 @@ def test_syevd_small_orders(n):
 
 
 def test_syevd_refuses_what_it_does_not_reproduce():
-    """Above 25 LAPACK divides and conquers: refused; a tensor on another
-    device than the CPU launches the kernel or raises."""
-    with pytest.raises(ValueError, match="n <= 25"):
-        eigh.syevd_ref(torch.zeros((1, 26, 26)))
+    """Above 32 LAPACK's ssytrd (and from 34 sormtr) turns blocked: refused;
+    a tensor on another device than the CPU launches the kernel or raises."""
+    with pytest.raises(ValueError, match="n <= 32"):
+        eigh.syevd_ref(torch.zeros((1, 33, 33)))
     with pytest.raises(ValueError, match="CUDA"):
         eigh.syevd(torch.zeros((1, 4, 4), device="meta"))

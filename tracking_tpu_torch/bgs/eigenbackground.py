@@ -13,13 +13,15 @@ reconstruction error exceeds 2 x threshold.
 The mean over the history is exact (a sum of u8 values, times f32(1/S),
 as XLA:CPU computes ``jnp.mean``). The Gram product ``Xc @ Xc.T`` and the
 lift ``evecs.T @ Xc`` run through ``ops/contract.contract`` (XLA:CPU's dot
-orders: ``gram_plan``, ``lift_plan``), the Gram matrix is symmetrised as
-``jnp.linalg.eigh`` does ((G + G^T) * 0.5), the eigensolver is LAPACK's
-``ssyevd`` in jaxlib's order (``ops/eigh.syevd``, for a history of at most
-25 frames; a longer one takes ``torch.linalg.eigh``, not bit for bit), the
-norms are XLA's windowed sums (``ops/pca.row_norms``) and every frame's
-projection and reconstruction is ``ops/pca.project`` (XLA's row-major
-GEMV orders). On the card these are the kernels ``contract``,
+orders for every S and D: ``gram_plan``, ``lift_plan``; a 1x1 grey frame's
+lift, a matrix-vector product, is the one shape left out), the Gram matrix
+is symmetrised as ``jnp.linalg.eigh`` does ((G + G^T) * 0.5), the
+eigensolver is LAPACK's ``ssyevd`` in jaxlib's order (``ops/eigh.syevd``:
+ssteqr up to 25 frames, sstedc's divide and conquer for 26-32; a history
+above 32 frames takes ``torch.linalg.eigh``, within its stated tolerance,
+not bit for bit), the norms are XLA's windowed sums (``ops/pca.row_norms``)
+and every frame's projection and reconstruction is ``ops/pca.project``
+(XLA's row-major GEMV orders). On the card these are the kernels ``contract``,
 ``syevd_small`` and ``pca_project``. The JAX package builds the basis
 under ``lax.cond``; the port reads ``t`` on the host (one synchronisation
 a frame) and builds it only at t == historySize. The history updates in
@@ -58,12 +60,12 @@ def build_pca(history: torch.Tensor, embedded_dim: int, use_kernels: bool = True
     Xc = X - mean[None]
     G = contract(Xc, Xc.T, gram_plan(S, D), use_kernels=use_kernels)
     G = (G + G.T) * 0.5  # jnp.linalg.eigh symmetrises its input
-    if S <= eigh.NMAX:
+    if S <= eigh.MAX_UNBLOCKED_N:
         evals, evecs, info = eigh.syevd(G[None], use_kernels)  # ascending
         failed = info[0] != 0  # jnp.linalg.eigh turns LAPACK's failure into NaN
         evals = torch.where(failed, float("nan"), evals[0])
         evecs = torch.where(failed, float("nan"), evecs[0])
-    else:  # ssyevd divides and conquers above 25 (not reproduced: ROADMAP)
+    else:  # blocked ssytrd and sormqr above 32 frames: not reproduced (ROADMAP)
         evals, evecs = torch.linalg.eigh(G)
     lift = evecs[:, torch.argsort(-evals, stable=True)].T.contiguous()
     comps = contract(lift, Xc, lift_plan(S, D), use_kernels=use_kernels)

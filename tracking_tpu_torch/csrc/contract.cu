@@ -5,15 +5,16 @@
 //      from +0 over the chain's k (k0, k0 + step, ...; count terms), only
 //      where row i's band [lo_i, hi_i] holds k when a band is given, into
 //      parts[chain][i][j]. A chain is a depth block, or a lane of one (the
-//      block's terms k = l mod 4), or its tail.
+//      block's terms k = l mod 2 or 4), or its tail; a chain whose flag is
+//      off (a lane plan's tail, a narrow last panel) adds rounded products.
 //   2. contract_combine_kernel, a thread an output: each block's sum from
-//      its chains (lanes as ((l0 + l1) + (l2 + l3)), then the tail), then the
+//      its chains (lanes as l0 + l1 or ((l0 + l1) + (l2 + l3)), then the tail), then the
 //      blocks added in order, or in Eigen's tree of its sharded contraction
 //      (ranges of 4 as (b0 + b1) + (b2 + b3), a short range in order; then
 //      the ranges' sums into the first, three at a time as (r0 + r1) + (r2 +
 //      r3), the rest in order).
 // The chains, blocks and column groups come as int32 tables (tc: k0, step,
-// count, group of each chain; tb: first chain, chain count, group of each
+// count, group, fused of each chain; tb: first chain, chain count, group of each
 // block); columns j < split take group 0, the others group 1.
 //
 // Replaces no TPU kernel: the JAX package calls jax.image.resize
@@ -37,7 +38,7 @@ __global__ void contract_chains_kernel(const float* __restrict__ A, const float*
   const int j = (int)(t % Q);
   const int i = (int)((t / Q) % P);
   const int c = (int)(t / ((long long)P * Q));
-  const int k0 = tc[c], step = tc[C + c], count = tc[2 * C + c], group = tc[3 * C + c];
+  const int k0 = tc[c], step = tc[C + c], count = tc[2 * C + c], group = tc[3 * C + c], fused = tc[4 * C + c];
   if ((group == 0) != (j < split)) return;
   const int blo = lo ? lo[i] : 0, bhi = hi ? hi[i] : 0x7fffffff;
   float acc = 0.0f;
@@ -45,7 +46,8 @@ __global__ void contract_chains_kernel(const float* __restrict__ A, const float*
     const int k = k0 + s * step;
     if (k < blo) continue;
     if (k > bhi) break;
-    acc = __fmaf_rn(A[(long long)i * sai + (long long)k * sak], B[(long long)k * sbk + (long long)j * sbj], acc);
+    const float a = A[(long long)i * sai + (long long)k * sak], b = B[(long long)k * sbk + (long long)j * sbj];
+    acc = fused ? __fmaf_rn(a, b, acc) : acc + a * b;  // -fmad=false: the product is rounded
   }
   parts[t] = acc;
 }
@@ -54,7 +56,8 @@ __device__ __forceinline__ float block_sum(const float* __restrict__ parts, cons
                                            long long o, long long PQ, int lanes) {
   const int f = tb[b], n = tb[NB + b];
   if (lanes == 1) return parts[f * PQ + o];
-  float s = (parts[f * PQ + o] + parts[(f + 1) * PQ + o]) + (parts[(f + 2) * PQ + o] + parts[(f + 3) * PQ + o]);
+  float s = parts[f * PQ + o] + parts[(f + 1) * PQ + o];
+  if (lanes == 4) s = s + (parts[(f + 2) * PQ + o] + parts[(f + 3) * PQ + o]);
   if (n > lanes) s = s + parts[(f + lanes) * PQ + o];
   return s;
 }
@@ -106,7 +109,8 @@ __global__ void contract_combine_kernel(const float* __restrict__ parts, const i
 TT_EXPORT int tt_contract(const void* A, const void* B, const void* lo, const void* hi, const void* tc, const void* tb,
                           void* parts, void* out, int P, int Q, int C, int NB, int sai, int sak, int sbk, int sbj,
                           int soi, int soj, int lanes, int tree, int split, void* stream_) {
-  if (P < 0 || Q < 0 || C <= 0 || NB <= 0 || (lanes != 1 && lanes != 4)) return (int)cudaErrorInvalidValue;
+  if (P < 0 || Q < 0 || C <= 0 || NB <= 0 || (lanes != 1 && lanes != 2 && lanes != 4))
+    return (int)cudaErrorInvalidValue;
   const long long n = (long long)P * Q;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);

@@ -5,15 +5,17 @@ that the port's resize and Eigenbackground's PCA share.
 every rounding where XLA:CPU makes it, as :class:`Plan` lays the sum out:
 
 - the depth k is cut into blocks; each block is one FMA chain from +0 in
-  index order, or (``lanes=4``) four FMA chains over its terms k ≡ l (mod
-  4) counted from the block's start, added as ((l0 + l1) + (l2 + l3)), with
-  the block's last ``len mod 4`` terms in a fifth chain added after;
+  index order, or (``lanes`` 2 or 4) that many FMA chains over its terms k
+  ≡ l (mod lanes) counted from the block's start, added as l0 + l1 or ((l0
+  + l1) + (l2 + l3)), with the block's last ``len mod lanes`` terms in one
+  more chain of rounded products (no FMA) added after;
 - the blocks' sums are added to the output in order, or (``tree``) in the
   tree that Eigen's contraction sharded over its threads builds: ranges of
   4 blocks summed (b0 + b1) + (b2 + b3) (a short last range in order),
   then the ranges' sums added to the first, three at a time as (r0 + r1) +
   (r2 + r3), the rest in order;
-- columns j >= ``split`` may take another block list (``alt``);
+- columns j >= ``split`` may take another block list (``alt``), whose
+  chains add rounded products where ``alt_fma`` is off;
 - ``lo``/``hi`` (int32 per row i) limit row i's sum to its band of nonzero
   terms of A (the resize's weights): a zero term leaves a chain unchanged.
 
@@ -37,15 +39,28 @@ below is held against ``jax.jit`` dots on random data in the tests:
   equal slices rounded up to 8 (the multi-threaded ``kc`` cap of 320,
   then the custom kernel's equal slices); the column contraction and the
   Gram product take MKL-DNN's own depth blocks, 1,024 and 4,096 (measured).
-- The Gram product ``Xc @ Xc.T`` ([S, D] by its transpose): blocks of
-  4,096 in 4 lanes, added in order (measured at S = 5, 6, 8 and 18-24 with
-  D a multiple of 4; other S or a D with a remainder mod 4 take other
-  MKL-DNN kernels, not reproduced: ROADMAP).
-- ``evecs.T @ Xc`` ([S, S] by [S, D]): at S = 20 one chain over k < 16 and
-  one over 16-19, added, for the columns in whole panels of 2,048 (and in
-  a last panel of 1,928 or more), one chain of 20 for the rest; at S = 8
-  chains of 4 and 4 in panels of 8,192 (a last panel of 6,554 or more
-  too). Other S take one chain (not verified: ROADMAP).
+- The Gram product ``Xc @ Xc.T`` ([S, D] by its transpose), by MKL-DNN's
+  kernel for S rows (:func:`gram_lanes`, :func:`gram_block`): one FMA
+  chain over all of D at S <= 3, at D < 4, and at S < 8 for D < 8;
+  otherwise 4 lanes, or 2 at S >= 25 (and at 17-24 rows where D mod 4 is 1
+  or 2 and D <= 90), over the depth to the last multiple of the lanes in
+  blocks of 8,192 / ceil(S / 4) rounded down to 8 (S <= 16), 4,096 (17-24)
+  or 1,024 (2 lanes), the rest of D (< lanes terms) as rounded products
+  after the last block. Read off probes at S = 2-32 and D = 1-9,000 (the
+  lanes and the tail's joins on depths 1-100, the block starts by
+  scanning lane 0), held on random data at every S for D = 1-40, 86-96,
+  the frames' sizes and the blocks' edges up to 230,400.
+- The lift ``evecs.T @ Xc`` ([S, S] by [S, D]), by :func:`lift_plan`: the
+  columns in panels of 16,384 (S < 8), 8,192 (8-15), 4,096 (16) or 2,048
+  (17-32); a panel w columns wide sums the depth in chains of
+  floor(32,768 / w) terms (MKL-DNN's A panel of 128 KiB: 16 at 2,048),
+  each from +0, the chains' sums added in order; a last panel of <= 8
+  columns adds rounded products at S in :data:`_NARROW_ADDS`; S <= 3 one
+  chain; frames of 2-16 values take the Gram kernel's 4 lanes over the
+  depth at the (S, D) of :func:`_small_lift_lanes`. A 1x1 grey frame (D =
+  1) is a matrix-vector product (XLA's own emitter), not reproduced.
+  Read off the probes' per-column split points (triplets (t - 1, t, t + 1)
+  at every column at once) at S = 3-32 and D = 100-40,000.
 
 On CUDA tensors ``contract`` launches the kernel pair ``contract`` of
 ``csrc/contract.cu`` (the chains, then their sums in the plan's order);
@@ -56,9 +71,11 @@ The test host (the CPU the tests run the JAX package on), read by
 AVX-512) with 8 cores, 48 KiB L1d and 2 MiB L2 a core, 105 MiB of L3. XLA's pool has one thread a core
 (``PJRT_NPROC`` and ``taskset`` change nothing: the pool is sized from the
 core count); the packet of 8 floats shows in the smallest shard, 96 = 12
-packets. To re-derive them on another host, probe the shapes of
-``tests/test_torch_contract.py`` with three-leaf inputs and compare the
-block boundaries and trees with these rules.
+packets. To re-derive them on another host: ``tools/probe_orders.py``
+rebuilds a dot's tree from three-leaf probes, reads each join's rounding
+(an FMA or a rounded product) from two-leaf probes, scans the Gram
+kernel's block starts and the lift's per-column splits; then
+``tests/test_torch_contract.py`` holds the rules on random data.
 """
 
 from __future__ import annotations
@@ -91,6 +108,7 @@ class Plan:
     tree: bool = False
     split: int | None = None
     alt: tuple | None = None
+    alt_fma: bool = True  # False: the ``alt`` columns add rounded products
 
 
 def _cost_per_k(m: int, n: int) -> float:
@@ -164,44 +182,99 @@ def resize_cols_plan(k: int) -> Plan:
     return Plan(_even_blocks(k, 1024))
 
 
+def gram_lanes(s: int, d: int) -> int:
+    """The FMA lanes of MKL-DNN's kernel for ``Xc @ Xc.T`` at S rows and depth D."""
+    if s <= 3 or d < 4 or (s < 8 and d < 8):
+        return 1
+    if s >= 25 or (s >= 17 and d % 4 in (1, 2) and d <= 90):
+        return 2
+    return 4
+
+
+def gram_block(s: int) -> int:
+    """The depth of one of the Gram kernel's blocks: 8,192 over the 4-row
+    groups of S (rounded down to 8) up to 16 rows, 4,096 for 17-24 rows and
+    1,024 in the 2-lane kernel."""
+    if s >= 25:
+        return 1024
+    if s >= 17:
+        return 4096
+    return 8192 // -(-s // 4) // 8 * 8
+
+
 @lru_cache(maxsize=None)
 def gram_plan(s: int, d: int) -> Plan:
-    """``Xc @ Xc.T`` for Xc [S, D]: blocks of 4,096 in 4 lanes, in order."""
-    return Plan(_even_blocks(d, 4096), lanes=4)
+    """``Xc @ Xc.T`` for Xc [S, D]: one FMA chain, or blocks of
+    :func:`gram_block` in :func:`gram_lanes` lanes over the depth to the
+    last multiple of the lanes, then the rest as rounded products, added in
+    order."""
+    lanes = gram_lanes(s, d)
+    if lanes == 1:
+        return Plan(((0, d),))
+    main = d - d % lanes
+    tail = ((main, d),) if d > main else ()
+    return Plan(_even_blocks(main, gram_block(s)) + tail, lanes=lanes)
 
 
-# S -> (where the depth splits, panel width, the narrowest last panel that still splits)
-_LIFT_SPLIT = {20: (16, 2048, 1928), 8: (4, 8192, 6554)}
+def _small_lift_lanes(s: int, d: int) -> int:
+    """Frames of at most 16 values take the Gram's kernel: 4 lanes over the
+    depth, or one chain (read off probes for S = 4-32, D = 2-16)."""
+    if s < 8:
+        return 4 if d >= 8 and (d == 8 and s != 5 or s in (4, 7)) else 1
+    return 4 if d <= 8 or s not in (9, 10, 13, 17) else 1
+
+
+_NARROW_ADDS = frozenset((4, 6, 11, 12, 17, 18))  # S whose last panel of <= 8 columns adds rounded products
+
+
+def lift_panel(s: int) -> int:
+    """The column panel of MKL-DNN's kernel for ``evecs.T @ Xc`` at S rows."""
+    if s >= 17:
+        return 2048
+    if s >= 16:
+        return 4096
+    return 8192 if s >= 8 else 16384
 
 
 @lru_cache(maxsize=None)
 def lift_plan(s: int, d: int) -> Plan:
-    """``evecs.T @ Xc`` ([S, S] by [S, D]): for S in ``_LIFT_SPLIT``, columns
-    in whole panels (and a last panel at least the threshold wide) sum k <
-    split and k >= split in two chains, added; the others one chain."""
-    if s not in _LIFT_SPLIT:
+    """``evecs.T @ Xc`` ([S, S] by [S, D]): the columns in panels of
+    :func:`lift_panel` (the last one narrower); a panel w columns wide sums
+    its depth in chains of floor(32,768 / w) terms (A's panel of 128 KiB),
+    each from +0, added in order; one chain where that covers S."""
+    if s <= 3:
         return Plan(((0, s),))
-    at, width, least = _LIFT_SPLIT[s]
-    cols = width * (d // width)
-    if d - cols >= least:
-        cols = d
-    return Plan(((0, at), (at, s)), split=cols, alt=((0, s),))
+    if d <= 16 and _small_lift_lanes(s, d) == 4:
+        return Plan(((0, s),), lanes=4)
+    width = lift_panel(s)
+    whole = d // width * width
+
+    def chains(w):
+        return _even_blocks(s, max(1, min(s, 32768 // w)))
+
+    if whole == 0:
+        return Plan(chains(d))
+    if whole == d:
+        return Plan(chains(width))
+    narrow = d - whole <= 8 and s in _NARROW_ADDS  # one chain of rounded products
+    return Plan(chains(width), split=whole, alt=chains(d - whole), alt_fma=not narrow)
 
 
-def _chains(blocks, lanes: int):
-    """(k0, step, count) of every FMA chain of ``blocks`` and each block's
-    first chain index and chain count."""
+def _chains(blocks, lanes: int, fma: bool = True):
+    """(k0, step, count, fused) of every FMA chain of ``blocks`` and each
+    block's first chain index and chain count. A lane plan's tail chain adds
+    rounded products (fused 0), as does every chain where ``fma`` is off."""
     chains, first, count = [], [], []
     for k0, k1 in blocks:
         first.append(len(chains))
         n = k1 - k0
         if lanes == 1:
-            chains.append((k0, 1, n))
+            chains.append((k0, 1, n, int(fma)))
         else:
             main = n // lanes * lanes
-            chains += [(k0 + l, lanes, main // lanes) for l in range(lanes)]
+            chains += [(k0 + l, lanes, main // lanes, int(fma)) for l in range(lanes)]
             if n > main:
-                chains.append((k0 + main, 1, n - main))
+                chains.append((k0 + main, 1, n - main, 0))
         count.append(len(chains) - first[-1])
     return chains, first, count
 
@@ -212,10 +285,12 @@ def _combine(parts, first, count, lanes: int, tree: bool):
     for f, c in zip(first, count):
         if lanes == 1:
             s = parts[f]
+        elif lanes == 2:
+            s = parts[f] + parts[f + 1]
         else:
             s = (parts[f] + parts[f + 1]) + (parts[f + 2] + parts[f + 3])
-            if c > lanes:
-                s = s + parts[f + lanes]
+        if c > lanes:
+            s = s + parts[f + lanes]
         sums.append(s)
     if not tree:
         out = torch.zeros_like(sums[0])
@@ -248,6 +323,8 @@ def _chain_sums(A, B, chains, lo, hi):
     k0 = torch.tensor([c[0] for c in chains], device=dev)
     step = torch.tensor([c[1] for c in chains], device=dev)
     cnt = torch.tensor([c[2] for c in chains], device=dev)
+    fused = torch.tensor([bool(c[3]) for c in chains], device=dev)
+    all_fused, any_fused = all(c[3] for c in chains), any(c[3] for c in chains)
     P, Q, K = A.shape[0], B.shape[1], A.shape[1]
     acc = torch.zeros((len(chains), P, Q), dtype=_F32, device=dev)
     for s in range(int(cnt.max()) if chains else 0):
@@ -258,18 +335,25 @@ def _chain_sums(A, B, chains, lo, hi):
             live = live & (kc[:, None] >= lo[None]) & (kc[:, None] <= hi[None])  # [C, P]
         a = A[:, kc].T  # [C, P]
         b = B[kc]  # [C, Q]
-        acc = torch.where(live[..., None], xla_math.fma(a[..., None], b[:, None, :], acc), acc)
+        if all_fused:
+            nxt = xla_math.fma(a[..., None], b[:, None, :], acc)
+        elif not any_fused:
+            nxt = acc + a[..., None] * b[:, None, :]
+        else:
+            nxt = torch.where(fused[:, None, None], xla_math.fma(a[..., None], b[:, None, :], acc),
+                              acc + a[..., None] * b[:, None, :])
+        acc = torch.where(live[..., None], nxt, acc)
     return acc
 
 
 def contract_ref(A: torch.Tensor, B: torch.Tensor, plan: Plan, lo=None, hi=None) -> torch.Tensor:
     """Plain version: A f32 [P, K], B f32 [K, Q] -> f32 [P, Q] in ``plan``'s order."""
-    groups = [(plan.blocks, slice(None))]
+    groups = [(plan.blocks, slice(None), True)]
     if plan.alt is not None:
-        groups = [(plan.blocks, slice(0, plan.split)), (plan.alt, slice(plan.split, None))]
+        groups = [(plan.blocks, slice(0, plan.split), True), (plan.alt, slice(plan.split, None), plan.alt_fma)]
     out = torch.empty((A.shape[0], B.shape[1]), dtype=_F32, device=A.device)
-    for blocks, cols in groups:
-        chains, first, count = _chains(blocks, plan.lanes)
+    for blocks, cols, fma in groups:
+        chains, first, count = _chains(blocks, plan.lanes, fma)
         parts = _chain_sums(A, B[:, cols], chains, lo, hi)
         out[:, cols] = _combine(parts, first, count, plan.lanes, plan.tree)
     return out
@@ -278,12 +362,13 @@ def contract_ref(A: torch.Tensor, B: torch.Tensor, plan: Plan, lo=None, hi=None)
 @lru_cache(maxsize=None)
 def _plan_tables(plan: Plan, device: str):
     """int32 tables of ``plan`` for the kernel: chains (k0, step, count,
-    group) and blocks (first chain, chain count, group)."""
+    group, fused) and blocks (first chain, chain count, group)."""
     rows_c, rows_b = [], []
-    for g, blocks in enumerate([plan.blocks] + ([plan.alt] if plan.alt is not None else [])):
-        chains, first, count = _chains(blocks, plan.lanes)
+    groups = [(plan.blocks, True)] + ([(plan.alt, plan.alt_fma)] if plan.alt is not None else [])
+    for g, (blocks, fma) in enumerate(groups):
+        chains, first, count = _chains(blocks, plan.lanes, fma)
         base = len(rows_c)
-        rows_c += [(k0, st, n, g) for k0, st, n in chains]
+        rows_c += [(k0, st, n, g, f) for k0, st, n, f in chains]
         rows_b += [(base + f, c, g) for f, c in zip(first, count)]
     tc = torch.tensor(rows_c, dtype=torch.int32).T.contiguous().to(device)
     tb = torch.tensor(rows_b, dtype=torch.int32).T.contiguous().to(device)

@@ -91,12 +91,14 @@ processes that share the card, and NCCL over every card) - and fails
    grid, on a 1080p and a random plane, on 240x320, 360x640 and 576x720
    planes (the row contraction sharded in Eigen's tree), and MultiCue's
    120x160 map enlarged to 720x1280 and 576x720; Eigenbackground's Gram
-   product of 20 frames at 720p and of 20, 28 and 32 frames of the 360x640
-   crop, also of the crop less its last value (a depth of 3 mod 4), its
-   lifts (against the plain versions on the card) and the projection there,
-   ``syevd`` on the eigensolver tests' 5,000 matrices (n = 4, 8, 20, 25;
-   Gram, rank-deficient, zero, repeated eigenvalues, scaled by 1e-6, 1e6,
-   1e-30), their 3,500 of n = 26-32 (sstedc's divide and conquer) and the
+   product of 20 frames at 720p and of 20, 28, 32, 52 and 64 frames of the
+   360x640 crop, also of the crop less its last value (a depth of 3 mod 4),
+   its lifts (against the plain versions on the card) and the projection
+   there, ``syevd`` (one block of 256 threads a matrix) on the eigensolver
+   tests' 5,000 matrices (n = 4, 8, 20, 25; Gram, rank-deficient, zero,
+   repeated eigenvalues, scaled by 1e-6, 1e6, 1e-30), their 3,500 of n =
+   26-32 (sstedc's divide and conquer), their 720 of n = 33, 34, 40, 50, 51
+   and 64 (blocked ssytrd, slaed0's two levels, sormqr's blocks) and the
    Gram matrices; the inverse's and the eigensolver's agreement with the
    machine's LAPACK printed as information);
 4. the main path: warm start, then 64 frames of ``SuBSENSE.step`` and
@@ -190,7 +192,10 @@ processes that share the card, and NCCL over every card) - and fails
    frames of the clip's top-left 360x640 on the card equal a CPU run bit
    for bit (masks, background, every state leaf), and Eigenbackground with
    a 26-frame history (``syevd_small``'s divide and conquer) over 27 crop
-   frames too (the PCA at the last), its launches counted; a ``run_bgs`` fan-out from an
+   frames too (the PCA at the last), and with a 52-frame history over 57
+   frames of the 120x160 crop at row 480, column 840, which an object
+   enters after the PCA (blocked ssytrd, two levels of cuts), their
+   launches counted; a ``run_bgs`` fan-out from an
    XML directory enabling the nine (those configs in their XMLs) and
    SuBSENSE, 2 chunks of 8: ``consensus`` and ``flood_reach`` launch 16
    times each, ``label_components`` once per IMBS frame that starts with a
@@ -319,7 +324,12 @@ processes that share the card, and NCCL over every card) - and fails
    Kalman kernels and the resize against their plain versions (the resize
    beside ``F.interpolate``'s antialiased bilinear) and the tracker's step
    on the main path's masks with the Kalman kernels and with the parent's
-   Kalman (cuBLAS and cuSOLVER) in turns, ms and device operations a frame.
+   Kalman (cuBLAS and cuSOLVER) in turns, ms and device operations a frame;
+   ``syevd_small`` on the Gram matrices of 20, 32 and 64 frames of the crop
+   in turns with ``torch.linalg.eigh`` on the same matrix; Eigenbackground
+   at 720p with a 64-frame history through the kernels (the step that
+   builds the PCA and the ms/frame after it, its launches, its eigensolver
+   on its own Gram matrix against the plain one in the CPU worker).
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -501,6 +511,11 @@ S15_CFG = {"DPEigenbackgroundBGS": {"historySize": 4, "embeddedDim": 3}, "FuzzyS
            "IndependentMultimodalBGS": {"fps": 2.0, "numSamples": 4}}
 S15_LABELS = {"IndependentMultimodalBGS": {0, 80, 180, 255}}
 S15_LONG = {"historySize": 26, "embeddedDim": 10}  # Eigenbackground past ssteqr: sstedc divides and conquers
+# Eigenbackground past one slatrd panel and one level of cuts (52 frames:
+# blocked ssytrd, slaed0's two levels) on a small crop that an object
+# enters after the PCA, card against CPU
+S15_LONG52 = {"historySize": 52, "embeddedDim": 10}
+LONG52_CUT, LONG52_AT, LONG52_AFTER = (120, 160), (480, 840), 5  # 5 frames after the PCA
 S15_WARM, S15_TIMED = 6, 16
 S15_CPU = 7  # crop frames on the card and on the CPU: two past every algorithm's learning
 S15_KERNELS = ("consensus", "flood_reach", "label_components")
@@ -519,6 +534,11 @@ S16_CUT_CFG = {"SJN_MultiCueBGS": {"reducedHeight": 60, "reducedWidth": 80}}
 S16_FAN_CFG = {"SJN_MultiCueBGS": {"trainingPeriod": 4}}  # detects inside the fan-out's frames
 # phase 3: Eigenbackground's products at its default history and basis
 EIGEN_S, EIGEN_E = 20, 10
+SYEVD_THREADS = 256  # csrc/pca.cu: EIG_THREADS
+# phase 6: Eigenbackground at 720p with a 64-frame history, through the
+# kernels: the PCA's step and the frames after it
+EIGEN720_CFG = {"historySize": 64, "embeddedDim": 10}
+EIGEN720_AFTER = 16
 # phase 6: the tracker's steps on the main path's masks, the Kalman kernels
 # against the parent's Kalman (cuBLAS products and cuSOLVER's inverse), in
 # turns
@@ -995,8 +1015,10 @@ def eigh_cases(n: int, count: int, seed: int) -> np.ndarray:
 # The CPU side of phase 3's eigensolver check and of phase 4i's crop runs
 # in one spawned process while the card works through phases 3-4h: the
 # same comparisons, their CPU time out of the command's wall time.
+BLOCKED_NS = (33, 34, 40, 50, 51, 64)  # blocked ssytrd from 33, slaed0's two levels from 51, sormqr's blocks at 64
 EIGH_SETS = ((4, 1500, 4), (8, 1500, 8), (20, 1200, 20), (25, 800, 25)) + tuple(
-    (n, 500, 300 + n) for n in range(26, 33))  # (n, count, seed): the tests' 5,000 and 3,500
+    (n, 500, 300 + n) for n in range(26, 33)) + tuple(
+    (n, 120, 500 + n) for n in BLOCKED_NS)  # (n, count, seed): the tests' 5,000, 3,500 and 720
 CPU_WORKER_THREADS = 4
 
 
@@ -1015,6 +1037,15 @@ def cpu_eigh_sets(sets):
         w, V, info = eigh.syevd(torch.from_numpy(eigh_cases(n, count, seed)))
         out.append((w.numpy(), V.numpy(), info.numpy()))
     return out
+
+
+def cpu_eigh_mats(m: np.ndarray):
+    """The plain ssyevd on the CPU of the matrices m [B, n, n]: numpy
+    (eigenvalues, eigenvectors, info)."""
+    from tracking_tpu_torch.ops import eigh
+
+    w, V, info = eigh.syevd(torch.from_numpy(m))
+    return w.numpy(), V.numpy(), info.numpy()
 
 
 def to_numpy_tree(t):
@@ -1076,11 +1107,14 @@ def check_pca_kernels(frames, dev, errs, timing_inputs, bounds, cpu_eigh) -> Non
     360x640 crop, of 28 and 32 frames of the crop (MKL-DNN's 2-lane kernel,
     blocks of 1,024), and of 20 and 28 frames of the crop less its last
     value (D = 691,199: a tail of 3 and of 1 rounded products); the lift at
-    20 and 28 frames (panels of 2,048, chains of 16) at both D; the
-    projection on the crop (a basis of 10); syevd_small on the eigensolver
-    tests' 5,000 matrices of n <= 25 and 3,500 of n = 26-32 (sstedc's divide
-    and conquer), and on the Gram matrices. The eigensolver's agreement with
-    this machine's LAPACK (scipy's ssyevd) is printed, as information."""
+    20 and 28 frames (panels of 2,048, chains of 16) at both D; the Gram
+    product and the lift of 52 and 64 frames of the crop (one chain a value
+    in blocks of 512); the projection on the crop (a basis of 10);
+    syevd_small on the eigensolver tests' 5,000 matrices of n <= 25, 3,500
+    of n = 26-32 (sstedc's divide and conquer) and 720 of n = 33-64 (blocked
+    ssytrd, slaed0's two levels, sormqr's blocks at 64), and on the Gram
+    matrices. The eigensolver's agreement with this machine's LAPACK
+    (scipy's ssyevd) is printed, as information."""
     from tracking_tpu_torch.ops import eigh, pca
     from tracking_tpu_torch.ops.contract import contract, gram_plan, lift_plan
 
@@ -1099,6 +1133,7 @@ def check_pca_kernels(frames, dev, errs, timing_inputs, bounds, cpu_eigh) -> Non
     grams, lifts = {}, {}
     for s, what, hist, cut in ((S, "720p", frames[1 : 1 + S], 0), (S, "the 360x640 crop", crop[:S], 0),
                                (28, "the crop", crop[:28], 0), (32, "the crop", crop[:32], 0),
+                               (52, "the crop", crop[:52], 0), (64, "the crop", crop[:64], 0),
                                (S, "the crop less its last value", crop[:S], 1),
                                (28, "the crop less its last value", crop[:28], 1)):
         Xc = centred(hist)
@@ -1156,16 +1191,92 @@ def check_pca_kernels(frames, dev, errs, timing_inputs, bounds, cpu_eigh) -> Non
         except ImportError:
             n_same = -1
     check(n_bad == 0, f"syevd_small equals the plain version on all {n_all} matrices (the eigensolver tests' 5,000 "
-                      f"of n <= 25 and 3,500 of n = 26-32, and the Gram matrices of 20, 28 and 32 frames)")
+                      f"of n <= 25, 3,500 of n = 26-32 and 720 of n = 33-64, and the Gram matrices of 20, 28, 32, "
+                      f"52 and 64 frames)")
     print(f"  information: the card's ssyevd equals this machine's LAPACK (scipy) on {n_same} of {n_all} matrices "
           f"(-1: scipy does not import here); {time.perf_counter() - t1:.1f} s", flush=True)
     comps, Xc, _ = lifts[(S, "the 360x640 crop")]
     timing_inputs["contract"] = Xc
     timing_inputs["syevd_small"] = grams[(32, "the crop")][None].contiguous()
+    timing_inputs["syevd_by_n"] = {n: grams[k][None].contiguous() for n, k in (
+        (20, (S, "the 360x640 crop")), (32, (32, "the crop")), (64, (64, "the crop")))}
     timing_inputs["pca_project"] = (basis, xc, mean)
     bounds["contract"] = gram_cost(S, Xc.shape[1])
     bounds["syevd_small"] = syevd_cost(32)
     bounds["pca_project"] = pca_cost(E, Xc.shape[1])
+
+
+def eigen_720p_path(frames, dev, errs, results, tag, cpu_pool) -> None:
+    """Phase 6: DPEigenbackgroundBGS at 720x1280x3 with a 64-frame history
+    through the kernels (contract, syevd_small, pca_project): the history
+    of the clip's frames 0-63, the step at t = 64 that builds the PCA and
+    projects its frame (CUDA events), then EIGEN720_AFTER frames (ms/frame);
+    the launches counted; the eigensolver's output on the step's own 64 x 64
+    Gram matrix held against the plain syevd in the CPU worker."""
+    from tracking_tpu_torch import get_algorithm
+    from tracking_tpu_torch.ops import _native, eigh
+
+    S = EIGEN720_CFG["historySize"]
+    algo = get_algorithm("DPEigenbackgroundBGS")(**EIGEN720_CFG)
+    st = algo.init(H, W, C, device=dev)
+    t0 = time.perf_counter()
+    for t in range(S):
+        st, _, _ = algo.step(st, frames[t])
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    seen, orig = [], eigh.syevd
+
+    def spy(G, *a, **k):
+        out = orig(G, *a, **k)
+        seen.append((G.clone(), tuple(o.clone() for o in out)))
+        return out
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    _native.reset_launches()
+    eigh.syevd = spy
+    try:
+        start.record()
+        st, fg, bg = algo.step(st, frames[S])
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        eigh.syevd = orig
+    build_ms = start.elapsed_time(end)
+    at_pca = dict(_native.LAUNCHES)
+    _native.reset_launches()
+    masks = []
+    start.record()
+    for t in range(EIGEN720_AFTER):
+        st, m, bg = algo.step(st, frames[1 + t])
+        masks.append(m)
+    end.record()
+    torch.cuda.synchronize()
+    after_ms = start.elapsed_time(end) / EIGEN720_AFTER
+    after = dict(_native.LAUNCHES)
+    masks = torch.stack(masks)
+    check(at_pca["contract"] == 2 and at_pca["syevd_small"] == 1 and at_pca["pca_project"] == 1
+          and sum(at_pca.values()) == 4 and after["pca_project"] == EIGEN720_AFTER
+          and sum(after.values()) == EIGEN720_AFTER,
+          f"Eigenbackground {EIGEN720_CFG} at {H}x{W}x{C}: the step at t = {S} launched contract "
+          f"{at_pca['contract']} times, syevd_small {at_pca['syevd_small']}, pca_project {at_pca['pca_project']}; "
+          f"the {EIGEN720_AFTER} frames after it pca_project {after['pca_project']} times, nothing else")
+    basis = st["basis"]
+    check(masks.dtype == torch.uint8 and set(masks.unique().tolist()) <= {0, 255}
+          and bool(torch.isfinite(basis).all()) and float(basis.abs().max()) > 0.0,
+          f"Eigenbackground at 720p: u8 masks in [0, 255] (foreground share "
+          f"{float(masks.gt(0).to(torch.float32).mean()):.4f}), a finite basis {tuple(basis.shape)}")
+    G, (wk, Vk, ik) = seen[0]
+    wp, Vp, ip = map(torch.from_numpy, cpu_pool.apply_async(cpu_eigh_mats, (G.cpu().numpy(),)).get())
+    e = max(nan_err(wk, wp), nan_err(Vk, Vp))
+    errs["syevd_small"] = max(errs["syevd_small"], e)
+    check(same_bits(wk, wp) and same_bits(Vk, Vp) and int(ik[0]) == int(ip[0]),
+          f"syevd_small on the 720p path's {S} x {S} Gram matrix equals the plain syevd in the CPU worker")
+    results["syevd_small"]["eigen720_launches"] = at_pca["syevd_small"]
+    results["syevd_small"]["eigen720_pca_step_ms"] = build_ms
+    results["syevd_small"]["eigen720_ms_per_frame"] = after_ms
+    print(f"  {tag} Eigenbackground at {H}x{W}x{C} with a {S}-frame history: the history in {fill_s:.1f} s, the "
+          f"step that builds the PCA {build_ms:.3f} ms (CUDA events: 2 contract, syevd_small, pca_project), then "
+          f"{after_ms:.3f} ms/frame over {EIGEN720_AFTER} frames", flush=True)
 
 
 def time_pca_kernels(timing_inputs, results, tag) -> None:
@@ -1196,6 +1307,13 @@ def time_pca_kernels(timing_inputs, results, tag) -> None:
         lib = [cuda_ms(fn, 20) for _ in range(2)]
         results[k]["library_ms"] = min(lib)
         print(f"  {tag} {k}'s library call: {lib[0]:.4f} / {lib[1]:.4f} ms", flush=True)
+    for n, Gn in timing_inputs["syevd_by_n"].items():  # in turns with torch.linalg.eigh on the same matrix
+        k1, l1 = cuda_ms(lambda: eigh.syevd(Gn), 20), cuda_ms(lambda: torch.linalg.eigh(Gn[0]), 20)
+        k2, l2 = cuda_ms(lambda: eigh.syevd(Gn), 20), cuda_ms(lambda: torch.linalg.eigh(Gn[0]), 20)
+        results["syevd_small"][f"ms_n{n}"] = min(k1, k2)
+        results["syevd_small"][f"library_ms_n{n}"] = min(l1, l2)
+        print(f"  {tag} syevd_small at n = {n} (one block of {SYEVD_THREADS} threads): {k1:.4f} / {k2:.4f} ms, "
+              f"torch.linalg.eigh {l1:.4f} / {l2:.4f} ms, in turns", flush=True)
 
 
 def check_registry_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
@@ -3104,7 +3222,7 @@ def s15_cpu_runs():
         ("DPEigenbackgroundBGS", S15_LONG, S15_LONG["historySize"] + 1)]
 
 
-def slice15_path(clip, frames, dev, results, out, tag, cpu_crop) -> None:
+def slice15_path(clip, frames, dev, results, out, tag, cpu_crop, cpu_long52) -> None:
     """Phase 4i: the nine algorithms of ``bgs/fuzzy.py``, ``bgs/t2f.py``,
     ``bgs/kde.py``, ``bgs/imbs.py`` and ``bgs/eigenbackground.py``, each
     alone through ``run_video`` at 720p (CUDA events; IMBS's
@@ -3115,8 +3233,9 @@ def slice15_path(clip, frames, dev, results, out, tag, cpu_crop) -> None:
     counts of SuBSENSE's, IMBS's and Eigenbackground's kernels (``contract``
     twice and ``syevd_small`` once at its PCA, ``pca_project`` once a
     frame), each fan-out mask against its own run. Eigenbackground with a
-    26-frame history runs on the crop too, card against CPU, its launches
-    counted. Eigenbackground's
+    26-frame history runs on the crop too, and with a 52-frame one on a
+    120x160 crop (blocked ssytrd, slaed0's two levels of cuts), card
+    against CPU, their launches counted. Eigenbackground's
     counts, read over its warm-up and timed frames alone, give the kernels
     line its launches of ``syevd_small`` and ``pca_project``."""
     from tracking_tpu_torch import get_algorithm
@@ -3211,6 +3330,28 @@ def slice15_path(clip, frames, dev, results, out, tag, cpu_crop) -> None:
     results["syevd_small"]["long_history_launches"] = got["syevd_small"]
     print(f"  a {cfg['historySize']}-frame history, card against CPU on the crop: {time.perf_counter() - t0:.1f} s "
           f"(the CPU's runs in the worker)", flush=True)
+    t0 = time.perf_counter()
+    cfg = S15_LONG52
+    n52 = cfg["historySize"] + LONG52_AFTER
+    (y0, x0), (ch, cw) = LONG52_AT, LONG52_CUT
+    cut52 = torch.from_numpy(clip[:n52, y0 : y0 + ch, x0 : x0 + cw].copy())
+    _native.reset_launches()
+    sk, (mk, bk) = run_video(get_algorithm(name)(**cfg), cut52.to(dev), with_background=True)
+    torch.cuda.synchronize()
+    got = {k: _native.LAUNCHES[k] for k in eigen_kernels}
+    want = {"contract": 2, "syevd_small": 1, "pca_project": n52}
+    check(got == want and sum(_native.LAUNCHES.values()) == sum(want.values()),
+          f"{name}{cfg} on the {LONG52_CUT[0]}x{LONG52_CUT[1]} crop at {LONG52_AT}: contract launched {got['contract']} times, "
+          f"syevd_small {got['syevd_small']} (blocked ssytrd, slaed0's two levels of cuts at n = "
+          f"{cfg['historySize']}), pca_project {got['pca_project']} in {n52} frames, nothing else")
+    mc, bc, sc = from_numpy_tree(cpu_long52.get()[0])
+    check(same_bits((mk, bk, sk), (mc, bc, sc)) and float(sc["basis"].abs().max()) > 0.0,
+          f"{name}{cfg}: masks, background and state (the basis built at t = {cfg['historySize']}) of the card "
+          f"equal the CPU's bit for bit over {n52} frames of the {LONG52_CUT[0]}x{LONG52_CUT[1]} crop (foreground "
+          f"share {float(mc.gt(0).to(torch.float32).mean()):.4f})")
+    results["syevd_small"]["long52_launches"] = got["syevd_small"]
+    print(f"  a {cfg['historySize']}-frame history, card against CPU on the {LONG52_CUT[0]}x{LONG52_CUT[1]} crop: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     fan = f"{out}/fanout_15"
     flag = {name: f for f, name in _ENABLE_FLAGS}
@@ -4816,6 +4957,10 @@ def main(argv) -> None:
     cpu_eigh = cpu_pool.apply_async(cpu_eigh_sets, (EIGH_SETS,))
     n_cut = max(nf for _, _, nf in s15_cpu_runs())
     cpu_crop = cpu_pool.apply_async(cpu_crop_runs, (clip[:n_cut, : NEW_CUT[0], : NEW_CUT[1]], s15_cpu_runs()))
+    n52 = S15_LONG52["historySize"] + LONG52_AFTER
+    (y0, x0), (ch, cw) = LONG52_AT, LONG52_CUT
+    cpu_long52 = cpu_pool.apply_async(cpu_crop_runs, (clip[:n52, y0 : y0 + ch, x0 : x0 + cw],
+                                                      [("DPEigenbackgroundBGS", S15_LONG52, n52)]))
     tracker = BlobTracker()
     state0 = algo.warm_start(algo.init(H, W, C, device=dev), frames[0])
     results = {
@@ -4991,9 +5136,7 @@ def main(argv) -> None:
     new_algorithms_path(clip, frames, dev, results, bgs_out, tag)
 
     # -- 4i. the fuzzy, T2F, KDE, IMBS and Eigenbackground algorithms ----
-    slice15_path(clip, frames, dev, results, bgs_out, tag, cpu_crop)
-    cpu_pool.close()
-    cpu_pool.join()
+    slice15_path(clip, frames, dev, results, bgs_out, tag, cpu_crop, cpu_long52)
 
     # -- 4j. MultiCue and LbpMrf --------------------------------------------
     s16 = slice16_path(clip, frames, dev, results, bgs_out)
@@ -5073,6 +5216,9 @@ def main(argv) -> None:
     time_slab_kernels(timing_inputs, results, tag)
     time_kalman_resize(timing_inputs, results, masks, tracker, dev, tag)
     time_pca_kernels(timing_inputs, results, tag)
+    eigen_720p_path(frames, dev, errs, results, tag, cpu_pool)
+    cpu_pool.close()
+    cpu_pool.join()
     time_batch(streams, dev, tag)
     time_sharded_lbsp(streams, dev, tag)
     time_process_mesh(proc_mesh, thread_mesh, algo, tracker, state0, frames, streams, tag)

@@ -8,7 +8,8 @@ and the lift ``evecs.T @ Xc`` at the histories' shapes (24x32 frames, colour and
 grey, 20 and 8 frames; 240x320 grey; the colour 240x320 history runs in
 ``test_torch_eigen.py``), the rules of both for every history of 2-32
 frames (depths of every residue mod 16, frames of 1-16 values, the Gram
-kernel's blocks and the lift's panels), the norms of
+kernel's blocks and the lift's panels) and of 33-64 frames at those
+depths, the norms of
 ``jnp.linalg.norm`` and the projection and reconstruction of the step."""
 
 import jax
@@ -127,6 +128,19 @@ def test_dot_rules_every_history(rows):
     2-3 rows. (24x32x3 and 23x37 run whole in test_torch_eigen.py.)"""
     ds = list(range(1, 17)) + list(range(32, 48)) + [89, 90, 91, 93, 94]
     _check_dots([(s, d) for s in rows for d in ds + ([4099] if s <= 3 else [])], rows[0])
+
+
+@pytest.mark.parametrize("rows", [(33, 37, 41, 42, 45, 48), (49, 50, 51, 52, 53, 54), (56, 57, 58, 61, 63, 64)],
+                         ids=lambda r: f"S{r[0]}-{r[-1]}")
+def test_dot_rules_long_histories(rows):
+    """Histories of 33-64 frames at the depths of the groups above: the Gram
+    kernel's 4 lanes (33-48; one chain at D in 1-3, 5, 6, 9) and one chain
+    (49-64); the lift's panels of 1,024 (33-50, chains of 32,768 / w) and at
+    51-64 the Gram kernel with rows and depth swapped, by D mod 64 (4 or 2
+    lanes over S, or one chain; S mod 4 of 1 or 2 takes 2 lanes at D in
+    17-24)."""
+    ds = list(range(1, 17)) + list(range(32, 48)) + [89, 90, 91, 93, 94]
+    _check_dots([(s, d) for s in rows for d in ds], rows[0])
 
 
 @pytest.mark.parametrize("rows", [(4, 8, 9), (12, 16, 17), (20, 25, 32)], ids=lambda r: "S" + "-".join(map(str, r)))

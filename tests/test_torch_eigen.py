@@ -2,9 +2,10 @@
 packages' ``run_video`` over seeded frames, past the PCA at t ==
 historySize: at 24x32 at the defaults and with a short history, colour
 and grey, and at 240x320 (CDnet's size, a Gram product of 230,400 terms);
-at 24x32x3 for histories of 2-32 frames (MKL-DNN's kernels by S, ssteqr up
-to 25, sstedc's divide and conquer from 26; E = min(10, S), E = S leaves
-a null-space component, the lift of rounding noise), and at 23x37 grey and
+at 24x32x3 for histories of 2-64 frames (MKL-DNN's kernels by S, ssteqr up
+to 25, sstedc's divide and conquer from 26, the blocked ssytrd from 33,
+two levels of cuts from 51, sormqr's blocks at 64; E = min(10, S), E = S
+leaves a null-space component, the lift of rounding noise), and at 23x37 grey and
 colour (D = 851 and 2,553, remainders 3 and 1 mod 4).
 The mask, the background image and every state leaf (``basis`` included)
 are compared bit for bit: the Gram product and the lift in XLA:CPU's dot
@@ -32,7 +33,7 @@ def test_eigenbackground_matches_reference(cfg, c, h, w, T):
     assert float(st["basis"].abs().max()) > 0.0  # the basis was built
 
 
-HISTORIES = [2, 4, 6, 10, 12, 16, 25, 26, 30, 32]
+HISTORIES = [2, 4, 6, 10, 12, 16, 25, 26, 30, 32, 33, 34, 40, 51, 64]
 
 
 @pytest.mark.parametrize("S", HISTORIES)

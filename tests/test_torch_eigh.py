@@ -1,20 +1,30 @@
 """The port's ordered ``ssyevd`` (``tracking_tpu_torch/ops/eigh.py``)
 against LAPACK as scipy's OpenBLAS runs it (``scipy.linalg.lapack.ssyevd``,
 the library jaxlib calls) on 5,000 seeded symmetric matrices of n = 4, 8,
-20 and 25 (1,500, 1,500, 1,200 and 800) and 500 of each n = 26-32 (the
-divide and conquer), and against ``jnp.linalg.eigh`` on a few hundred: eigenvalues,
+20 and 25 (1,500, 1,500, 1,200 and 800), 500 of each n = 26-32 (the
+divide and conquer) and 120 of each n = 33, 34, 40, 50, 51 and 64 (the
+blocked ssytrd, slaed0's two levels of cuts from 51, sormqr's blocks at
+64), and against ``jnp.linalg.eigh`` on a few hundred: eigenvalues,
 eigenvectors and ``info`` bit for bit. The matrices: Gram matrices of
 centred u8 histories (rank-deficient where the history has fewer columns
 than rows), the same scaled by 1e-6, 1e6 and 1e-30 (the last below
 ssyevd's scaling threshold), zero, and matrices with repeated
-eigenvalues."""
+eigenvalues. The blocked routines alone: ``ssytrd`` against scipy's (with
+ssyevd's workspace) and ``sormtr`` against OpenBLAS's ``sormqr`` called as
+ssyevd calls it (through ctypes: scipy's wrapper passes a leading
+dimension equal to the rows, which OpenBLAS's sgemv answers with another
+kernel)."""
 
+import ctypes
 import functools
+import glob
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy
 import scipy.linalg.lapack as lapack
 import torch
 
@@ -71,13 +81,67 @@ def test_syevd_divide_and_conquer_matches_lapack(n):
     assert not bad, f"{len(bad)} of {len(G)} differ, first {bad[:5]} (kinds {[b % 6 for b in bad[:5]]})"
 
 
-JAX_SIZES = [8, 20] + list(range(26, 33))
+@pytest.mark.parametrize("n", [33, 34, 40, 50, 51, 64])
+def test_syevd_blocked_matches_lapack(n):
+    """n = 33-64: ssytrd's slatrd panel and ssyr2k, slaed0's two levels of
+    cuts from 51, sormqr's blocks of 3 at 64, on 120 seeded matrices of the
+    six kinds."""
+    G = batch(n, 120, 500 + n)
+    w, V, info = eigh.syevd(torch.from_numpy(G))
+    bad = []
+    for b in range(len(G)):
+        wr, vr, ir = lapack.ssyevd(G[b], compute_v=1, lower=1)
+        if not (np.array_equal(wr, w[b].numpy()) and np.array_equal(vr, V[b].numpy()) and ir == int(info[b])):
+            bad.append(b)
+    assert not bad, f"{len(bad)} of {len(G)} differ, first {bad[:5]} (kinds {[b % 6 for b in bad[:5]]})"
+
+
+def _sormqr(a: np.ndarray, tau: np.ndarray, z: np.ndarray) -> np.ndarray:
+    """OpenBLAS's sormqr('L', 'N') as ssyevd's sormtr calls it: the n - 1
+    reflectors below A's subdiagonal (lda n) on Z's rows 1.. (ldc n), with
+    ssyevd's workspace of n^2 + 4n + 1."""
+    lib = ctypes.CDLL(glob.glob(os.path.join(os.path.dirname(scipy.__file__) + ".libs", "libscipy_openblas*.so"))[0])
+    n = z.shape[0]
+    af, cf = np.array(a, np.float32, order="F"), np.array(z, np.float32, order="F")
+    lwork = n * n + 4 * n + 1
+    work, info = np.zeros(lwork, np.float32), ctypes.c_int(0)
+    ptr, num = (lambda x: x.ctypes.data_as(ctypes.c_void_p)), (lambda v: ctypes.byref(ctypes.c_int(v)))
+    lib.scipy_sormqr_(ctypes.c_char_p(b"L"), ctypes.c_char_p(b"N"), num(n - 1), num(n), num(n - 1),
+                      ctypes.c_void_p(af.ctypes.data + 4), num(n), ptr(tau), ctypes.c_void_p(cf.ctypes.data + 4),
+                      num(n), ptr(work), num(lwork), ctypes.byref(info), ctypes.c_size_t(1), ctypes.c_size_t(1))
+    assert info.value == 0
+    return cf
+
+
+@pytest.mark.parametrize("n", [33, 48, 64])
+def test_blocked_routines_match_lapack(n):
+    """ssytrd (one slatrd panel, ssyr2k, ssytd2: d, e, tau and the
+    reflectors) against scipy's with ssyevd's workspace, and sormtr (sorm2r
+    up to 63, blocks of 3 reflectors at 64) against OpenBLAS's sormqr, on 4
+    seeded matrices each."""
+    G = batch(n, 4, 600 + n)
+    A, d, e, tau = eigh._ssytrd(torch.from_numpy(G))
+    rng = np.random.default_rng(n)
+    low = np.tril(np.ones((n, n), bool))
+    for b in range(len(G)):
+        c, dr, er, tr, ir = lapack.ssytrd(G[b], lower=1, lwork=2 * n * n + 4 * n + 1)
+        assert ir == 0
+        np.testing.assert_array_equal(d[b].numpy(), dr)
+        np.testing.assert_array_equal(e[b].numpy(), er)
+        np.testing.assert_array_equal(tau[b].numpy(), tr)
+        np.testing.assert_array_equal(A[b].numpy()[low], c[low])
+        z = rng.standard_normal((n, n)).astype(np.float32)
+        got = eigh._sormtr(A[b : b + 1], tau[b : b + 1], torch.from_numpy(z)[None])[0].numpy()
+        np.testing.assert_array_equal(got, _sormqr(c, tr, z))
+
+
+JAX_SIZES = [8, 20] + list(range(26, 33)) + [33, 34, 51, 64]
 
 
 @functools.lru_cache(maxsize=None)
 def jax_eigh():
     """jnp.linalg.eigh of every size's batch in one compiled program."""
-    Gs = [batch(n, 150 if n <= 25 else 12, 100 + n) for n in JAX_SIZES]
+    Gs = [batch(n, 150 if n <= 25 else 12 if n <= 32 else 6, 100 + n) for n in JAX_SIZES]
     out = jax.jit(lambda gs: [jax.vmap(jnp.linalg.eigh)(g) for g in gs])([jnp.asarray(g) for g in Gs])
     return {n: (g, np.asarray(w), np.asarray(v)) for n, g, (w, v) in zip(JAX_SIZES, Gs, out)}
 
@@ -101,9 +165,10 @@ def test_syevd_small_orders(n):
 
 
 def test_syevd_refuses_what_it_does_not_reproduce():
-    """Above 32 LAPACK's ssytrd (and from 34 sormtr) turns blocked: refused;
-    a tensor on another device than the CPU launches the kernel or raises."""
-    with pytest.raises(ValueError, match="n <= 32"):
-        eigh.syevd_ref(torch.zeros((1, 33, 33)))
+    """Above 64 ssytrd takes a second slatrd panel and slaed0 a third level
+    of cuts: refused; a tensor on another device than the CPU launches the
+    kernel or raises."""
+    with pytest.raises(ValueError, match="n <= 64"):
+        eigh.syevd_ref(torch.zeros((1, 65, 65)))
     with pytest.raises(ValueError, match="CUDA"):
         eigh.syevd(torch.zeros((1, 4, 4), device="meta"))

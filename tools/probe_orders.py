@@ -17,6 +17,14 @@ sum tells an FMA from a rounded product added.
     python tools/probe_orders.py slaed4 [COUNT]       # ops/eigh's secular solver against scipy's
     python tools/probe_orders.py sstedc N [COUNT]     # ops/eigh's divide and conquer against scipy's
     python tools/probe_orders.py blas                 # OpenBLAS's srot and small sgemm: fused where
+    python tools/probe_orders.py workspace N          # ilaenv's NB, NX, SMLSIZ; sormqr's block in ssyevd's lwork
+    python tools/probe_orders.py sdot N               # OpenBLAS's sdot: tree and joins
+    python tools/probe_orders.py sgemv-n ROWS COLS ROW [LDA]     # sgemv 'N' (alpha -1, beta 1): a row's tree
+    python tools/probe_orders.py sgemm TA TB M N K ROW COL [BETA]  # an sgemm output's tree (C a leaf if BETA)
+    python tools/probe_orders.py ssytrd N [COUNT]     # ops/eigh's blocked ssytrd against scipy's
+    python tools/probe_orders.py sormtr N [COUNT]     # ops/eigh's sormtr against OpenBLAS's sormqr as ssyevd calls it
+    python tools/probe_orders.py gram-kinds S0 S1 D,D,..   # the Gram product's lanes (c: one chain, 2, 4)
+    python tools/probe_orders.py lift-kinds S0 S1 D,D,..   # the lift's order a depth at 51-64 rows
 
 Run with ``JAX_PLATFORMS=cpu``. The outputs are what the rules in those
 modules were written from; compare a new host's with them before trusting
@@ -352,8 +360,225 @@ def check_blas(seed: int = 0) -> None:
         print(f"sgemm {m}x{n} over {k}: one FMA chain in order {np.array_equal(acc, cm)}")
 
 
+
+def _i(v):
+    return ctypes.byref(ctypes.c_int(v))
+
+
+def _p(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def workspace(n: int) -> None:
+    """ilaenv's block sizes on this host and the sormqr block ssyevd's
+    workspace leaves (lwork 1 + 6n + 2n², of which n² + 4n + 1 reach sormtr)."""
+    from tracking_tpu_torch.ops import eigh
+
+    lib = openblas()
+    lib.scipy_ilaenv_.restype = ctypes.c_int
+
+    def ilaenv(ispec, name, opts, n1, n2=-1, n3=-1):
+        return lib.scipy_ilaenv_(_i(ispec), ctypes.c_char_p(name.encode()), ctypes.c_char_p(opts.encode()), _i(n1),
+                                 _i(n2), _i(n3), _i(-1), ctypes.c_size_t(len(name)), ctypes.c_size_t(len(opts)))
+
+    v = [ctypes.c_int() for _ in range(3)]
+    lib.scipy_ilaver_(*map(ctypes.byref, v))
+    print(f"LAPACK {'.'.join(str(x.value) for x in v)}; ssytrd NB {ilaenv(1, 'SSYTRD', 'L', n)} NX "
+          f"{ilaenv(3, 'SSYTRD', 'L', n)}; sormqr NB {ilaenv(1, 'SORMQR', 'LN', n - 1, n, n - 1)} NBMIN "
+          f"{ilaenv(2, 'SORMQR', 'LN', n - 1, n, n - 1)}; SMLSIZ {ilaenv(9, 'SSTEDC', ' ', 0)}; sormqr's block "
+          f"in ssyevd's workspace at n = {n}: {eigh._sormqr_nb(n)}")
+
+
+class DotProbe:
+    """OpenBLAS's sdot of n terms (x * 1)."""
+
+    def __init__(self, n: int):
+        from scipy.linalg import blas
+
+        self.n, self.blas = n, blas
+
+    def query(self, trips):
+        out = []
+        for a, b, c in trips:
+            x = np.zeros(self.n, np.float32)
+            x[a], x[b], x[c] = 1, EPS, -1
+            out.append(decode(np.float32(self.blas.sdot(x, np.ones(self.n, np.float32)))))
+        return out
+
+    def run(self, a, v):
+        return np.float32(self.blas.sdot(a.astype(np.float32), v.astype(np.float32)))
+
+
+def _sgemv(trans, alpha, A, lda, x, beta, y):
+    m, k = A.shape
+    buf = np.zeros((k, lda), np.float32)
+    buf[:, :m] = A.T
+    y = y.copy()
+    openblas().scipy_sgemv_(ctypes.c_char_p(trans.encode()), _i(m), _i(k), ctypes.byref(ctypes.c_float(alpha)),
+                            _p(buf), _i(lda), _p(x), _i(1), ctypes.byref(ctypes.c_float(beta)), _p(y), _i(1),
+                            ctypes.c_size_t(1))
+    return y
+
+
+class GemvNProbe:
+    """Row ``r`` of sgemv 'N' (alpha -1, beta 1) over k columns: leaves the
+    columns' products, then y as leaf k."""
+
+    def __init__(self, m: int, k: int, r: int, lda: int):
+        self.m, self.k, self.r, self.lda = m, k, r, lda
+
+    def _call(self, a, x, yv):
+        A = np.zeros((self.m, self.k), np.float32)
+        A[self.r] = -a
+        y = np.zeros(self.m, np.float32)
+        y[self.r] = yv
+        return _sgemv("N", -1.0, A, self.lda, x.astype(np.float32), 1.0, y)[self.r]
+
+    def query(self, trips):
+        out = []
+        for a, b, c in trips:
+            v = np.zeros(self.k + 1, np.float32)
+            v[a], v[b], v[c] = 1, EPS, -1
+            out.append(decode(self._call(v[: self.k], np.ones(self.k, np.float32), v[self.k])))
+        return out
+
+    def run(self, a, v):
+        return self._call(a[: self.k], v[: self.k], np.float32(a[self.k] * v[self.k]))
+
+
+class GemmProbe:
+    """Output (r, c) of sgemm(TA, TB, alpha 1): leaves the k products, then C
+    as leaf k where beta is 1."""
+
+    def __init__(self, ta, tb, m, n, k, r, c, beta):
+        self.ta, self.tb, self.m, self.n, self.k, self.r, self.c, self.beta = ta, tb, m, n, k, r, c, beta
+
+    def _call(self, a_row, b_col, cval):
+        m, n, k = self.m, self.n, self.k
+        opa, opb, cm = np.zeros((m, k), np.float32), np.zeros((k, n), np.float32), np.zeros((m, n), np.float32)
+        opa[self.r], opb[:, self.c], cm[self.r, self.c] = a_row, b_col, cval
+        A = np.asfortranarray(opa.T if self.ta == "T" else opa)
+        B = np.asfortranarray(opb.T if self.tb == "T" else opb)
+        C = np.asfortranarray(cm)
+        F = lambda v: ctypes.byref(ctypes.c_float(v))
+        openblas().scipy_sgemm_(ctypes.c_char_p(self.ta.encode()), ctypes.c_char_p(self.tb.encode()), _i(m), _i(n),
+                                _i(k), F(1.0), _p(A), _i(A.shape[0]), _p(B), _i(B.shape[0]), F(self.beta), _p(C),
+                                _i(m), ctypes.c_size_t(1), ctypes.c_size_t(1))
+        return np.float32(C[self.r, self.c])
+
+    def leaves(self):
+        return self.k + (1 if self.beta else 0)
+
+    def query(self, trips):
+        out = []
+        for a, b, c in trips:
+            v = np.zeros(self.leaves(), np.float32)
+            v[a], v[b], v[c] = 1, EPS, -1
+            out.append(decode(self._call(v[: self.k], np.ones(self.k, np.float32), v[self.k] if self.beta else 0)))
+        return out
+
+    def run(self, a, v):
+        return self._call(a[: self.k], v[: self.k], np.float32(a[self.k] * v[self.k]) if self.beta else 0)
+
+
+def _tree_and_joins(p, n_leaves):
+    tree = build(p, list(range(n_leaves)))
+    print(show(tree))
+    print(sorted(joins(tree, p.run, n_leaves).items()))
+
+
+def check_ssytrd(n: int, count: int, seed: int = 0) -> int:
+    """ops/eigh._ssytrd against scipy's ssytrd (ssyevd's workspace) on Gram
+    matrices: the matrices whose d, e, tau or reflectors differ."""
+    import torch
+    from scipy.linalg import lapack
+
+    from tracking_tpu_torch.ops import eigh
+
+    rng = np.random.default_rng(seed)
+    gs = []
+    for _ in range(count):
+        x = rng.standard_normal((n, 3 * n)).astype(np.float32)
+        gs.append((x @ x.T).astype(np.float32))
+    A, d, e, tau = eigh._ssytrd(torch.from_numpy(np.stack(gs)))
+    low = np.tril(np.ones((n, n), bool))
+    bad = 0
+    for b, g in enumerate(gs):
+        c, dr, er, tr, _ = lapack.ssytrd(g, lower=1, lwork=2 * n * n + 4 * n + 1)
+        bad += not (np.array_equal(A[b].numpy()[low], c[low]) and np.array_equal(d[b].numpy(), dr)
+                    and np.array_equal(e[b].numpy(), er) and np.array_equal(tau[b].numpy(), tr))
+    return bad
+
+
+def check_sormtr(n: int, count: int, seed: int = 0) -> int:
+    """ops/eigh._sormtr against OpenBLAS's sormqr called as ssyevd's sormtr
+    calls it (lda = ldc = n, lwork n² + 4n + 1) on random Z."""
+    import torch
+    from scipy.linalg import lapack
+
+    from tracking_tpu_torch.ops import eigh
+
+    lib, rng, bad = openblas(), np.random.default_rng(seed), 0
+    for _ in range(count):
+        x = rng.standard_normal((n, 3 * n)).astype(np.float32)
+        c, _, _, tr, _ = lapack.ssytrd((x @ x.T).astype(np.float32), lower=1, lwork=2 * n * n + 4 * n + 1)
+        z = rng.standard_normal((n, n)).astype(np.float32)
+        af, cf = np.array(c, np.float32, order="F"), np.array(z, np.float32, order="F")
+        lw = n * n + 4 * n + 1
+        work, info = np.zeros(lw, np.float32), ctypes.c_int(0)
+        lib.scipy_sormqr_(ctypes.c_char_p(b"L"), ctypes.c_char_p(b"N"), _i(n - 1), _i(n), _i(n - 1),
+                          ctypes.c_void_p(af.ctypes.data + 4), _i(n), _p(tr), ctypes.c_void_p(cf.ctypes.data + 4),
+                          _i(n), _p(work), _i(lw), ctypes.byref(info), ctypes.c_size_t(1), ctypes.c_size_t(1))
+        got = eigh._sormtr(torch.from_numpy(c)[None], torch.from_numpy(tr)[None], torch.from_numpy(z)[None])[0]
+        bad += not np.array_equal(got.numpy(), cf)
+    return bad
+
+
+def _lane_plans(s: int, depth: int):
+    """Candidate orders of a sum over ``depth`` terms: one chain (c), 2 or 4
+    FMA lanes with the rest as rounded products."""
+    from tracking_tpu_torch.ops.contract import Plan
+
+    out = {"c": Plan(((0, depth),))}
+    for lanes in (2, 4):
+        main = depth - depth % lanes
+        if main:
+            out[str(lanes)] = Plan(((0, main),) + (((main, depth),) if depth > main else ()), lanes=lanes)
+    return out
+
+
+def kinds(what: str, s0: int, s1: int, ds, trials: int = 4, seed: int = 0) -> None:
+    """For each S and D, the candidate orders every output of the Gram
+    product (``gram``) or of the lift (``lift``) equals on random data."""
+    import jax
+    import torch
+
+    from tracking_tpu_torch.ops.contract import contract
+
+    rng = np.random.default_rng(seed)
+    gram, lift = jax.jit(lambda x: x @ x.T), jax.jit(lambda l, x: l @ x)
+    for s in range(s0, s1 + 1):
+        row = []
+        for d in ds:
+            plans = _lane_plans(s, d if what == "gram" else s)
+            ok = dict.fromkeys(plans, True)
+            for _ in range(trials):
+                x = rng.standard_normal((s, d)).astype(np.float32)
+                X = torch.from_numpy(x)
+                if what == "gram":
+                    ref, args = np.asarray(gram(x)), (X, X.T)
+                else:
+                    l = rng.standard_normal((s, s)).astype(np.float32)
+                    ref, args = np.asarray(lift(l, x)), (torch.from_numpy(l), X)
+                for k, p in plans.items():
+                    ok[k] = ok[k] and bool((contract(*args, p).numpy() == ref).all())
+            row.append(f"{d}:{'/'.join(k for k in plans if ok[k]) or 'X'}")
+        print(s, " ".join(row), flush=True)
+
+
 def main(argv) -> None:
-    cmd, args = argv[0], [int(a) for a in argv[1:]]
+    cmd = argv[0]
+    args = [int(a) for a in argv[1:]] if cmd not in ("sgemm", "gram-kinds", "lift-kinds") else []
     if cmd == "gram":
         p = GramProbe(*args)
         tree = build(p, list(range(args[1])))
@@ -379,6 +604,22 @@ def main(argv) -> None:
         print("matrices that differ:", check_sstedc(args[0], args[1] if len(args) > 1 else 100))
     elif cmd == "blas":
         check_blas()
+    elif cmd == "workspace":
+        workspace(args[0])
+    elif cmd == "sdot":
+        _tree_and_joins(DotProbe(args[0]), args[0])
+    elif cmd == "sgemv-n":
+        _tree_and_joins(GemvNProbe(args[0], args[1], args[2], args[3] if len(args) > 3 else 64), args[1] + 1)
+    elif cmd == "sgemm":
+        m, n, k, r, c = (int(a) for a in argv[3:8])
+        p = GemmProbe(argv[1], argv[2], m, n, k, r, c, float(argv[8]) if len(argv) > 8 else 0.0)
+        _tree_and_joins(p, p.leaves())
+    elif cmd == "ssytrd":
+        print("matrices that differ:", check_ssytrd(args[0], args[1] if len(args) > 1 else 12))
+    elif cmd == "sormtr":
+        print("matrices that differ:", check_sormtr(args[0], args[1] if len(args) > 1 else 12))
+    elif cmd in ("gram-kinds", "lift-kinds"):
+        kinds(cmd.split("-")[0], int(argv[1]), int(argv[2]), [int(d) for d in argv[3].split(",")])
     else:
         raise SystemExit(__doc__)
 

@@ -17,9 +17,10 @@ orders for every S and D: ``gram_plan``, ``lift_plan``; a 1x1 grey frame's
 lift, a matrix-vector product, is the one shape left out), the Gram matrix
 is symmetrised as ``jnp.linalg.eigh`` does ((G + G^T) * 0.5), the
 eigensolver is LAPACK's ``ssyevd`` in jaxlib's order (``ops/eigh.syevd``:
-ssteqr up to 25 frames, sstedc's divide and conquer for 26-32; a history
-above 32 frames takes ``torch.linalg.eigh``, within its stated tolerance,
-not bit for bit), the norms are XLA's windowed sums (``ops/pca.row_norms``)
+ssteqr up to 25 frames, sstedc's divide and conquer above, the blocked
+ssytrd from 33, two levels of slaed0's cuts from 51, sormqr's blocks at
+64; a history above 64 frames takes ``torch.linalg.eigh``, within its
+stated tolerance, not bit for bit), the norms are XLA's windowed sums (``ops/pca.row_norms``)
 and every frame's projection and reconstruction is ``ops/pca.project``
 (XLA's row-major GEMV orders). On the card these are the kernels ``contract``,
 ``syevd_small`` and ``pca_project``. The JAX package builds the basis
@@ -60,12 +61,12 @@ def build_pca(history: torch.Tensor, embedded_dim: int, use_kernels: bool = True
     Xc = X - mean[None]
     G = contract(Xc, Xc.T, gram_plan(S, D), use_kernels=use_kernels)
     G = (G + G.T) * 0.5  # jnp.linalg.eigh symmetrises its input
-    if S <= eigh.MAX_UNBLOCKED_N:
+    if S <= eigh.MAX_N:
         evals, evecs, info = eigh.syevd(G[None], use_kernels)  # ascending
         failed = info[0] != 0  # jnp.linalg.eigh turns LAPACK's failure into NaN
         evals = torch.where(failed, float("nan"), evals[0])
         evecs = torch.where(failed, float("nan"), evecs[0])
-    else:  # blocked ssytrd and sormqr above 32 frames: not reproduced (ROADMAP)
+    else:  # above 64 frames a second slatrd panel and a third level of cuts: not reproduced (ROADMAP)
         evals, evecs = torch.linalg.eigh(G)
     lift = evecs[:, torch.argsort(-evals, stable=True)].T.contiguous()
     comps = contract(lift, Xc, lift_plan(S, D), use_kernels=use_kernels)

@@ -150,25 +150,58 @@ TT_EXPORT int tt_pca_project(const void* basis, const void* xc, const void* mean
 }
 
 // ---------------------------------------------------------------------------
-// syevd_small: LAPACK's ssyevd('V', 'L') for n <= 32 as jaxlib runs it
+// syevd_small: LAPACK's ssyevd('V', 'L') for n <= 64 as jaxlib runs it
 // (ops/eigh.py's module note has the orders): slansy's scaling test and
-// slascl, ssytd2 (slarfg with OpenBLAS's snrm2, ssymv, sdot, saxpy, ssyr2),
-// sstedc (for n <= 25 ssteqr: QL / QR with slaev2, slartg, slapy2, slascl,
-// selection sort; above, the split, the scaling, the two halves by ssteqr
-// and their merge: slaed2's deflation with OpenBLAS's fused srot, slaed4 /
-// slaed5 / slaed6 for each root, the Gu-Eisenstat vectors, sgemm as one FMA
-// chain a value, then the selection sort) and sorm2r (sgemv 'T' by the
-// postfix programs of ops/eigh.py's forms, sger).
-// One thread a matrix, LAPACK's scalar order; __fmaf_rn exactly where
-// OpenBLAS's kernels fuse, every other operation rounded on its own
-// (-fmad=false). It runs once a video, at t == historySize.
+// slascl; ssytrd (n <= 32: ssytd2; above: one slatrd panel of 32 columns
+// with OpenBLAS's sgemv 'N' and 'T', ssymv, sdot, then ssyr2k on the trailing
+// rows and ssytd2 on them); sstedc (ssteqr up to 25 rows; above, the split,
+// the scaling, slaed0's pieces by ssteqr and their merges level by level:
+// slaed2's deflation with OpenBLAS's fused srot, slaed4 / slaed5 / slaed6
+// for each root, the Gu-Eisenstat vectors, sgemm as one FMA chain a value,
+// then the selection sort); sormtr (sorm2r, or at n = 64 sormqr's blocks
+// of 3 reflectors: the recursive slarft and slarfb).
+//
+// One block a matrix (EIG_THREADS threads). A, Z, the merge's two work
+// matrices and slatrd's W live in dynamic shared memory (leading dimension
+// EIG_LD); the sgemv 'T' forms in constant memory. Every output with an
+// order of its own is one thread's: ssymv's rows (after its column dots),
+// the rank-2 and ssyr2k updates, sgemv's rows or columns, the sgemm and
+// slarfb values, the rotations of Z's rows, the secular roots, the
+// Gu-Eisenstat products, slarf's columns. The scalar recurrences (slarfg,
+// ssteqr's sweeps, slaed2's deflation, slamrg, the selection sort) run on
+// thread 0 while the block waits at a barrier; ssteqr and slaed2 record
+// their rotations, and the block applies them a row a thread. Every scalar
+// is rounded where LAPACK's or OpenBLAS's code rounds it: __fmaf_rn exactly
+// where OpenBLAS's kernels fuse, -fmad=false everywhere else. It runs once
+// a video, at t == historySize.
 //
 // Replaces no TPU kernel: the JAX package calls jnp.linalg.eigh
 // (tracking_tpu/bgs/eigenbackground.py:71), one LAPACK custom call.
 
-#define EIG_N 32       // the largest n: ssytrd and sormtr stay unblocked
-#define EIG_SMLSIZ 25  // LAPACK's SMLSIZ: above it sstedc divides and conquers
+#define EIG_N 64        // the largest n: one slatrd panel, two levels of slaed0 cuts
+#define EIG_LD 65       // leading dimension of the shared matrices: odd, so a thread a column is free of bank conflicts
+#define EIG_NB 32       // ssytrd's block size and crossover (ilaenv)
+#define EIG_SMLSIZ 25   // LAPACK's SMLSIZ: above it sstedc divides and conquers
+#define EIG_THREADS 256  // threads a block, a block a matrix (64 and 128 were slower on the H100: PERF.md)
 #define EIG_SAFMIN 0x1p-126f
+#define EIG_OPS 7168    // the sgemv 'T' programs (ops/eigh.py: _program_table)
+
+__constant__ int eig_ops[EIG_OPS];
+__constant__ int eig_offs[3 * EIG_N + 1];
+
+struct EigShared {
+  float A[EIG_N * EIG_LD], Z[EIG_N * EIG_LD], Q2[EIG_N * EIG_LD], S[EIG_N * EIG_LD], W[EIG_LD * EIG_NB];
+  float d[EIG_N], e[EIG_N], tau[EIG_N], z[EIG_N], dlamda[EIG_N], w[EIG_N], v[EIG_N], t[EIG_N], nrm[EIG_N];
+  float rc[EIG_N], rs[EIG_N], T[9];
+  int rj[EIG_N], rp[EIG_N];
+  int indxq[EIG_N], indx[EIG_N], indxc[EIG_N], indxp[EIG_N], coltyp[EIG_N], perm[EIG_N], sizes[8];
+  int blk[2 * EIG_N];
+  int nrot, more, k, ctot[4], lastv, lastc, info, nblk, flag;
+  float fa, fb;
+};
+
+#define EIG_TID ((int)threadIdx.x)
+#define EIG_NTH ((int)blockDim.x)
 
 __device__ __forceinline__ float eig_sqrt(float x) { return __fsqrt_rn(x); }
 __device__ __forceinline__ float eig_div(float a, float b) { return __fdiv_rn(a, b); }
@@ -221,50 +254,6 @@ __device__ void eig_slascl(float cfrom, float cto, float* x, int n, int stride) 
     }
     for (int k = 0; k < n; ++k) x[k * stride] = x[k * stride] * mul;
     if (done) return;
-  }
-}
-
-// ssymv lower, beta 0, in OpenBLAS's order; S column-major with leading dimension ld
-__device__ void eig_symv(float alpha, const float* S, int ld, const float* x, float* y, int k) {
-  for (int i = 0; i < k; ++i) y[i] = 0.0f;
-  const int o1 = k / 4 * 4;
-  for (int j = 0; j < o1; j += 4) {
-    float t1[4], t2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int c = 0; c < 4; ++c) t1[c] = alpha * x[j + c];
-    for (int c = 0; c < 4; ++c) y[j + c] = __fmaf_rn(t1[c], S[(j + c) + (j + c) * ld], y[j + c]);
-    for (int c = 0; c < 3; ++c)
-      for (int i = j + c + 1; i < j + 4; ++i) {
-        y[i] = __fmaf_rn(t1[c], S[i + (j + c) * ld], y[i]);
-        t2[c] = __fmaf_rn(S[i + (j + c) * ld], x[i], t2[c]);
-      }
-    int rest = j + 4;
-    if (k - (j + 1) >= 12 && o1 > j + 4) {
-      for (int i = j + 4; i < o1; ++i)
-        for (int c = 0; c < 4; ++c) y[i] = __fmaf_rn(t1[c], S[i + (j + c) * ld], y[i]);
-      for (int c = 0; c < 4; ++c) {
-        float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        for (int r = j + 4; r < o1; r += 4)
-          for (int q = 0; q < 4; ++q) l[q] = __fmaf_rn(S[(r + q) + (j + c) * ld], x[r + q], l[q]);
-        t2[c] = t2[c] + ((l[0] + l[1]) + (l[2] + l[3]));
-      }
-      rest = o1;
-    }
-    for (int i = rest; i < k; ++i)
-      for (int c = 0; c < 4; ++c) {
-        y[i] = __fmaf_rn(t1[c], S[i + (j + c) * ld], y[i]);
-        t2[c] = __fmaf_rn(S[i + (j + c) * ld], x[i], t2[c]);
-      }
-    for (int c = 0; c < 4; ++c) y[j + c] = __fmaf_rn(alpha, t2[c], y[j + c]);
-  }
-  for (int j = o1; j < k; ++j) {
-    const float t1 = alpha * x[j];
-    float t2 = 0.0f;
-    y[j] = __fmaf_rn(t1, S[j + j * ld], y[j]);
-    for (int i = j + 1; i < k; ++i) {
-      y[i] = __fmaf_rn(t1, S[i + j * ld], y[i]);
-      t2 = __fmaf_rn(S[i + j * ld], x[i], t2);
-    }
-    y[j] = __fmaf_rn(alpha, t2, y[j]);
   }
 }
 
@@ -360,18 +349,6 @@ __device__ void eig_slaev2(float a, float b, float c, float* rt1, float* rt2, fl
   *sn1 = s1;
 }
 
-// slasr's plane (j, j + 1) (1-based columns) of Z (column-major, n rows, leading dimension ld)
-__device__ __forceinline__ void eig_rot(float* Z, int n, int ld, int j, float ct, float st) {
-  if (ct == 1.0f && st == 0.0f) return;
-  float* a = Z + (j - 1) * ld;
-  float* b = Z + j * ld;
-  for (int i = 0; i < n; ++i) {
-    const float temp = b[i];
-    b[i] = ct * temp - st * a[i];
-    a[i] = st * temp + ct * a[i];
-  }
-}
-
 __device__ float eig_slanst(const float* d, const float* e, int n) {
   float an = fabsf(d[n - 1]);
   for (int i = 0; i < n - 1; ++i) {
@@ -383,200 +360,7 @@ __device__ float eig_slanst(const float* d, const float* e, int n) {
   return an;
 }
 
-// ssteqr, COMPZ = 'I'; d[n], e[n - 1], Z column-major with leading dimension ld; returns info
-__device__ int eig_ssteqr(float* d, float* e, float* Z, int n, int ld) {
-  for (int j = 0; j < n; ++j)
-    for (int i = 0; i < n; ++i) Z[i + j * ld] = i == j ? 1.0f : 0.0f;
-  if (n <= 1) return 0;
-  const float eps = 0x1p-24f, eps2 = eps * eps;
-  const float ssfmax = eig_div(0x1p63f, 3.0f);  // sqrt(2^126) / 3
-  const float ssfmin = 0x1p-15f;                // sqrt(2^-126) / eps^2
-  const int nmaxit = 30 * n;
-  int jtot = 0, l1 = 1;
-#define D(i) d[(i) - 1]
-#define E(i) e[(i) - 1]
-  while (true) {
-    if (l1 > n) break;
-    if (l1 > 1) E(l1 - 1) = 0.0f;
-    int m = n;
-    for (int mm = l1; mm <= n - 1; ++mm) {
-      const float tst = fabsf(E(mm));
-      if (tst == 0.0f) {
-        m = mm;
-        break;
-      }
-      if (tst <= (eig_sqrt(fabsf(D(mm))) * eig_sqrt(fabsf(D(mm + 1)))) * eps) {
-        E(mm) = 0.0f;
-        m = mm;
-        break;
-      }
-    }
-    int l = l1;
-    const int lsv = l;
-    int lend = m;
-    const int lendsv = lend;
-    l1 = m + 1;
-    if (lend == l) continue;
-    const float anorm = eig_slanst(&D(l), &E(l), lend - l + 1);
-    int iscale = 0;
-    if (anorm == 0.0f) continue;
-    if (anorm > ssfmax) {
-      iscale = 1;
-      eig_slascl(anorm, ssfmax, &D(l), lend - l + 1, 1);
-      eig_slascl(anorm, ssfmax, &E(l), lend - l, 1);
-    } else if (anorm < ssfmin) {
-      iscale = 2;
-      eig_slascl(anorm, ssfmin, &D(l), lend - l + 1, 1);
-      eig_slascl(anorm, ssfmin, &E(l), lend - l, 1);
-    }
-    if (fabsf(D(lend)) < fabsf(D(l))) {
-      lend = lsv;
-      l = lendsv;
-    }
-    if (lend > l) {  // QL
-      while (true) {
-        int mq = lend;
-        if (l != lend)
-          for (int mm = l; mm <= lend - 1; ++mm) {
-            const float tst = fabsf(E(mm)) * fabsf(E(mm));
-            if (tst <= (eps2 * fabsf(D(mm))) * fabsf(D(mm + 1)) + EIG_SAFMIN) {
-              mq = mm;
-              break;
-            }
-          }
-        m = mq;
-        if (m < lend) E(m) = 0.0f;
-        float p = D(l);
-        if (m == l) {
-          D(l) = p;
-          l = l + 1;
-          if (l <= lend) continue;
-          break;
-        }
-        if (m == l + 1) {
-          float rt1, rt2, c, s;
-          eig_slaev2(D(l), E(l), D(l + 1), &rt1, &rt2, &c, &s);
-          eig_rot(Z, n, ld, l, c, s);
-          D(l) = rt1;
-          D(l + 1) = rt2;
-          E(l) = 0.0f;
-          l = l + 2;
-          if (l <= lend) continue;
-          break;
-        }
-        if (jtot == nmaxit) break;
-        jtot = jtot + 1;
-        float g = eig_div(D(l + 1) - p, 2.0f * E(l));
-        float r = eig_slapy2(g, 1.0f);
-        g = (D(m) - p) + eig_div(E(l), g + copysignf(r, g));
-        float s = 1.0f, c = 1.0f;
-        p = 0.0f;
-        for (int i = m - 1; i >= l; --i) {
-          const float f = s * E(i), b = c * E(i);
-          eig_slartg(g, f, &c, &s, &r);
-          if (i != m - 1) E(i + 1) = r;
-          g = D(i + 1) - p;
-          r = (D(i) - g) * s + (2.0f * c) * b;
-          p = s * r;
-          D(i + 1) = g + p;
-          g = c * r - b;
-          eig_rot(Z, n, ld, i, c, -s);
-        }
-        D(l) = D(l) - p;
-        E(l) = g;
-      }
-    } else {  // QR
-      while (true) {
-        int mq = lend;
-        if (l != lend)
-          for (int mm = l; mm >= lend + 1; --mm) {
-            const float tst = fabsf(E(mm - 1)) * fabsf(E(mm - 1));
-            if (tst <= (eps2 * fabsf(D(mm))) * fabsf(D(mm - 1)) + EIG_SAFMIN) {
-              mq = mm;
-              break;
-            }
-          }
-        m = mq;
-        if (m > lend) E(m - 1) = 0.0f;
-        float p = D(l);
-        if (m == l) {
-          D(l) = p;
-          l = l - 1;
-          if (l >= lend) continue;
-          break;
-        }
-        if (m == l - 1) {
-          float rt1, rt2, c, s;
-          eig_slaev2(D(l - 1), E(l - 1), D(l), &rt1, &rt2, &c, &s);
-          eig_rot(Z, n, ld, l - 1, c, s);
-          D(l - 1) = rt1;
-          D(l) = rt2;
-          E(l - 1) = 0.0f;
-          l = l - 2;
-          if (l >= lend) continue;
-          break;
-        }
-        if (jtot == nmaxit) break;
-        jtot = jtot + 1;
-        float g = eig_div(D(l - 1) - p, 2.0f * E(l - 1));
-        float r = eig_slapy2(g, 1.0f);
-        g = (D(m) - p) + eig_div(E(l - 1), g + copysignf(r, g));
-        float s = 1.0f, c = 1.0f;
-        p = 0.0f;
-        for (int i = m; i <= l - 1; ++i) {
-          const float f = s * E(i), b = c * E(i);
-          eig_slartg(g, f, &c, &s, &r);
-          if (i != m) E(i - 1) = r;
-          g = D(i) - p;
-          r = (D(i + 1) - g) * s + (2.0f * c) * b;
-          p = s * r;
-          D(i) = g + p;
-          g = c * r - b;
-          eig_rot(Z, n, ld, i, c, s);
-        }
-        D(l) = D(l) - p;
-        E(l - 1) = g;
-      }
-    }
-    if (iscale == 1) {
-      eig_slascl(ssfmax, anorm, &D(lsv), lendsv - lsv + 1, 1);
-      eig_slascl(ssfmax, anorm, &E(lsv), lendsv - lsv, 1);
-    } else if (iscale == 2) {
-      eig_slascl(ssfmin, anorm, &D(lsv), lendsv - lsv + 1, 1);
-      eig_slascl(ssfmin, anorm, &E(lsv), lendsv - lsv, 1);
-    }
-    if (jtot >= nmaxit) {
-      int info = 0;
-      for (int i = 1; i <= n - 1; ++i)
-        if (E(i) != 0.0f) ++info;
-      return info;
-    }
-  }
-  for (int ii = 2; ii <= n; ++ii) {  // selection sort
-    const int i = ii - 1;
-    int k = i;
-    float p = D(i);
-    for (int j = ii; j <= n; ++j)
-      if (D(j) < p) {
-        k = j;
-        p = D(j);
-      }
-    if (k != i) {
-      D(k) = D(i);
-      D(i) = p;
-      for (int r = 0; r < n; ++r) {
-        const float t = Z[r + (i - 1) * ld];
-        Z[r + (i - 1) * ld] = Z[r + (k - 1) * ld];
-        Z[r + (k - 1) * ld] = t;
-      }
-    }
-  }
-#undef D
-#undef E
-  return 0;
-}
-
-// ---- sstedc's divide and conquer (n = 26-32: one cut, two halves by ssteqr)
+// ---- the divide and conquer's scalar routines (a thread each)
 
 // slamrg: the 0-based order merging a[0, n1) ascending with a[n1, n1 + n2)
 // read forwards (s2 = 1) or backwards (s2 = -1); ties take the first run
@@ -976,244 +760,16 @@ __device__ int eig_slaed4(int n, int i, const float* d, const float* z, float* d
 #undef Z
 #undef DL
 }
+// ---- the block's pieces (every thread calls them; each ends at a barrier)
 
-// The merge of sstedc's two halves (slaed1 -> slaed2 -> slaed3), in place:
-// d[n] holds the halves' eigenvalues (each ascending), Q (leading dimension
-// ld) their eigenvectors block-diagonally, rho the cut's off-diagonal;
-// indxq[n] gets the ascending order of the merged eigenvalues (0-based).
-struct EigMerge {
-  float z[EIG_N], dlamda[EIG_N], w[EIG_N], q2[EIG_N * EIG_N], s[EIG_N * EIG_N];
-  int indx[EIG_N], indxc[EIG_N], indxp[EIG_N], coltyp[EIG_N];
-};
-
-__device__ int eig_slaed1(int n, float* d, float* Q, int ld, int* indxq, float rho, int n1, EigMerge& m) {
-  const int n2 = n - n1;
-  for (int j = 0; j < n1; ++j) m.z[j] = Q[(n1 - 1) + j * ld];
-  for (int j = n1; j < n; ++j) m.z[j] = Q[n1 + j * ld];
-  for (int j = 0; j < n; ++j) indxq[j] = j < n1 ? j : j - n1;
-  // ---- slaed2: deflation
-  if (rho < 0.0f)
-    for (int j = n1; j < n; ++j) m.z[j] = m.z[j] * -1.0f;
-  const float t = 0x1.6a09e6p-1f;  // ONE / SQRT(TWO) in f32
-  for (int j = 0; j < n; ++j) m.z[j] = m.z[j] * t;
-  rho = fabsf(2.0f * rho);
-  for (int j = n1; j < n; ++j) indxq[j] += n1;
-  for (int j = 0; j < n; ++j) m.dlamda[j] = d[indxq[j]];
-  eig_slamrg(n1, n2, m.dlamda, 1, m.indxc);
-  for (int j = 0; j < n; ++j) m.indx[j] = indxq[m.indxc[j]];
-  int imax = 0, jmax = 0;
-  for (int j = 1; j < n; ++j) {
-    if (fabsf(m.z[j]) > fabsf(m.z[imax])) imax = j;
-    if (fabsf(d[j]) > fabsf(d[jmax])) jmax = j;
-  }
-  const float tol = 8.0f * 0x1p-24f * fmaxf(fabsf(d[jmax]), fabsf(m.z[imax]));
-  int k = 0;
-  if (rho * fabsf(m.z[imax]) <= tol) {  // nothing to merge: the columns in d's order
-    for (int j = 0; j < n; ++j) {
-      const int c = m.indx[j];
-      for (int r = 0; r < n; ++r) m.q2[r + j * n] = Q[r + c * ld];
-      m.dlamda[j] = d[c];
-    }
-    for (int j = 0; j < n; ++j)
-      for (int r = 0; r < n; ++r) Q[r + j * ld] = m.q2[r + j * n];
-    for (int j = 0; j < n; ++j) d[j] = m.dlamda[j], indxq[j] = j;
-    return 0;
-  }
-  for (int j = 0; j < n; ++j) m.coltyp[j] = j < n1 ? 1 : 3;
-  int k2 = n, pj = -1;
-  for (int j = 0; j < n; ++j) {
-    const int nj = m.indx[j];
-    if (rho * fabsf(m.z[nj]) <= tol) {  // a negligible z component
-      m.coltyp[nj] = 4;
-      m.indxp[--k2] = nj;
-      continue;
-    }
-    if (pj < 0) {
-      pj = nj;
-      continue;
-    }
-    float s = m.z[pj], c = m.z[nj];
-    const float tau = eig_slapy2(c, s), tt = d[nj] - d[pj];
-    c = eig_div(c, tau);
-    s = eig_div(-s, tau);
-    if (fabsf(tt * c * s) <= tol) {  // two close eigenvalues: a rotation zeroes z(pj)
-      m.z[nj] = tau;
-      m.z[pj] = 0.0f;
-      if (m.coltyp[nj] != m.coltyp[pj]) m.coltyp[nj] = 2;
-      m.coltyp[pj] = 4;
-      for (int r = 0; r < n; ++r) {  // OpenBLAS's srot
-        const float x = Q[r + pj * ld], y = Q[r + nj * ld];
-        Q[r + pj * ld] = __fmaf_rn(c, x, s * y);
-        Q[r + nj * ld] = __fmaf_rn(c, y, -(s * x));
-      }
-      const float dp = d[pj], dn = d[nj];
-      const float tp = dp * (c * c) + dn * (s * s);
-      d[nj] = dp * (s * s) + dn * (c * c);
-      d[pj] = tp;
-      int at = --k2;
-      while (at + 1 < n && d[pj] < d[m.indxp[at + 1]]) {
-        m.indxp[at] = m.indxp[at + 1];
-        ++at;
-      }
-      m.indxp[at] = pj;
-    } else {
-      m.dlamda[k] = d[pj];
-      m.w[k] = m.z[pj];
-      m.indxp[k++] = pj;
-    }
-    pj = nj;
-  }
-  m.dlamda[k] = d[pj];
-  m.w[k] = m.z[pj];
-  m.indxp[k++] = pj;
-  // group the columns: 1 (top half only), 2 (both), 3 (bottom only), 4 (deflated)
-  int ctot[4] = {0, 0, 0, 0}, psm[4];
-  for (int j = 0; j < n; ++j) ++ctot[m.coltyp[j] - 1];
-  psm[0] = 0;
-  for (int q = 1; q < 4; ++q) psm[q] = psm[q - 1] + ctot[q - 1];
-  for (int j = 0; j < n; ++j) {
-    const int js = m.indxp[j], ct = m.coltyp[js] - 1;
-    m.indx[psm[ct]] = js;
-    m.indxc[psm[ct]++] = j;
-  }
-  // q2: the columns in that order (whole), their eigenvalues in z
-  for (int j = 0; j < n; ++j) {
-    const int js = m.indx[j];
-    for (int r = 0; r < n; ++r) m.q2[r + j * n] = Q[r + js * ld];
-    m.z[j] = d[js];
-  }
-  for (int j = k; j < n; ++j) {
-    for (int r = 0; r < n; ++r) Q[r + j * ld] = m.q2[r + j * n];
-    d[j] = m.z[j];
-  }
-  // ---- slaed3: the secular equation's roots and vectors
-  int info = 0;
-  for (int j = 0; j < k; ++j) {
-    float* col = Q + j * ld;
-    if (k == 1) {
-      d[0] = m.dlamda[0] + rho * m.w[0] * m.w[0];
-      col[0] = 1.0f;
-    } else if (k == 2) {
-      eig_slaed5(j + 1, m.dlamda, m.w, col, rho, &d[j]);
-    } else {
-      info = eig_slaed4(k, j + 1, m.dlamda, m.w, col, rho, &d[j]);
-      if (info != 0) return info;
-    }
-  }
-  if (k >= 3) {
-    float wv[EIG_N];
-    for (int q = 0; q < k; ++q) wv[q] = Q[q + q * ld];
-    for (int j = 0; j < k; ++j)
-      for (int q = 0; q < k; ++q)
-        if (q != j) wv[q] = wv[q] * eig_div(Q[q + j * ld], m.dlamda[q] - m.dlamda[j]);
-    for (int q = 0; q < k; ++q) wv[q] = copysignf(eig_sqrt(-wv[q]), m.w[q]);
-    for (int j = 0; j < k; ++j) {
-      float sv[EIG_N];
-      for (int q = 0; q < k; ++q) sv[q] = eig_div(wv[q], Q[q + j * ld]);
-      const float nrm = eig_snrm2(sv, k);
-      for (int q = 0; q < k; ++q) Q[q + j * ld] = eig_div(sv[m.indxc[q]], nrm);
-    }
-  } else if (k == 2) {
-    for (int j = 0; j < 2; ++j) {
-      const float a = Q[0 + j * ld], b = Q[1 + j * ld];
-      Q[0 + j * ld] = m.indxc[0] == 0 ? a : b;
-      Q[1 + j * ld] = m.indxc[1] == 0 ? a : b;
-    }
-  }
-  // sgemm (one FMA chain a value): the bottom rows from the columns of types 2, 3, the top from types 1, 2
-  const int n12 = ctot[0] + ctot[1], n23 = ctot[1] + ctot[2];
-  for (int j = 0; j < k; ++j)
-    for (int q = 0; q < k; ++q) m.s[q + j * n] = Q[q + j * ld];
-  for (int j = 0; j < k; ++j) {
-    for (int r = n1; r < n; ++r) {
-      float acc = 0.0f;
-      for (int q = 0; q < n23; ++q) acc = __fmaf_rn(m.q2[r + (ctot[0] + q) * n], m.s[(ctot[0] + q) + j * n], acc);
-      Q[r + j * ld] = acc;
-    }
-    for (int r = 0; r < n1; ++r) {
-      float acc = 0.0f;
-      for (int q = 0; q < n12; ++q) acc = __fmaf_rn(m.q2[r + q * n], m.s[q + j * n], acc);
-      Q[r + j * ld] = acc;
-    }
-  }
-  eig_slamrg(k, n - k, d, -1, indxq);
-  return 0;
-}
-
-// sstedc, COMPZ = 'I' (Z column-major n x n): ssteqr for n <= SMLSIZ;
-// otherwise split where |e_f| <= eps sqrt|d_f| sqrt|d_f+1|, blocks above
-// SMLSIZ scaled to norm 1, cut in two halves (ssteqr each) and merged, the
-// others ssteqr, then the selection sort
-__device__ int eig_sstedc(float* d, float* e, float* Z, int n) {
-  if (n <= EIG_SMLSIZ) return eig_ssteqr(d, e, Z, n, n);
-  for (int j = 0; j < n; ++j)
-    for (int i = 0; i < n; ++i) Z[i + j * n] = i == j ? 1.0f : 0.0f;
-  if (eig_slanst(d, e, n) == 0.0f) return 0;
-  const float eps = 0x1p-24f;
-  EigMerge mw;
-  int indxq[EIG_N];
-  for (int start = 0; start < n;) {
-    int finish = start;
-    while (finish < n - 1 && fabsf(e[finish]) > eps * eig_sqrt(fabsf(d[finish])) * eig_sqrt(fabsf(d[finish + 1])))
-      ++finish;
-    const int m = finish - start + 1;
-    if (m > EIG_SMLSIZ) {
-      float* db = d + start;
-      float* eb = e + start;
-      float* Q = Z + start + start * n;
-      const float nrm = eig_slanst(db, eb, m);
-      eig_slascl(nrm, 1.0f, db, m, 1);
-      eig_slascl(nrm, 1.0f, eb, m - 1, 1);
-      const int n1 = m / 2;
-      const float r = fabsf(eb[n1 - 1]);
-      db[n1 - 1] = db[n1 - 1] - r;
-      db[n1] = db[n1] - r;
-      if (eig_ssteqr(db, eb, Q, n1, n) != 0 || eig_ssteqr(db + n1, eb + n1, Q + n1 + n1 * n, m - n1, n) != 0)
-        return (start + 1) * (n + 1) + finish + 1;
-      if (eig_slaed1(m, db, Q, n, indxq, eb[n1 - 1], n1, mw) != 0) return (start + 1) * (n + 1) + finish + 1;
-      // re-merge in ascending order
-      for (int j = 0; j < m; ++j) {
-        mw.dlamda[j] = db[indxq[j]];
-        for (int q = 0; q < m; ++q) mw.q2[q + j * m] = Q[q + indxq[j] * n];
-      }
-      for (int j = 0; j < m; ++j) {
-        db[j] = mw.dlamda[j];
-        for (int q = 0; q < m; ++q) Q[q + j * n] = mw.q2[q + j * m];
-      }
-      eig_slascl(1.0f, nrm, db, m, 1);
-    } else if (m > 1) {
-      if (eig_ssteqr(d + start, e + start, Z + start + start * n, m, n) != 0) return (start + 1) * (n + 1) + finish + 1;
-    }
-    start = finish + 1;
-  }
-  for (int ii = 2; ii <= n; ++ii) {  // selection sort
-    const int i = ii - 1;
-    int k = i;
-    float p = d[i - 1];
-    for (int j = ii; j <= n; ++j)
-      if (d[j - 1] < p) {
-        k = j;
-        p = d[j - 1];
-      }
-    if (k != i) {
-      d[k - 1] = d[i - 1];
-      d[i - 1] = p;
-      for (int r = 0; r < n; ++r) {
-        const float t = Z[r + (i - 1) * n];
-        Z[r + (i - 1) * n] = Z[r + (k - 1) * n];
-        Z[r + (k - 1) * n] = t;
-      }
-    }
-  }
-  return 0;
-}
-
-// OpenBLAS's sgemv 'T' of one column a[0..m) with v by a postfix program
-__device__ float eig_form(const int* ops, int len, const float* a, const float* v) {
-  float st[EIG_N];
+// OpenBLAS's sgemv 'T' of one column a[0..m) with v by a postfix program;
+// kind 0, 1, 2: the column's kernel takes 4, 2 or 1 columns at once
+__device__ float eig_form(int kind, int m, const float* a, const float* v) {
+  float st[8];
   int top = 0;
-  for (int q = 0; q < len; ++q) {
-    const int op = ops[q] >> 6, r = ops[q] & 63;
+  const int end = eig_offs[kind * EIG_N + m + 1];
+  for (int q = eig_offs[kind * EIG_N + m]; q < end; ++q) {
+    const int op = eig_ops[q] >> 6, r = eig_ops[q] & 63;
     if (op == 0) {
       st[top++] = a[r] * v[r];
     } else if (op == 1) {
@@ -1228,136 +784,1014 @@ __device__ float eig_form(const int* ops, int len, const float* a, const float* 
   return st[0];
 }
 
-__global__ void syevd_small_kernel(const float* __restrict__ G, float* __restrict__ W, float* __restrict__ V,
-                                   int* __restrict__ info_out, const int* __restrict__ ops,
-                                   const int* __restrict__ offs, int B, int n) {
-  const int bidx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (bidx >= B) return;
-  float A[EIG_N * EIG_N], Z[EIG_N * EIG_N], d[EIG_N], e[EIG_N], tau[EIG_N], w[EIG_N], v[EIG_N];
-  const float* g = G + (long long)bidx * n * n;
-  for (int j = 0; j < n; ++j)
-    for (int i = 0; i < n; ++i) A[i + j * n] = g[i * n + j];
-  int info = 0;
-  if (n == 1) {
-    W[bidx] = A[0];
-    V[(long long)bidx] = 1.0f;
-    info_out[bidx] = 0;
+// the sgemv 'T' kernel of column j of ncols: groups of 4, a pair, one
+__device__ __forceinline__ int eig_kind(int j, int ncols) {
+  const int n4 = ncols - ncols % 4;
+  return j < n4 ? 0 : ((ncols % 4 & 2) && j < n4 + 2 ? 1 : 2);
+}
+
+// OpenBLAS's sgemv 'N' (alpha -1, beta 1) for row r of m: y - A[r, :k] x,
+// one FMA chain over the columns; at k = 4 the first 4 floor((m mod 16) / 4)
+// rows sum (p0 fused with p2) + (p1 fused with p3)
+__device__ float eig_gemv_n(const float* A, int r, int k, const float* x, int xs, float y, int m) {
+  if (k == 0) return y;
+  float acc;
+  if (k == 4 && r < (m % 16) / 4 * 4) {
+    acc = __fmaf_rn(A[r + 2 * EIG_LD], x[2 * xs], A[r] * x[0]) +
+          __fmaf_rn(A[r + 3 * EIG_LD], x[3 * xs], A[r + EIG_LD] * x[xs]);
+  } else {
+    acc = 0.0f;
+    for (int j = 0; j < k; ++j) acc = __fmaf_rn(A[r + j * EIG_LD], x[j * xs], acc);
+  }
+  return y - acc;
+}
+
+// ssymv lower, beta 0, in OpenBLAS's order: y = alpha S x over k rows. The
+// column dots t2 first (a thread a column: the block's triangle, then 4
+// lanes where at least 12 rows lie below the block, the rest in a chain),
+// then each row's chain over its columns in order (a thread a row)
+__device__ void eig_symv(float alpha, const float* S, const float* x, float* y, float* t2, int k) {
+  const int o1 = k / 4 * 4;
+  for (int c = EIG_TID; c < k; c += EIG_NTH) {
+    float acc = 0.0f;
+    int rest = c + 1;
+    if (c < o1) {
+      const int j = c / 4 * 4;
+      for (int i = c + 1; i < j + 4; ++i) acc = __fmaf_rn(S[i + c * EIG_LD], x[i], acc);
+      rest = j + 4;
+      if (k - (j + 1) >= 12 && o1 > j + 4) {
+        float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int r = j + 4; r < o1; r += 4)
+          for (int q = 0; q < 4; ++q) l[q] = __fmaf_rn(S[(r + q) + c * EIG_LD], x[r + q], l[q]);
+        acc = acc + ((l[0] + l[1]) + (l[2] + l[3]));
+        rest = o1;
+      }
+    }
+    for (int i = rest; i < k; ++i) acc = __fmaf_rn(S[i + c * EIG_LD], x[i], acc);
+    t2[c] = acc;
+  }
+  __syncthreads();
+  for (int i = EIG_TID; i < k; i += EIG_NTH) {
+    float acc = 0.0f;
+    for (int j = 0; j < o1 && j <= i; j += 4) {
+      if (i >= j + 4) {
+        for (int c = 0; c < 4; ++c) acc = __fmaf_rn(alpha * x[j + c], S[i + (j + c) * EIG_LD], acc);
+      } else {
+        acc = __fmaf_rn(alpha * x[i], S[i + i * EIG_LD], acc);
+        for (int c = j; c < i; ++c) acc = __fmaf_rn(alpha * x[c], S[i + c * EIG_LD], acc);
+        acc = __fmaf_rn(alpha, t2[i], acc);
+      }
+    }
+    if (i >= o1) {
+      for (int j = o1; j < i; ++j) acc = __fmaf_rn(alpha * x[j], S[i + j * EIG_LD], acc);
+      acc = __fmaf_rn(alpha * x[i], S[i + i * EIG_LD], acc);
+      acc = __fmaf_rn(alpha, t2[i], acc);
+    }
+    y[i] = acc;
+  }
+  __syncthreads();
+}
+
+// OpenBLAS's sdot: the first 32 products (n >= 32) in 8 f32 lanes added
+// ((0+4) + (1+5)) + ((2+6) + (3+7)), the other products added in f64
+__device__ float eig_sdot(const float* x, const float* y, int n) {
+  double acc = 0.0;
+  int k0 = 0;
+  if (n >= 32) {
+    float s[8];
+    for (int l = 0; l < 8; ++l) s[l] = ((x[l] * y[l] + x[l + 8] * y[l + 8]) + x[l + 16] * y[l + 16]) + x[l + 24] * y[l + 24];
+    float h[4];
+    for (int l = 0; l < 4; ++l) h[l] = s[l] + s[l + 4];
+    acc = (double)((h[0] + h[1]) + (h[2] + h[3]));
+    k0 = 32;
+  }
+  for (int k = k0; k < n; ++k) acc = acc + (double)(x[k] * y[k]);
+  return (float)acc;
+}
+
+// slarfg (thread 0): alpha in *beta_io, x[k] -> beta, tau, v (in x)
+__device__ void eig_slarfg(float* beta_io, float* x, int k, float* tau_out) {
+  float alpha = *beta_io, beta = alpha, taui = 0.0f;
+  if (k > 0) {
+    const float xnorm = eig_snrm2(x, k);
+    if (xnorm != 0.0f) {
+      beta = -copysignf(eig_slapy2(alpha, xnorm), alpha);
+      const float safmin = 0x1p-102f, rsafmn = 0x1p102f;  // slamch('S') / slamch('E') and its inverse
+      int knt = 0;
+      if (fabsf(beta) < safmin) {
+        do {
+          ++knt;
+          for (int q = 0; q < k; ++q) x[q] = x[q] * rsafmn;
+          beta = beta * rsafmn;
+          alpha = alpha * rsafmn;
+        } while (fabsf(beta) < safmin && knt < 20);
+        beta = -copysignf(eig_slapy2(alpha, eig_snrm2(x, k)), alpha);
+      }
+      taui = eig_div(beta - alpha, beta);
+      const float sc = eig_div(1.0f, alpha - beta);
+      for (int q = 0; q < k; ++q) x[q] = x[q] * sc;
+      for (int q = 0; q < knt; ++q) beta = beta * safmin;
+    }
+  }
+  *beta_io = beta;
+  *tau_out = taui;
+}
+
+// ssytd2, lower, on the m x m block of A at (off, off): d, e, tau at off
+__device__ void eig_ssytd2(EigShared& sh, int off, int m) {
+  float* A = sh.A + off * (1 + EIG_LD);
+  for (int i = 0; i < m - 1; ++i) {
+    if (EIG_TID == 0) {
+      float beta = A[(i + 1) + i * EIG_LD], taui;
+      eig_slarfg(&beta, &A[(i + 2) + i * EIG_LD], m - i - 2, &taui);
+      sh.e[off + i] = beta;
+      sh.tau[off + i] = taui;
+      A[(i + 1) + i * EIG_LD] = 1.0f;
+    }
+    __syncthreads();
+    const float taui = sh.tau[off + i];
+    const int mm = m - i - 1;
+    const float* vv = &A[(i + 1) + i * EIG_LD];
+    float* S = &A[(i + 1) + (i + 1) * EIG_LD];
+    if (taui != 0.0f) {
+      eig_symv(taui, S, vv, sh.w, sh.t, mm);
+      if (EIG_TID == 0) sh.fb = (-0.5f * taui) * eig_sdot(sh.w, vv, mm);
+      __syncthreads();
+      const float alph = sh.fb;
+      for (int q = EIG_TID; q < mm; q += EIG_NTH) sh.w[q] = __fmaf_rn(alph, vv[q], sh.w[q]);
+      __syncthreads();
+      for (int idx = EIG_TID; idx < mm * mm; idx += EIG_NTH) {  // ssyr2: a thread an element
+        const int r = idx % mm, c = idx / mm;
+        if (r >= c) S[r + c * EIG_LD] = __fmaf_rn(-sh.w[c], vv[r], __fmaf_rn(-vv[c], sh.w[r], S[r + c * EIG_LD]));
+      }
+      __syncthreads();
+    }
+    if (EIG_TID == 0) {
+      A[(i + 1) + i * EIG_LD] = sh.e[off + i];
+      sh.d[off + i] = A[i + i * EIG_LD];
+    }
+    __syncthreads();
+  }
+  if (EIG_TID == 0) sh.d[off + m - 1] = A[(m - 1) + (m - 1) * EIG_LD];
+  __syncthreads();
+}
+
+// ssytrd, lower: ssytd2 up to NB rows; above, slatrd on the first NB
+// columns (W in shared memory), ssyr2k on the trailing rows, ssytd2 on them
+__device__ void eig_ssytrd(EigShared& sh, int n) {
+  if (n <= EIG_NB) {
+    eig_ssytd2(sh, 0, n);
     return;
   }
-  // slansy('M', 'L') and the scaling of ssyevd
-  float anrm = 0.0f;
-  for (int j = 0; j < n; ++j)
-    for (int i = j; i < n; ++i) {
-      const float s = fabsf(A[i + j * n]);
-      if (anrm < s || isnan(s)) anrm = s;
-    }
-  const float rmin = 0x1.6a09e6p-52f, rmax = 0x1.6a09e6p+51f;  // f32 sqrt(2^-103), sqrt(2^103)
-  bool scaled = false;
-  float sigma = 1.0f;
-  if (anrm > 0.0f && anrm < rmin) {
-    scaled = true;
-    sigma = eig_div(rmin, anrm);
-  } else if (anrm > rmax) {
-    scaled = true;
-    sigma = eig_div(rmax, anrm);
-  }
-  if (scaled)
-    for (int j = 0; j < n; ++j) eig_slascl(1.0f, sigma, &A[j + j * n], n - j, 1);
-  // ssytd2, lower
-  for (int i = 0; i < n - 1; ++i) {
-    float alpha = A[(i + 1) + i * n];
-    float* x = &A[(i + 2) + i * n];
-    const int k = n - i - 2;  // length of x
-    float taui = 0.0f, beta = alpha;
-    if (k > 0) {
-      const float xnorm = eig_snrm2(x, k);
-      if (xnorm != 0.0f) {
-        beta = -copysignf(eig_slapy2(alpha, xnorm), alpha);
-        const float safmin = 0x1p-102f, rsafmn = 0x1p102f;  // slamch('S') / slamch('E') and its inverse
-        int knt = 0;
-        if (fabsf(beta) < safmin) {
-          do {
-            ++knt;
-            for (int q = 0; q < k; ++q) x[q] = x[q] * rsafmn;
-            beta = beta * rsafmn;
-            alpha = alpha * rsafmn;
-          } while (fabsf(beta) < safmin && knt < 20);
-          beta = -copysignf(eig_slapy2(alpha, eig_snrm2(x, k)), alpha);
-        }
-        taui = eig_div(beta - alpha, beta);
-        const float sc = eig_div(1.0f, alpha - beta);
-        for (int q = 0; q < k; ++q) x[q] = x[q] * sc;
-        for (int q = 0; q < knt; ++q) beta = beta * safmin;
+  float* A = sh.A;
+  float* W = sh.W;
+  for (int i = 0; i < EIG_NB; ++i) {
+    if (i > 0) {  // A(i:, i) -= A(i:, :i) W(i, :i)^T + W(i:, :i) A(i, :i)^T
+      const int m = n - i;
+      for (int r = EIG_TID; r < m; r += EIG_NTH) {
+        float y = A[(i + r) + i * EIG_LD];
+        y = eig_gemv_n(A + i, r, i, W + i, EIG_LD, y, m);
+        y = eig_gemv_n(W + i, r, i, A + i, EIG_LD, y, m);
+        A[(i + r) + i * EIG_LD] = y;
       }
+      __syncthreads();
     }
-    e[i] = beta;
-    if (taui != 0.0f) {
-      const int m = n - i - 1;
-      A[(i + 1) + i * n] = 1.0f;
-      const float* vv = &A[(i + 1) + i * n];
-      float* S = &A[(i + 1) + (i + 1) * n];
-      eig_symv(taui, S, n, vv, w, m);
-      double dot = 0.0;
-      for (int q = 0; q < m; ++q) dot = dot + (double)(w[q] * vv[q]);
-      const float alph = (-0.5f * taui) * (float)dot;
-      for (int q = 0; q < m; ++q) w[q] = __fmaf_rn(alph, vv[q], w[q]);
-      for (int c = 0; c < m; ++c) {
-        const float xc = -vv[c], yc = -w[c];
-        for (int r = c; r < m; ++r) S[r + c * n] = __fmaf_rn(xc, w[r], S[r + c * n]);
-        for (int r = c; r < m; ++r) S[r + c * n] = __fmaf_rn(yc, vv[r], S[r + c * n]);
-      }
+    if (EIG_TID == 0) {
+      float beta = A[(i + 1) + i * EIG_LD], taui;
+      eig_slarfg(&beta, &A[(i + 2) + i * EIG_LD], n - i - 2, &taui);
+      sh.e[i] = beta;
+      sh.tau[i] = taui;
+      A[(i + 1) + i * EIG_LD] = 1.0f;
     }
-    A[(i + 1) + i * n] = beta;
-    d[i] = A[i + i * n];
-    tau[i] = taui;
+    __syncthreads();
+    const int mm = n - i - 1;
+    const float taui = sh.tau[i];
+    const float* vv = &A[(i + 1) + i * EIG_LD];
+    float* wc = &W[(i + 1) + i * EIG_LD];
+    eig_symv(1.0f, &A[(i + 1) + (i + 1) * EIG_LD], vv, wc, sh.t, mm);
+    if (i > 0) {
+      for (int c = EIG_TID; c < i; c += EIG_NTH) sh.v[c] = eig_form(eig_kind(c, i), mm, &W[(i + 1) + c * EIG_LD], vv);
+      __syncthreads();
+      for (int r = EIG_TID; r < mm; r += EIG_NTH) wc[r] = eig_gemv_n(A + i + 1, r, i, sh.v, 1, wc[r], mm);
+      __syncthreads();
+      for (int c = EIG_TID; c < i; c += EIG_NTH) sh.v[c] = eig_form(eig_kind(c, i), mm, &A[(i + 1) + c * EIG_LD], vv);
+      __syncthreads();
+      for (int r = EIG_TID; r < mm; r += EIG_NTH) wc[r] = eig_gemv_n(W + i + 1, r, i, sh.v, 1, wc[r], mm);
+      __syncthreads();
+    }
+    for (int r = EIG_TID; r < mm; r += EIG_NTH) wc[r] = taui == 0.0f ? 0.0f : wc[r] * taui;  // sscal
+    __syncthreads();
+    if (EIG_TID == 0) sh.fb = (-0.5f * taui) * eig_sdot(wc, vv, mm);
+    __syncthreads();
+    const float alph = sh.fb;
+    if (alph != 0.0f)  // saxpy returns at once on a zero alpha
+      for (int r = EIG_TID; r < mm; r += EIG_NTH) wc[r] = __fmaf_rn(alph, vv[r], wc[r]);
+    __syncthreads();
   }
-  d[n - 1] = A[(n - 1) + (n - 1) * n];
-  e[n - 1] = 0.0f;
-  info = eig_sstedc(d, e, Z, n);
-  // sormtr = sorm2r on Z(2:n, :), H(n - 1) first
-  for (int i = n - 2; i >= 0; --i) {
-    if (tau[i] == 0.0f) continue;
-    const int m = n - 1 - i;
-    v[0] = 1.0f;
-    for (int q = 1; q < m; ++q) v[q] = A[(i + 1 + q) + i * n];
-    int lastv = m;
-    while (lastv > 0 && v[lastv - 1] == 0.0f) --lastv;
-    float* C = &Z[1 + i];  // rows 1 + i .. n - 1, leading dimension n
-    int lastc = 0;
-    for (int j = n - 1; j >= 0 && lastc == 0; --j)
-      for (int r = 0; r < lastv; ++r)
-        if (C[r + j * n] != 0.0f) {
-          lastc = j + 1;
+  const int m2 = n - EIG_NB;  // ssyr2k: C += (-A2 W2^T) + (-W2 A2^T), each an FMA chain over the NB terms
+  for (int idx = EIG_TID; idx < m2 * m2; idx += EIG_NTH) {
+    const int r = idx % m2, c = idx / m2;
+    if (r < c) continue;
+    float a1 = 0.0f, a2 = 0.0f;
+    for (int q = 0; q < EIG_NB; ++q) {
+      a1 = __fmaf_rn(A[(EIG_NB + r) + q * EIG_LD], W[(EIG_NB + c) + q * EIG_LD], a1);
+      a2 = __fmaf_rn(A[(EIG_NB + c) + q * EIG_LD], W[(EIG_NB + r) + q * EIG_LD], a2);
+    }
+    float* C = &A[(EIG_NB + r) + (EIG_NB + c) * EIG_LD];
+    *C = *C + ((-a1) + (-a2));
+  }
+  __syncthreads();
+  if (EIG_TID == 0)
+    for (int j = 0; j < EIG_NB; ++j) {
+      A[(j + 1) + j * EIG_LD] = sh.e[j];
+      sh.d[j] = A[j + j * EIG_LD];
+    }
+  __syncthreads();
+  eig_ssytd2(sh, EIG_NB, n - EIG_NB);
+}
+
+// ---- ssteqr: thread 0 steps through the routine, the block rotates Z's rows
+
+struct EigSteqr {
+  int l1, l, lend, lsv, lendsv, jtot, iscale, phase;  // phase 0 split, 1 QL, 2 QR, 5 unscale, 3 done, 4 failed
+  float anorm;
+};
+
+// thread 0: ssteqr's scalar steps up to its next batch of rotations
+// (sh.nrot: a 2 x 2 block's or a sweep's, in slasr's order) or its end
+__device__ void eig_steqr_step(EigSteqr& s, float* d, float* e, int n, EigShared& sh) {
+  const float eps = 0x1p-24f, eps2 = eps * eps;
+  const float ssfmax = eig_div(0x1p63f, 3.0f);  // sqrt(2^126) / 3
+  const float ssfmin = 0x1p-15f;                // sqrt(2^-126) / eps^2
+  const int nmaxit = 30 * n;
+  sh.nrot = 0;
+#define D(i) d[(i) - 1]
+#define E(i) e[(i) - 1]
+  while (true) {
+    if (s.phase == 0) {
+      if (s.l1 > n) {
+        s.phase = 3;
+        return;
+      }
+      if (s.l1 > 1) E(s.l1 - 1) = 0.0f;
+      int m = n;
+      for (int mm = s.l1; mm <= n - 1; ++mm) {
+        const float tst = fabsf(E(mm));
+        if (tst == 0.0f) {
+          m = mm;
           break;
         }
-    if (lastv == 0 || lastc == 0) continue;
-    const int n4 = lastc - lastc % 4;
-    for (int j = 0; j < lastc; ++j) {
-      const int kind = j < n4 ? 0 : (lastc % 4 & 2) && j < n4 + 2 ? 1 : 2;
-      const int o = offs[kind * EIG_N + lastv];
-      w[j] = eig_form(ops + o, offs[kind * EIG_N + lastv + 1] - o, C + j * n, v);
+        if (tst <= (eig_sqrt(fabsf(D(mm))) * eig_sqrt(fabsf(D(mm + 1)))) * eps) {
+          E(mm) = 0.0f;
+          m = mm;
+          break;
+        }
+      }
+      s.l = s.l1;
+      s.lsv = s.l;
+      s.lend = m;
+      s.lendsv = m;
+      s.l1 = m + 1;
+      if (s.lend == s.l) continue;
+      s.anorm = eig_slanst(&D(s.l), &E(s.l), s.lend - s.l + 1);
+      s.iscale = 0;
+      if (s.anorm == 0.0f) continue;
+      if (s.anorm > ssfmax) {
+        s.iscale = 1;
+        eig_slascl(s.anorm, ssfmax, &D(s.l), s.lend - s.l + 1, 1);
+        eig_slascl(s.anorm, ssfmax, &E(s.l), s.lend - s.l, 1);
+      } else if (s.anorm < ssfmin) {
+        s.iscale = 2;
+        eig_slascl(s.anorm, ssfmin, &D(s.l), s.lend - s.l + 1, 1);
+        eig_slascl(s.anorm, ssfmin, &E(s.l), s.lend - s.l, 1);
+      }
+      if (fabsf(D(s.lend)) < fabsf(D(s.l))) {
+        s.lend = s.lsv;
+        s.l = s.lendsv;
+      }
+      s.phase = s.lend > s.l ? 1 : 2;
     }
-    for (int j = 0; j < lastc; ++j) {
-      const float t = -tau[i] * w[j];
-      for (int r = 0; r < lastv; ++r) C[r + j * n] = __fmaf_rn(t, v[r], C[r + j * n]);
+    if (s.phase == 1) {  // QL: one event
+      const int l = s.l, lend = s.lend;
+      int m = lend;
+      if (l != lend)
+        for (int mm = l; mm <= lend - 1; ++mm) {
+          const float tst = fabsf(E(mm)) * fabsf(E(mm));
+          if (tst <= (eps2 * fabsf(D(mm))) * fabsf(D(mm + 1)) + EIG_SAFMIN) {
+            m = mm;
+            break;
+          }
+        }
+      if (m < lend) E(m) = 0.0f;
+      float p = D(l);
+      if (m == l) {
+        s.l = l + 1;
+        if (s.l > lend) s.phase = 5;
+        continue;
+      }
+      if (m == l + 1) {
+        float rt1, rt2, c, sn;
+        eig_slaev2(D(l), E(l), D(l + 1), &rt1, &rt2, &c, &sn);
+        sh.rj[0] = l;
+        sh.rc[0] = c;
+        sh.rs[0] = sn;
+        sh.nrot = 1;
+        D(l) = rt1;
+        D(l + 1) = rt2;
+        E(l) = 0.0f;
+        s.l = l + 2;
+        if (s.l > lend) s.phase = 5;
+        return;
+      }
+      if (s.jtot == nmaxit) {
+        s.phase = 5;
+        continue;
+      }
+      s.jtot += 1;
+      float g = eig_div(D(l + 1) - p, 2.0f * E(l));
+      float r = eig_slapy2(g, 1.0f);
+      g = (D(m) - p) + eig_div(E(l), g + copysignf(r, g));
+      float sn = 1.0f, c = 1.0f;
+      p = 0.0f;
+      int q = 0;
+      for (int i = m - 1; i >= l; --i) {
+        const float f = sn * E(i), b = c * E(i);
+        eig_slartg(g, f, &c, &sn, &r);
+        if (i != m - 1) E(i + 1) = r;
+        g = D(i + 1) - p;
+        r = (D(i) - g) * sn + (2.0f * c) * b;
+        p = sn * r;
+        D(i + 1) = g + p;
+        g = c * r - b;
+        sh.rj[q] = i;
+        sh.rc[q] = c;
+        sh.rs[q] = -sn;
+        ++q;
+      }
+      sh.nrot = q;
+      D(l) = D(l) - p;
+      E(l) = g;
+      return;
+    }
+    if (s.phase == 2) {  // QR: one event
+      const int l = s.l, lend = s.lend;
+      int m = lend;
+      if (l != lend)
+        for (int mm = l; mm >= lend + 1; --mm) {
+          const float tst = fabsf(E(mm - 1)) * fabsf(E(mm - 1));
+          if (tst <= (eps2 * fabsf(D(mm))) * fabsf(D(mm - 1)) + EIG_SAFMIN) {
+            m = mm;
+            break;
+          }
+        }
+      if (m > lend) E(m - 1) = 0.0f;
+      float p = D(l);
+      if (m == l) {
+        s.l = l - 1;
+        if (s.l < lend) s.phase = 5;
+        continue;
+      }
+      if (m == l - 1) {
+        float rt1, rt2, c, sn;
+        eig_slaev2(D(l - 1), E(l - 1), D(l), &rt1, &rt2, &c, &sn);
+        sh.rj[0] = l - 1;
+        sh.rc[0] = c;
+        sh.rs[0] = sn;
+        sh.nrot = 1;
+        D(l - 1) = rt1;
+        D(l) = rt2;
+        E(l - 1) = 0.0f;
+        s.l = l - 2;
+        if (s.l < lend) s.phase = 5;
+        return;
+      }
+      if (s.jtot == nmaxit) {
+        s.phase = 5;
+        continue;
+      }
+      s.jtot += 1;
+      float g = eig_div(D(l - 1) - p, 2.0f * E(l - 1));
+      float r = eig_slapy2(g, 1.0f);
+      g = (D(m) - p) + eig_div(E(l - 1), g + copysignf(r, g));
+      float sn = 1.0f, c = 1.0f;
+      p = 0.0f;
+      int q = 0;
+      for (int i = m; i <= l - 1; ++i) {
+        const float f = sn * E(i), b = c * E(i);
+        eig_slartg(g, f, &c, &sn, &r);
+        if (i != m) E(i - 1) = r;
+        g = D(i) - p;
+        r = (D(i + 1) - g) * sn + (2.0f * c) * b;
+        p = sn * r;
+        D(i) = g + p;
+        g = c * r - b;
+        sh.rj[q] = i;
+        sh.rc[q] = c;
+        sh.rs[q] = sn;
+        ++q;
+      }
+      sh.nrot = q;
+      D(l) = D(l) - p;
+      E(l - 1) = g;
+      return;
+    }
+    if (s.phase == 5) {  // undo the block's scaling
+      if (s.iscale == 1) {
+        eig_slascl(ssfmax, s.anorm, &D(s.lsv), s.lendsv - s.lsv + 1, 1);
+        eig_slascl(ssfmax, s.anorm, &E(s.lsv), s.lendsv - s.lsv, 1);
+      } else if (s.iscale == 2) {
+        eig_slascl(ssfmin, s.anorm, &D(s.lsv), s.lendsv - s.lsv + 1, 1);
+        eig_slascl(ssfmin, s.anorm, &E(s.lsv), s.lendsv - s.lsv, 1);
+      }
+      if (s.jtot >= nmaxit) {
+        int info = 0;
+        for (int i = 1; i <= n - 1; ++i)
+          if (E(i) != 0.0f) ++info;
+        sh.info = info;
+        s.phase = 4;
+        return;
+      }
+      s.phase = 0;
+      continue;
+    }
+    return;
+  }
+#undef D
+#undef E
+}
+
+// the columns of Z (n rows) in the order perm (through Q2)
+__device__ void eig_permute_cols(float* Z, int n, EigShared& sh) {
+  for (int idx = EIG_TID; idx < n * n; idx += EIG_NTH) {
+    const int r = idx % n, j = idx / n;
+    sh.Q2[r + j * EIG_LD] = Z[r + sh.perm[j] * EIG_LD];
+  }
+  __syncthreads();
+  for (int idx = EIG_TID; idx < n * n; idx += EIG_NTH) {
+    const int r = idx % n, j = idx / n;
+    Z[r + j * EIG_LD] = sh.Q2[r + j * EIG_LD];
+  }
+  __syncthreads();
+}
+
+// LAPACK's selection sort of d[n] and Z's columns (thread 0 finds the order)
+__device__ void eig_selection_sort(float* d, float* Z, int n, EigShared& sh) {
+  if (EIG_TID == 0) {
+    for (int j = 0; j < n; ++j) sh.perm[j] = j;
+    for (int i = 0; i < n - 1; ++i) {
+      int k = i;
+      float p = d[i];
+      for (int j = i + 1; j < n; ++j)
+        if (d[j] < p) {
+          k = j;
+          p = d[j];
+        }
+      if (k != i) {
+        d[k] = d[i];
+        d[i] = p;
+        const int t = sh.perm[i];
+        sh.perm[i] = sh.perm[k];
+        sh.perm[k] = t;
+      }
     }
   }
+  __syncthreads();
+  eig_permute_cols(Z, n, sh);
+}
+
+// ssteqr, COMPZ = 'I': d[n], e[n - 1], Z (leading dimension EIG_LD); returns info
+__device__ int eig_ssteqr(float* d, float* e, float* Z, int n, EigShared& sh) {
+  for (int idx = EIG_TID; idx < n * n; idx += EIG_NTH) {
+    const int i = idx % n, j = idx / n;
+    Z[i + j * EIG_LD] = i == j ? 1.0f : 0.0f;
+  }
+  if (EIG_TID == 0) sh.info = 0;
+  __syncthreads();
+  if (n <= 1) return 0;
+  EigSteqr s;
+  s.l1 = 1;
+  s.jtot = 0;
+  s.phase = 0;
+  while (true) {
+    if (EIG_TID == 0) {
+      eig_steqr_step(s, d, e, n, sh);
+      sh.more = s.phase == 1 || s.phase == 2 || s.phase == 5 || s.phase == 0;
+    }
+    __syncthreads();
+    const int nrot = sh.nrot;
+    for (int r = EIG_TID; r < n; r += EIG_NTH)
+      for (int q = 0; q < nrot; ++q) {  // slasr: plane (j, j + 1) (1-based)
+        const float ct = sh.rc[q], st = sh.rs[q];
+        if (ct == 1.0f && st == 0.0f) continue;
+        float* a = &Z[r + (sh.rj[q] - 1) * EIG_LD];
+        float* b = &Z[r + sh.rj[q] * EIG_LD];
+        const float temp = *b;
+        *b = ct * temp - st * *a;
+        *a = st * temp + ct * *a;
+      }
+    const int more = sh.more;
+    __syncthreads();
+    if (!more) break;
+  }
+  const int info = sh.info;
+  __syncthreads();
+  if (info != 0) return info;
+  eig_selection_sort(d, Z, n, sh);
+  return 0;
+}
+
+// ---- sstedc's divide and conquer
+
+// The merge of two adjacent pieces (slaed1 -> slaed2 -> slaed3), in place:
+// d[n] holds the pieces' eigenvalues (each ascending in the order indxq
+// gives, 0-based in its piece), Q (leading dimension EIG_LD) their
+// eigenvectors block-diagonally, rho the cut's off-diagonal; indxq[n] gets
+// the ascending order of the merged eigenvalues. Thread 0 deflates
+// (recording slaed2's rotations); the block rotates Q's rows, solves the
+// secular equation a root a thread and forms the vectors a value a thread.
+__device__ int eig_slaed1(float* d, float* Q, int* indxq, float rho, int n, int n1, EigShared& sh) {
+  if (EIG_TID == 0) {
+    const int n2 = n - n1;
+    float* z = sh.z;
+    for (int j = 0; j < n1; ++j) z[j] = Q[(n1 - 1) + j * EIG_LD];
+    for (int j = n1; j < n; ++j) z[j] = Q[n1 + j * EIG_LD];
+    if (rho < 0.0f)
+      for (int j = n1; j < n; ++j) z[j] = z[j] * -1.0f;
+    const float t = 0x1.6a09e6p-1f;  // ONE / SQRT(TWO) in f32
+    for (int j = 0; j < n; ++j) z[j] = z[j] * t;
+    rho = fabsf(2.0f * rho);
+    for (int j = n1; j < n; ++j) indxq[j] += n1;
+    for (int j = 0; j < n; ++j) sh.dlamda[j] = d[indxq[j]];
+    eig_slamrg(n1, n2, sh.dlamda, 1, sh.indxc);
+    for (int j = 0; j < n; ++j) sh.indx[j] = indxq[sh.indxc[j]];
+    int imax = 0, jmax = 0;
+    for (int j = 1; j < n; ++j) {
+      if (fabsf(z[j]) > fabsf(z[imax])) imax = j;
+      if (fabsf(d[j]) > fabsf(d[jmax])) jmax = j;
+    }
+    const float tol = 8.0f * 0x1p-24f * fmaxf(fabsf(d[jmax]), fabsf(z[imax]));
+    sh.nrot = 0;
+    sh.info = 0;
+    sh.fa = rho;
+    if (rho * fabsf(z[imax]) <= tol) {  // nothing to merge: the columns in d's order
+      sh.flag = 1;
+      sh.k = 0;
+      for (int j = 0; j < n; ++j) sh.w[j] = d[sh.indx[j]];
+    } else {
+      sh.flag = 0;
+      int* coltyp = sh.coltyp;
+      int* indxp = sh.indxp;
+      for (int j = 0; j < n; ++j) coltyp[j] = j < n1 ? 1 : 3;
+      int k = 0, k2 = n, pj = -1, nrot = 0;
+      for (int j = 0; j < n; ++j) {
+        const int nj = sh.indx[j];
+        if (rho * fabsf(z[nj]) <= tol) {  // a negligible z component
+          coltyp[nj] = 4;
+          indxp[--k2] = nj;
+          continue;
+        }
+        if (pj < 0) {
+          pj = nj;
+          continue;
+        }
+        float s = z[pj], c = z[nj];
+        const float tau = eig_slapy2(c, s), tt = d[nj] - d[pj];
+        c = eig_div(c, tau);
+        s = eig_div(-s, tau);
+        if (fabsf(tt * c * s) <= tol) {  // two close eigenvalues: a rotation zeroes z(pj)
+          z[nj] = tau;
+          z[pj] = 0.0f;
+          if (coltyp[nj] != coltyp[pj]) coltyp[nj] = 2;
+          coltyp[pj] = 4;
+          sh.rp[nrot] = pj;
+          sh.rj[nrot] = nj;
+          sh.rc[nrot] = c;
+          sh.rs[nrot] = s;
+          ++nrot;
+          const float dp = d[pj], dn = d[nj];
+          const float tp = dp * (c * c) + dn * (s * s);
+          d[nj] = dp * (s * s) + dn * (c * c);
+          d[pj] = tp;
+          int at = --k2;
+          while (at + 1 < n && d[pj] < d[indxp[at + 1]]) {
+            indxp[at] = indxp[at + 1];
+            ++at;
+          }
+          indxp[at] = pj;
+        } else {
+          sh.dlamda[k] = d[pj];
+          sh.w[k] = z[pj];
+          indxp[k++] = pj;
+        }
+        pj = nj;
+      }
+      sh.dlamda[k] = d[pj];
+      sh.w[k] = z[pj];
+      indxp[k++] = pj;
+      // group the columns: 1 (top piece only), 2 (both), 3 (bottom only), 4 (deflated)
+      int psm[4];
+      for (int q = 0; q < 4; ++q) sh.ctot[q] = 0;
+      for (int j = 0; j < n; ++j) ++sh.ctot[coltyp[j] - 1];
+      psm[0] = 0;
+      for (int q = 1; q < 4; ++q) psm[q] = psm[q - 1] + sh.ctot[q - 1];
+      for (int j = 0; j < n; ++j) {
+        const int js = indxp[j], ct = coltyp[js] - 1;
+        sh.indx[psm[ct]] = js;
+        sh.indxc[psm[ct]++] = j;
+      }
+      sh.nrot = nrot;
+      sh.k = k;
+    }
+  }
+  __syncthreads();
+  if (sh.flag) {
+    for (int idx = EIG_TID; idx < n * n; idx += EIG_NTH) {
+      const int r = idx % n, j = idx / n;
+      sh.Q2[r + j * EIG_LD] = Q[r + sh.indx[j] * EIG_LD];
+    }
+    __syncthreads();
+    for (int idx = EIG_TID; idx < n * n; idx += EIG_NTH) {
+      const int r = idx % n, j = idx / n;
+      Q[r + j * EIG_LD] = sh.Q2[r + j * EIG_LD];
+    }
+    for (int j = EIG_TID; j < n; j += EIG_NTH) {
+      d[j] = sh.w[j];
+      indxq[j] = j;
+    }
+    __syncthreads();
+    return 0;
+  }
+  const int nrot = sh.nrot, k = sh.k;
+  const float rho2 = sh.fa;
+  for (int r = EIG_TID; r < n; r += EIG_NTH)  // slaed2's rotations (OpenBLAS's srot), a row a thread
+    for (int q = 0; q < nrot; ++q) {
+      const float c = sh.rc[q], s = sh.rs[q];
+      const float x = Q[r + sh.rp[q] * EIG_LD], y = Q[r + sh.rj[q] * EIG_LD];
+      Q[r + sh.rp[q] * EIG_LD] = __fmaf_rn(c, x, s * y);
+      Q[r + sh.rj[q] * EIG_LD] = __fmaf_rn(c, y, -(s * x));
+    }
+  __syncthreads();
+  for (int idx = EIG_TID; idx < n * n; idx += EIG_NTH) {  // Q2: the grouped columns, whole
+    const int r = idx % n, j = idx / n;
+    sh.Q2[r + j * EIG_LD] = Q[r + sh.indx[j] * EIG_LD];
+  }
+  for (int j = EIG_TID; j < n; j += EIG_NTH) sh.z[j] = d[sh.indx[j]];
+  __syncthreads();
+  for (int idx = EIG_TID; idx < n * (n - k); idx += EIG_NTH) {  // the deflated ones from k on
+    const int r = idx % n, j = k + idx / n;
+    Q[r + j * EIG_LD] = sh.Q2[r + j * EIG_LD];
+  }
+  for (int j = k + EIG_TID; j < n; j += EIG_NTH) d[j] = sh.z[j];
+  // slaed3: a root a thread (slaed4, slaed5 for k = 2), delta in S's column
+  for (int j = EIG_TID; j < k; j += EIG_NTH) {
+    float* col = sh.S + j * EIG_LD;
+    if (k == 1) {
+      d[0] = sh.dlamda[0] + rho2 * sh.w[0] * sh.w[0];
+      col[0] = 1.0f;
+    } else if (k == 2) {
+      eig_slaed5(j + 1, sh.dlamda, sh.w, col, rho2, &d[j]);
+    } else {
+      const int inf = eig_slaed4(k, j + 1, sh.dlamda, sh.w, col, rho2, &d[j]);
+      if (inf != 0) atomicMax(&sh.info, inf);
+    }
+  }
+  __syncthreads();
+  const int info = sh.info;
+  if (info != 0) return info;
+  if (k >= 3) {  // Gu and Eisenstat's vector: a value a thread, then each column's norm
+    for (int q = EIG_TID; q < k; q += EIG_NTH) {
+      float wv = sh.S[q + q * EIG_LD];
+      for (int j = 0; j < k; ++j)
+        if (j != q) wv = wv * eig_div(sh.S[q + j * EIG_LD], sh.dlamda[q] - sh.dlamda[j]);
+      sh.t[q] = copysignf(eig_sqrt(-wv), sh.w[q]);
+    }
+    __syncthreads();
+    for (int j = EIG_TID; j < k; j += EIG_NTH) {
+      float* col = sh.S + j * EIG_LD;
+      for (int q = 0; q < k; ++q) col[q] = eig_div(sh.t[q], col[q]);
+      sh.nrm[j] = eig_snrm2(col, k);
+    }
+    __syncthreads();
+  }
+  // sgemm, one FMA chain a value: the top rows from the columns of types 1, 2, the bottom from types 2, 3
+  const int c0 = sh.ctot[0], n12 = sh.ctot[0] + sh.ctot[1], n23 = sh.ctot[1] + sh.ctot[2];
+  for (int idx = EIG_TID; idx < n * k; idx += EIG_NTH) {
+    const int r = idx % n, j = idx / n;
+    const float* col = sh.S + j * EIG_LD;
+    const int q0 = r < n1 ? 0 : c0, nq = r < n1 ? n12 : n23;
+    float acc = 0.0f;
+    for (int q = q0; q < q0 + nq; ++q) {
+      const float g = k >= 3 ? eig_div(col[sh.indxc[q]], sh.nrm[j]) : col[sh.indxc[q]];
+      acc = __fmaf_rn(sh.Q2[r + q * EIG_LD], g, acc);
+    }
+    Q[r + j * EIG_LD] = acc;
+  }
+  __syncthreads();
+  if (EIG_TID == 0) eig_slamrg(k, n - k, d, -1, indxq);
+  __syncthreads();
+  return 0;
+}
+
+// sstedc, COMPZ = 'I' on sh.d, sh.e -> sh.Z: ssteqr up to SMLSIZ; above, the
+// split where |e_f| <= eps sqrt|d_f| sqrt|d_f+1|, each block above SMLSIZ
+// scaled to norm 1 and cut into slaed0's pieces (halved until at most
+// SMLSIZ rows), the pieces by ssteqr, merged pairwise level by level, put in
+// ascending order and scaled back; the other blocks by ssteqr; then the
+// selection sort. Returns info.
+__device__ int eig_sstedc(EigShared& sh, int n) {
+  float* d = sh.d;
+  float* e = sh.e;
+  float* Z = sh.Z;
+  if (n <= EIG_SMLSIZ) return eig_ssteqr(d, e, Z, n, sh);
+  for (int idx = EIG_TID; idx < n * n; idx += EIG_NTH) {
+    const int i = idx % n, j = idx / n;
+    Z[i + j * EIG_LD] = i == j ? 1.0f : 0.0f;
+  }
+  if (EIG_TID == 0) {
+    sh.flag = eig_slanst(d, e, n) == 0.0f;
+    const float eps = 0x1p-24f;
+    int nb = 0;
+    for (int start = 0; start < n;) {
+      int finish = start;
+      while (finish < n - 1 && fabsf(e[finish]) > eps * eig_sqrt(fabsf(d[finish])) * eig_sqrt(fabsf(d[finish + 1])))
+        ++finish;
+      sh.blk[2 * nb] = start;
+      sh.blk[2 * nb + 1] = finish;
+      ++nb;
+      start = finish + 1;
+    }
+    sh.nblk = nb;
+  }
+  __syncthreads();
+  if (sh.flag) return 0;
+  const int nblk = sh.nblk;
+  for (int b = 0; b < nblk; ++b) {
+    const int start = sh.blk[2 * b], finish = sh.blk[2 * b + 1], m = finish - start + 1;
+    const int code = (start + 1) * (n + 1) + finish + 1;
+    float* Zb = Z + start * (1 + EIG_LD);
+    if (m > EIG_SMLSIZ) {
+      if (EIG_TID == 0) {
+        float* db = d + start;
+        float* eb = e + start;
+        const float nrm = eig_slanst(db, eb, m);
+        sh.fb = nrm;
+        eig_slascl(nrm, 1.0f, db, m, 1);
+        eig_slascl(nrm, 1.0f, eb, m - 1, 1);
+        int ns = 1;
+        sh.sizes[0] = m;
+        while (sh.sizes[ns - 1] > EIG_SMLSIZ) {
+          for (int j = ns - 1; j >= 0; --j) {
+            const int sz = sh.sizes[j];
+            sh.sizes[2 * j + 1] = (sz + 1) / 2;
+            sh.sizes[2 * j] = sz / 2;
+          }
+          ns *= 2;
+        }
+        sh.lastv = ns;
+        int at = 0;
+        for (int j = 0; j < ns - 1; ++j) {  // the cuts
+          at += sh.sizes[j];
+          const float r = fabsf(eb[at - 1]);
+          db[at - 1] = db[at - 1] - r;
+          db[at] = db[at] - r;
+        }
+      }
+      __syncthreads();
+      int cnt = sh.lastv, sizes[8];
+      for (int j = 0; j < cnt; ++j) sizes[j] = sh.sizes[j];
+      int at = start;
+      for (int j = 0; j < cnt; ++j) {
+        if (eig_ssteqr(d + at, e + at, Z + at * (1 + EIG_LD), sizes[j], sh) != 0) return code;
+        for (int q = EIG_TID; q < sizes[j]; q += EIG_NTH) sh.indxq[at + q] = q;
+        at += sizes[j];
+      }
+      __syncthreads();
+      while (cnt > 1) {
+        at = start;
+        for (int j = 0; j < cnt; j += 2) {
+          const int mm = sizes[j] + sizes[j + 1], n1 = sizes[j];
+          if (eig_slaed1(d + at, Z + at * (1 + EIG_LD), sh.indxq + at, e[at + n1 - 1], mm, n1, sh) != 0) return code;
+          at += mm;
+        }
+        for (int j = 0; j < cnt / 2; ++j) sizes[j] = sizes[2 * j] + sizes[2 * j + 1];
+        cnt /= 2;
+      }
+      if (EIG_TID == 0) {  // the block in its ascending order, the scale undone
+        for (int j = 0; j < m; ++j) {
+          sh.perm[j] = sh.indxq[start + j];
+          sh.t[j] = d[start + sh.perm[j]];
+        }
+        for (int j = 0; j < m; ++j) d[start + j] = sh.t[j];
+        eig_slascl(1.0f, sh.fb, d + start, m, 1);
+      }
+      __syncthreads();
+      eig_permute_cols(Zb, m, sh);
+    } else if (m > 1) {
+      if (eig_ssteqr(d + start, e + start, Zb, m, sh) != 0) return code;
+    }
+  }
+  eig_selection_sort(d, Z, n, sh);
+  return 0;
+}
+
+// ---- sormtr
+
+// OpenBLAS's sgemm('T', 'N') sum over q >= 1 terms of a[t] b[t]: below 32
+// one FMA chain; from 32 16 lanes (term t in lane t mod 16), added pairwise
+// for a row in a whole group of 4 rows, else by halves
+__device__ float eig_tn_sum(const float* a, const float* b, int q, bool pairs) {
+  if (q < 32) {
+    float acc = a[0] * b[0];
+    for (int t = 1; t < q; ++t) acc = __fmaf_rn(a[t], b[t], acc);
+    return acc;
+  }
+  float l[16];
+  for (int c = 0; c < 16; ++c) {
+    l[c] = a[c] * b[c];
+    for (int t = c + 16; t < q; t += 16) l[c] = __fmaf_rn(a[t], b[t], l[c]);
+  }
+  for (int w = 16; w > 1; w /= 2)
+    for (int j = 0; j < w / 2; ++j) l[j] = pairs ? l[2 * j] + l[2 * j + 1] : l[j] + l[j + w / 2];
+  return l[0];
+}
+
+// slarft('F', 'C') of 3 reflectors as OpenBLAS ships it (LAPACK's recursive
+// version), thread 0: V (mv >= 3 rows, unit diagonal implied, leading
+// dimension EIG_LD), tau[3] -> T (row-major 3 x 3, upper)
+__device__ void eig_slarft3(const float* V, int mv, const float* tau, float* T) {
+  const int q = mv - 3;
+  // T22 of reflectors 1, 2: X = V(2, 1), plus V(3:, 1)^T V(3:, 2), times -tau1, times tau2
+  float x = V[2 + EIG_LD] * 1.0f;
+  if (q > 0) x = x + eig_tn_sum(V + 3 + EIG_LD, V + 3 + 2 * EIG_LD, q, false);
+  x = -(tau[1] * x);
+  x = x * tau[2];
+  // T12: [V(1, 0), V(2, 0)] times V22 (unit lower), plus V(3:, 0)^T V(3:, 1:3), times -tau0, times T22
+  float x0 = __fmaf_rn(V[2], V[2 + EIG_LD], V[1] * 1.0f), x1 = V[2] * 1.0f;
+  if (q > 0) {
+    x0 = x0 + eig_tn_sum(V + 3, V + 3 + EIG_LD, q, false);
+    x1 = x1 + eig_tn_sum(V + 3, V + 3 + 2 * EIG_LD, q, false);
+  }
+  x0 = -(tau[0] * x0);
+  x1 = -(tau[0] * x1);
+  const float y0 = x0 * tau[1];
+  const float y1 = __fmaf_rn(x1, tau[2], x0 * x);
+  T[0] = tau[0];
+  T[1] = y0;
+  T[2] = y1;
+  T[3] = 0.0f;
+  T[4] = tau[1];
+  T[5] = x;
+  T[6] = 0.0f;
+  T[7] = 0.0f;
+  T[8] = tau[2];
+}
+
+// sormtr('L', 'L', 'N') of ssyevd on Z's rows 1..: sorm2r (slarf: sgemv 'T'
+// a column a thread, then sger an element a thread), H(n - 2) first; at n =
+// 64 ssyevd's workspace gives sormqr blocks of 3 reflectors from the last:
+// slarft, then slarfb (strmm's and sgemm's values a column of C a thread)
+__device__ void eig_sormtr(EigShared& sh, int n) {
+  const float* A = sh.A;
+  if (n < EIG_N) {
+    for (int i = n - 2; i >= 0; --i) {
+      const int m = n - 1 - i;
+      float* C = sh.Z + 1 + i;
+      for (int q = EIG_TID; q < m; q += EIG_NTH) sh.v[q] = q == 0 ? 1.0f : A[(i + 1 + q) + i * EIG_LD];
+      __syncthreads();
+      if (EIG_TID == 0) {
+        int lastv = sh.tau[i] != 0.0f ? m : 0;
+        while (lastv > 0 && sh.v[lastv - 1] == 0.0f) --lastv;
+        sh.lastv = lastv;
+        sh.lastc = 0;
+      }
+      __syncthreads();
+      const int lastv = sh.lastv;
+      if (lastv > 0) {
+        for (int j = EIG_TID; j < n; j += EIG_NTH)
+          for (int r = 0; r < lastv; ++r)
+            if (C[r + j * EIG_LD] != 0.0f) {
+              atomicMax(&sh.lastc, j + 1);
+              break;
+            }
+        __syncthreads();
+        const int lastc = sh.lastc;
+        for (int j = EIG_TID; j < lastc; j += EIG_NTH) sh.t[j] = eig_form(eig_kind(j, lastc), lastv, C + j * EIG_LD, sh.v);
+        __syncthreads();
+        const float taui = sh.tau[i];
+        for (int idx = EIG_TID; idx < lastv * lastc; idx += EIG_NTH) {
+          const int r = idx % lastv, j = idx / lastv;
+          C[r + j * EIG_LD] = __fmaf_rn(-taui * sh.t[j], sh.v[r], C[r + j * EIG_LD]);
+        }
+      }
+      __syncthreads();
+    }
+    return;
+  }
+  for (int i0 = EIG_N - 4; i0 >= 0; i0 -= 3) {
+    const int mv = EIG_N - 1 - i0, q = mv - 3;
+    const float* V = A + (1 + i0) + i0 * EIG_LD;
+    float* C = sh.Z + 1 + i0;
+    if (EIG_TID == 0) eig_slarft3(V, mv, sh.tau + i0, sh.T);
+    __syncthreads();
+    const float* T = sh.T;
+    for (int c = EIG_TID; c < EIG_N; c += EIG_NTH) {
+      float* cc = C + c * EIG_LD;
+      float w[3], w3[3];
+      w[0] = __fmaf_rn(cc[2], V[2], __fmaf_rn(cc[1], V[1], cc[0] * 1.0f));  // C1^T V1
+      w[1] = __fmaf_rn(cc[2], V[2 + EIG_LD], cc[1] * 1.0f);
+      w[2] = cc[2] * 1.0f;
+      if (q > 0)
+        for (int j = 0; j < 3; ++j) w[j] = w[j] + eig_tn_sum(cc + 3, V + 3 + j * EIG_LD, q, true);  // + C2^T V2
+      w3[0] = __fmaf_rn(w[2], T[2], __fmaf_rn(w[1], T[1], w[0] * T[0]));  // times T^T
+      w3[1] = __fmaf_rn(w[2], T[5], w[1] * T[4]);
+      w3[2] = w[2] * T[8];
+      for (int j = 0; j < 3; ++j) sh.W[c + j * EIG_LD] = w3[j];
+      const float w50 = w3[0] * 1.0f;  // times V1^T, then C1 -= W^T
+      const float w51 = __fmaf_rn(w3[1], 1.0f, w3[0] * V[1]);
+      const float w52 = __fmaf_rn(w3[2], 1.0f, __fmaf_rn(w3[1], V[2 + EIG_LD], w3[0] * V[2]));
+      cc[0] = cc[0] - w50;
+      cc[1] = cc[1] - w51;
+      cc[2] = cc[2] - w52;
+    }
+    __syncthreads();
+    for (int idx = EIG_TID; idx < q * EIG_N; idx += EIG_NTH) {  // C2 -= V2 W^T: an FMA chain over the 3 terms
+      const int r = 3 + idx % q, c = idx / q;
+      const float acc = __fmaf_rn(V[r + 2 * EIG_LD], sh.W[c + 2 * EIG_LD],
+                                  __fmaf_rn(V[r + EIG_LD], sh.W[c + EIG_LD], V[r] * sh.W[c]));
+      C[r + c * EIG_LD] = C[r + c * EIG_LD] - acc;
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(EIG_THREADS) syevd_small_kernel(const float* __restrict__ G, float* __restrict__ W,
+                                                                   float* __restrict__ V, int* __restrict__ info_out,
+                                                                   int n) {
+  extern __shared__ __align__(16) unsigned char eig_smem[];
+  EigShared& sh = *reinterpret_cast<EigShared*>(eig_smem);
+  const long long b = blockIdx.x;
+  const float* g = G + b * n * n;
+  for (int idx = EIG_TID; idx < n * n; idx += EIG_NTH) sh.A[idx / n + (idx % n) * EIG_LD] = g[idx];
+  __syncthreads();
+  if (n == 1) {
+    if (EIG_TID == 0) {
+      W[b] = sh.A[0];
+      V[b] = 1.0f;
+      info_out[b] = 0;
+    }
+    return;
+  }
+  if (EIG_TID == 0) {  // slansy('M', 'L') and the scaling of ssyevd
+    float anrm = 0.0f;
+    for (int j = 0; j < n; ++j)
+      for (int i = j; i < n; ++i) {
+        const float s = fabsf(sh.A[i + j * EIG_LD]);
+        if (anrm < s || isnan(s)) anrm = s;
+      }
+    const float rmin = 0x1.6a09e6p-52f, rmax = 0x1.6a09e6p+51f;  // f32 sqrt(2^-103), sqrt(2^103)
+    sh.flag = 0;
+    sh.fa = 1.0f;
+    if (anrm > 0.0f && anrm < rmin) {
+      sh.flag = 1;
+      sh.fa = eig_div(rmin, anrm);
+    } else if (anrm > rmax) {
+      sh.flag = 1;
+      sh.fa = eig_div(rmax, anrm);
+    }
+  }
+  __syncthreads();
+  const bool scaled = sh.flag;
+  const float sigma = sh.fa;
+  __syncthreads();
   if (scaled) {
-    const float rs = eig_div(1.0f, sigma);
-    for (int q = 0; q < n; ++q) d[q] = d[q] * rs;
+    for (int j = EIG_TID; j < n; j += EIG_NTH) eig_slascl(1.0f, sigma, &sh.A[j + j * EIG_LD], n - j, 1);
+    __syncthreads();
   }
-  for (int q = 0; q < n; ++q) W[(long long)bidx * n + q] = d[q];
-  for (int r = 0; r < n; ++r)
-    for (int c = 0; c < n; ++c) V[(long long)bidx * n * n + r * n + c] = Z[r + c * n];
-  info_out[bidx] = info;
+  eig_ssytrd(sh, n);
+  const int info = eig_sstedc(sh, n);
+  eig_sormtr(sh, n);
+  if (EIG_TID == 0 && scaled) {
+    const float rs = eig_div(1.0f, sigma);
+    for (int q = 0; q < n; ++q) sh.d[q] = sh.d[q] * rs;
+  }
+  __syncthreads();
+  for (int q = EIG_TID; q < n; q += EIG_NTH) W[b * n + q] = sh.d[q];
+  for (int idx = EIG_TID; idx < n * n; idx += EIG_NTH) V[b * n * n + idx] = sh.Z[idx / n + (idx % n) * EIG_LD];
+  if (EIG_TID == 0) info_out[b] = info;
 }
 
 TT_EXPORT int tt_syevd_small(const void* G, void* W, void* V, void* info, const void* ops, const void* offs, int B,
-                             int n, void* stream_) {
-  if (B < 0 || n < 1 || n > EIG_N) return (int)cudaErrorInvalidValue;
+                             int n, int n_ops, void* stream_) {
+  if (B < 0 || n < 1 || n > EIG_N || n_ops < 0 || n_ops > EIG_OPS) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  syevd_small_kernel<<<tt_blocks(B, 32), 32, 0, static_cast<cudaStream_t>(stream_)>>>(
-      static_cast<const float*>(G), static_cast<float*>(W), static_cast<float*>(V), static_cast<int*>(info),
-      static_cast<const int*>(ops), static_cast<const int*>(offs), B, n);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  cudaError_t err = cudaMemcpyToSymbolAsync(eig_ops, ops, n_ops * sizeof(int), 0, cudaMemcpyDeviceToDevice, stream);
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbolAsync(eig_offs, offs, (3 * EIG_N + 1) * sizeof(int), 0, cudaMemcpyDeviceToDevice, stream);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(syevd_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(EigShared));
+  if (err != cudaSuccess) return (int)err;
+  syevd_small_kernel<<<B, EIG_THREADS, sizeof(EigShared), stream>>>(
+      static_cast<const float*>(G), static_cast<float*>(W), static_cast<float*>(V), static_cast<int*>(info), n);
   return (int)cudaGetLastError();
 }

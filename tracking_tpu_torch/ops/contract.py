@@ -42,25 +42,38 @@ below is held against ``jax.jit`` dots on random data in the tests:
 - The Gram product ``Xc @ Xc.T`` ([S, D] by its transpose), by MKL-DNN's
   kernel for S rows (:func:`gram_lanes`, :func:`gram_block`): one FMA
   chain over all of D at S <= 3, at D < 4, and at S < 8 for D < 8;
-  otherwise 4 lanes, or 2 at S >= 25 (and at 17-24 rows where D mod 4 is 1
-  or 2 and D <= 90), over the depth to the last multiple of the lanes in
-  blocks of 8,192 / ceil(S / 4) rounded down to 8 (S <= 16), 4,096 (17-24)
-  or 1,024 (2 lanes), the rest of D (< lanes terms) as rounded products
-  after the last block. Read off probes at S = 2-32 and D = 1-9,000 (the
-  lanes and the tail's joins on depths 1-100, the block starts by
-  scanning lane 0), held on random data at every S for D = 1-40, 86-96,
-  the frames' sizes and the blocks' edges up to 230,400.
+  otherwise 4 lanes, or 2 at 25-32 rows (and at 17-24 rows where D mod 4
+  is 1 or 2 and D <= 90), 4 at 33-48 rows (one chain at D = 5, 6, 9), one
+  chain at 49-64, over the depth to the last multiple of the lanes in
+  blocks of 8,192 / ceil(S / 4) rounded down to 8 (S <= 16), 4,096
+  (17-24), 1,024 (2 lanes), 2,048 (33-48) or 512 (49-64), the rest of D
+  (< lanes terms) as rounded products after the last block. Read off
+  probes at S = 2-64 and D = 1-20,000 (the lanes and the tail's joins on
+  depths 1-100, the block starts by scanning lane 0), held on random data
+  at every S for D = 1-40, 86-96, the frames' sizes and the blocks' edges
+  up to 230,400 (33-64 rows: D = 1-47, 89-94, 512-9,000).
 - The lift ``evecs.T @ Xc`` ([S, S] by [S, D]), by :func:`lift_plan`: the
-  columns in panels of 16,384 (S < 8), 8,192 (8-15), 4,096 (16) or 2,048
-  (17-32); a panel w columns wide sums the depth in chains of
-  floor(32,768 / w) terms (MKL-DNN's A panel of 128 KiB: 16 at 2,048),
+  columns in panels of 16,384 (S < 8), 8,192 (8-15), 4,096 (16), 2,048
+  (17-32) or 1,024 (33-50); a panel w columns wide sums the depth in chains
+  of floor(32,768 / w) terms (MKL-DNN's A panel of 128 KiB: 16 at 2,048),
   each from +0, the chains' sums added in order; a last panel of <= 8
   columns adds rounded products at S in :data:`_NARROW_ADDS`; S <= 3 one
   chain; frames of 2-16 values take the Gram kernel's 4 lanes over the
-  depth at the (S, D) of :func:`_small_lift_lanes`. A 1x1 grey frame (D =
-  1) is a matrix-vector product (XLA's own emitter), not reproduced.
-  Read off the probes' per-column split points (triplets (t - 1, t, t + 1)
-  at every column at once) at S = 3-32 and D = 100-40,000.
+  depth at the (S, D) of :func:`_small_lift_lanes`. At 51-64 rows
+  (:func:`_wide_lift_plan`) the whole output takes one order by r = (D -
+  1) mod 64 + 1, as the Gram kernel would with rows and depth swapped: 4
+  lanes over S (r in 1-16, 33-48), 2 (25-32; 17-24 where D > 64 or S mod 4
+  is 1 or 2), one chain (49-64). Held at D = 2-100, 128, 256, 768, 851 and
+  900-5,000 (9 depths) for S = 52, 60, 64, and for S = 51, 53, 57, 63 to
+  851, at 1,300, 1,500, 2,304, 2,553, 3,000 and at the frames of 6,912
+  (48x48x3) to 691,200 (360x640x3) values; there some depths of 900-5,000
+  take one chain instead (1,000, 1,200, 4,000, 5,000; at 53 and 57 also
+  900, 1,100, 1,800, 2,000: Eigen's threads over the columns, not
+  reproduced, ROADMAP). A 1x1 grey frame (D = 1) is a matrix-vector
+  product (XLA's own emitter), not reproduced. Read off the probes'
+  per-column split points (triplets (t - 1, t, t + 1) at every column at
+  once) at S = 3-64 and D = 100-40,000, and at 51-64 rows by which of the
+  candidate orders each column's outputs equal on random data.
 
 On CUDA tensors ``contract`` launches the kernel pair ``contract`` of
 ``csrc/contract.cu`` (the chains, then their sums in the plan's order);
@@ -184,8 +197,10 @@ def resize_cols_plan(k: int) -> Plan:
 
 def gram_lanes(s: int, d: int) -> int:
     """The FMA lanes of MKL-DNN's kernel for ``Xc @ Xc.T`` at S rows and depth D."""
-    if s <= 3 or d < 4 or (s < 8 and d < 8):
+    if s <= 3 or d < 4 or (s < 8 and d < 8) or s >= 49:
         return 1
+    if s >= 33:
+        return 1 if d in (5, 6, 9) else 4
     if s >= 25 or (s >= 17 and d % 4 in (1, 2) and d <= 90):
         return 2
     return 4
@@ -193,8 +208,13 @@ def gram_lanes(s: int, d: int) -> int:
 
 def gram_block(s: int) -> int:
     """The depth of one of the Gram kernel's blocks: 8,192 over the 4-row
-    groups of S (rounded down to 8) up to 16 rows, 4,096 for 17-24 rows and
-    1,024 in the 2-lane kernel."""
+    groups of S (rounded down to 8) up to 16 rows, 4,096 for 17-24 rows,
+    1,024 in the 2-lane kernel (25-32), 2,048 for 33-48 rows and 512 in the
+    one-chain kernel of 49-64 rows."""
+    if s >= 49:
+        return 512
+    if s >= 33:
+        return 2048
     if s >= 25:
         return 1024
     if s >= 17:
@@ -210,7 +230,7 @@ def gram_plan(s: int, d: int) -> Plan:
     order."""
     lanes = gram_lanes(s, d)
     if lanes == 1:
-        return Plan(((0, d),))
+        return Plan(_even_blocks(d, gram_block(s)) if s >= 49 else ((0, d),))
     main = d - d % lanes
     tail = ((main, d),) if d > main else ()
     return Plan(_even_blocks(main, gram_block(s)) + tail, lanes=lanes)
@@ -224,16 +244,33 @@ def _small_lift_lanes(s: int, d: int) -> int:
     return 4 if d <= 8 or s not in (9, 10, 13, 17) else 1
 
 
-_NARROW_ADDS = frozenset((4, 6, 11, 12, 17, 18))  # S whose last panel of <= 8 columns adds rounded products
+_NARROW_ADDS = frozenset((4, 6, 11, 12, 17, 18, 41, 42))  # S whose last panel of <= 8 columns adds rounded products
 
 
 def lift_panel(s: int) -> int:
     """The column panel of MKL-DNN's kernel for ``evecs.T @ Xc`` at S rows."""
+    if s >= 33:
+        return 1024
     if s >= 17:
         return 2048
     if s >= 16:
         return 4096
     return 8192 if s >= 8 else 16384
+
+
+
+def _wide_lift_plan(s: int, d: int) -> Plan:
+    """The lift at 51-64 rows: the Gram kernel with the roles of rows and
+    depth swapped, chosen by r = (D - 1) mod 64 + 1: 4 lanes over S (r <=
+    16 and 33-48), 2 lanes (25-32, and 17-24 where D > 64 or S mod 4 is 1
+    or 2), one chain (49-64); a lane plan's last S mod lanes terms are
+    rounded products added after."""
+    r = (d - 1) % 64 + 1
+    if r > 48:
+        return Plan(((0, s),))
+    lanes = 2 if 25 <= r <= 32 or (17 <= r <= 24 and (d > 64 or s % 4 in (1, 2))) else 4
+    main = s - s % lanes
+    return Plan(((0, main),) + (((main, s),) if s > main else ()), lanes=lanes)
 
 
 @lru_cache(maxsize=None)
@@ -244,6 +281,8 @@ def lift_plan(s: int, d: int) -> Plan:
     each from +0, added in order; one chain where that covers S."""
     if s <= 3:
         return Plan(((0, s),))
+    if s >= 51:
+        return _wide_lift_plan(s, d)
     if d <= 16 and _small_lift_lanes(s, d) == 4:
         return Plan(((0, s),), lanes=4)
     width = lift_panel(s)

@@ -38,8 +38,10 @@ processes that share the card, and NCCL over every card) - and fails
    frame, spills and static shared memory (``--ptxas``: nvcc's own output);
    ``fused_kernel`` must not spill, and ``multilayer_kernel<0|1>``,
    ``texture_kernel<0|1>``, ``read_walk_kernel<1|3>``,
-   ``lobster_kernel<1|3>``, ``greedy_assign_kernel`` and the four
-   ``fgd_tables_kernel`` must have no stack frame and no spills;
+   ``lobster_kernel<1|3>``, ``greedy_assign_kernel``, the four
+   ``fgd_tables_kernel``, the three ``gram_block_kernel`` and
+   ``lift_kernel``, and ``gram_combine_kernel`` must have no stack frame
+   and no spills;
 3. each kernel against its plain PyTorch version on the card at its path's
    shapes, exactly (consensus C=3 and C=1, also with a requirement of N,
    with good samples only in its last slots, at a ragged width and in slab
@@ -91,10 +93,15 @@ processes that share the card, and NCCL over every card) - and fails
    grid, on a 1080p and a random plane, on 240x320, 360x640 and 576x720
    planes (the row contraction sharded in Eigen's tree), and MultiCue's
    120x160 map enlarged to 720x1280 and 576x720; Eigenbackground's Gram
-   product of 20 frames at 720p and of 20, 28, 32, 52 and 64 frames of the
-   360x640 crop, also of the crop less its last value (a depth of 3 mod 4),
-   its lifts (against the plain versions on the card) and the projection
-   there, ``syevd`` (one block of 256 threads a matrix) on the eigensolver
+   product (``contract.gram``: a CTA a depth block, the upper triangle in
+   register tiles, mirrored) of 20 and 64 frames at 720p and of 20, 28, 32,
+   52 and 64 frames of the 360x640 crop, also of the crop less its last
+   value (a depth of 3 mod 4), its lifts (``contract.lift``, one launch),
+   both bit for bit against the plain versions on the card, also on every
+   plan form at small random sizes (1, 2 and 4 lanes, tails, rows not
+   16-byte aligned, a narrow last panel of rounded products, the 51-64-row
+   orders, histories above 64), and the projection there, ``syevd`` (one
+   block of 256 threads a matrix) on the eigensolver
    tests' 5,000 matrices (n = 4, 8, 20, 25; Gram, rank-deficient, zero,
    repeated eigenvalues, scaled by 1e-6, 1e6, 1e-30), their 3,500 of n =
    26-32 (sstedc's divide and conquer), their 720 of n = 33, 34, 40, 50, 51
@@ -328,8 +335,11 @@ processes that share the card, and NCCL over every card) - and fails
    ``syevd_small`` on the Gram matrices of 20, 32 and 64 frames of the crop
    in turns with ``torch.linalg.eigh`` on the same matrix; Eigenbackground
    at 720p with a 64-frame history through the kernels (the step that
-   builds the PCA and the ms/frame after it, its launches, its eigensolver
-   on its own Gram matrix against the plain one in the CPU worker).
+   builds the PCA, split into its Gram product, eigensolver, lift, norms,
+   projection and the rest, and the ms/frame after it, its launches, its
+   eigensolver on its own Gram matrix against the plain one in the CPU
+   workers); ``contract``'s Gram product and lift of 20 frames of the crop,
+   20 frames at 720p and 64 frames at 720p in turns with ``torch.matmul``.
 
 The last three lines are a JSON object of the per-kernel results, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -535,6 +545,8 @@ S16_FAN_CFG = {"SJN_MultiCueBGS": {"trainingPeriod": 4}}  # detects inside the f
 # phase 3: Eigenbackground's products at its default history and basis
 EIGEN_S, EIGEN_E = 20, 10
 SYEVD_THREADS = 256  # csrc/pca.cu: EIG_THREADS
+# phase 6 times pca_project's plain version on the crop's first values (~40 s at the whole crop)
+PCA_PLAIN_D = 691200 // 16
 # phase 6: Eigenbackground at 720p with a 64-frame history, through the
 # kernels: the PCA's step and the frames after it
 EIGEN720_CFG = {"historySize": 64, "embeddedDim": 10}
@@ -550,6 +562,8 @@ NO_STACK = {
     "multilayer_kernel<0>", "multilayer_kernel<1>", "texture_kernel<0>", "texture_kernel<1>",
     "read_walk_kernel<1>", "read_walk_kernel<3>", "lobster_kernel<1>", "lobster_kernel<3>", "greedy_assign_kernel",
     "fgd_tables_kernel<0, 0>", "fgd_tables_kernel<0, 1>", "fgd_tables_kernel<1, 0>", "fgd_tables_kernel<1, 1>",
+    "gram_block_kernel<4, 1>", "gram_block_kernel<2, 2>", "gram_block_kernel<2, 4>", "gram_combine_kernel",
+    "lift_kernel<1>", "lift_kernel<2>", "lift_kernel<4>",
 }
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; the bound of a kernel is the larger of its bytes and its
@@ -1013,13 +1027,14 @@ def eigh_cases(n: int, count: int, seed: int) -> np.ndarray:
 
 
 # The CPU side of phase 3's eigensolver check and of phase 4i's crop runs
-# in one spawned process while the card works through phases 3-4h: the
-# same comparisons, their CPU time out of the command's wall time.
+# in a pool of spawned processes while the card works through phases 3-4h
+# (one task a size of the eigensolver's sets): the same comparisons, their
+# CPU time out of the command's wall time.
 BLOCKED_NS = (33, 34, 40, 50, 51, 64)  # blocked ssytrd from 33, slaed0's two levels from 51, sormqr's blocks at 64
 EIGH_SETS = ((4, 1500, 4), (8, 1500, 8), (20, 1200, 20), (25, 800, 25)) + tuple(
     (n, 500, 300 + n) for n in range(26, 33)) + tuple(
     (n, 120, 500 + n) for n in BLOCKED_NS)  # (n, count, seed): the tests' 5,000, 3,500 and 720
-CPU_WORKER_THREADS = 4
+CPU_WORKERS, CPU_WORKER_THREADS = 4, 1  # four cores left to the card's process
 
 
 def cpu_worker_init(root: str) -> None:
@@ -1079,8 +1094,27 @@ def cpu_crop_runs(cut: np.ndarray, runs):
 
 def gram_cost(s: int, d: int):
     """(bound_ms, bound_by) of Eigenbackground's Gram product: the centred
-    history read once, the [S, S] matrix written; 2 S^2 D operations."""
-    return bound(4 * (s * d + s * s), 2 * s * s * d)
+    history read once, the [S, S] matrix written; S (S + 1) D operations
+    (the upper triangle's FMAs, the lower one its mirror)."""
+    return bound(4 * (s * d + s * s), s * (s + 1) * d)
+
+
+def lift_cost(s: int, d: int):
+    """(bound_ms, bound_by) of Eigenbackground's lift evecs^T Xc: the [S, S]
+    matrix and Xc read once, the [S, D] output written; 2 S^2 D operations."""
+    return bound(4 * (s * s + 2 * s * d), 2 * s * s * d)
+
+
+# the Gram product's and the lift's plan forms on small random data (S, D),
+# one case a form: one chain, 1, 2 and 4 lanes, tails of rounded products,
+# D mod 4 != 0 (4-byte copies), blocks' sums past the combine's batches of
+# 32, the lift's panels with a narrow last panel of rounded products (S =
+# 4, 41) and one with FMAs (20), its 4 lanes on frames of <= 16 values and
+# its 51-64-row orders, histories above 64 (CTA groups)
+GRAM_FORMS = ((3, 4099), (8, 4096 * 34 + 5), (17, 90), (25, 2051), (33, 5), (41, 2050), (50, 512 * 37 + 3),
+              (130, 1000))
+LIFT_FORMS = ((3, 100), (4, 16390), (17, 2051), (20, 2061), (41, 1027), (9, 16), (51, 17), (53, 1100), (60, 63),
+              (64, 1027), (130, 1000))
 
 
 def pca_cost(e: int, d: int):
@@ -1101,22 +1135,25 @@ def syevd_cost(n: int):
 def check_pca_kernels(frames, dev, errs, timing_inputs, bounds, cpu_eigh) -> None:
     """Phase 3 for Eigenbackground's kernels, exactly against their plain
     versions (the contractions on the card, the projection and the
-    eigensolver on the CPU, the tests' batches in the CPU worker,
+    eigensolver on the CPU, the tests' batches in the CPU workers,
     ``cpu_eigh``; phase 4i holds the card against the CPU): the
-    contraction's Gram product of 20 frames of the clip at 720p and of its
-    360x640 crop, of 28 and 32 frames of the crop (MKL-DNN's 2-lane kernel,
+    contraction's Gram product (``gram``) and lift (``lift``) of 20 and 64
+    frames of the clip at 720p and of 20 frames of its 360x640 crop, the
+    Gram product of 28 and 32 frames of the crop (MKL-DNN's 2-lane kernel,
     blocks of 1,024), and of 20 and 28 frames of the crop less its last
     value (D = 691,199: a tail of 3 and of 1 rounded products); the lift at
     20 and 28 frames (panels of 2,048, chains of 16) at both D; the Gram
     product and the lift of 52 and 64 frames of the crop (one chain a value
-    in blocks of 512); the projection on the crop (a basis of 10);
+    in blocks of 512); both on every plan form at small random sizes
+    (GRAM_FORMS, LIFT_FORMS, with rows 16-byte aligned and not); the
+    projection on the crop (a basis of 10);
     syevd_small on the eigensolver tests' 5,000 matrices of n <= 25, 3,500
     of n = 26-32 (sstedc's divide and conquer) and 720 of n = 33-64 (blocked
     ssytrd, slaed0's two levels, sormqr's blocks at 64), and on the Gram
     matrices. The eigensolver's agreement with this machine's LAPACK
     (scipy's ssyevd) is printed, as information."""
     from tracking_tpu_torch.ops import eigh, pca
-    from tracking_tpu_torch.ops.contract import contract, gram_plan, lift_plan
+    from tracking_tpu_torch.ops.contract import contract_ref, gram, gram_plan, lift, lift_plan
 
     def centred(hist):
         X = hist.reshape(hist.shape[0], -1).to(torch.float32)
@@ -1131,7 +1168,8 @@ def check_pca_kernels(frames, dev, errs, timing_inputs, bounds, cpu_eigh) -> Non
     S, E = EIGEN_S, EIGEN_E
     crop = frames[1:, : NEW_CUT[0], : NEW_CUT[1]]
     grams, lifts = {}, {}
-    for s, what, hist, cut in ((S, "720p", frames[1 : 1 + S], 0), (S, "the 360x640 crop", crop[:S], 0),
+    for s, what, hist, cut in ((S, "720p", frames[1 : 1 + S], 0), (64, "720p", frames[:64], 0),
+                               (S, "the 360x640 crop", crop[:S], 0),
                                (28, "the crop", crop[:28], 0), (32, "the crop", crop[:32], 0),
                                (52, "the crop", crop[:52], 0), (64, "the crop", crop[:64], 0),
                                (S, "the crop less its last value", crop[:S], 1),
@@ -1140,20 +1178,40 @@ def check_pca_kernels(frames, dev, errs, timing_inputs, bounds, cpu_eigh) -> Non
         Xc = Xc[:, : Xc.shape[1] - cut].contiguous()
         D = Xc.shape[1]
         plan = gram_plan(s, D)
-        G = contract(Xc, Xc.T, plan)
+        G = gram(Xc, plan)
         held("contract", f"the Gram product of {s} frames at {what} (D = {D}, {plan.lanes} lanes, "
-                         f"{len(plan.blocks)} blocks)", G, contract(Xc, Xc.T, plan, use_kernels=False))
+                         f"{len(plan.blocks)} blocks)", G, gram(Xc, plan, use_kernels=False))
         G = (G + G.T) * 0.5
-        grams[(s, what)] = G
-        if what != "720p" and s != 32:
+        if s == S or what != "720p":  # the 64-frame 720p matrix's eigensolver check is phase 6's
+            grams[(s, what)] = G
+        if s != 32:
             w, V, info = eigh.syevd(G[None])
             L = V[0][:, torch.argsort(-w[0], stable=True)].T.contiguous()
             lp = lift_plan(s, D)
-            comps = contract(L, Xc, lp)
-            held("contract", f"the lift [{s}, {s}] x [{s}, {D}] (chains a column: {len(lp.blocks)}"
+            comps = lift(L, Xc, lp)
+            held("contract", f"the lift [{s}, {s}] x [{s}, {D}] at {what} (chains a column: {len(lp.blocks)}"
                              f"{', in the last panel ' + str(len(lp.alt)) if lp.alt else ''})",
-                 comps, contract(L, Xc, lp, use_kernels=False))
-            lifts[(s, what)] = (comps, Xc, hist)
+                 comps, lift(L, Xc, lp, use_kernels=False))
+            if what != "720p":
+                lifts[(s, what)] = (comps, Xc, hist)
+        del Xc
+    gen = torch.Generator().manual_seed(26)
+    for label, forms in (("Gram product", GRAM_FORMS), ("lift", LIFT_FORMS)):
+        e = 0.0
+        for s, d in forms:
+            for off in (0, 1):  # rows 16-byte aligned (d mod 4 = 0) or not: the 4-byte copies
+                X = torch.randn((s, d + off), generator=gen).to(dev)[:, off:]
+                if label == "lift":
+                    L = torch.randn((s, s), generator=gen).to(dev)
+                    p = lift_plan(s, d)
+                    got, plain = lift(L, X, p), contract_ref(L, X, p)
+                else:
+                    p = gram_plan(s, d)
+                    got, plain = gram(X, p), contract_ref(X, X.T, p)
+                e = max(e, nan_err(got, plain))
+        errs["contract"] = max(errs["contract"], e)
+        check(e == 0.0, f"contract: the {label} equals the plain version on {2 * len(forms)} plan forms at small "
+                        f"random sizes")
     comps, Xc, hist = lifts[(S, "the 360x640 crop")]
     D = Xc.shape[1]
     basis = (comps / torch.clamp(pca.row_norms(comps)[:, None], min=1e-12))[:E].contiguous()
@@ -1171,7 +1229,7 @@ def check_pca_kernels(frames, dev, errs, timing_inputs, bounds, cpu_eigh) -> Non
     t1 = time.perf_counter()
     sets = [eigh_cases(n, c, seed) for n, c, seed in EIGH_SETS]
     sets += [np.stack([g.cpu().numpy()]) for k, g in grams.items() if k[0] != S or k[1] in ("720p", "the 360x640 crop")]
-    plain = [tuple(map(torch.from_numpy, r)) for r in cpu_eigh.get()]  # the worker's, on the CPU
+    plain = [tuple(map(torch.from_numpy, r)) for task in cpu_eigh for r in task.get()]  # the workers', on the CPU
     n_bad = n_same = n_all = 0
     for i, m in enumerate(sets):
         Gm = torch.from_numpy(m)
@@ -1212,9 +1270,15 @@ def eigen_720p_path(frames, dev, errs, results, tag, cpu_pool) -> None:
     of the clip's frames 0-63, the step at t = 64 that builds the PCA and
     projects its frame (CUDA events), then EIGEN720_AFTER frames (ms/frame);
     the launches counted; the eigensolver's output on the step's own 64 x 64
-    Gram matrix held against the plain syevd in the CPU worker."""
+    Gram matrix held against the plain syevd in a CPU worker; the PCA
+    step split by CUDA events around its calls of gram, syevd, lift,
+    row_norms and project (the rest: the mean, the centring, the
+    symmetrising, the sort, the normalising and the host's reads), on the
+    step itself and again on a copy of its state; pca_project on the path's
+    720p basis in turns with the torch.matmul pair."""
     from tracking_tpu_torch import get_algorithm
-    from tracking_tpu_torch.ops import _native, eigh
+    from tracking_tpu_torch.bgs import eigenbackground as eb
+    from tracking_tpu_torch.ops import _native, eigh, pca
 
     S = EIGEN720_CFG["historySize"]
     algo = get_algorithm("DPEigenbackgroundBGS")(**EIGEN720_CFG)
@@ -1224,27 +1288,55 @@ def eigen_720p_path(frames, dev, errs, results, tag, cpu_pool) -> None:
         st, _, _ = algo.step(st, frames[t])
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
-    seen, orig = [], eigh.syevd
+    seen, orig, spans = [], eigh.syevd, []
+    timed = {"gram": (eb, eb.gram), "syevd_small": (eigh, orig), "lift": (eb, eb.lift),
+             "row_norms": (eb, eb.row_norms), "pca_project": (eb, eb.project)}
 
     def spy(G, *a, **k):
         out = orig(G, *a, **k)
         seen.append((G.clone(), tuple(o.clone() for o in out)))
         return out
 
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    def timer(name, fn):
+        def run(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            spans.append((name, e0, e1))
+            return out
+        return run
+
+    def pca_step(state, what):
+        spans.clear()
+        for name, (mod, fn) in timed.items():
+            setattr(mod, "syevd" if name == "syevd_small" else "project" if name == "pca_project" else name,
+                    timer(name, spy if name == "syevd_small" and not seen else fn))
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        try:
+            e0.record()
+            out = algo.step(state, frames[S])
+            e1.record()
+            torch.cuda.synchronize()
+        finally:
+            for name, (mod, fn) in timed.items():
+                setattr(mod, "syevd" if name == "syevd_small" else "project" if name == "pca_project" else name, fn)
+        total = e0.elapsed_time(e1)
+        parts = {name: a.elapsed_time(b) for name, a, b in spans}
+        print(f"  {tag} Eigenbackground's PCA step at {H}x{W}x{C}, {S} frames, {what} (CUDA events): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+              + f", the rest {total - sum(parts.values()):.3f}, of {total:.3f} ms", flush=True)
+        return out, total, parts
+
+    before = clone(st)
     _native.reset_launches()
-    eigh.syevd = spy
-    try:
-        start.record()
-        st, fg, bg = algo.step(st, frames[S])
-        end.record()
-        torch.cuda.synchronize()
-    finally:
-        eigh.syevd = orig
-    build_ms = start.elapsed_time(end)
+    (st, fg, bg), build_ms, split = pca_step(st, "the step")
     at_pca = dict(_native.LAUNCHES)
+    _, again_ms, split2 = pca_step(before, "again on a copy of its state")
+    del before
     _native.reset_launches()
     masks = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for t in range(EIGEN720_AFTER):
         st, m, bg = algo.step(st, frames[1 + t])
@@ -1270,38 +1362,60 @@ def eigen_720p_path(frames, dev, errs, results, tag, cpu_pool) -> None:
     e = max(nan_err(wk, wp), nan_err(Vk, Vp))
     errs["syevd_small"] = max(errs["syevd_small"], e)
     check(same_bits(wk, wp) and same_bits(Vk, Vp) and int(ik[0]) == int(ip[0]),
-          f"syevd_small on the 720p path's {S} x {S} Gram matrix equals the plain syevd in the CPU worker")
+          f"syevd_small on the 720p path's {S} x {S} Gram matrix equals the plain syevd in a CPU worker")
     results["syevd_small"]["eigen720_launches"] = at_pca["syevd_small"]
     results["syevd_small"]["eigen720_pca_step_ms"] = build_ms
+    results["contract"]["eigen720_pca_step_ms"] = [build_ms, again_ms]
+    results["contract"]["eigen720_pca_split_ms"] = {k: min(split[k], split2[k]) for k in split}
     results["syevd_small"]["eigen720_ms_per_frame"] = after_ms
     print(f"  {tag} Eigenbackground at {H}x{W}x{C} with a {S}-frame history: the history in {fill_s:.1f} s, the "
           f"step that builds the PCA {build_ms:.3f} ms (CUDA events: 2 contract, syevd_small, pca_project), then "
           f"{after_ms:.3f} ms/frame over {EIGEN720_AFTER} frames", flush=True)
+    # pca_project at 720p on the path's basis, in turns with the library pair
+    mean = st["mean"]
+    xc = frames[1 + EIGEN720_AFTER].reshape(-1).to(torch.float32) - mean
+    k1, l1 = cuda_ms(lambda: pca.project(basis, xc, mean), 10), cuda_ms(
+        lambda: mean + torch.matmul(basis.T, torch.matmul(basis, xc)), 10)
+    l2, k2 = cuda_ms(lambda: mean + torch.matmul(basis.T, torch.matmul(basis, xc)), 10), cuda_ms(
+        lambda: pca.project(basis, xc, mean), 10)
+    r = results["pca_project"]
+    r["ms_720p"], r["library_ms_720p"] = min(k1, k2), min(l1, l2)
+    r["bound_ms_720p"], r["bound_by_720p"] = pca_cost(basis.shape[0], basis.shape[1])
+    print(f"  {tag} pca_project at {H}x{W}x{C} (E = {basis.shape[0]}, the 720p path's basis, in turns with the "
+          f"torch.matmul pair): kernel {k1:.4f} / {k2:.4f} ms, library {l1:.4f} / {l2:.4f} ms, bound "
+          f"{r['bound_ms_720p']:.4f} ms ({r['bound_by_720p']})", flush=True)
 
 
-def time_pca_kernels(timing_inputs, results, tag) -> None:
+def time_pca_kernels(timing_inputs, results, frames, tag) -> None:
     """Phase 6 for contract (the Gram product of 20 frames of the 360x640
-    crop), syevd_small (the Gram matrix of 32 frames of the crop: sstedc's
-    divide and conquer) and pca_project (a basis of 10 on the crop): each
-    against its plain version on the card in turns and
-    beside the library call that computes the same function (torch.matmul;
-    torch.linalg.eigh; torch.matmul for both products)."""
+    crop against its plain version; then the Gram product and the lift of
+    20 frames of the crop, 20 frames at 720p and 64 frames at 720p, each in
+    turns with torch.matmul on the same inputs), syevd_small (the Gram
+    matrix of 32 frames of the crop: sstedc's divide and conquer) and
+    pca_project (a basis of 10 on the crop; its plain version, a launch a
+    chain step, on the crop's first PCA_PLAIN_D values): each against its
+    plain version on the card in turns and beside the library call that
+    computes the same function (torch.matmul; torch.linalg.eigh;
+    torch.matmul for both products)."""
     from tracking_tpu_torch.ops import eigh, pca
-    from tracking_tpu_torch.ops.contract import contract, gram_plan
+    from tracking_tpu_torch.ops.contract import gram, gram_plan, lift, lift_plan
 
     Xc = timing_inputs["contract"]
     S, D = Xc.shape
     plan = gram_plan(S, D)
-    time_pair("contract", lambda: contract(Xc, Xc.T, plan), lambda: contract(Xc, Xc.T, plan, use_kernels=False),
+    time_pair("contract", lambda: gram(Xc, plan), lambda: gram(Xc, plan, use_kernels=False),
               20, 1, results, tag, label=f"contract, the Gram product [{S}, {D}]")
     G = timing_inputs["syevd_small"]
     time_pair("syevd_small", lambda: eigh.syevd(G), lambda: eigh.syevd(G, use_kernels=False), 20, 1, results, tag,
               label=f"syevd_small, n = {G.shape[1]} (a 32-frame history's Gram matrix)",
-              plain_turns=1)  # the plain version ~6 s a call on the card
+              plain_warmup=0, plain_turns=1)  # the plain version ~2.5-6 s a call on the card
     basis, xc, mean = timing_inputs["pca_project"]
+    cut = (basis[:, :PCA_PLAIN_D].contiguous(), xc[:PCA_PLAIN_D].contiguous(), mean[:PCA_PLAIN_D].contiguous())
     time_pair("pca_project", lambda: pca.project(basis, xc, mean),
-              lambda: pca.project(basis, xc, mean, use_kernels=False), 10, 1, results, tag,
-              plain_warmup=0, plain_turns=1)  # the plain chains take ~40 s a call on the card (a launch a step)
+              lambda: pca.project(*cut, use_kernels=False), 10, 1, results, tag,
+              label=f"pca_project (E = {basis.shape[0]}, D = {basis.shape[1]}; the plain version at D = "
+                    f"{PCA_PLAIN_D}, a launch a chain step)", plain_warmup=0, plain_turns=1)
+    results["pca_project"]["plain_ms_shape"] = [basis.shape[0], PCA_PLAIN_D]  # plain_ms's E, D
     for k, fn in (("contract", lambda: torch.matmul(Xc, Xc.T)), ("syevd_small", lambda: torch.linalg.eigh(G[0])),
                   ("pca_project", lambda: mean + torch.matmul(basis.T, torch.matmul(basis, xc)))):
         lib = [cuda_ms(fn, 20) for _ in range(2)]
@@ -1314,6 +1428,29 @@ def time_pca_kernels(timing_inputs, results, tag) -> None:
         results["syevd_small"][f"library_ms_n{n}"] = min(l1, l2)
         print(f"  {tag} syevd_small at n = {n} (one block of {SYEVD_THREADS} threads): {k1:.4f} / {k2:.4f} ms, "
               f"torch.linalg.eigh {l1:.4f} / {l2:.4f} ms, in turns", flush=True)
+    gen = torch.Generator().manual_seed(26)
+    r = results["contract"]
+    for hist in (frames[1:21, : NEW_CUT[0], : NEW_CUT[1]], frames[1:21], frames[:64]):
+        X = hist.reshape(hist.shape[0], -1).to(torch.float32)
+        s, d = X.shape
+        Xs = (X - X.sum(0) * np.float32(1.0 / s)).contiguous()
+        del X
+        L = torch.linalg.qr(torch.randn((s, s), generator=gen, dtype=torch.float64))[0].float()
+        L = L.contiguous().to(Xs.device)
+        gp, lp = gram_plan(s, d), lift_plan(s, d)
+        for what, fk, fl, cost in (("gram", lambda: gram(Xs, gp), lambda: torch.matmul(Xs, Xs.T), gram_cost),
+                                   ("lift", lambda: lift(L, Xs, lp), lambda: torch.matmul(L, Xs), lift_cost)):
+            k1, l1 = cuda_ms(fk, 20), cuda_ms(fl, 20)
+            l2, k2 = cuda_ms(fl, 20), cuda_ms(fk, 20)
+            b_ms, b_by = cost(s, d)
+            key = f"{s}x{d}"
+            r[f"{what}_ms_{key}"], r[f"{what}_library_ms_{key}"] = min(k1, k2), min(l1, l2)
+            r[f"{what}_bound_ms_{key}"], r[f"{what}_bound_by_{key}"] = b_ms, b_by
+            print(f"  {tag} contract, the {'Gram product' if what == 'gram' else 'lift'} [{s}, {d}] (in turns with "
+                  f"torch.matmul): kernel {k1:.4f} / {k2:.4f} ms, torch.matmul {l1:.4f} / {l2:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}) = {b_ms / min(k1, k2):.1%} of it reached", flush=True)
+        del Xs
+    torch.cuda.empty_cache()
 
 
 def check_registry_kernels(frames, dev, errs, timing_inputs, bounds) -> None:
@@ -3709,9 +3846,9 @@ def time_slice16(keep, frames, dev, tag) -> None:
         mc_frame(t)
     profile(mc_frame, range(mc_t + 4, mc_t + 8), tag, "MultiCue detection step")
     box["lb"] = clone(lb_st)
-    for t in range(1, 3):
+    for t in range(1, 5):
         lb_frame(t)
-    profile(lb_frame, range(3, 7), tag, "LbpMrf step")
+    profile(lb_frame, range(5, 7), tag, "LbpMrf step")  # 17,400 kernels a frame: the profiler's own cost
     print(f"  phase 6, MultiCue and LbpMrf: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
@@ -3732,7 +3869,7 @@ def time_bgs_apps(clip, frames, dev, out, tag) -> None:
               f"{out}/fanout_new", BGS_CHUNK),
              (f"bgs-run, fan-out of the {len(S15_ALGOS)} algorithms of phase 4i and SuBSENSE", f"{out}/fanout_15",
               BGS_CHUNK),
-             ("bgs-run, fan-out of LbpMrf, MultiCue and SuBSENSE (phase 4j)", f"{out}/fanout_16", BGS_CHUNK // 2))
+             ("bgs-run, fan-out of LbpMrf, MultiCue and SuBSENSE (phase 4j)", f"{out}/fanout_16", BGS_CHUNK // 4))
     ms = {label: [] for label, _, _ in cases}
     for _ in range(2):
         for label, cfg, chunk in cases:
@@ -4953,8 +5090,9 @@ def main(argv) -> None:
     if "--nccl-only" in argv:
         nccl_only(algo, frames, dev, kind)
         return
-    cpu_pool = multiprocessing.get_context("spawn").Pool(1, cpu_worker_init, (os.path.dirname(os.path.abspath(__file__)),))
-    cpu_eigh = cpu_pool.apply_async(cpu_eigh_sets, (EIGH_SETS,))
+    cpu_pool = multiprocessing.get_context("spawn").Pool(CPU_WORKERS, cpu_worker_init,
+                                                         (os.path.dirname(os.path.abspath(__file__)),))
+    cpu_eigh = [cpu_pool.apply_async(cpu_eigh_sets, ((one,),)) for one in EIGH_SETS]
     n_cut = max(nf for _, _, nf in s15_cpu_runs())
     cpu_crop = cpu_pool.apply_async(cpu_crop_runs, (clip[:n_cut, : NEW_CUT[0], : NEW_CUT[1]], s15_cpu_runs()))
     n52 = S15_LONG52["historySize"] + LONG52_AFTER
@@ -5215,12 +5353,14 @@ def main(argv) -> None:
     print(f"  {elapsed()}", flush=True)
     time_slab_kernels(timing_inputs, results, tag)
     time_kalman_resize(timing_inputs, results, masks, tracker, dev, tag)
-    time_pca_kernels(timing_inputs, results, tag)
+    time_pca_kernels(timing_inputs, results, frames, tag)
     eigen_720p_path(frames, dev, errs, results, tag, cpu_pool)
     cpu_pool.close()
     cpu_pool.join()
+    print(f"  {elapsed()}", flush=True)
     time_batch(streams, dev, tag)
     time_sharded_lbsp(streams, dev, tag)
+    print(f"  {elapsed()}", flush=True)
     time_process_mesh(proc_mesh, thread_mesh, algo, tracker, state0, frames, streams, tag)
     proc_mesh.close()
     del streams
@@ -5261,11 +5401,15 @@ def main(argv) -> None:
           f"{1000 / min(app_ms):.1f} fps", flush=True)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  {tag} peak device memory of the SuBSENSE + tracker runs {peak:.2f} GiB", flush=True)
+    print(f"  {elapsed()}", flush=True)
     profile_full_path(algo, tracker, state0, frames, dev, tag)
     profile_app(clip, tag, app_out)
+    print(f"  {elapsed()}", flush=True)
     time_bgs_apps(clip, frames, dev, bgs_out, tag)
+    print(f"  {elapsed()}", flush=True)
     time_slice16(s16, frames, dev, tag)
     time_blobs_reader(blobs_keep, tag)
+    print(f"  {elapsed()}", flush=True)
 
     print(json.dumps({"kernels": [results[k] for k in SOURCES]}))
     print(card_line())

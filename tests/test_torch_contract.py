@@ -152,3 +152,125 @@ def test_gram_blocks_and_lift_panels(rows):
         blk, width = C.gram_block(s), C.lift_panel(s)
         shapes += [(s, d) for d in sorted({blk + 3, 2 * blk - 1, width + 1, width + 8, width + 9})]
     _check_dots(shapes, 1000 + rows[0])
+
+
+SYMMETRIC = [(3, 4101), (8, 8197), (17, 89), (17, 8197), (20, 8193), (25, 2049), (41, 4097), (64, 1025)]
+
+
+@pytest.mark.parametrize("s,d", SYMMETRIC, ids=lambda v: str(v))
+def test_gram_exactly_symmetric(s, d):
+    """The Gram product's plain version (``gram`` on the CPU) at plans of 1,
+    2 and 4 lanes, with tails of rounded products and across block edges,
+    equals XLA's and is exactly symmetric: the card computes the upper
+    triangle and mirrors it (fmaf(a, b, c) == fmaf(b, a, c), a*b == b*a)."""
+    rng = np.random.default_rng(s * d)
+    x = rng.standard_normal((s, d)).astype(np.float32)
+    x[:, ::7] = -0.0
+    G = C.gram(torch.from_numpy(x), C.gram_plan(s, d)).numpy()
+    np.testing.assert_array_equal(G.view(np.int32), G.T.view(np.int32))
+    np.testing.assert_array_equal(G, np.asarray(GRAM(x)))
+
+
+def _terms(chains):
+    """Every k a chain list adds, each once, in the chains' order."""
+    return [k for k0, step, n, _ in chains for k in range(k0, k0 + step * n, step)]
+
+
+@pytest.mark.parametrize("s,d", [(20, 691200), (64, 2764800), (20, 8193), (25, 2049), (3, 4099), (17, 89),
+                                 (49, 1027)], ids=lambda v: str(v))
+def test_gram_table_covers_the_plan(s, d):
+    """``gram_block_kernel``'s table: a CTA a depth block of the plan, in the
+    order the combine adds their sums; the chains each CTA derives (lanes
+    over the block's terms to the last multiple of the lanes, then the
+    tail) are the plan's and cover every term once."""
+    plan = C.gram_plan(s, d)
+    tab = C._gram_table(plan, "cpu")
+    assert tab.dtype == torch.int32 and tuple(tab.shape) == (2, len(plan.blocks))
+    blocks = tuple(zip(tab[0].tolist(), tab[1].tolist()))
+    assert blocks == plan.blocks
+    chains, first, count = C._chains(blocks, plan.lanes)
+    assert (chains, first, count) == C._chains(plan.blocks, plan.lanes)
+    assert sorted(_terms(chains)) == list(range(d))
+    assert all(b[0] < b[1] for b in blocks) and [b[1] for b in blocks[:-1]] == [b[0] for b in blocks[1:]]
+
+
+@pytest.mark.parametrize("s,d", [(20, 2061), (17, 2051), (41, 1027), (9, 8200), (53, 1100), (64, 2764800),
+                                 (9, 16), (3, 100), (51, 17)], ids=lambda v: str(v))
+def test_lift_table_covers_the_plan(s, d):
+    """``lift_kernel``'s table: the block counts and FMA flags of the two
+    column groups, then their blocks in order; decoded, they are the plan's
+    (``alt`` for the columns from ``split``, rounded products where
+    ``alt_fma`` is off) and each group's chains cover the depth S once."""
+    plan = C.lift_plan(s, d)
+    tab = C._lift_table(plan, "cpu").tolist()
+    nb0, nb1, fma0, fma1 = tab[:4]
+    rest = tab[4:]
+    assert len(rest) == 2 * (nb0 + nb1)
+    g0 = tuple(zip(rest[0 : 2 * nb0 : 2], rest[1 : 2 * nb0 : 2]))
+    g1 = tuple(zip(rest[2 * nb0 :: 2], rest[2 * nb0 + 1 :: 2]))
+    assert g0 == plan.blocks and fma0 == 1
+    assert g1 == (plan.alt or ()) and fma1 == int(plan.alt_fma)
+    for blocks in (g0, g1) if g1 else (g0,):
+        assert sorted(_terms(C._chains(blocks, plan.lanes)[0])) == list(range(s))
+
+
+@pytest.mark.parametrize("s,d", [(20, 24 * 32 * 3), (28, 2049), (64, 2305), (8, 8197), (41, 1027), (17, 2051)],
+                         ids=lambda v: str(v))
+def test_gram_and_lift_entry_points(s, d):
+    """``gram`` and ``lift`` (the card's entry points, their plain versions on
+    the CPU) against XLA's dots."""
+    rng = np.random.default_rng(s + d)
+    x = centred(rng, s, d)
+    lift = rng.standard_normal((s, s)).astype(np.float32)
+    X = torch.from_numpy(x)
+    np.testing.assert_array_equal(C.gram(X, C.gram_plan(s, d)).numpy(), np.asarray(GRAM(x)))
+    np.testing.assert_array_equal(C.lift(torch.from_numpy(lift), X, C.lift_plan(s, d)).numpy(),
+                                  np.asarray(LIFT(lift, x)))
+
+
+# The lift at 51, 53, 57 and 63 rows at some depths of 900-5,000 values:
+# XLA:CPU takes another order than contract._wide_lift_plan's (one chain,
+# or 2 lanes over S where the rule gives 4; ROADMAP Queue 3), not
+# reproduced. Measured on centred u8 histories lifted by an orthogonal
+# matrix: 70-83 % of the outputs differ, by at most 5 ulps of the sum of
+# the absolute products (the error any order of those additions may make
+# is S ulps of it).
+WIDE_LIFT_GAPS = [(53, 1100), (53, 1000), (57, 900), (51, 1200), (63, 4000)]
+WIDE_LIFT_SHARE = 0.85
+WIDE_LIFT_ULPS = 8
+
+
+def test_wide_lift_divergence():
+    """States the size of that gap against one jitted program of XLA dots:
+    the share of outputs that differ and their largest difference in ulps
+    of sum_k |L[i, k] X[k, j]|."""
+    rng = np.random.default_rng(53)
+    xs, ls = [], []
+    for s, d in WIDE_LIFT_GAPS:
+        xs.append(centred(rng, s, d))
+        ls.append(np.linalg.qr(rng.standard_normal((s, s)))[0].astype(np.float32))
+    refs = jax.jit(lambda ls, xs: [l @ x for l, x in zip(ls, xs)])(ls, xs)
+    for (s, d), l, x, r in zip(WIDE_LIFT_GAPS, ls, xs, refs):
+        ref = np.asarray(r)
+        got = C.lift(torch.from_numpy(l), torch.from_numpy(x), C.lift_plan(s, d)).numpy()
+        mag = (np.abs(l).astype(np.float64) @ np.abs(x).astype(np.float64)).astype(np.float32)
+        ulps = float((np.abs(ref.astype(np.float64) - got) / np.spacing(mag)).max())
+        share = float((ref != got).mean())
+        assert share <= WIDE_LIFT_SHARE and ulps <= WIDE_LIFT_ULPS, (s, d, share, ulps)
+
+
+def test_gram_and_lift_refuse_other_devices():
+    """No fallback: only CPU tensors take the plain version; a tensor on
+    another device launches the kernel or raises."""
+    import ctypes
+
+    from tracking_tpu_torch.ops import _native
+
+    X = torch.empty((20, 96), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        C.gram(X, C.gram_plan(20, 96))
+    with pytest.raises(ValueError, match="CUDA"):
+        C.lift(torch.empty((20, 20), device="meta"), X, C.lift_plan(20, 96))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert _native._SIGNATURES["tt_contract_gram"] == [P] * 4 + [I] * 4 + [P]
+    assert _native._SIGNATURES["tt_contract_lift"] == [P] * 4 + [I] * 6 + [P]

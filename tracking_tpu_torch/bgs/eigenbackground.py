@@ -12,7 +12,7 @@ reconstruction error exceeds 2 x threshold.
 
 The mean over the history is exact (a sum of u8 values, times f32(1/S),
 as XLA:CPU computes ``jnp.mean``). The Gram product ``Xc @ Xc.T`` and the
-lift ``evecs.T @ Xc`` run through ``ops/contract.contract`` (XLA:CPU's dot
+lift ``evecs.T @ Xc`` run through ``ops/contract.gram`` and ``lift`` (XLA:CPU's dot
 orders for every S and D: ``gram_plan``, ``lift_plan``; a 1x1 grey frame's
 lift, a matrix-vector product, is the one shape left out), the Gram matrix
 is symmetrised as ``jnp.linalg.eigh`` does ((G + G^T) * 0.5), the
@@ -40,7 +40,7 @@ from tracking_tpu_torch.core.config import BGSConfig
 from tracking_tpu_torch.core.registry import register
 from tracking_tpu_torch.ops import eigh
 from tracking_tpu_torch.ops.consensus import recip
-from tracking_tpu_torch.ops.contract import contract, gram_plan, lift_plan
+from tracking_tpu_torch.ops.contract import gram, gram_plan, lift, lift_plan
 from tracking_tpu_torch.ops.pca import project, row_norms
 
 
@@ -59,7 +59,7 @@ def build_pca(history: torch.Tensor, embedded_dim: int, use_kernels: bool = True
     S, D = X.shape
     mean = X.sum(dim=0) * recip(S)
     Xc = X - mean[None]
-    G = contract(Xc, Xc.T, gram_plan(S, D), use_kernels=use_kernels)
+    G = gram(Xc, gram_plan(S, D), use_kernels=use_kernels)
     G = (G + G.T) * 0.5  # jnp.linalg.eigh symmetrises its input
     if S <= eigh.MAX_N:
         evals, evecs, info = eigh.syevd(G[None], use_kernels)  # ascending
@@ -68,8 +68,8 @@ def build_pca(history: torch.Tensor, embedded_dim: int, use_kernels: bool = True
         evecs = torch.where(failed, float("nan"), evecs[0])
     else:  # above 64 frames a second slatrd panel and a third level of cuts: not reproduced (ROADMAP)
         evals, evecs = torch.linalg.eigh(G)
-    lift = evecs[:, torch.argsort(-evals, stable=True)].T.contiguous()
-    comps = contract(lift, Xc, lift_plan(S, D), use_kernels=use_kernels)
+    L = evecs[:, torch.argsort(-evals, stable=True)].T.contiguous()
+    comps = lift(L, Xc, lift_plan(S, D), use_kernels=use_kernels)
     comps = comps / torch.clamp(row_norms(comps)[:, None], min=1e-12)
     return mean, comps[:embedded_dim].contiguous()
 

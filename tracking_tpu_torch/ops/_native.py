@@ -67,6 +67,8 @@ _SIGNATURES = {
     "tt_kalman_predict": [_P] * 6 + [_I, _P],
     "tt_kalman_update": [_P] * 8 + [_I, _P],
     "tt_contract": [_P] * 8 + [_I] * 13 + [_P],
+    "tt_contract_gram": [_P] * 4 + [_I] * 4 + [_P],
+    "tt_contract_lift": [_P] * 4 + [_I] * 6 + [_P],
     "tt_pca_project": [_P] * 5 + [_I] * 2 + [_P],
     "tt_syevd_small": [_P] * 6 + [_I] * 3 + [_P],
     "tt_error_string": [_I],

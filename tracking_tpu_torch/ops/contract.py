@@ -75,9 +75,15 @@ below is held against ``jax.jit`` dots on random data in the tests:
   once) at S = 3-64 and D = 100-40,000, and at 51-64 rows by which of the
   candidate orders each column's outputs equal on random data.
 
-On CUDA tensors ``contract`` launches the kernel pair ``contract`` of
-``csrc/contract.cu`` (the chains, then their sums in the plan's order);
-CPU tensors take the plain version :func:`contract_ref`.
+On CUDA tensors ``contract`` (the resize's contractions, with their bands
+and Eigen's tree) launches the kernel pair ``contract_chains_kernel`` and
+``contract_combine_kernel`` of ``csrc/contract.cu`` (the chains, then their
+sums in the plan's order); :func:`gram` (``Xc @ Xc.T`` from Xc itself)
+launches ``gram_block_kernel`` (a CTA a depth block, the slab in
+shared-memory stages, register tiles of the upper triangle) and
+``gram_combine_kernel`` (the blocks' sums in order, both triangles);
+:func:`lift` (``evecs.T @ Xc``) one ``lift_kernel``. All count under
+``contract``; CPU tensors take the plain version :func:`contract_ref`.
 
 The test host (the CPU the tests run the JAX package on), read by
 ``lscpu`` and sysfs's cache entries: an Intel Xeon (Sapphire Rapids,
@@ -438,6 +444,79 @@ def contract(A: torch.Tensor, B: torch.Tensor, plan: Plan, lo=None, hi=None, out
         hi.data_ptr() if hi is not None else null, tc.data_ptr(), tb.data_ptr(), parts.data_ptr(), out.data_ptr(),
         P, Q, C, NB, A.stride(0), A.stride(1), B.stride(0), B.stride(1), so[0], so[1],
         plan.lanes, int(plan.tree), plan.split if plan.alt is not None else Q, _native.stream_ptr())
+    _native.check(rc, "contract")
+    _native.count_launch("contract")
+    return out
+
+
+@lru_cache(maxsize=None)
+def _gram_table(plan: Plan, device: str) -> torch.Tensor:
+    """int32 [2, NB] of a Gram plan for ``gram_block_kernel``: each depth
+    block's k0 and k1, a CTA each (blockIdx.x = the block's place in the
+    order its sums are added)."""
+    if plan.tree or plan.alt is not None:
+        raise ValueError("gram takes a plan with its blocks added in order and one column group")
+    return torch.tensor(plan.blocks, dtype=torch.int32).T.contiguous().to(device)
+
+
+@lru_cache(maxsize=None)
+def _lift_table(plan: Plan, device: str) -> torch.Tensor:
+    """int32 table of a lift plan for ``lift_kernel``: the block counts of
+    column groups 0 and 1, their FMA flags (group 1's rounded products where
+    ``alt_fma`` is off), then each group's blocks as k0, k1 in order."""
+    if plan.tree:
+        raise ValueError("lift takes a plan with its blocks added in order")
+    alt = plan.alt or ()
+    rows = [len(plan.blocks), len(alt), 1, int(plan.alt_fma)]
+    rows += [k for blk in plan.blocks + alt for k in blk]
+    return torch.tensor(rows, dtype=torch.int32).to(device)
+
+
+def _rows(X: torch.Tensor, name: str) -> None:
+    _native.require(X, name, _F32, contiguous=False)  # the kernels take the row stride
+    if X.dim() != 2 or X.stride(1) != 1:
+        raise ValueError(f"{name}: expected a 2-D tensor with unit column stride")
+
+
+def gram(X: torch.Tensor, plan: Plan, use_kernels: bool = True) -> torch.Tensor:
+    """``X @ X.T`` in ``plan``'s order (a :func:`gram_plan`) for X f32 [S, D]
+    with unit column stride -> f32 [S, S], exactly symmetric. CUDA tensors
+    launch ``gram_block_kernel`` and ``gram_combine_kernel`` (unless
+    ``use_kernels=False``); CPU tensors take :func:`contract_ref`."""
+    if X.device.type == "cpu" or not use_kernels:
+        return contract_ref(X, X.T, plan)
+    _rows(X, "X")
+    S, D = X.shape
+    tab = _gram_table(plan, str(X.device))
+    NB = tab.shape[1]
+    if plan.blocks[-1][1] != D:
+        raise ValueError(f"gram: the plan covers a depth of {plan.blocks[-1][1]}, X has {D}")
+    partial = torch.empty((NB, S * (S + 1) // 2), dtype=_F32, device=X.device)
+    out = torch.empty((S, S), dtype=_F32, device=X.device)
+    rc = _native.library().tt_contract_gram(X.data_ptr(), tab.data_ptr(), partial.data_ptr(), out.data_ptr(), S,
+                                            X.stride(0), NB, plan.lanes, _native.stream_ptr())
+    _native.check(rc, "contract")
+    _native.count_launch("contract")
+    return out
+
+
+def lift(L: torch.Tensor, X: torch.Tensor, plan: Plan, use_kernels: bool = True) -> torch.Tensor:
+    """``L @ X`` in ``plan``'s order (a :func:`lift_plan`) for L f32 [S, S]
+    (contiguous) and X f32 [S, D] with unit column stride -> f32 [S, D]. CUDA tensors
+    launch ``lift_kernel`` (unless ``use_kernels=False``); CPU tensors take
+    :func:`contract_ref`."""
+    if L.device.type == "cpu" or not use_kernels:
+        return contract_ref(L, X, plan)
+    _native.require(L, "L", _F32)
+    _rows(X, "X")
+    S, D = X.shape
+    if tuple(L.shape) != (S, S):
+        raise ValueError(f"lift: expected L of shape {(S, S)}, got {tuple(L.shape)}")
+    tab = _lift_table(plan, str(X.device))
+    out = torch.empty((S, D), dtype=_F32, device=X.device)
+    rc = _native.library().tt_contract_lift(L.data_ptr(), X.data_ptr(), tab.data_ptr(), out.data_ptr(), S, D,
+                                            X.stride(0), tab.numel(), plan.lanes,
+                                            plan.split if plan.alt is not None else D, _native.stream_ptr())
     _native.check(rc, "contract")
     _native.count_launch("contract")
     return out

@@ -211,7 +211,8 @@ class ShardGroup:
             # PyTorch loads its CUDA linear algebra at the first linalg call,
             # and two threads' first calls race: load it here. The one call
             # left is Eigenbackground's torch.linalg.eigh for a history longer
-            # than 32 frames (ops/eigh.py reproduces ssyevd up to 32)
+            # than 64 frames (ops/eigh.py reproduces ssyevd up to 64; tests/
+            # test_torch_eigen.py::test_eigenbackground_above_64_frames)
             torch.linalg.inv_ex(torch.eye(4, device=t.device).expand(2, 4, 4))
             stream = torch.cuda.current_stream(t.device)
         self._syncs = {None: _Sync(n, self.timeout)}
